@@ -1,0 +1,59 @@
+"""Parameter bridge: the JAX package's decoder parameter tree, given as
+numpy arrays, to the port's parameters.
+
+The JAX tree stacks consecutive same-kind layers into ``blocks[seg]``
+with a leading layer axis; the port keeps one dict per layer
+(``params["layers"]``). Leaves keep their layout — dense weights are the
+same ``(in, *out)`` einsum operands on both sides — so both packages
+compute the same thing from the same numbers. Nothing here imports JAX:
+convert the tree with ``np.asarray`` on each leaf first.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """numpy array (bfloat16 from ml_dtypes included) -> tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def decoder_params_from_jax(tree, device=None) -> dict:
+    """{embed, ln_f, [head], blocks: [stacked segment trees]} (numpy
+    leaves) -> {embed, ln_f, [head], layers: [per-layer trees]}."""
+    out = {k: to_tensor(v, device) for k, v in tree.items()
+           if k not in ("blocks", "meta")}
+    if "meta" in tree:
+        raise NotImplementedError("meta-token (hymba) decoders are not ported")
+    layers = []
+    for seg in tree["blocks"]:
+        count = np.asarray(next(_leaves(seg))).shape[0]
+        for j in range(count):
+            layers.append(_map(seg, lambda a, j=j: to_tensor(np.asarray(a)[j],
+                                                             device)))
+    out["layers"] = layers
+    return out

@@ -1,0 +1,164 @@
+"""Hand-written Hopper kernels: build, load and launch bookkeeping.
+
+Every kernel lives in ``src/repro_torch/csrc/<name>.cu`` behind a plain C
+interface (pointers and the stream as ``void*``, sizes as ``int``; each
+entry point returns ``cudaGetLastError()``). :func:`load` compiles a
+source with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at first use
+and loads it with ``ctypes``; :func:`build_all` starts one ``nvcc`` per
+source at once. Nothing is compiled or loaded at import, so the CPU
+tests import every module on a host with no CUDA toolkit.
+
+Each Python wrapper takes its plain PyTorch version (``kernels/ref.py``)
+only for tensors on the CPU; for a CUDA tensor it launches the kernel or
+raises. A wrapper counts its launches in :data:`LAUNCHES` so a run can
+show that a path went through the kernel.
+
+Built without ``--use_fast_math``: the sampling kernel's ``row / T +
+noise`` must round exactly as the plain version's IEEE division does.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("flash_attention", "slot_gather")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points per source: argument types (every one returns int)
+SIGNATURES = {
+    "flash_attention": {
+        "flash_fwd": [_P] * 6 + [_I] * 8 + [_F, _P],
+        "flash_decode_split": [_P] * 8 + [_I] * 11 + [_F, _P],
+    },
+    "slot_gather": {
+        "slot_gather_sample": [_P] * 8 + [_I] * 5 + [_P],
+    },
+}
+
+# launches per wrapper name; the wrappers add one where they launch
+LAUNCHES: dict[str, int] = {}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    """Library path keyed by the source's content and the flags, so an
+    edited source never loads a stale build."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{h}.so"
+
+
+def _compile(name: str):
+    """Start ``nvcc`` for one source; returns (Popen or None, target)."""
+    out = _target(name)
+    if out.exists():
+        return None, out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.tmp = tmp
+    return proc, out
+
+
+def _finish(name: str, proc, out: Path) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+    os.replace(proc.tmp, out)        # atomic: a reader never sees half a .so
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every source in parallel (one ``nvcc`` each, all started
+    together). Returns {name: library path}."""
+    started = {n: _compile(n) for n in names}
+    for n, (proc, out) in started.items():
+        _finish(n, proc, out)
+    return {n: out for n, (_, out) in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            proc, out = _compile(name)
+            _finish(name, proc, out)
+            lib = ctypes.CDLL(str(out))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA error {err} launching {what}")
+
+
+def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """Plain-version dispatch: True iff every tensor lies on the CPU. A
+    mix of devices, or a device other than CPU/CUDA, raises."""
+    devs = {t.device.type for t in ts if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors on {sorted(devs)}: the kernels take all-CPU "
+                     f"(plain version) or all-CUDA inputs")
+
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODE[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernel takes float32/bfloat16/float16, got "
+                        f"{t.dtype}") from None

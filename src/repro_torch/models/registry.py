@@ -1,0 +1,105 @@
+"""Unified model API (counterpart of ``repro/models/registry.py``).
+
+``build_model(cfg, device=None)`` returns a :class:`Model` with:
+
+- ``init(seed_or_generator=0) -> params``   master params (``param_dtype``)
+- ``forward(params, batch) -> logits``      full-sequence forward
+- ``init_cache(batch, max_len)`` / ``init_paged_cache(max_slots,
+  page_size, num_pages)``
+- ``decode_step(params, cache, batch, pos, seq_len, block_tables=None,
+  page_size=0) -> (logits, cache)``
+- ``chunk_prefill(params, cache, tokens, pos0, valid, *, seq_len,
+  block_tables=None, page_size=0) -> (logits, cache)``
+
+Every call casts fp32 matrices to the compute dtype (``cast_params``);
+a caller that keeps params already cast (the serving engine) pays
+nothing for that. ``device`` defaults to ``cuda`` and raises when no GPU
+is visible; pass ``device="cpu"`` for the plain CPU path.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch import default_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
+from repro_torch.models.common import dtype_of
+
+
+def cast_params(params, dtype):
+    """Cast matmul weights (fp32 tensors with ndim >= 2) to the compute
+    dtype; norm scales and biases keep their dtype. Returns a new tree."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(cast_params(v, dtype) for v in params)
+    if params.ndim >= 2 and params.dtype == torch.float32:
+        return params.to(dtype)
+    return params
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    device: torch.device
+    init: Callable
+    forward: Callable
+    init_cache: Callable
+    decode_step: Callable
+    chunk_prefill: Callable
+    init_paged_cache: Callable
+
+
+def build_model(cfg: ArchConfig, device=None) -> Model:
+    if cfg.family != "decoder":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (only decoder LMs)")
+    dev = default_device(device)
+    cdt = dtype_of(cfg.dtype)
+
+    def init(seed_or_generator=0):
+        gen = seed_or_generator
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=dev).manual_seed(int(gen))
+        with torch.no_grad():
+            return transformer.init_decoder(gen, cfg, dev)
+
+    @torch.no_grad()
+    def forward(params, batch):
+        return transformer.decoder_forward(cast_params(params, cdt), batch,
+                                           cfg)
+
+    def init_cache(batch, max_len):
+        return transformer.init_decoder_cache(cfg, batch, max_len, dev)
+
+    def init_paged_cache(max_slots, page_size, num_pages):
+        return transformer.init_paged_decoder_cache(cfg, max_slots, page_size,
+                                                    num_pages, dev)
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch, pos, seq_len, block_tables=None,
+                    page_size=0):
+        return transformer.decoder_decode_step(
+            cast_params(params, cdt), cache, batch["tokens"], pos, cfg,
+            seq_len=seq_len, block_tables=block_tables, page_size=page_size)
+
+    @torch.no_grad()
+    def chunk_prefill(params, cache, tokens, pos0, valid, *, seq_len,
+                      block_tables=None, page_size=0):
+        return transformer.decoder_prefill(
+            cast_params(params, cdt), cache, tokens, pos0, valid, cfg,
+            seq_len=seq_len, block_tables=block_tables, page_size=page_size)
+
+    return Model(cfg, dev, init, forward, init_cache, decode_step,
+                 chunk_prefill, init_paged_cache)
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return params.numel()

@@ -1,0 +1,507 @@
+"""Continuous-batching decode engine (counterpart of
+``repro/serve/engine.py``).
+
+- **Fixed-slot request pool.** Every decode step sees ``(max_slots, 1)``
+  tokens, a ``(max_slots,)`` position vector, the whole cache pool and
+  ``(max_slots,)`` sampling vectors. Requests joining or leaving change
+  the values in those tensors, never a shape, so a later change can
+  capture the step in a CUDA graph.
+- **Per-slot positions.** Every lane decodes at its own depth; a freed
+  lane is reused by the next queued request.
+- **Chunked prefill.** A prompt is written into its slot's cache by
+  ``model.chunk_prefill`` in ``prefill_chunk``-token chunks, one model
+  call per chunk, attending through ``flash_attention`` with a per-row
+  ``q_off``.
+- **Paged KV cache (default).** Attention lanes live in a shared pool of
+  ``page_size``-token pages routed per slot by block tables; the
+  host-side :class:`~repro_torch.serve.cache.PageAllocator` owns the free
+  list, refcounts and the hashed prefix cache (hits skip their pages;
+  the first write to a shared page copies it). ``page_size=0`` selects
+  the contiguous per-slot pool, the parity oracle.
+- **Sampling.** Greedy/temperature/top-k/top-p per request;
+  ``fused_sampling=True`` routes greedy/temperature through the
+  ``slot_gather_sample`` kernel.
+- **Deadlines and queue bounds** as the scheduler carries them: a bounded
+  queue with a shed policy, queued requests shed when their budget is
+  blown or their deadline unmeetable, in-flight requests past deadline
+  cancelled at step boundaries, and ``cancel(rid)``.
+
+Not ported yet (ROADMAP queue 1): the brownout ladder, the stuck-step
+watchdog and anomaly detection, per-program cost attribution,
+drain/snapshot/restore and the chaos harness.
+
+The engine is synchronous: admission and prefill happen between decode
+steps, which keeps the loop deterministic and testable.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch import default_device
+from repro_torch.configs.base import with_attn_impl
+from repro_torch.kernels.slot_gather import slot_gather_sample
+from repro_torch.models import build_model, cast_params
+from repro_torch.models.common import dtype_of
+from repro_torch.serve import cache as cache_mod
+from repro_torch.serve import sampling as sampling_mod
+from repro_torch.serve.scheduler import (AdmissionResult, FINISH_SHED,
+                                         Request, SamplingParams,
+                                         SlotScheduler)
+from repro_torch.telemetry import trace
+from repro_torch.telemetry.registry import Registry
+
+STATS_WINDOW = 4096   # decode steps of latency history kept for percentiles
+EWMA_ALPHA = 0.2      # step-time EWMA (the deadline-estimate base)
+
+
+class EngineStats:
+    """Serve statistics on a private, always-live :class:`Registry`."""
+
+    def __init__(self):
+        r = self.registry = Registry(label="serve")
+        self._prefill_tokens = r.counter("serve/prefill_tokens")
+        self._prefill_time = r.counter("serve/prefill_time_s")
+        self._decoded_tokens = r.counter("serve/decoded_tokens")
+        self._decode_time = r.counter("serve/decode_time_s")
+        self._steps = r.counter("serve/decode_steps")
+        self._admissions = r.counter("serve/admissions")
+        self._evictions = r.counter("serve/evictions")
+        self._page_occupancy = r.gauge("serve/page_occupancy")
+        self._prefix_hit_rate = r.gauge("serve/prefix_hit_rate")
+        self._cow_copies = r.gauge("serve/cow_copies")
+        self._shed = r.counter("serve/shed")
+        self._cancelled = r.counter("serve/cancelled")
+        self._deadline_miss = r.counter("serve/deadline_miss")
+        self._rejected_queue_full = r.counter("serve/rejected_queue_full")
+        self._goodput_tokens = r.counter("serve/goodput_tokens")
+        self._queue_depth = r.gauge("serve/queue_depth")
+        self._h_step = r.histogram("serve/step_time_s")
+        self._h_ttft = r.histogram("serve/ttft_s")
+        self._h_queue = r.histogram("serve/queue_wait_s")
+        self.step_ewma: float | None = None   # from the second step on
+        self.step_times: deque = deque(maxlen=STATS_WINDOW)
+        self.step_tokens: deque = deque(maxlen=STATS_WINDOW)
+        self.ttfts: deque = deque(maxlen=STATS_WINDOW)
+        self.queue_waits: deque = deque(maxlen=STATS_WINDOW)
+
+    # -- recording (engine-internal) ----------------------------------------
+
+    def record_prefill(self, tokens: int, dt: float) -> None:
+        self._prefill_tokens.inc(tokens)
+        self._prefill_time.inc(dt)
+
+    def record_admission(self, queue_wait: float) -> None:
+        self._admissions.inc()
+        self._h_queue.observe(queue_wait)
+        self.queue_waits.append(queue_wait)
+
+    def record_first_token(self, ttft: float) -> None:
+        self._h_ttft.observe(ttft)
+        self.ttfts.append(ttft)
+
+    def record_decode(self, n_active: int, dt: float) -> None:
+        self._steps.inc()
+        self._decode_time.inc(dt)
+        self._decoded_tokens.inc(n_active)
+        self._h_step.observe(dt)
+        self.step_times.append(dt)
+        self.step_tokens.append(n_active)
+        if self.steps > 1:       # step 1 carries first-call set-up
+            self.step_ewma = (dt if self.step_ewma is None
+                              else EWMA_ALPHA * dt
+                              + (1 - EWMA_ALPHA) * self.step_ewma)
+
+    def record_finish(self, ev: dict) -> None:
+        """Fold one scheduler finish-log event into the counters."""
+        if ev["slot"] is not None:
+            self._evictions.inc()
+        reason = ev["reason"]
+        if reason == "cancel":
+            self._cancelled.inc()
+        elif reason == "shed":
+            self._shed.inc()
+        if ev["had_deadline"]:
+            if reason == "stop" and ev["within_deadline"]:
+                self._goodput_tokens.inc(ev["tokens"])
+            else:
+                self._deadline_miss.inc()
+        elif reason == "stop":
+            self._goodput_tokens.inc(ev["tokens"])
+
+    def record_rejection(self) -> None:
+        self._rejected_queue_full.inc()
+
+    def set_queue_depth(self, n: int) -> None:
+        self._queue_depth.set(n)
+
+    def set_page_stats(self, occupancy: float, hit_rate: float,
+                       cow: int) -> None:
+        self._page_occupancy.set(occupancy)
+        self._prefix_hit_rate.set(hit_rate)
+        self._cow_copies.set(cow)
+
+    # -- read surface -------------------------------------------------------
+
+    prefill_tokens = property(lambda s: s._prefill_tokens.value)
+    prefill_time = property(lambda s: s._prefill_time.value)
+    decoded_tokens = property(lambda s: s._decoded_tokens.value)
+    decode_time = property(lambda s: s._decode_time.value)
+    steps = property(lambda s: s._steps.value)
+    admissions = property(lambda s: s._admissions.value)
+    evictions = property(lambda s: s._evictions.value)
+    page_occupancy = property(lambda s: s._page_occupancy.value)
+    prefix_hit_rate = property(lambda s: s._prefix_hit_rate.value)
+    cow_copies = property(lambda s: int(s._cow_copies.value))
+    shed = property(lambda s: s._shed.value)
+    cancelled = property(lambda s: s._cancelled.value)
+    deadline_misses = property(lambda s: s._deadline_miss.value)
+    rejected_queue_full = property(lambda s: s._rejected_queue_full.value)
+    goodput_tokens = property(lambda s: s._goodput_tokens.value)
+
+    def prefill_tok_s(self) -> float:
+        return self.prefill_tokens / max(self.prefill_time, 1e-9)
+
+    def decode_tok_s(self) -> float:
+        return self.decoded_tokens / max(self.decode_time, 1e-9)
+
+    def goodput_tok_s(self) -> float:
+        return (self.goodput_tokens
+                / max(self.decode_time + self.prefill_time, 1e-9))
+
+    def token_latency_percentiles(self, qs=(50, 99)) -> dict:
+        """Per-token latency: each live token of a step took its wall time."""
+        if not self.step_times:
+            return {q: 0.0 for q in qs}
+        lats = np.repeat(np.fromiter(self.step_times, np.float64),
+                         np.fromiter(self.step_tokens, np.int64))
+        return {q: float(np.percentile(lats, q)) for q in qs}
+
+    def ttft_percentiles(self, qs=(50, 99)) -> dict:
+        if not self.ttfts:
+            return {q: 0.0 for q in qs}
+        arr = np.fromiter(self.ttfts, np.float64)
+        return {q: float(np.percentile(arr, q)) for q in qs}
+
+    def queue_wait_percentiles(self, qs=(50, 99)) -> dict:
+        if not self.queue_waits:
+            return {q: 0.0 for q in qs}
+        arr = np.fromiter(self.queue_waits, np.float64)
+        return {q: float(np.percentile(arr, q)) for q in qs}
+
+
+class Engine:
+    """Continuous-batching inference engine over a fixed slot pool."""
+
+    def __init__(self, model, params, *, max_slots: int = 8,
+                 max_seq: int = 256, prefill_chunk: int = 32,
+                 fused_sampling: bool = False, attn_impl: str | None = None,
+                 page_size: int = 16, prefix_cache: bool = True,
+                 max_queue: int = 0, shed_policy: str = "reject-newest",
+                 device=None):
+        """``device`` defaults to ``cuda`` (raising when no GPU is
+        visible); ``device="cpu"`` runs the kernels' plain versions.
+        ``params`` are the model's master parameters: the engine keeps a
+        copy cast to the compute dtype on ``device``.
+
+        ``page_size`` > 0 runs the paged KV cache, sized so every slot can
+        reach ``max_seq``; ``page_size=0`` keeps the contiguous pool.
+        ``prefix_cache`` hands shared page-aligned prompt prefixes to new
+        requests by refcount. ``max_queue`` bounds the submit queue (0 =
+        unbounded) with ``shed_policy`` deciding who loses; requests may
+        carry ``deadline_ms``/``max_queue_ms`` budgets."""
+        cfg = model.cfg
+        if cfg.family != "decoder":
+            raise ValueError(f"serve engine supports decoder models, "
+                             f"got family={cfg.family!r}")
+        self.device = default_device(device)
+        if attn_impl:
+            cfg = with_attn_impl(cfg, attn_impl)
+        if attn_impl or model.device != self.device:
+            model = build_model(cfg, self.device)
+        if max_seq % prefill_chunk:
+            # every chunk writes a full [pos0, pos0+C) window: round the
+            # pool up so the last window never crosses max_seq
+            max_seq += prefill_chunk - max_seq % prefill_chunk
+        if page_size > 0 and max_seq % page_size:
+            max_seq += page_size - max_seq % page_size
+        self.model = model
+        self.cfg = cfg
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.prefill_chunk = prefill_chunk
+        self.fused_sampling = fused_sampling
+        self._clock = time.perf_counter
+        self.params = cast_params(_to(params, self.device),
+                                  dtype_of(cfg.dtype))
+
+        self.paged = page_size > 0
+        self.page_size = page_size if self.paged else 0
+        self.allocator = None
+        sched_kw = dict(max_queue=max_queue, shed_policy=shed_policy,
+                        clock=self._clock)
+        if self.paged:
+            pps = max_seq // page_size
+            # worst case + the null page + one spare for a full-hit COW
+            num_pages = self.num_pages = max_slots * pps + 2
+            self.pool = cache_mod.make_paged_pool(model, max_slots, page_size,
+                                                  num_pages)
+            self.allocator = cache_mod.PageAllocator(
+                num_pages, page_size, max_slots, pps,
+                prefix_cache=prefix_cache)
+            self.sched = SlotScheduler(max_slots, max_seq,
+                                       allocator=self.allocator, **sched_kw)
+        else:
+            self.num_pages = 0
+            self.pool = cache_mod.make_pool(model, max_slots, max_seq)
+            self.sched = SlotScheduler(max_slots, max_seq, **sched_kw)
+        self.stats = EngineStats()
+
+        # per-slot sampling state (host mirrors, uploaded per dispatch)
+        self._temps = np.zeros((max_slots,), np.float32)
+        self._top_ks = np.zeros((max_slots,), np.int32)
+        self._top_ps = np.ones((max_slots,), np.float32)
+        self._gens = [torch.Generator(device=self.device)
+                      for _ in range(max_slots)]
+        self._zero_noise = torch.zeros((max_slots, cfg.vocab_size),
+                                       dtype=torch.float32,
+                                       device=self.device)
+        self._ones = torch.ones((max_slots, 1), dtype=torch.float32,
+                                device=self.device)
+
+    # -- device steps -------------------------------------------------------
+
+    def _tensor(self, x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def _tables(self):
+        """This dispatch's block tables (same shape every time), or None."""
+        if self.allocator is None:
+            return None
+        return self._tensor(self.allocator.tables, torch.int32)
+
+    def _prefill_chunk(self, tokens, slot: int, pos0: int, valid: int):
+        """One prompt chunk into one slot's lane (contiguous) or its block
+        table's pages (paged). Returns the chunk's logits (1, C, V)."""
+        if self.paged:
+            view = cache_mod.paged_view(self.pool, slot)
+            logits, view = self.model.chunk_prefill(
+                self.params, view, tokens, pos0, valid, seq_len=self.max_seq,
+                block_tables=self._tables()[slot:slot + 1],
+                page_size=self.page_size)
+            self.pool = cache_mod.paged_write(self.pool, slot, view)
+        else:
+            view = cache_mod.slot_view(self.pool, slot)
+            logits, view = self.model.chunk_prefill(
+                self.params, view, tokens, pos0, valid, seq_len=self.max_seq)
+            self.pool = cache_mod.slot_write(self.pool, slot, view)
+        return logits
+
+    def _sample_prefill(self, logits, valid: int, slot: int) -> int:
+        """Sample the prompt continuation from the last valid prefill row."""
+        temp = float(self._temps[slot])
+        V = logits.shape[-1]
+        noise = (sampling_mod.gumbel_noise(self._gens[slot:slot + 1], V,
+                                           self.device)
+                 if temp > 0.0 else self._zero_noise[:1])
+        t = self._tensor([temp], torch.float32)
+        if self.fused_sampling:
+            onehot = (torch.arange(logits.shape[1], device=self.device)
+                      == valid - 1).float()[None]
+            greedy, sampled = slot_gather_sample(logits, onehot, t, noise)
+            return int((greedy if temp <= 0.0 else sampled)[0])
+        row = logits[0, valid - 1][None]
+        tok = sampling_mod.sample_tokens(
+            row, t, self._tensor(self._top_ks[slot:slot + 1], torch.int32),
+            self._tensor(self._top_ps[slot:slot + 1], torch.float32), noise)
+        return int(tok[0])
+
+    def _decode(self, tokens, pos):
+        """One decode step for the whole slot pool + sampling. Returns the
+        sampled token per slot as a host array (the sync point)."""
+        logits, self.pool = self.model.decode_step(
+            self.params, self.pool, {"tokens": tokens}, pos,
+            seq_len=self.max_seq, block_tables=self._tables(),
+            page_size=self.page_size)
+        temps = self._tensor(self._temps, torch.float32)
+        # all-greedy steps (the default) skip the (S, V) Gumbel draw
+        noise = (sampling_mod.gumbel_noise(self._gens, logits.shape[-1],
+                                           self.device)
+                 if (self._temps > 0.0).any() else self._zero_noise)
+        if self.fused_sampling:
+            greedy, sampled = slot_gather_sample(logits, self._ones, temps,
+                                                 noise)
+            tok = torch.where(temps <= 0.0, greedy, sampled)
+        else:
+            tok = sampling_mod.sample_tokens(
+                logits[:, 0], temps,
+                self._tensor(self._top_ks, torch.int32),
+                self._tensor(self._top_ps, torch.float32), noise)
+        return tok.cpu().numpy()
+
+    # -- host loop ----------------------------------------------------------
+
+    def submit(self, tokens, max_new: int,
+               sampling: SamplingParams | None = None,
+               eos: int | None = None, *,
+               deadline_ms: float | None = None,
+               max_queue_ms: float | None = None) -> AdmissionResult:
+        """Queue a request. Returns an :class:`AdmissionResult` that
+        coerces to the request id when accepted; a full bounded queue
+        rejects with no state changed. Malformed or never-fits requests
+        raise ``ValueError``."""
+        sampling = sampling or SamplingParams()
+        if self.fused_sampling and sampling_mod.needs_full_path(sampling):
+            raise ValueError("fused_sampling engine handles greedy/"
+                             "temperature only; top-k/top-p need the full "
+                             "path (fused_sampling=False)")
+        req = Request(tokens=list(map(int, tokens)), max_new=max_new,
+                      sampling=sampling, eos=eos, deadline_ms=deadline_ms,
+                      max_queue_ms=max_queue_ms)
+        res = self.sched.submit(req)
+        if not res:
+            self.stats.record_rejection()
+        self._account_finished()    # a displaced victim (reject-no-deadline)
+        self.stats.set_queue_depth(self.sched.queue_depth)
+        return res
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request wherever it is (queued or in flight); its pages
+        are released exactly as on a natural finish. False for unknown or
+        finished rids."""
+        ok = self.sched.cancel(rid)
+        if ok:
+            self._account_finished()
+        return ok
+
+    def _bind_slot(self, slot: int, req: Request) -> None:
+        s = req.sampling
+        self._temps[slot] = s.temperature
+        self._top_ks[slot] = s.top_k
+        self._top_ps[slot] = s.top_p
+        # a request's sample stream is a function of its seed alone
+        self._gens[slot].manual_seed(s.seed)
+
+    def _make_writable(self, slot: int, lo: int, hi: int) -> None:
+        """Pages covering rows [lo, hi) of ``slot`` become private before a
+        dispatch writes them: first touch allocates, a shared page is
+        copied (copy-on-write)."""
+        ps = self.page_size
+        for j in range(lo // ps, -(-hi // ps)):
+            for dst, src in self.allocator.ensure_writable(slot, j * ps):
+                self.pool = cache_mod.copy_page(self.pool, dst, src)
+
+    def _prefill_request(self, slot: int, req: Request) -> None:
+        self._bind_slot(slot, req)
+        toks = np.asarray(req.tokens, np.int64)
+        S0, C = len(req.tokens), self.prefill_chunk
+        # prefix-cache hits skip their pages; a full-prompt hit re-runs the
+        # last prompt token for its logits (its write copies the shared page)
+        hit = self.sched.slots[slot].hit_tokens
+        start = S0 - 1 if hit >= S0 else hit
+        t0 = self._clock()
+        with trace.span("serve/prefill", slot=slot, rid=req.rid, tokens=S0,
+                        cached=hit):
+            logits, valid = None, 0
+            for c in range(start, S0, C):
+                sl = toks[c:c + C]
+                valid = len(sl)
+                if valid < C:
+                    sl = np.pad(sl, (0, C - valid))
+                if self.paged:
+                    self._make_writable(slot, c, c + valid)
+                logits = self._prefill_chunk(
+                    self._tensor(sl[None], torch.int64), slot, c, valid)
+            if self.allocator is not None:
+                self.allocator.register_prefix(slot, toks)
+            tok = self._sample_prefill(logits, valid, slot)
+        self.stats.record_prefill(S0 - start, self._clock() - t0)
+        self.sched.record_first_token(slot, tok)
+        self.stats.record_first_token(req.ttft)
+
+    def _account_finished(self) -> None:
+        while self.sched.finish_log:
+            self.stats.record_finish(self.sched.finish_log.popleft())
+
+    def _estimate_service_s(self, req: Request) -> float:
+        """Admission-time completion estimate from measured rates (prompt
+        over the prefill rate + ``max_new`` steps at the step EWMA);
+        unmeasured parts count 0, so a cold engine never sheds blind."""
+        est = 0.0
+        st = self.stats
+        if st.prefill_tokens > 0 and st.prefill_time > 0:
+            est += len(req.tokens) / st.prefill_tok_s()
+        if st.step_ewma is not None:
+            est += req.max_new * st.step_ewma
+        return est
+
+    def _shed_hopeless(self, now: float) -> None:
+        """Shed queued requests whose queue budget is blown or whose
+        deadline can no longer be met."""
+        for req in list(self.sched.pending):
+            over_queue = (req.max_queue_ms is not None
+                          and now - req.t_submit > req.max_queue_ms / 1e3)
+            dl = req.deadline_at
+            hopeless = (dl is not None
+                        and now + self._estimate_service_s(req) > dl)
+            if over_queue or hopeless:
+                self.sched.shed_queued(req, FINISH_SHED)
+                trace.instant("serve/shed", rid=req.rid,
+                              why="queue_budget" if over_queue
+                              else "deadline_unmeetable")
+
+    def step(self) -> int:
+        """Admit + prefill new requests, run one decode step over the pool.
+        Returns the number of live tokens produced."""
+        now = self._clock()
+        self._shed_hopeless(now)
+        for rid in self.sched.cancel_past_deadline(now):
+            trace.instant("serve/deadline_cancel", rid=rid)
+        self._account_finished()
+        for slot, req in self.sched.admit():
+            self.stats.record_admission(req.queue_wait)
+            self._prefill_request(slot, req)
+        self._account_finished()       # max_new=1/eos at the first token
+        n_active = self.sched.num_active
+        self.stats.set_queue_depth(self.sched.queue_depth)
+        if self.allocator is not None:
+            self.stats.set_page_stats(self.allocator.occupancy(),
+                                      self.allocator.hit_rate(),
+                                      self.allocator.cow_copies)
+        else:
+            self.stats.set_page_stats(n_active / self.max_slots, 0.0, 0)
+        if n_active == 0:
+            return 0
+        if self.paged:
+            # each live slot writes cache row st.pos: make its page private
+            # (idle slots park on the null page)
+            for slot, st in enumerate(self.sched.slots):
+                if st is not None:
+                    self._make_writable(slot, st.pos, st.pos + 1)
+        tokens = self._tensor(self.sched.feed_tokens(), torch.int64)[:, None]
+        pos = self._tensor(self.sched.positions(), torch.int64)
+        t0 = self._clock()
+        with trace.span("serve/decode_step", active=n_active):
+            tok = self._decode(tokens, pos)
+        dt = self._clock() - t0
+        self.sched.record_step(tok)
+        self._account_finished()
+        self.stats.record_decode(n_active, dt)
+        return n_active
+
+    def run(self) -> dict:
+        """Drive to completion; returns {request id: generated tokens}."""
+        while self.sched.has_work():
+            self.step()
+        return self.sched.results()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

@@ -1,0 +1,119 @@
+"""The CUDA kernels on the card, each held to its plain PyTorch version on
+the same inputs. Marked ``cuda``; they skip where no GPU is visible and
+run on a GPU machine with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_gpu.py
+
+Tolerances: fp32 1e-5 (sums in another order); bf16 1e-2 on outputs of
+magnitude <~ 1 (bf16 eps is 2^-8, and the kernel rounds p per tile where
+the plain version rounds it once); sampled indices and the paged vs
+contiguous decode are exact.
+"""
+import math
+
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.kernels import slot_gather as sg
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rn(g, dev, dtype, *shape):
+    return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 37, 53, 4, 1, 32, 0),
+                                   (2, 24, 40, 4, 4, 32, 8),
+                                   (1, 32, 1024, 32, 8, 64, 0)])
+def test_flash_attention_kernel(dev, dtype, shape):
+    B, Sq, Sk, H, KV, D, win = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (_rn(g, dev, dtype, B, Sq, H, D), _rn(g, dev, dtype, B, Sk, KV, D),
+               _rn(g, dev, dtype, B, Sk, KV, D))
+    q_off = torch.tensor([Sk - Sq, 0][:B], dtype=torch.int32, device=dev)
+    K.reset_launches()
+    out, lse = fa.flash_attention(q, k, v, q_off=q_off, window=win,
+                                  return_lse=True)
+    want, want_lse = ref.flash_attention_ref(q, k, v, q_off, win,
+                                             1 / math.sqrt(D), True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_attention": 1}
+    assert (out.float() - want.float()).abs().max() <= TOL[dtype]
+    assert (lse - want_lse).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_k,window", [(8, 0), (16, 7), (512, 0)])
+def test_flash_decode_kernels(dev, dtype, block_k, window):
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, H, KV, D, ps, NP = 4, 8, 2, 64, 16, 8
+    P = B * NP + 1
+    q = _rn(g, dev, dtype, B, 1, H, D)
+    kp, vp = _rn(g, dev, dtype, P, ps, KV, D), _rn(g, dev, dtype, P, ps, KV, D)
+    tables = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
+        B, NP).to(torch.int32)
+    pos = torch.tensor([0, 15, 77, 127], dtype=torch.int32, device=dev)
+    lk, lv = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+    scale = 1 / math.sqrt(D)
+    got = fa.flash_decode(q, lk, lv, pos, window=window, block_k=block_k)
+    want = ref.flash_decode_ref(q, lk, lv, pos, window, scale, block_k)
+    paged = fa.flash_decode_paged(q, kp, vp, tables, pos, page_size=ps,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max() <= TOL[dtype]
+    assert torch.equal(paged, fa.flash_decode(q, lk, lv, pos, window=window,
+                                              block_k=ps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,C,V", [(8, 1, 128256), (1, 32, 128256),
+                                   (3, 5, 1000)])
+def test_slot_gather_kernel_exact(dev, dtype, S, C, V):
+    g = torch.Generator(device=dev).manual_seed(2)
+    lg = _rn(g, dev, dtype, S, C, V)
+    oh = torch.nn.functional.one_hot(
+        torch.randint(0, C, (S,), generator=g, device=dev), C).float()
+    T = torch.rand(S, generator=g, device=dev) + 0.05
+    u = torch.rand(S, V, generator=g, device=dev).clamp_min(1e-30)
+    nz = -torch.log(-torch.log(u))
+    got = sg.slot_gather_sample(lg, oh, T, nz)
+    want = ref.slot_gather_sample_ref(lg, oh, T, nz)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_unsupported_head_dim_names_the_mla_slice(dev):
+    x = torch.zeros(1, 4, 2, 48, device=dev)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        fa.flash_attention(x, x, x)
+
+
+def test_engine_on_the_card_launches_every_kernel(dev):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, SamplingParams
+    model = build_model(get_smoke_config("llama3.2-1b"), dev)
+    params = model.init(0)
+    for page_size, kernel in ((16, "flash_decode_paged"), (0, "flash_decode")):
+        eng = Engine(model, params, max_slots=2, max_seq=64, prefill_chunk=16,
+                     page_size=page_size, fused_sampling=True, device=dev)
+        K.reset_launches()
+        for n in (5, 20, 9):
+            eng.submit(list(range(1, n + 1)), 4,
+                       SamplingParams(temperature=0.5 * (n % 2), seed=n))
+        res = eng.run()
+        assert all(len(t) == 4 for t in res.values())
+        for name in ("flash_attention", kernel, "slot_gather_sample"):
+            assert K.LAUNCHES.get(name, 0) > 0, name
