@@ -1,7 +1,12 @@
-"""Parameter bridge: the JAX package's decoder parameter tree, given as
-numpy arrays, to the port's parameters.
+"""Parameter bridge: the JAX package's parameter trees, given as numpy
+arrays, to the port's parameters.
 
-The JAX tree stacks consecutive same-kind layers into ``blocks[seg]``
+Convnets (``conv_params_from_jax``): conv weights go from the JAX
+package's HWIO to PyTorch's OIHW (a transpose; grouped convs split their
+output channels contiguously on both sides, so no regrouping); FC
+weights and all biases keep their layout.
+
+Decoders (``decoder_params_from_jax``): the JAX tree stacks consecutive same-kind layers into ``blocks[seg]``
 with a leading layer axis; the port keeps one dict per layer
 (``params["layers"]``). Leaves keep their layout — dense weights are the
 same ``(in, *out)`` einsum operands on both sides — so both packages
@@ -57,3 +62,14 @@ def decoder_params_from_jax(tree, device=None) -> dict:
                                                              device)))
     out["layers"] = layers
     return out
+
+
+def conv_params_from_jax(tree, device=None) -> dict:
+    """{layer: {w, b}} with HWIO conv weights (numpy leaves) -> the same
+    tree with OIHW conv weights as tensors."""
+    def leaf(a):
+        a = np.asarray(a)
+        if a.ndim == 4:
+            a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+        return to_tensor(a, device)
+    return _map(tree, leaf)

@@ -1,0 +1,195 @@
+// The ASA exchange's kernels for Hopper (sm_90a): the full-precision chunk
+// sum and the fp16 wire casts. Plain C interface, loaded with ctypes
+// (repro_torch/kernels/chunk_sum.py, quantize.py); each entry point launches
+// on the caller's stream and returns cudaGetLastError().
+//
+// Replaces (JAX package, Pallas/TPU):
+//   chunk_sum    src/repro/kernels/chunk_sum.py:_chunk_sum_kernel
+//   quant_fp16   src/repro/kernels/quantize.py:_cast_kernel (to float16)
+//   dequant_fp16 src/repro/kernels/quantize.py:_cast_kernel (to float32)
+//
+// chunk_sum: (k, n) receives of float32 / bfloat16 / float16 -> (n,) fp32,
+// summed in row order 0..k-1 with one rounding per add (__fadd_rn, never
+// contracted), so it equals the plain version's row-by-row sum bit for bit.
+// The casts round as x.half() / h.float() do: __float2half_rn sends
+// overflow to +-inf, keeps NaN and rounds subnormals to nearest even.
+//
+// What bounds them on an H100: bytes. Each reads its input once and writes
+// its output once with one add or convert per element, far below the
+// card's ~295 flops per byte. So the design is only to keep many wide loads
+// in flight: a grid-stride loop in which each thread owns VEC consecutive
+// elements, read and written as 16-byte (or 8-byte for 16-bit types)
+// vectors where the address allows, scalars where it does not. A (k, n)
+// receive with n = ceil(total / k) not a multiple of VEC has rows that
+// start off the vector grid (the trap of fp16 rows of odd length), so the
+// alignment is tested per row; every thread of a warp sees the same row, so
+// the test does not diverge.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int VEC = 4;            // elements a thread owns per iteration
+constexpr int MAX_BLOCKS = 132 * 16;
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <> __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
+
+// VEC elements from p (element offset already applied): one vector load
+// when `aligned`, else VEC scalar loads.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, bool aligned, float out[VEC]) {
+  if (aligned) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      const T* h = reinterpret_cast<const T*>(&v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) out[i] = to_f<T>(h[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = to_f<T>(p[i]);
+  }
+}
+
+__device__ __forceinline__ bool aligned_to(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+inline int grid_for(long long items) {
+  long long b = (items + THREADS - 1) / THREADS;
+  if (b < 1) b = 1;
+  return static_cast<int>(b < MAX_BLOCKS ? b : MAX_BLOCKS);
+}
+
+template <typename T>
+__global__ void chunk_sum_kernel(const T* __restrict__ x, float* __restrict__ out, int k,
+                                 long long n) {
+  const long long groups = n / VEC;
+  const bool out_al = aligned_to(out, 16);
+  for (long long gi = blockIdx.x * (long long)blockDim.x + threadIdx.x; gi < groups;
+       gi += (long long)gridDim.x * blockDim.x) {
+    const long long j = gi * VEC;
+    float acc[VEC], v[VEC];
+    load4<T>(x + j, aligned_to(x + j, VEC * sizeof(T)), acc);
+    for (int r = 1; r < k; ++r) {
+      const T* row = x + (long long)r * n + j;
+      load4<T>(row, aligned_to(row, VEC * sizeof(T)), v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = __fadd_rn(acc[i], v[i]);
+    }
+    if (out_al) {
+      *reinterpret_cast<float4*>(out + j) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) out[j + i] = acc[i];
+    }
+  }
+  // the n % VEC tail, one element a thread of block 0
+  const long long tail = groups * VEC;
+  if (blockIdx.x == 0 && tail + threadIdx.x < n) {
+    const long long j = tail + threadIdx.x;
+    float acc = to_f<T>(x[j]);
+    for (int r = 1; r < k; ++r) acc = __fadd_rn(acc, to_f<T>(x[(long long)r * n + j]));
+    out[j] = acc;
+  }
+}
+
+__global__ void quant_fp16_kernel(const float* __restrict__ x, __half* __restrict__ out,
+                                  long long n) {
+  const long long groups = n / VEC;
+  const bool al = aligned_to(x, 16) && aligned_to(out, 8);
+  for (long long gi = blockIdx.x * (long long)blockDim.x + threadIdx.x; gi < groups;
+       gi += (long long)gridDim.x * blockDim.x) {
+    const long long j = gi * VEC;
+    float v[VEC];
+    load4<float>(x + j, al, v);
+    union {
+      uint2 u;
+      __half h[VEC];
+    } w;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) w.h[i] = __float2half_rn(v[i]);
+    if (al) {
+      *reinterpret_cast<uint2*>(out + j) = w.u;
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) out[j + i] = w.h[i];
+    }
+  }
+  const long long tail = groups * VEC;
+  if (blockIdx.x == 0 && tail + threadIdx.x < n)
+    out[tail + threadIdx.x] = __float2half_rn(x[tail + threadIdx.x]);
+}
+
+__global__ void dequant_fp16_kernel(const __half* __restrict__ x, float* __restrict__ out,
+                                    long long n) {
+  const long long groups = n / VEC;
+  const bool al = aligned_to(x, 8) && aligned_to(out, 16);
+  for (long long gi = blockIdx.x * (long long)blockDim.x + threadIdx.x; gi < groups;
+       gi += (long long)gridDim.x * blockDim.x) {
+    const long long j = gi * VEC;
+    float v[VEC];
+    load4<__half>(x + j, al, v);
+    if (al) {
+      *reinterpret_cast<float4*>(out + j) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) out[j + i] = v[i];
+    }
+  }
+  const long long tail = groups * VEC;
+  if (blockIdx.x == 0 && tail + threadIdx.x < n)
+    out[tail + threadIdx.x] = __half2float(x[tail + threadIdx.x]);
+}
+
+template <typename T>
+int launch_chunk_sum(const void* x, void* out, int k, long long n, cudaStream_t s) {
+  chunk_sum_kernel<T><<<grid_for(n / VEC), THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<float*>(out), k, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (k, n) row-major in dtype (0 float32, 1 bfloat16, 2 float16) -> out (n,) fp32.
+int chunk_sum(const void* x, void* out, int k, long long n, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 0 || n <= 0) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_chunk_sum<float>(x, out, k, n, s);
+    case 1: return launch_chunk_sum<__nv_bfloat16>(x, out, k, n, s);
+    case 2: return launch_chunk_sum<__half>(x, out, k, n, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// x (n,) fp32 -> out (n,) fp16
+int quant_fp16(const void* x, void* out, long long n, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  quant_fp16_kernel<<<grid_for(n / VEC), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<__half*>(out), n);
+  return cudaGetLastError();
+}
+
+// x (n,) fp16 -> out (n,) fp32
+int dequant_fp16(const void* x, void* out, long long n, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  dequant_fp16_kernel<<<grid_for(n / VEC), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __half*>(x), static_cast<float*>(out), n);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -32,9 +32,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("flash_attention", "slot_gather")
+SOURCES = ("flash_attention", "slot_gather", "exchange", "sgd")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points per source: argument types (every one returns int)
 SIGNATURES = {
     "flash_attention": {
@@ -43,6 +44,15 @@ SIGNATURES = {
     },
     "slot_gather": {
         "slot_gather_sample": [_P] * 8 + [_I] * 5 + [_P],
+    },
+    "exchange": {
+        "chunk_sum": [_P, _P, _I, _L, _I, _P],
+        "quant_fp16": [_P, _P, _L, _P],
+        "dequant_fp16": [_P, _P, _L, _P],
+    },
+    "sgd": {
+        "fused_sgd": [_P] * 6 + [_L, _F, _I, _P],
+        "fused_rs_update": [_P] * 8 + [_I, _L, _I, _F, _F, _F, _I, _P],
     },
 }
 
@@ -153,12 +163,13 @@ def on_cpu(*ts: torch.Tensor) -> bool:
                      f"(plain version) or all-CUDA inputs")
 
 
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+              torch.int8: 3}
 
 
-def dtype_code(t: torch.Tensor) -> int:
-    try:
-        return DTYPE_CODE[t.dtype]
-    except KeyError:
-        raise TypeError(f"kernel takes float32/bfloat16/float16, got "
-                        f"{t.dtype}") from None
+def dtype_code(t: torch.Tensor, allowed=(torch.float32, torch.bfloat16,
+                                         torch.float16)) -> int:
+    if t.dtype not in allowed:
+        raise TypeError(f"kernel takes {'/'.join(str(d)[6:] for d in allowed)}"
+                        f", got {t.dtype}")
+    return DTYPE_CODE[t.dtype]

@@ -1,11 +1,16 @@
-"""Plain PyTorch versions of every kernel of the serve path.
+"""Plain PyTorch versions of every ported kernel.
 
-The wrappers in ``flash_attention.py`` and ``slot_gather.py`` call these
-for CPU tensors; on the card they are what each CUDA kernel is held to.
-Each mirrors the arithmetic of the JAX package's Pallas kernel: fp32
-softmax statistics, ``NEG_INF = -1e30`` for masked scores with masked
-``p`` zeroed explicitly, ``l`` clamped at ``1e-30``, and ``p`` rounded to
-the value dtype before the PV product.
+The wrappers (``flash_attention.py``, ``slot_gather.py``,
+``chunk_sum.py``, ``quantize.py``, ``fused_sgd.py``,
+``fused_rs_update.py``) call these for CPU tensors; on the card they are
+what each CUDA kernel is held to. Each mirrors the arithmetic of the JAX
+package's Pallas kernel. Serve path: fp32 softmax statistics,
+``NEG_INF = -1e30`` for masked scores with masked ``p`` zeroed
+explicitly, ``l`` clamped at ``1e-30``, and ``p`` rounded to the value
+dtype before the PV product. Training path: fp32 sums taken row by row in
+order 0..k-1, and every product and sum of the update rounded on its own
+in the order written here, which the CUDA kernels repeat operation for
+operation (no FMA), so the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -131,3 +136,57 @@ def slot_gather_sample_ref(logits, onehot, temperature, noise):
     t = temperature.float().clamp_min(1e-6)
     sampled = (row / t[:, None] + noise.float()).argmax(-1).to(torch.int32)
     return greedy, sampled
+
+
+# ---------------------------------------------------------------------------
+# training path: the ASA sum, the fp16 wire and the momentum-SGD update
+# ---------------------------------------------------------------------------
+
+def chunk_sum_ref(chunks):
+    """(k, n) float chunks -> (n,) fp32 sum, rows added in order."""
+    acc = chunks[0].float()
+    for r in range(1, chunks.shape[0]):
+        acc = acc + chunks[r].float()
+    return acc
+
+
+def quant_fp16_ref(x):
+    return x.to(torch.float16)
+
+
+def dequant_fp16_ref(x):
+    return x.to(torch.float32)
+
+
+def _lr(lr, like):
+    return torch.as_tensor(lr, dtype=torch.float32, device=like.device)
+
+
+def fused_sgd_ref(p, g, m, lr, momentum: float = 0.9,
+                  nesterov: bool = False):
+    """Flat fp32 (p, g, m) + lr -> (p', m'): m' = mu m + g, then p' = p -
+    lr m' (or p - lr (g + mu m') with nesterov)."""
+    p, g, m = p.float(), g.float(), m.float()
+    m_new = momentum * m + g
+    step = g + momentum * m_new if nesterov else m_new
+    return p - _lr(lr, p) * step, m_new
+
+
+def fused_rs_update_ref(recv, p, m, mask, lr, momentum: float = 0.9,
+                        nesterov: bool = False, scale: float = 1.0,
+                        weight_decay: float = 0.0, scales=None):
+    """(k, n) un-summed receives (float, or int8 with (k,) fp32 per-chunk
+    scales) + this rank's flat shard (p, m, wd mask or None) -> (p', m'):
+    g = scale * sum_r dequant(recv[r]) + weight_decay * mask * p, then the
+    momentum step of :func:`fused_sgd_ref`."""
+    acc = None
+    for r in range(recv.shape[0]):
+        v = recv[r].float()
+        if scales is not None:
+            v = v * scales[r].float()
+        acc = v if acc is None else acc + v
+    g = acc * scale
+    p = p.float()
+    if weight_decay and mask is not None:
+        g = g + weight_decay * mask.float() * p
+    return fused_sgd_ref(p, g, m, lr, momentum, nesterov)

@@ -1,4 +1,4 @@
-"""Shared layers: norms, initializers, RoPE, dtype policy.
+"""Shared layers: norms, initializers, RoPE, dtype policy, the loss.
 
 Counterpart of ``repro/models/common.py``. Two traps that PyTorch's own
 layers would get wrong: ``rms_norm`` multiplies by ``1 + scale`` (scales
@@ -77,3 +77,20 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean cross-entropy over valid positions; logits (..., V), labels
+    int (...). Computed in fp32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

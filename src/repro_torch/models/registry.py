@@ -15,6 +15,14 @@ Every call casts fp32 matrices to the compute dtype (``cast_params``);
 a caller that keeps params already cast (the serving engine) pays
 nothing for that. ``device`` defaults to ``cuda`` and raises when no GPU
 is visible; pass ``device="cpu"`` for the plain CPU path.
+
+The ``conv`` family (AlexNet; ``models/vision.py``) trains in fp32 and has
+
+- ``init(generator) -> params``             fp32, from an explicit
+  ``torch.Generator`` (none on the ``meta`` device)
+- ``loss_fn(params, batch, gen=None) -> (loss, metrics)``  dropout draws
+  from ``gen``; None runs without dropout
+- ``forward(params, batch) -> logits``
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, vision
 from repro_torch.models.common import dtype_of
 
 
@@ -47,17 +55,39 @@ class Model:
     device: torch.device
     init: Callable
     forward: Callable
-    init_cache: Callable
-    decode_step: Callable
-    chunk_prefill: Callable
-    init_paged_cache: Callable
+    init_cache: Callable | None = None
+    decode_step: Callable | None = None
+    chunk_prefill: Callable | None = None
+    init_paged_cache: Callable | None = None
+    loss_fn: Callable | None = None
+
+
+def _build_conv(cfg: ArchConfig, dev: torch.device) -> Model:
+    def init(generator):
+        if dev.type != "meta" and not isinstance(generator, torch.Generator):
+            raise TypeError("conv init takes an explicit torch.Generator "
+                            f"(got {type(generator).__name__})")
+        with torch.no_grad():
+            return vision.init_conv(generator, cfg, dev)
+
+    def loss_fn(params, batch, gen=None):
+        return vision.conv_loss(params, batch, cfg, gen)
+
+    @torch.no_grad()
+    def forward(params, batch):
+        return vision.conv_predict(params, batch["images"], cfg)
+
+    return Model(cfg, dev, init, forward, loss_fn=loss_fn)
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
+    dev = default_device(device)
+    if cfg.family == "conv":
+        return _build_conv(cfg, dev)
     if cfg.family != "decoder":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (only decoder LMs)")
-    dev = default_device(device)
+            f"family {cfg.family!r} is not ported yet (decoder LMs and "
+            f"AlexNet)")
     cdt = dtype_of(cfg.dtype)
 
     def init(seed_or_generator=0):

@@ -7,7 +7,9 @@ run on a GPU machine with
 Tolerances: fp32 1e-5 (sums in another order); bf16 1e-2 on outputs of
 magnitude <~ 1 (bf16 eps is 2^-8, and the kernel rounds p per tile where
 the plain version rounds it once); sampled indices and the paged vs
-contiguous decode are exact.
+contiguous decode are exact. The training kernels (chunk_sum, the fp16
+casts, fused_sgd, fused_rs_update) are exact: they add rows in the plain
+version's order and round every product and sum on its own (no FMA).
 """
 import math
 
@@ -15,7 +17,11 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels import chunk_sum as cs
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_rs_update as fru
+from repro_torch.kernels import fused_sgd as fs
+from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref
 from repro_torch.kernels import slot_gather as sg
 
@@ -117,3 +123,125 @@ def test_engine_on_the_card_launches_every_kernel(dev):
         assert all(len(t) == 4 for t in res.values())
         for name in ("flash_attention", kernel, "slot_gather_sample"):
             assert K.LAUNCHES.get(name, 0) > 0, name
+
+
+# ---------------------------------------------------------------------------
+# training kernels: exact against their plain versions
+# ---------------------------------------------------------------------------
+
+def _offset(t, off):
+    """``t`` copied into a buffer at element offset ``off``: a contiguous
+    view whose start is off the 16-byte grid when ``off`` is odd."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    v = buf[off:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("k,n", [(1, 5), (2, 4096), (3, 1001), (8, 77),
+                                 (2, 18_874_371)])
+@pytest.mark.parametrize("off", [0, 1])
+def test_chunk_sum_kernel_exact(dev, dtype, k, n, off):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _offset(_rn(g, dev, dtype, k, n), off)
+    K.reset_launches()
+    got = cs.chunk_sum(x)
+    want = ref.chunk_sum_ref(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"chunk_sum": 1}
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,off", [(1, 0), (4099, 0), (4099, 1),
+                                   (37_748_736, 0)])
+def test_fp16_casts_exact(dev, n, off):
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n, generator=g, device=dev) * 300
+    special = torch.tensor([65504.0, -65504.0, 65519.0, 65520.0, 1e6, -1e6,
+                            6e-8, 3e-8, 2.9e-8, -6e-8, 1e-5, 0.0, -0.0,
+                            float("inf"), -float("inf"), float("nan")],
+                           device=dev)
+    x[:min(n, special.numel())] = special[:n]
+    x = _offset(x, off)
+    h = qz.quant_fp16(x)
+    want = ref.quant_fp16_ref(x)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(h), nan)
+    assert torch.equal(h[~nan].view(torch.int16), want[~nan].view(torch.int16))
+    hh = _offset(want, off)
+    back = qz.dequant_fp16(hh)
+    wb = ref.dequant_fp16_ref(hh)
+    nan = torch.isnan(wb)
+    assert torch.equal(torch.isnan(back), nan)
+    assert torch.equal(back[~nan].view(torch.int32), wb[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+@pytest.mark.parametrize("n,off", [(3, 0), (4097, 0), (4097, 1)])
+def test_fused_sgd_kernel_exact(dev, nesterov, n, off):
+    g = torch.Generator(device=dev).manual_seed(5)
+    p, gr, m = (_offset(torch.randn(n, generator=g, device=dev), off)
+                for _ in range(3))
+    lr = torch.tensor([0.0125], device=dev)
+    got = fs.fused_sgd(p, gr, m, lr, 0.9, nesterov)
+    want = ref.fused_sgd_ref(p, gr, m, lr, 0.9, nesterov)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got_f = fs.fused_sgd(p, gr, m, 0.0125, 0.9, nesterov)     # float lr
+    assert all(torch.equal(a, b) for a, b in zip(got_f, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int8])
+@pytest.mark.parametrize("k,s", [(1, 9), (2, 4096), (3, 1001), (4, 5003)])
+@pytest.mark.parametrize("wd", [0.0, 5e-4])
+def test_fused_rs_update_kernel_exact(dev, dtype, k, s, wd):
+    g = torch.Generator(device=dev).manual_seed(6)
+    if dtype == torch.int8:
+        recv = torch.randint(-127, 128, (k, s), generator=g, device=dev).to(
+            torch.int8)
+        scales = torch.rand(k, generator=g, device=dev) * 0.01
+    else:
+        recv, scales = _rn(g, dev, dtype, k, s), None
+    p, m = torch.randn(s, generator=g, device=dev), torch.randn(
+        s, generator=g, device=dev)
+    mask = (torch.rand(s, generator=g, device=dev) < 0.5).float()
+    for nesterov, scale in ((False, 1.0 / k), (True, 1.0 / (k * 3))):
+        K.reset_launches()
+        got = fru.fused_rs_update(recv, p, m, 0.01, wd_mask=mask,
+                                  scale=scale, momentum=0.9,
+                                  nesterov=nesterov, weight_decay=wd,
+                                  scales=scales)
+        want = ref.fused_rs_update_ref(recv, p, m, mask, 0.01, 0.9, nesterov,
+                                       scale, wd, scales)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {"fused_rs_update": 1}
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_fused_rs_update_equals_chunk_sum_then_fused_sgd(dev, dtype):
+    """The fused tail against the unfused pipeline of the sharded path:
+    chunk_sum, the mean, weight decay on the mask, fused_sgd."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    k, s, wd = 2, 9437, 5e-4
+    recv = _rn(g, dev, dtype, k, s)
+    p, m = torch.randn(s, generator=g, device=dev), torch.randn(
+        s, generator=g, device=dev)
+    mask = (torch.arange(s, device=dev) < 6000).float()
+    fused = fru.fused_rs_update(recv, p, m, 0.02, wd_mask=mask, scale=1 / k,
+                                momentum=0.9, weight_decay=wd)
+    gsum = cs.chunk_sum(recv) * (1 / k) + wd * mask * p
+    unfused = fs.fused_sgd(p, gsum, m, 0.02, 0.9, False)
+    assert all(torch.equal(a, b) for a, b in zip(fused, unfused))
+
+
+def test_training_kernels_raise_on_mixed_devices(dev):
+    x = torch.zeros(2, 8, device=dev)
+    with pytest.raises(ValueError, match="cpu"):
+        fru.fused_rs_update(x, torch.zeros(8), torch.zeros(8, device=dev),
+                            0.1)
+    with pytest.raises(ValueError, match="cpu"):
+        fs.fused_sgd(torch.zeros(8, device=dev), torch.zeros(8),
+                     torch.zeros(8, device=dev), 0.1)

@@ -39,7 +39,11 @@ def test_no_jax_or_repro_import(path):
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.bridge; "
+            "repro_torch.bridge, repro_torch.core, repro_torch.optim, "
+            "repro_torch.train.loop, repro_torch.data.prefetch, "
+            "repro_torch.launch.train, repro_torch.kernels.chunk_sum, "
+            "repro_torch.kernels.quantize, repro_torch.kernels.fused_sgd, "
+            "repro_torch.kernels.fused_rs_update; "
             "from repro_torch import kernels; "
             "assert not any(m.split('.')[0] in ('jax', 'repro') "
             "for m in sys.modules), sorted(sys.modules); "
@@ -60,6 +64,17 @@ def test_build_model_without_device_raises_on_cpu_host():
     from repro_torch.models import build_model
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(get_smoke_config("llama3.2-1b"))
+
+
+def test_training_without_device_raises_on_cpu_host():
+    _no_gpu()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(get_smoke_config("alexnet"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--smoke", "--ranks", "1", "--steps", "1"])
 
 
 def test_engine_without_device_raises_on_cpu_host():

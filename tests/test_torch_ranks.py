@@ -1,0 +1,128 @@
+"""Rank bodies of the port's multi-rank tests (``test_torch_exchange.py``,
+``test_torch_train.py``). Each runs in a spawned gloo process, which
+imports the module that holds it; this one imports torch and the port
+only, not JAX, so a rank starts in about a second. It holds no tests.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import bsp as tbsp
+from repro_torch.core import exchanger as tex
+from repro_torch.models import build_model
+from repro_torch.models import vision as tvision
+from repro_torch.optim import optimizers as topt
+from repro_torch.optim import schedule as tsched
+from repro_torch.tree import leaves, tree_map
+
+# ---------------------------------------------------------------------------
+# the exchange on k ranks
+# ---------------------------------------------------------------------------
+
+STRATEGIES = ("ar", "asa", "asa16", "asabf16", "asa8", "none")
+BUCKET_BYTES = (0, 16384)
+
+
+def map_shapes(t, fn):
+    if isinstance(t, dict):
+        return {k: map_shapes(v, fn) for k, v in t.items()}
+    if isinstance(t, list):
+        return [map_shapes(v, fn) for v in t]
+    return fn(t)
+
+
+def value_tree(seed):
+    """Big and small, ragged leaves (numpy-seeded values)."""
+    rng = np.random.default_rng(seed)
+    return map_shapes(
+        {"w1": (33, 77), "w2": (77, 40), "b1": (1237,), "small": (5,),
+         "norm": (17,), "conv": {"w": (3, 3, 2, 100), "b": (100,)},
+         "blocks": [(1500,), (7,)]},
+        lambda s: torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)))
+
+
+def _np(tree):
+    return [t.numpy() for t in leaves(tree)]
+
+
+def exchange_worker(rank, k, out_dir):
+    tree = value_tree(100 + rank)
+    res = {}
+    for name in STRATEGIES:
+        ex = tex.get_exchanger(name)
+        for bb in BUCKET_BYTES:
+            res[(name, bb, "exchange")] = _np(ex.exchange(tree,
+                                                          bucket_bytes=bb))
+            if name == "none":
+                continue
+            halves, plan = ex.reduce_scatter(tree, bucket_bytes=bb)
+            flats = ex.all_gather(halves["shards"], plan)
+            res[(name, bb, "halves")] = _np(tex.Exchanger.unpack(
+                flats, halves["full"], plan))
+            res[(name, bb, "shards")] = [s.numpy() for s in halves["shards"]]
+            if ex.supports_raw:
+                raw, _ = ex.reduce_scatter(tree, bucket_bytes=bb, raw=True)
+                dq = []
+                for i, c in enumerate(raw["chunks"]):
+                    c = c.float()
+                    if raw["scales"]:
+                        c = c * raw["scales"][i][:, None]
+                    dq.append((c.sum(0) / k).numpy())
+                res[(name, bb, "raw")] = dq
+                res[(name, bb, "raw_dtype")] = str(raw["chunks"][0].dtype)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# BSP steps on k ranks
+# ---------------------------------------------------------------------------
+
+LR = 1e-3
+# (name, exchanger, make_bsp_step keywords, tolerance class)
+CASES = [
+    ("ar", "ar", {}, "fp32"),
+    ("asa", "asa", {}, "fp32"),
+    ("asa-mb2", "asa", {"microbatches": 2}, "fp32"),
+    ("awagd", "asa", {"scheme": "awagd"}, "fp32"),
+    ("asa16-sharded-fused", "asa16",
+     {"sharded_update": True, "fuse_rs_update": True}, "fp16"),
+    ("asa16-sharded", "asa16",
+     {"sharded_update": True, "fuse_rs_update": False}, "fp16"),
+]
+
+
+def port_model(params):
+    """Smoke AlexNet on the CPU whose ``init`` returns ``params`` and
+    whose loss runs without dropout."""
+    cfg = get_smoke_config("alexnet")
+    model = build_model(cfg, "cpu")
+    return dataclasses.replace(
+        model, init=lambda gen: tree_map(torch.clone, params),
+        loss_fn=lambda p, b, gen=None: tvision.conv_loss(p, b, cfg, None))
+
+
+def bsp_worker(rank, k, out_dir):
+    params = torch.load(os.path.join(out_dir, "init.pt"))
+    batches = torch.load(os.path.join(out_dir, "batches.pt"))
+    model = port_model(params)
+    opt = topt.sgd_momentum(momentum=0.9, weight_decay=5e-4)
+    res = {}
+    for name, exname, kw, _ in CASES:
+        sharded = kw.get("sharded_update", False)
+        state = (tbsp.init_sharded_train_state(model, opt, None)
+                 if sharded else tbsp.init_train_state(model, opt, None))
+        step = tbsp.make_bsp_step(model, opt, tex.get_exchanger(exname),
+                                  tsched.constant(LR), **kw)
+        losses = []
+        for b in batches:
+            half = b["images"].shape[0] // k
+            mine = {n: v[rank * half:(rank + 1) * half] for n, v in b.items()}
+            state, metrics = step(state, mine)
+            losses.append(float(metrics["loss"]))
+        res[name] = {"params": state["params"], "losses": losses,
+                     "step": state["step"]}
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
