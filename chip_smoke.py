@@ -26,6 +26,12 @@ and the CUDA toolkit. In order:
    ``page_size=0`` pass reaches the contiguous ``flash_decode``. One
    prompt's teacher-forced prefill and decode logits through the kernels
    are held to the einsum path.
+   The flash backward's two kernels (dq, and dk/dv) are held to their
+   plain version at the LM training shapes (B 4, S 1024, 32 heads over 8,
+   D 64, bf16), in fp32 at a smaller shape, and at G = 3 over a ragged
+   S = 1000 (with the forward), and timed beside PyTorch's own flash
+   backward. A gradient check runs ``decoder_loss`` of full llama3.2-1b on
+   2 x 512 tokens through the kernels and through the einsum attention.
 5. Train: the paper's BSP training of full-width AlexNet (227 px, 1000
    classes, 60,965,224 parameters, fp32, TF32 off) on k=2 gloo rank
    processes that share the card; each rank takes batches of 128
@@ -39,6 +45,18 @@ and the CUDA toolkit. In order:
    and must equal what its bucket plan predicts; every loss must be
    finite; and one ``asa`` step of the two ranks on two halves of a batch
    must equal one step of a group of one on the whole batch.
+6. LM train: BSP training of full llama3.2-1b (16 layers, 1,235,814,400
+   parameters, bf16 compute over fp32 masters, remat) on k=2 gloo ranks
+   sharing the card: batches of 4 x 1024 ``LMTokenSource`` tokens a rank
+   through the ``ParallelLoader``, ``asa16`` with the sharded update (the
+   fused RS tail), momentum SGD 0.9, weight decay 1e-4, ``warmup_cosine``,
+   6 steps. The launch counts (flash forward twice a layer and step under
+   remat, dq and dk/dv once, the wire and update kernels as the bucket
+   plan says) must equal the prediction and every loss must be finite.
+   At the smoke config the ranks then check that one fp32 ``asa`` step on
+   two halves equals one step of a group of one on the whole batch, and
+   that a run saved at step 3 and resumed to 6 equals an unbroken 6-step
+   run bit for bit.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -76,6 +94,25 @@ K_TOL = 1e-6          # one asa step, k=2 ranks on two halves vs a group of
                       # and p - lr g rounds to 1 ulp of |p| < 1 (<= 1.2e-7)
 TRAIN_STEPS = 8       # steps of each training run
 TRAIN_BATCH = 128     # images per rank and step
+BWD_TOL = 2e-2        # flash dq/dk/dv at bf16, max |d| over the output's max
+                      # |plain|: both versions round ds and p to bf16 per
+                      # element but sum them in another order, and ds carries
+                      # the cancellation of dp - di
+BWD_TOL_FP32 = 1e-5   # the same in fp32: only the order of the sums differs
+GRAD_LOSS_TOL = 1e-2  # full-width decoder_loss, kernels vs einsum attention:
+                      # bf16 activations through 16 layers; the einsum path
+                      # takes its scores and softmax in bf16, the kernels in
+                      # fp32
+GRAD_TOL = 5e-2       # each leaf's gradient there, relative Frobenius error:
+                      # 16 layers of d_model 512 under the same bf16 policy
+                      # measured 2.5e-2 (max) and 1.5e-2 (median) on the CPU
+                      # with the plain versions, the attention projections
+                      # the worst, while each side lay 2.7e-2 / 2.8e-2 from
+                      # the kernels in fp32 (printed here too): the bf16
+                      # policy, not the kernels, sets the disagreement
+LM_STEPS = 6          # steps of the LM training run
+LM_BATCH, LM_SEQ = 4, 1024   # sequences of tokens per rank and step
+LM_PARAMS = 1_235_814_400    # llama3.2-1b with tied embeddings
 
 
 def _fail(msg: str):
@@ -133,7 +170,7 @@ def _bound(nbytes: float, flops: float, flop_s: float = BF16_FLOP_S):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def _event_ms(fn, iters: int = 20) -> float:
+def _event_ms(fn, iters: int = 20, flush=None) -> float:
     """Median device time of one call launched from the host (for a
     library call that cannot be captured in a CUDA graph)."""
     import torch
@@ -141,6 +178,8 @@ def _event_ms(fn, iters: int = 20) -> float:
         fn()
     times = []
     for _ in range(iters):
+        if flush is not None:
+            flush()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -279,6 +318,190 @@ def kernel_phase(torch, ref, fa, sg, flush):
                                 ("ms", "plain_ms", "library_ms", "host_ms",
                                  "bound")}))
     return rows
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _check_bwd(torch, ref, fa, dtype, shape, tol, fwd_tol=None, seed=0,
+               dev="cuda"):
+    """The flash backward kernels (and, with ``fwd_tol``, the forward)
+    against their plain versions at one shape; returns the inputs and the
+    backward's errors, relative (``errs``, held to ``tol``) and absolute
+    (``abs_errs``)."""
+    B, S, H, KV, D = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(dtype)
+    q, k, v, do = rn(B, S, H, D), rn(B, S, KV, D), rn(B, S, KV, D), \
+        rn(B, S, H, D)
+    qo = torch.zeros(B, dtype=torch.int32, device=dev)
+    scale = 1 / math.sqrt(D)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    if fwd_tol is not None:
+        want, want_lse = ref.flash_attention_ref(q, k, v, qo, 0, scale, True)
+        err = (out.float() - want.float()).abs().max().item()
+        err_l = (lse - want_lse).abs().max().item()
+        if not (err <= fwd_tol and err_l <= 1e-3):
+            _fail(f"flash_attention {shape} {dtype}: max err {err}, lse "
+                  f"{err_l}")
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=qo,
+                                 sm_scale=scale)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, qo, 0, scale)
+    names = ("dq", "dk", "dv")
+    errs = {n: _rel_err(a, b) for n, a, b in zip(names, got, want)}
+    abs_errs = {n: (a.float() - b.float()).abs().max().item()
+                for n, a, b in zip(names, got, want)}
+    print(f"flash backward {shape} {str(dtype)[6:]}: max |d| / max |plain| "
+          + json.dumps(errs))
+    if not all(e <= tol for e in errs.values()):
+        _fail(f"flash backward {shape} {dtype} vs plain: {errs} > {tol}")
+    return dict(q=q, k=k, v=v, do=do, out=out, lse=lse, qo=qo, scale=scale,
+                got=got, want=want, errs=errs, abs_errs=abs_errs)
+
+
+def _library_bwd_ms(torch, q, k, v, do, flush):
+    """PyTorch's own flash-attention backward (dq, dk, dv in one call) at
+    the same shapes, K/V repeated to all H heads. A yardstick; the port
+    never calls it."""
+    G = q.shape[2] // k.shape[2]
+    qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    o, lse, cq, ck, mq, mk, seed, off = \
+        torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True, False)[:8]
+    bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    return _event_ms(lambda: bwd(dot, qt, kt, vt, o, lse, cq, ck, mq, mk,
+                                 0.0, True, seed, off), flush=flush)
+
+
+def lm_kernel_phase(torch, ref, fa, flush, dev="cuda"):
+    """The flash backward kernels against their plain version at the LM
+    training shapes, in fp32 at a smaller shape, and at G = 3 over a
+    ragged S; rows for the dq and dk/dv kernels."""
+    B, S, H, KV, D = LM_BATCH, LM_SEQ, 32, 8, 64
+    c = _check_bwd(torch, ref, fa, torch.bfloat16, (B, S, H, KV, D), BWD_TOL,
+                   fwd_tol=FWD_TOL, seed=11, dev=dev)
+    _check_bwd(torch, ref, fa, torch.float32, (1, 256, 8, 2, D),
+               BWD_TOL_FP32, fwd_tol=1e-5, seed=12, dev=dev)
+    _check_bwd(torch, ref, fa, torch.bfloat16, (2, S - 24, 12, 4, D),
+               BWD_TOL, fwd_tol=FWD_TOL, seed=13, dev=dev)   # G = 3, ragged
+    q, k, v, do, lse, qo, scale = (c[n] for n in ("q", "k", "v", "do", "lse",
+                                                  "qo", "scale"))
+    di = ref.flash_attention_di(c["out"], do)
+    kw = dict(q_off=qo, window=0, sm_scale=scale)
+    lib_ms = _library_bwd_ms(torch, q, k, v, do, flush)
+    print(f"library flash backward (dq, dk, dv together): {lib_ms} ms")
+    pairs = B * H * S * (S + 1) // 2           # live (row, key) pairs
+    row_b, kv_b, st_b = B * S * H * D * 2, B * S * KV * D * 2, B * S * H * 4
+    # the forward at the same shapes (its kernel row is at the serve shape)
+    fwd = _bound(2 * row_b + 2 * kv_b + st_b, 4 * D * pairs)
+    print("flash forward at the LM training shapes: " + json.dumps(dict(
+        ms=_median_ms(lambda: fa.flash_attention(q, k, v, q_off=qo,
+                                                 return_lse=True),
+                      flush=flush),
+        library_ms=_event_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), is_causal=True,
+                                 enable_gqa=True), flush=flush),
+        bound_ms=fwd[0], bound_by=fwd[1])))
+    rows = []
+    for name, line, fn, plain, nbytes, flops, outs in (
+            ("flash_attention_dq", 179,
+             lambda: fa.flash_attention_dq(q, k, v, lse, do, di, **kw),
+             lambda: ref.flash_attention_dq_ref(q, k, v, lse, do, di, qo, 0,
+                                                scale),
+             3 * row_b + 2 * kv_b + 2 * st_b, 6 * D * pairs, ("dq",)),
+            ("flash_attention_dkv", 214,
+             lambda: fa.flash_attention_dkv(q, k, v, lse, do, di, **kw),
+             lambda: ref.flash_attention_dkv_ref(q, k, v, lse, do, di, qo, 0,
+                                                 scale),
+             2 * row_b + 4 * kv_b + 2 * st_b, 8 * D * pairs, ("dk", "dv"))):
+        rows.append(dict(
+            name=name, src="src/repro_torch/csrc/flash_attention.cu",
+            replaces=f"src/repro/kernels/flash_attention.py:{line}",
+            err=max(c["abs_errs"][o] for o in outs),
+            rel_err=max(c["errs"][o] for o in outs),
+            ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
+            plain_ms=_median_ms(plain, flush=flush), library_ms=lib_ms,
+            bound=_bound(nbytes, flops)))
+    print("flash backward at B 4, S 1024, 32/8 heads, D 64, bf16: " +
+          json.dumps({r["name"]: {k_: r[k_] for k_ in (
+              "err", "rel_err", "ms", "plain_ms", "library_ms", "bound")}
+              for r in rows}))
+    return rows
+
+
+def _leaf_names(tree, prefix=""):
+    """Dotted leaf paths in the port's flatten order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k],
+                                                             f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def lm_grad_check(torch, cfg, models, dev):
+    """decoder_loss of full ``cfg`` on 2 x 512 tokens, and the gradient of
+    every leaf, through the kernels and through the einsum attention."""
+    import numpy as np
+
+    from repro_torch.configs.base import with_attn_impl
+    from repro_torch.data.synthetic import LMTokenSource
+    from repro_torch import kernels as K
+    from repro_torch.tree import flatten, unflatten
+    src = LMTokenSource(cfg.vocab_size, 512)
+    batch = {n: torch.from_numpy(v).to(dev)
+             for n, v in src.batch(2, 4242).items()}
+    master = models.build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(3))
+    leaves, treedef = flatten(master)
+    names = _leaf_names(master)
+    out = {}
+    for impl in ("flash", "ref", "fp32"):
+        c = (cfg.with_overrides(dtype="float32") if impl == "fp32" else
+             with_attn_impl(cfg, impl))
+        model = models.build_model(c, dev)
+        ps = [t.detach().requires_grad_(True) for t in leaves]
+        K.reset_launches()
+        loss, _ = model.loss_fn(unflatten(treedef, ps), batch)
+        grads = torch.autograd.grad(loss, ps)
+        _sync(torch, dev)
+        out[impl] = (loss.item(), grads, dict(K.LAUNCHES))
+        del ps, loss
+    L = cfg.num_layers
+    want_launches = {"flash_attention": (2 if cfg.remat else 1) * L,
+                     "flash_attention_dq": L, "flash_attention_dkv": L}
+    if dev.type == "cuda" and out["flash"][2] != want_launches:
+        _fail(f"grad check launches {out['flash'][2]} != {want_launches}")
+    def rel(a_impl, b_impl):
+        return [((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+            1e-30)).item() for a, b in zip(out[a_impl][1], out[b_impl][1])]
+
+    errs = rel("flash", "ref")
+    worst = sorted(zip(errs, names), reverse=True)[:4]
+    d_loss = abs(out["flash"][0] - out["ref"][0])
+    print(f"grad check, {cfg.name} on 2 x 512 tokens, kernels vs einsum: "
+          f"loss {out['flash'][0]:.6f} vs {out['ref'][0]:.6f} (|d| "
+          f"{d_loss:.3g}); leaf gradients, relative Frobenius error: max "
+          f"{max(errs):.4g}, median {float(np.median(errs)):.4g}, worst "
+          f"leaves {[(n, round(e, 5)) for e, n in worst]}")
+    for impl in ("flash", "ref"):
+        e32 = rel(impl, "fp32")
+        print(f"  {impl} (bf16) vs the kernels in fp32: loss |d| "
+              f"{abs(out[impl][0] - out['fp32'][0]):.3g}; leaf gradients max "
+              f"{max(e32):.4g}, median {float(np.median(e32)):.4g}")
+    if not (math.isfinite(d_loss) and d_loss <= GRAD_LOSS_TOL):
+        _fail(f"grad check: losses differ by {d_loss} > {GRAD_LOSS_TOL}")
+    if not all(math.isfinite(e) and e <= GRAD_TOL for e in errs):
+        _fail(f"grad check: a leaf gradient differs by {max(errs)} > "
+              f"{GRAD_TOL}")
 
 
 def _sync(torch, dev):
@@ -519,6 +742,51 @@ def train_kernel_phase(torch, ref, flush):
     return rows
 
 
+def lm_wire_check(torch, ref, shapes, dev="cuda"):
+    """The asa16 wire and update kernels at every bucket shape of the LM
+    run, bit for bit against their plain versions: per (padded, shard)
+    bucket, quant_fp16 of the (k, shard) chunks and of the shard,
+    fused_rs_update of the (k, shard) fp16 receive (with the LM's
+    momentum and weight decay over a mixed 0/1 decay mask), and
+    dequant_fp16 of the gathered (padded,) bucket. The values reach past
+    fp16's range, so overflow to inf is exercised."""
+    from repro_torch.kernels import fused_rs_update as fru
+    from repro_torch.kernels import quantize as qz
+    k = 2
+    g = torch.Generator(device=dev).manual_seed(4322)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    lr = torch.tensor([0.01], device=dev)
+    bits = lambda t: t.view({2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+    same = lambda a, b: torch.equal(bits(a), bits(b))
+    for padded, s in shapes:
+        if padded != k * s:
+            _fail(f"LM bucket {padded} is not {k} shards of {s}")
+        x = rn(k, s) * 20000
+        recv = x.half()
+        ps, ms_ = rn(s) * 0.01, rn(s) * 0.001
+        mask = (torch.rand(s, generator=g, device=dev) < 0.9).float()
+        got = fru.fused_rs_update(recv, ps, ms_, lr, wd_mask=mask,
+                                  scale=1 / k, momentum=0.9,
+                                  weight_decay=1e-4)
+        want = ref.fused_rs_update_ref(recv, ps, ms_, mask, lr, 0.9, False,
+                                       1 / k, 1e-4, None)
+        ok = {"quant_fp16 (k, shard)": same(qz.quant_fp16(x),
+                                            ref.quant_fp16_ref(x)),
+              "quant_fp16 (shard,)": same(qz.quant_fp16(x[0]),
+                                          ref.quant_fp16_ref(x[0])),
+              "dequant_fp16 (padded,)": same(
+                  qz.dequant_fp16(recv.reshape(-1)),
+                  ref.dequant_fp16_ref(recv.reshape(-1))),
+              "fused_rs_update": all(same(a, b) for a, b in zip(got, want))}
+        print(f"LM bucket {padded} = {k} x {s}, bit for bit: "
+              + json.dumps(ok))
+        if not all(ok.values()):
+            _fail(f"LM bucket {padded}: a wire or update kernel differs "
+                  f"from its plain version: {ok}")
+        del x, recv, ps, ms_, mask, got, want
+
+
 def conv_precision(torch):
     """The weight gradient of AlexNet's c2 (5x5, 2 groups of 48 input
     channels, 27x27 maps) at batch 32 and 64 in fp32, with cuDNN and with
@@ -716,6 +984,187 @@ def train_phase(device="cuda:0", smoke=False):
     return total
 
 
+def _lm_rank(rank, k, out_dir, device, smoke):
+    """One rank of the LM training phase (a spawned process on ``device``:
+    cuda:0, or the CPU with the smoke config to rehearse)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import bsp, exchanger
+    from repro_torch.data.synthetic import LMTokenSource
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.launch.train import (rank_loader, set_fp32_math,
+                                          write_rank_batches)
+    from repro_torch.models import build_model, count_params
+    from repro_torch.optim import constant, sgd_momentum, warmup_cosine
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+    from repro_torch.tree import leaves
+
+    set_fp32_math()        # the fp32 k=2 vs k=1 check wants full fp32 matmuls
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    quiet = lambda *a: None
+    opt = sgd_momentum(momentum=0.9, weight_decay=1e-4,
+                       fused_kernel=fs.fused_sgd)
+    plan = TrainPlan(exchanger="asa16", sharded_update=True)
+    out = {"rank": rank}
+
+    # --- the main path: full llama3.2-1b, asa16 with the fused RS tail
+    cfg = (get_smoke_config if smoke else get_config)("llama3.2-1b")
+    model = build_model(cfg, dev)
+    batch, seq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
+    files = write_rank_batches(cfg, rank, k, batch, LM_STEPS,
+                               os.path.join(out_dir, f"lm{rank}"), seq=seq)
+    loader = rank_loader(cfg, files, dev, LM_STEPS, seed=rank)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    state, rep = train(model, opt, warmup_cosine(0.01, 2, LM_STEPS), loader,
+                       plan=plan, num_steps=LM_STEPS, log_every=LM_STEPS,
+                       seed=0, print_fn=quiet)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    loader.stop()
+    n_params = count_params(state["params"])
+    if not smoke and n_params != LM_PARAMS:
+        _fail(f"llama3.2-1b has {n_params} parameters, not {LM_PARAMS:,}")
+    rsplan = exchanger.make_rs_plan(state["params"], k)
+    predicted = _predicted_launches(rsplan, len(leaves(state["params"])), "a",
+                                    LM_STEPS, cuda)
+    L = cfg.num_layers
+    predicted.update(flash_attention=(2 if cfg.remat else 1) * L * LM_STEPS,
+                     flash_attention_dq=L * LM_STEPS,
+                     flash_attention_dkv=L * LM_STEPS)
+    out["main"] = dict(
+        params=n_params, steps=rep.steps, losses=rep.losses,
+        tokens_per_s=rep.steady_tokens_per_s,
+        first_step_s=rep.first_step_time,
+        phase_ms={p: v * 1e3 for p, v in rep.phase_s.items()},
+        staged_mb_per_step=rep.staged_bytes / 1e6,
+        stage_ms_per_step=rep.stage_s * 1e3,
+        wire_ms_per_step=rep.wire_s * 1e3,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+        buckets=rsplan.num_buckets, launches=launches,
+        bucket_shapes=sorted({(b.padded, b.shard_len)
+                              for b in rsplan.buckets}),
+        predicted={n: c for n, c in predicted.items() if c})
+    del state, model, loader
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # --- one fp32 asa step at the smoke config, the attention through the
+    # kernels: the two ranks on two halves, then a group of one (rank 0)
+    # on the whole batch, from the same parameters
+    solo = dist.new_group([0])
+    scfg = get_smoke_config("llama3.2-1b").with_overrides(dtype="float32")
+    smodel = build_model(scfg, dev)
+    full = {n: torch.from_numpy(v).to(dev) for n, v in
+            LMTokenSource(scfg.vocab_size, 64).batch(4, 777).items()}
+    half = {n: v[rank * 2:(rank + 1) * 2] for n, v in full.items()}
+    params = smodel.init(torch.Generator(device=dev).manual_seed(7))
+    sstate = {"params": params, "opt": opt.init(params), "step": 0}
+    asa = exchanger.get_exchanger("asa")
+    K.reset_launches()
+    two, _ = bsp.make_bsp_step(smodel, opt, asa, constant(0.01))(sstate, half)
+    out["k2_launches"] = dict(K.LAUNCHES)
+    if rank == 0:
+        one, _ = bsp.make_bsp_step(smodel, opt, asa, constant(0.01),
+                                   group=solo)(sstate, full)
+        out["k2_vs_k1_max_abs_dp"] = max(
+            (a - b).abs().max().item()
+            for a, b in zip(leaves(two["params"]), leaves(one["params"])))
+        out["k2_vs_k1_max_abs_step"] = max(
+            (b - p0).abs().max().item()
+            for b, p0 in zip(leaves(one["params"]), leaves(params)))
+
+    # --- resume: a run saved at step 3 and resumed to 6 against an unbroken
+    # 6-step run, at the smoke config (bf16 compute, asa16 sharded)
+    rcfg = get_smoke_config("llama3.2-1b")
+    rmodel = build_model(rcfg, dev)
+    rfiles = write_rank_batches(rcfg, rank, k, 2, LM_STEPS,
+                                os.path.join(out_dir, f"resume{rank}"),
+                                seq=64)
+    ck = os.path.join(out_dir, "ckpt")
+    finals = []
+    for kw in (dict(num_steps=LM_STEPS),
+               dict(num_steps=3, ckpt_path=ck, ckpt_every=3),
+               dict(num_steps=LM_STEPS, resume_from=ck)):
+        rloader = rank_loader(rcfg, rfiles, dev, LM_STEPS, seed=rank)
+        st, rrep = train(rmodel, opt, warmup_cosine(0.01, 2, LM_STEPS),
+                         rloader, plan=plan, log_every=0, seed=0,
+                         print_fn=quiet, **kw)
+        rloader.stop()
+        finals.append((leaves(st), rrep.steps))
+    (a, na), (_, n3), (b, nb) = finals
+    out["resume"] = dict(
+        steps=[na, n3, nb],
+        bitwise_equal=len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) if torch.is_tensor(x)
+            else x == y for x, y in zip(a, b)),
+        max_abs_diff=max((x.float() - y.float()).abs().max().item()
+                         for x, y in zip(a, b) if torch.is_tensor(x)))
+    dist.barrier()
+    with open(os.path.join(out_dir, f"lm_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def lm_train_phase(device="cuda:0", smoke=False):
+    """Spawns the k=2 LM rank processes and checks what they report;
+    returns the main run's launches and its (padded, shard) bucket
+    shapes."""
+    import tempfile
+
+    from repro_torch.launch.train import run_ranks
+    k = 2
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        run_ranks(_lm_rank, k, (td, device, smoke), backend="gloo")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(Path(td, f"lm_rank{r}.json").read_text())
+                 for r in range(k)]
+    print(f"LM train phase: {k} gloo ranks on {device}, {wall:.1f}s")
+    for rk in ranks:
+        m = rk["main"]
+        bad = [x for x in m["losses"] if not math.isfinite(x)]
+        if len(m["losses"]) != LM_STEPS or bad:
+            _fail(f"LM run rank {rk['rank']}: losses {m['losses']}")
+        if m["launches"] != m["predicted"]:
+            _fail(f"LM run rank {rk['rank']}: launches {m['launches']} != "
+                  f"predicted {m['predicted']}")
+        for name in ("flash_attention", "flash_attention_dq",
+                     "flash_attention_dkv"):
+            if device != "cpu" and rk["k2_launches"].get(name, 0) <= 0:
+                _fail(f"the LM k=2 step did not launch {name}")
+        r = rk["resume"]
+        if r["steps"] != [LM_STEPS, 3, LM_STEPS] or not r["bitwise_equal"]:
+            _fail(f"rank {rk['rank']}: resumed run differs from the unbroken "
+                  f"one: {r}")
+    m = ranks[0]["main"]
+    print("LM train run (llama3.2-1b, asa16 sharded): " + json.dumps(
+        {key: m[key] for key in (
+            "params", "tokens_per_s", "first_step_s", "phase_ms",
+            "staged_mb_per_step", "stage_ms_per_step", "wire_ms_per_step",
+            "buckets", "launches", "predicted", "losses")}))
+    print("LM peak memory per rank, GB: " + json.dumps(
+        [rk["main"]["peak_mem_gb"] for rk in ranks]))
+    print("LM resume check: " + json.dumps(ranks[0]["resume"]))
+    dp = ranks[0]["k2_vs_k1_max_abs_dp"]
+    print(f"LM asa step (smoke config, fp32), k=2 on halves vs k=1 on the "
+          f"batch: max |dp| {dp} (bound {K_TOL}; the step itself moved "
+          f"parameters by up to {ranks[0]['k2_vs_k1_max_abs_step']})")
+    if not dp <= K_TOL:
+        _fail(f"LM k=2 and k=1 asa steps differ by {dp} > {K_TOL}")
+    return dict(m["launches"]), [tuple(b) for b in m["bucket_shapes"]]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -754,23 +1203,37 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rows += train_kernel_phase(torch, ref, flush=l2.zero_)
+    rows += lm_kernel_phase(torch, ref, fa, flush=l2.zero_)
     del l2
-    conv_precision(torch)
-    launches, stats = engine_phase(torch, K,
-                                   cfg_mod.get_config("llama3.2-1b"), models,
-                                   serve, torch.device("cuda"))
     torch.cuda.empty_cache()
-    launches.update(train_phase())
+    conv_precision(torch)
+    llama = cfg_mod.get_config("llama3.2-1b")
+    launches, stats = engine_phase(torch, K, llama, models, serve,
+                                   torch.device("cuda"))
+    torch.cuda.empty_cache()
+    lm_grad_check(torch, llama, models, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    # launches per kernel and main path (serve, AlexNet training, LM
+    # training), each path counted from zero around its run
+    by_path = {"serve": launches, "alexnet_train": train_phase()}
+    by_path["lm_train"], lm_buckets = lm_train_phase()
+    lm_wire_check(torch, ref, lm_buckets)
 
     out = []
     for r in rows:
         b_ms, b_by = r["bound"]
         out.append({"name": r["name"], "route": "cuda", "source": r["src"],
                     "replaces": r["replaces"],
-                    "launches": launches.get(r["name"], 0),
+                    "launches": sum(p.get(r["name"], 0)
+                                    for p in by_path.values()),
+                    "launches_by_path": {p: c[r["name"]]
+                                         for p, c in by_path.items()
+                                         if c.get(r["name"])},
                     "max_abs_err": r["err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": r["library_ms"]})
+        if "rel_err" in r:
+            out[-1]["max_rel_err"] = r["rel_err"]
     print("wrapper call incl. host dispatch, ms: " + json.dumps(
         {r["name"]: r["host_ms"] for r in rows}))
     print(json.dumps({"kernels": out}))

@@ -1,11 +1,14 @@
 // Flash attention for Hopper (sm_90a): the causal/windowed GQA forward used
-// by chunked prefill, and the split-KV one-token decode over contiguous or
-// paged cache lanes. Plain C interface, loaded with ctypes
+// by training and chunked prefill, its backward (dq, and dk/dv), and the
+// split-KV one-token decode over contiguous or paged cache lanes. Plain C
+// interface, loaded with ctypes
 // (repro_torch/kernels/flash_attention.py); every entry point launches on
 // the caller's stream and returns cudaGetLastError().
 //
 // Replaces (JAX package, Pallas/TPU):
 //   flash_fwd          <- src/repro/kernels/flash_attention.py:_fwd_kernel
+//   flash_bwd_dq       <- src/repro/kernels/flash_attention.py:_dq_kernel
+//   flash_bwd_dkv      <- src/repro/kernels/flash_attention.py:_dkv_kernel
 //   flash_decode_split <- src/repro/kernels/flash_attention.py:_decode_kernel
 //                         and :_decode_paged_kernel (tables != NULL)
 //
@@ -19,6 +22,7 @@
 // key tiles above the causal diagonal or below the window, and never writes
 // a score matrix to device memory. Products are fp32 FMAs on values staged
 // in shared memory; a tensor-core (wgmma/mma.sync) version is later work.
+// The backward's bound and design are noted above its kernels.
 //
 // Numerics follow the TPU kernels: fp32 online softmax, NEG_INF = -1e30,
 // masked p zeroed explicitly, l clamped at 1e-30, and p rounded to the
@@ -71,7 +75,9 @@ __device__ __forceinline__ bool window_keep(int qpos, int kpos, int win) {
 
 constexpr int FWD_THREADS = 128;           // 4 warps
 constexpr int FWD_WARPS = FWD_THREADS / 32;
-// block_q * G rows per block. Small on purpose: a 32-row prefill chunk of
+// Row capacity of a block: block_q = FWD_ROWS / G queries of G heads each,
+// block_q * G rows; where G does not divide FWD_ROWS (G = 3: 15 rows) the
+// spare rows stay idle. Small on purpose: a 32-row prefill chunk of
 // llama3.2-1b (G = 4) then spreads over 8 q tiles x 8 kv heads = 64
 // blocks instead of 16, and each lane's serial FMA chain is 4x shorter.
 constexpr int FWD_ROWS = 16;
@@ -189,6 +195,272 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd) out[row * D + lane + 32 * dd] = from_f<T>(acc[t][dd] / lc);
     if (lse != nullptr && lane == 0) lse[row] = m[t] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: dq, and dk/dv summed over the G heads of a group
+// ---------------------------------------------------------------------------
+//
+// Both recompute p = exp(s * sm_scale - lse) per tile from the saved fp32
+// lse (never stored), with ds = p * (dp - di) * sm_scale, dp = do . v and
+// di = rowsum(out * do) computed by the caller. Casts follow the TPU
+// kernels: ds to k's dtype before ds @ k (dq), p to do's dtype and ds to
+// q's dtype before the dv / dk contractions. At the training shapes
+// (B 4, S 1024, 32 heads over 8, D 64) both are bound by operations (~6D
+// and ~8D FLOPs per live (row, key) pair against ~4 bytes of input per
+// row and key column); these first versions run them as fp32 FMAs on the
+// CUDA cores from shared memory, like the forward, and a tensor-core
+// version is later work.
+
+constexpr int BWD_THREADS = 128;           // 4 warps
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BWD_BK = 32;                 // keys per tile: one per lane
+// dq: one block per (q tile, kv head, batch row), rows = (DQ_ROWS / G) * G
+constexpr int DQ_ROWS = 16;
+constexpr int DQ_RPW = DQ_ROWS / BWD_WARPS;
+// dk/dv: one block per (key tile, kv head, batch row) walking q tiles of
+// (DKV_ROWS / G) * G rows; each warp owns BWD_BK / BWD_WARPS keys of the
+// tile, so dk/dv are summed over the whole group in registers, no atomics
+constexpr int DKV_ROWS = 32;
+constexpr int DKV_RPW = DKV_ROWS / BWD_WARPS;
+constexpr int DKV_KPW = BWD_BK / BWD_WARPS;
+
+// the rows of one q tile of a (B, Sq, H, D) tensor, G heads per query,
+// into shared memory as fp32 (zeros past Sq and in the spare rows)
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int b, int i,
+                                          int Sq, int H, int h, int G, int block_q) {
+  const int rows = block_q * G;
+  for (int e = threadIdx.x; e < ROWS * D; e += blockDim.x) {
+    const int r = e / D, d = e % D;
+    const int qi = i * block_q + r / G;
+    float x = 0.f;
+    if (r < rows && qi < Sq) x = to_f<T>(src[(((size_t)b * Sq + qi) * H + h * G + r % G) * D + d]);
+    dst[e] = x;
+  }
+}
+
+template <int ROWS>
+__device__ __forceinline__ void load_row_stats(float* dst, const float* __restrict__ src, int b,
+                                               int i, int Sq, int H, int h, int G, int block_q) {
+  const int rows = block_q * G;
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
+    const int qi = i * block_q + r / G;
+    dst[r] = (r < rows && qi < Sq) ? src[((size_t)b * Sq + qi) * H + h * G + r % G] : 0.f;
+  }
+}
+
+// keys [j*BWD_BK, (j+1)*BWD_BK) of kv head h of a (B, Sk, KV, D) tensor,
+// padded rows of D + 1 (no bank conflicts when lane = key)
+template <typename T, int D>
+__device__ __forceinline__ void load_keys(float* dst, const T* __restrict__ src, int b, int j,
+                                          int Sk, int KV, int h) {
+  for (int e = threadIdx.x; e < BWD_BK * D; e += blockDim.x) {
+    const int c = e / D, d = e % D;
+    const int kpos = j * BWD_BK + c;
+    dst[c * (D + 1) + d] =
+        kpos < Sk ? to_f<T>(src[(((size_t)b * Sk + kpos) * KV + h) * D + d]) : 0.f;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ di, T* __restrict__ dq, const int* __restrict__ q_off,
+              int Sq, int Sk, int H, int KV, int block_q, int win, float sm_scale) {
+  constexpr int DPL = D / 32;
+  const int G = H / KV;
+  const int rows = block_q * G;
+  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int first_q = q_off[b] + i * block_q;   // oldest query of the tile
+
+  extern __shared__ float smem[];
+  float* qs = smem;                        // [DQ_ROWS][D]
+  float* dos = qs + DQ_ROWS * D;           // [DQ_ROWS][D]
+  float* ks = dos + DQ_ROWS * D;           // [BWD_BK][D + 1]
+  float* vs = ks + BWD_BK * (D + 1);       // [BWD_BK][D + 1]
+  float* dss = vs + BWD_BK * (D + 1);      // [DQ_ROWS][BWD_BK]
+  float* lses = dss + DQ_ROWS * BWD_BK;    // [DQ_ROWS]
+  float* dis = lses + DQ_ROWS;             // [DQ_ROWS]
+
+  load_rows<T, D, DQ_ROWS>(qs, q, b, i, Sq, H, h, G, block_q);
+  load_rows<T, D, DQ_ROWS>(dos, dout, b, i, Sq, H, h, G, block_q);
+  load_row_stats<DQ_ROWS>(lses, lse, b, i, Sq, H, h, G, block_q);
+  load_row_stats<DQ_ROWS>(dis, di, b, i, Sq, H, h, G, block_q);
+
+  float acc[DQ_RPW][DPL];
+#pragma unroll
+  for (int t = 0; t < DQ_RPW; ++t)
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) acc[t][dd] = 0.f;
+
+  const int nk = (Sk + BWD_BK - 1) / BWD_BK;
+  const int j_hi = min(nk - 1, (first_q + block_q - 1) / BWD_BK);  // causal tile skip
+  for (int j = 0; j <= j_hi; ++j) {
+    // window tile skip (_tile_live); uniform over the block
+    if (win > 0 && (j + 1) * BWD_BK <= first_q - win + 1) continue;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_keys<T, D>(ks, k, b, j, Sk, KV, h);
+    load_keys<T, D>(vs, v, b, j, Sk, KV, h);
+    __syncthreads();
+
+    // s = q . k and dp = do . v: lane = key, warp = rows warp + 4t
+    float s[DQ_RPW], dp[DQ_RPW];
+#pragma unroll
+    for (int t = 0; t < DQ_RPW; ++t) s[t] = dp[t] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kd = ks[lane * (D + 1) + d], vd = vs[lane * (D + 1) + d];
+#pragma unroll
+      for (int t = 0; t < DQ_RPW; ++t) {
+        const int r = warp + BWD_WARPS * t;
+        s[t] += qs[r * D + d] * kd;
+        dp[t] += dos[r * D + d] * vd;
+      }
+    }
+    const int kpos = j * BWD_BK + lane;
+#pragma unroll
+    for (int t = 0; t < DQ_RPW; ++t) {
+      const int r = warp + BWD_WARPS * t;
+      const int qpos = first_q + r / G;
+      const bool keep = r < rows && i * block_q + r / G < Sq && kpos <= qpos && kpos < Sk &&
+                        window_keep(qpos, kpos, win);
+      const float p = keep ? expf(s[t] * sm_scale - lses[r]) : 0.f;
+      dss[r * BWD_BK + lane] = round_to<T>(p * (dp[t] - dis[r]) * sm_scale);
+    }
+    __syncwarp();
+    // dq[r][d] += sum_c ds[r][c] * k[c][d]: lane = column d
+    for (int c = 0; c < BWD_BK; ++c) {
+      float kk[DPL];
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) kk[dd] = ks[c * (D + 1) + lane + 32 * dd];
+#pragma unroll
+      for (int t = 0; t < DQ_RPW; ++t) {
+        const float dsc = dss[(warp + BWD_WARPS * t) * BWD_BK + c];
+#pragma unroll
+        for (int dd = 0; dd < DPL; ++dd) acc[t][dd] += dsc * kk[dd];
+      }
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int t = 0; t < DQ_RPW; ++t) {
+    const int r = warp + BWD_WARPS * t;
+    const int qi = i * block_q + r / G;
+    if (r >= rows || qi >= Sq) continue;
+    const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) dq[row * D + lane + 32 * dd] = from_f<T>(acc[t][dd]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
+               const int* __restrict__ q_off, int Sq, int Sk, int H, int KV, int block_q,
+               int win, float sm_scale) {
+  constexpr int DPL = D / 32;
+  const int G = H / KV;
+  const int rows = block_q * G;
+  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qoff = q_off[b];
+
+  extern __shared__ float smem[];
+  float* ks = smem;                        // [BWD_BK][D + 1]
+  float* vs = ks + BWD_BK * (D + 1);       // [BWD_BK][D + 1]
+  float* qs = vs + BWD_BK * (D + 1);       // [DKV_ROWS][D]
+  float* dos = qs + DKV_ROWS * D;          // [DKV_ROWS][D]
+  float* ps = dos + DKV_ROWS * D;          // [DKV_ROWS][BWD_BK]
+  float* dss = ps + DKV_ROWS * BWD_BK;     // [DKV_ROWS][BWD_BK]
+  float* lses = dss + DKV_ROWS * BWD_BK;   // [DKV_ROWS]
+  float* dis = lses + DKV_ROWS;            // [DKV_ROWS]
+
+  load_keys<T, D>(ks, k, b, j, Sk, KV, h);
+  load_keys<T, D>(vs, v, b, j, Sk, KV, h);
+
+  float acc_k[DKV_KPW][DPL], acc_v[DKV_KPW][DPL];
+#pragma unroll
+  for (int u = 0; u < DKV_KPW; ++u)
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) acc_k[u][dd] = acc_v[u][dd] = 0.f;
+
+  const int nq = (Sq + block_q - 1) / block_q;
+  const int kpos = j * BWD_BK + lane;
+  for (int i = 0; i < nq; ++i) {
+    const int first_q = qoff + i * block_q;
+    // _tile_live: not above the causal diagonal, not older than the window
+    if (j * BWD_BK > first_q + block_q - 1) continue;
+    if (win > 0 && (j + 1) * BWD_BK <= first_q - win + 1) continue;
+    __syncthreads();  // every warp is done with the previous q tile
+    load_rows<T, D, DKV_ROWS>(qs, q, b, i, Sq, H, h, G, block_q);
+    load_rows<T, D, DKV_ROWS>(dos, dout, b, i, Sq, H, h, G, block_q);
+    load_row_stats<DKV_ROWS>(lses, lse, b, i, Sq, H, h, G, block_q);
+    load_row_stats<DKV_ROWS>(dis, di, b, i, Sq, H, h, G, block_q);
+    __syncthreads();
+
+    // s = q . k and dp = do . v: lane = key, warp = rows warp + 4t
+    float s[DKV_RPW], dp[DKV_RPW];
+#pragma unroll
+    for (int t = 0; t < DKV_RPW; ++t) s[t] = dp[t] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kd = ks[lane * (D + 1) + d], vd = vs[lane * (D + 1) + d];
+#pragma unroll
+      for (int t = 0; t < DKV_RPW; ++t) {
+        const int r = warp + BWD_WARPS * t;
+        s[t] += qs[r * D + d] * kd;
+        dp[t] += dos[r * D + d] * vd;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < DKV_RPW; ++t) {
+      const int r = warp + BWD_WARPS * t;
+      const int qpos = first_q + r / G;
+      const bool keep = r < rows && i * block_q + r / G < Sq && kpos <= qpos && kpos < Sk &&
+                        window_keep(qpos, kpos, win);
+      const float p = keep ? expf(s[t] * sm_scale - lses[r]) : 0.f;
+      ps[r * BWD_BK + lane] = round_to<T>(p);
+      dss[r * BWD_BK + lane] = round_to<T>(p * (dp[t] - dis[r]) * sm_scale);
+    }
+    __syncthreads();  // the contractions read every warp's rows
+
+    // dv[c][d] += sum_r p[r][c] do[r][d], dk[c][d] += sum_r ds[r][c] q[r][d]:
+    // warp = keys c = warp * DKV_KPW + u, lane = column d
+    for (int r = 0; r < rows; ++r) {
+      float dov[DPL], qv[DPL];
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) {
+        dov[dd] = dos[r * D + lane + 32 * dd];
+        qv[dd] = qs[r * D + lane + 32 * dd];
+      }
+#pragma unroll
+      for (int u = 0; u < DKV_KPW; ++u) {
+        const int c = warp * DKV_KPW + u;
+        const float pc = ps[r * BWD_BK + c], dsc = dss[r * BWD_BK + c];
+#pragma unroll
+        for (int dd = 0; dd < DPL; ++dd) {
+          acc_v[u][dd] += pc * dov[dd];
+          acc_k[u][dd] += dsc * qv[dd];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int u = 0; u < DKV_KPW; ++u) {
+    const int kp = j * BWD_BK + warp * DKV_KPW + u;
+    if (kp >= Sk) continue;
+    const size_t row = ((size_t)b * Sk + kp) * KV + h;
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) {
+      dk[row * D + lane + 32 * dd] = from_f<T>(acc_k[u][dd]);
+      dv[row * D + lane + 32 * dd] = from_f<T>(acc_v[u][dd]);
+    }
   }
 }
 
@@ -377,6 +649,80 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* di, void* dq, const void* q_off, int B,
+                          int Sq, int Sk, int H, int KV, int win, float sm_scale,
+                          cudaStream_t stream) {
+  const int block_q = DQ_ROWS / (H / KV);
+  const size_t smem = sizeof(float) * (2 * DQ_ROWS * D + 2 * BWD_BK * (D + 1) +
+                                       DQ_ROWS * BWD_BK + 2 * DQ_ROWS);
+  auto kern = bwd_dq_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((Sq + block_q - 1) / block_q, KV, B);
+  kern<<<grid, BWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<T*>(dq), static_cast<const int*>(q_off), Sq, Sk, H, KV, block_q, win, sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* di, void* dk, void* dv, const void* q_off,
+                           int B, int Sq, int Sk, int H, int KV, int win, float sm_scale,
+                           cudaStream_t stream) {
+  const int block_q = DKV_ROWS / (H / KV);
+  const size_t smem = sizeof(float) * (2 * BWD_BK * (D + 1) + 2 * DKV_ROWS * D +
+                                       2 * DKV_ROWS * BWD_BK + 2 * DKV_ROWS);
+  auto kern = bwd_dkv_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((Sk + BWD_BK - 1) / BWD_BK, KV, B);
+  kern<<<grid, BWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<const int*>(q_off), Sq, Sk, H, KV,
+      block_q, win, sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_by_dtype(int dtype, bool dq_pass, const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* di, void* o1, void* o2,
+                         const void* q_off, int B, int Sq, int Sk, int H, int KV, int win,
+                         float sm_scale, cudaStream_t s) {
+#define BWD_CASE(T)                                                                        \
+  return dq_pass ? launch_bwd_dq<T, D>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV, \
+                                       win, sm_scale, s)                                    \
+                 : launch_bwd_dkv<T, D>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, \
+                                        KV, win, sm_scale, s)
+  switch (dtype) {
+    case 0: BWD_CASE(float);
+    case 1: BWD_CASE(__nv_bfloat16);
+    case 2: BWD_CASE(__half);
+  }
+#undef BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+int bwd_entry(bool dq_pass, const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* di, void* o1, void* o2, const void* q_off, int B,
+              int Sq, int Sk, int H, int KV, int D, int dtype, int window, float sm_scale,
+              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KV <= 0 || H % KV != 0 || H / KV > DQ_ROWS || B <= 0 || Sq <= 0 || Sk <= 0)
+    return cudaErrorInvalidValue;
+  if (D == 32) return bwd_by_dtype<32>(dtype, dq_pass, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
+  if (D == 64) return bwd_by_dtype<64>(dtype, dq_pass, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
+  return cudaErrorInvalidValue;
+}
+
 template <int D>
 cudaError_t fwd_by_dtype(int dtype, const void* q, const void* k, const void* v, void* out,
                          void* lse, const void* q_off, int B, int Sq, int Sk, int H, int KV,
@@ -408,15 +754,35 @@ extern "C" {
 
 // q (B, Sq, H, D), k/v (B, Sk, KV, D), q_off (B,) int32 on the device;
 // out (B, Sq, H, D) in the input dtype, lse (B, Sq, H) fp32 or NULL.
-// dtype: 0 float32, 1 bfloat16, 2 float16. D: 32 or 64. H/KV must divide 16.
+// dtype: 0 float32, 1 bfloat16, 2 float16. D: 32 or 64. G = H/KV <= 16: a block
+// holds (16 / G) queries of G heads each, the spare rows idle.
 int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
               const void* q_off, int B, int Sq, int Sk, int H, int KV, int D, int dtype,
               int window, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KV <= 0 || H % KV != 0 || FWD_ROWS % (H / KV) != 0) return cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || H / KV > FWD_ROWS) return cudaErrorInvalidValue;
   if (D == 32) return fwd_by_dtype<32>(dtype, q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
   if (D == 64) return fwd_by_dtype<64>(dtype, q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
   return cudaErrorInvalidValue;
+}
+
+// Backward of flash_fwd. q/dout (B, Sq, H, D), k/v (B, Sk, KV, D) in one
+// dtype; lse and di = rowsum(out * dout) (B, Sq, H) fp32; q_off (B,) int32.
+// dq (B, Sq, H, D); dk/dv (B, Sk, KV, D), summed over the G heads of a group.
+// G = H/KV <= 16, rows of a q tile = (16 / G) * G (dq) and (32 / G) * G (dk/dv).
+int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                 const void* di, void* dq, const void* q_off, int B, int Sq, int Sk, int H,
+                 int KV, int D, int dtype, int window, float sm_scale, void* stream) {
+  return bwd_entry(true, q, k, v, dout, lse, di, dq, nullptr, q_off, B, Sq, Sk, H, KV, D, dtype,
+                   window, sm_scale, stream);
+}
+
+int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* di, void* dk, void* dv, const void* q_off, int B,
+                  int Sq, int Sk, int H, int KV, int D, int dtype, int window, float sm_scale,
+                  void* stream) {
+  return bwd_entry(false, q, k, v, dout, lse, di, dk, dv, q_off, B, Sq, Sk, H, KV, D, dtype,
+                   window, sm_scale, stream);
 }
 
 // q (B, 1, H, D); contiguous: k/v (B, S, KV, D), tables NULL, NP 0;

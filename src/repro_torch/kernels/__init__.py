@@ -40,6 +40,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "flash_attention": {
         "flash_fwd": [_P] * 6 + [_I] * 8 + [_F, _P],
+        "flash_bwd_dq": [_P] * 8 + [_I] * 8 + [_F, _P],
+        "flash_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _P],
         "flash_decode_split": [_P] * 8 + [_I] * 11 + [_F, _P],
     },
     "slot_gather": {

@@ -1,6 +1,6 @@
-"""Flash attention for the serve path: the causal/windowed GQA forward
-(chunked prefill) and the split-KV one-token decode over contiguous or
-paged cache lanes.
+"""Flash attention: the causal/windowed GQA forward (training and chunked
+prefill) with its backward, and the split-KV one-token decode over
+contiguous or paged cache lanes.
 
 Each wrapper takes the JAX package's layouts (``(B, S, H, D)`` attention
 tensors, ``(P, page_size, KV, D)`` pages, ``(B, NP)`` int32 block tables)
@@ -12,8 +12,14 @@ it launches the kernel in ``csrc/flash_attention.cu`` or raises.
 Kernels (design notes in the CUDA source):
 
 - ``flash_attention`` -> ``flash_fwd``, replacing
-  ``repro/kernels/flash_attention.py:_fwd_kernel`` (forward only here;
-  the backward kernels come with the training slice).
+  ``repro/kernels/flash_attention.py:_fwd_kernel``. Differentiable in q,
+  k and v through :class:`FlashAttention` (the counterpart of the JAX
+  package's custom VJP): the forward saves (out, lse) and the backward
+  runs ``flash_attention_dq`` -> ``flash_bwd_dq`` (``_dq_kernel``) and
+  ``flash_attention_dkv`` -> ``flash_bwd_dkv`` (``_dkv_kernel``), with
+  ``di = rowsum(out do)`` one plain-torch reduction outside them, as it
+  is plain jnp outside the ``pallas_call`` in the JAX package. The lse
+  output is non-differentiable (the reference's ``stop_gradient``).
 - ``flash_decode`` / ``flash_decode_paged`` -> ``flash_decode_split``,
   replacing ``_decode_kernel`` / ``_decode_paged_kernel``. Both write the
   per-split partials (m, l, acc); the combine across splits is plain
@@ -21,6 +27,10 @@ Kernels (design notes in the CUDA source):
   package. The paged kernel is the contiguous kernel reading each split's
   rows through the block table, so it equals ``flash_decode`` on the
   gathered lanes with ``block_k = page_size`` bit for bit.
+
+Every kernel takes a GQA group size G = H / KV of at most 16: a block
+holds ``16 // G`` (dq: 16, dk/dv: 32 rows) queries of G heads each, the
+spare rows idle where G does not divide the row count.
 """
 from __future__ import annotations
 
@@ -34,14 +44,14 @@ from repro_torch.kernels import ref
 
 DEFAULT_DECODE_BLOCK_K = 512
 HEAD_DIMS = (32, 64)
-FWD_ROWS = 16        # rows (block_q * G) of a forward block; csrc FWD_ROWS
+MAX_GROUP = 16       # largest G = H / KV; csrc FWD_ROWS, DQ_ROWS, DEC_MAX_G
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _check_cuda(name: str, q, k, v, *, fwd: bool):
+def _check_cuda(name: str, q, k, v):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{name}: q/k/v dtypes differ: {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
@@ -54,12 +64,9 @@ def _check_cuda(name: str, q, k, v, *, fwd: bool):
             f"absorbed layout (KV=1, Dk != Dv) come with the MLA serving "
             f"slice")
     H, KV = q.shape[2], k.shape[2]
-    G = H // KV
-    if fwd and FWD_ROWS % G:
+    if H // KV > MAX_GROUP:
         raise NotImplementedError(
-            f"{name}: GQA group size {G} must divide {FWD_ROWS}")
-    if not fwd and G > 16:
-        raise NotImplementedError(f"{name}: GQA group size {G} > 16")
+            f"{name}: GQA group size {H // KV} > {MAX_GROUP}")
 
 
 def _positions(x, batch: int, device) -> torch.Tensor:
@@ -70,27 +77,15 @@ def _positions(x, batch: int, device) -> torch.Tensor:
     return t.expand(batch).contiguous()
 
 
-def flash_attention(q, k, v, *, q_off=None, window: int = 0, sm_scale=None,
-                    return_lse: bool = False):
-    """Fused causal(+window) attention. q (B, Sq, H, Dk), k (B, Sk, KV,
-    Dk), v (B, Sk, KV, Dv), H % KV == 0. Returns (B, Sq, H, Dv) [+ lse
-    (B, Sq, H) fp32 when ``return_lse``].
-
-    ``q_off``: absolute position of query row 0 — None, an int or a (B,)
-    vector. ``window``: sliding window (<= 0 plain causal). ``sm_scale``
-    defaults to 1/sqrt(Dk). Forward only: no autograd."""
-    B, Sq, H, Dk = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    if H % KV:
-        raise ValueError(f"H={H} not divisible by KV={KV}")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(Dk)
-    window = int(window)
-    q_off = _positions(q_off, B, q.device)
+def _forward(q, k, v, q_off, window: int, sm_scale: float,
+             return_lse: bool):
+    """The forward: the plain version on CPU tensors, else the kernel."""
     if K.on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, q_off, window, sm_scale,
                                        return_lse)
-    _check_cuda("flash_attention", q, k, v, fwd=True)
+    _check_cuda("flash_attention", q, k, v)
+    B, Sq, H, Dk = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, Sq, H, v.shape[-1]), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
@@ -102,6 +97,116 @@ def flash_attention(q, k, v, *, q_off=None, window: int = 0, sm_scale=None,
     K.check(err, "flash_fwd")
     K.count("flash_attention")
     return (out, lse) if return_lse else out
+
+
+def _bwd_inputs(name, q, k, v, lse, do, di):
+    _check_cuda(name, q, k, v)
+    if do.dtype != q.dtype or do.shape[:3] != q.shape[:3]:
+        raise TypeError(f"{name}: do {tuple(do.shape)} {do.dtype} does not "
+                        f"match q {tuple(q.shape)} {q.dtype}")
+    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+            lse.float().contiguous(), di.float().contiguous())
+
+
+def flash_attention_dq(q, k, v, lse, do, di, *, q_off, window: int = 0,
+                       sm_scale: float):
+    """dq (B, Sq, H, Dk) of the flash forward from its saved lse (B, Sq,
+    H) and ``di = rowsum(out do)`` (B, Sq, H), both fp32; ``do`` in q's
+    dtype; ``q_off`` a (B,) int32 tensor."""
+    if K.on_cpu(q, k, v, lse, do, di):
+        return ref.flash_attention_dq_ref(q, k, v, lse, do, di, q_off,
+                                          window, sm_scale)
+    q, k, v, do, lse, di = _bwd_inputs("flash_attention_dq", q, k, v, lse,
+                                       do, di)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    err = K.load("flash_attention").flash_bwd_dq(
+        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di),
+        K.ptr(dq), K.ptr(q_off), B, Sq, Sk, H, KV, D, K.dtype_code(q),
+        int(window), ctypes.c_float(sm_scale), K.stream_ptr(q))
+    K.check(err, "flash_bwd_dq")
+    K.count("flash_attention_dq")
+    return dq
+
+
+def flash_attention_dkv(q, k, v, lse, do, di, *, q_off, window: int = 0,
+                        sm_scale: float):
+    """(dk, dv) (B, Sk, KV, D) of the flash forward, each summed over the
+    G query heads of its group; inputs as :func:`flash_attention_dq`."""
+    if K.on_cpu(q, k, v, lse, do, di):
+        return ref.flash_attention_dkv_ref(q, k, v, lse, do, di, q_off,
+                                           window, sm_scale)
+    q, k, v, do, lse, di = _bwd_inputs("flash_attention_dkv", q, k, v, lse,
+                                       do, di)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = K.load("flash_attention").flash_bwd_dkv(
+        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di),
+        K.ptr(dk), K.ptr(dv), K.ptr(q_off), B, Sq, Sk, H, KV, D,
+        K.dtype_code(q), int(window), ctypes.c_float(sm_scale),
+        K.stream_ptr(q))
+    K.check(err, "flash_bwd_dkv")
+    K.count("flash_attention_dkv")
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, q_off, window: int = 0,
+                        sm_scale: float):
+    """(dq, dk, dv) of the flash forward: ``di`` in plain torch, then the
+    dq and dk/dv kernels (their plain versions on the CPU)."""
+    di = ref.flash_attention_di(out, do)
+    kw = dict(q_off=q_off, window=window, sm_scale=sm_scale)
+    dq = flash_attention_dq(q, k, v, lse, do, di, **kw)
+    dk, dv = flash_attention_dkv(q, k, v, lse, do, di, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(q, k, v, q_off, window, sm_scale) -> (out, lse)`` with the flash
+    backward; lse is marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_off, window, sm_scale):
+        out, lse = _forward(q, k, v, q_off, window, sm_scale, True)
+        ctx.save_for_backward(q, k, v, q_off, out, lse)
+        ctx.window, ctx.sm_scale = window, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, q_off, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, q_off=q_off,
+                                         window=ctx.window,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, q_off=None, window: int = 0, sm_scale=None,
+                    return_lse: bool = False):
+    """Fused causal(+window) attention. q (B, Sq, H, Dk), k (B, Sk, KV,
+    Dk), v (B, Sk, KV, Dv), H % KV == 0. Returns (B, Sq, H, Dv) [+ lse
+    (B, Sq, H) fp32 when ``return_lse``; lse carries no gradient].
+
+    ``q_off``: absolute position of query row 0 — None, an int or a (B,)
+    vector. ``window``: sliding window (<= 0 plain causal). ``sm_scale``
+    defaults to 1/sqrt(Dk). Differentiable in q, k and v: when autograd
+    records, the call goes through :class:`FlashAttention`."""
+    B, Sq, H, Dk = q.shape
+    KV = k.shape[2]
+    if H % KV:
+        raise ValueError(f"H={H} not divisible by KV={KV}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(Dk)
+    window = int(window)
+    q_off = _positions(q_off, B, q.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = FlashAttention.apply(q, k, v, q_off, window,
+                                        float(sm_scale))
+        return (out, lse) if return_lse else out
+    return _forward(q, k, v, q_off, window, float(sm_scale), return_lse)
 
 
 def _decode_call(name, q, k, v, tables, pos, *, S, NP, block_k, ns, kv_len,
@@ -143,7 +248,7 @@ def flash_decode(q, k, v, pos, *, window: int = 0, sm_scale=None,
     pos = _positions(pos, B, q.device)
     if K.on_cpu(q, k, v):
         return ref.flash_decode_ref(q, k, v, pos, window, sm_scale, block_k)
-    _check_cuda("flash_decode", q, k, v, fwd=False)
+    _check_cuda("flash_decode", q, k, v)
     return _decode_call("flash_decode", q, k, v, None, pos, S=S, NP=0,
                         block_k=block_k, ns=-(-S // block_k), kv_len=S,
                         window=window, sm_scale=sm_scale)
@@ -174,7 +279,7 @@ def flash_decode_paged(q, k_pages, v_pages, tables, pos, *, page_size: int,
     if K.on_cpu(q, k_pages, v_pages, tables):
         return ref.flash_decode_paged_ref(q, k_pages, v_pages, tables, pos,
                                           window, sm_scale, page_size)
-    _check_cuda("flash_decode_paged", q, k_pages, v_pages, fwd=False)
+    _check_cuda("flash_decode_paged", q, k_pages, v_pages)
     tables = tables.to(torch.int32).reshape(B, NP).contiguous()
     return _decode_call("flash_decode_paged", q, k_pages, v_pages, tables,
                         pos, S=0, NP=NP, block_k=page_size, ns=NP,

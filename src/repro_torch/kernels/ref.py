@@ -7,10 +7,13 @@ what each CUDA kernel is held to. Each mirrors the arithmetic of the JAX
 package's Pallas kernel. Serve path: fp32 softmax statistics,
 ``NEG_INF = -1e30`` for masked scores with masked ``p`` zeroed
 explicitly, ``l`` clamped at ``1e-30``, and ``p`` rounded to the value
-dtype before the PV product. Training path: fp32 sums taken row by row in
-order 0..k-1, and every product and sum of the update rounded on its own
-in the order written here, which the CUDA kernels repeat operation for
-operation (no FMA), so the two agree bit for bit.
+dtype before the PV product. The flash backward recomputes p from the
+saved lse and rounds ``ds`` and ``p`` to the input dtype before each
+contraction, as the Pallas backward does. Exchange and update path:
+fp32 sums taken row by row in order 0..k-1, and every product and sum of
+the update rounded on its own in the order written here, which the CUDA
+kernels repeat operation for operation (no FMA), so the two agree bit
+for bit.
 """
 from __future__ import annotations
 
@@ -27,16 +30,23 @@ def _keep(qpos, kpos, window: int):
     return keep
 
 
+def _f(x):
+    """Upcast to the attention's compute dtype: fp32, or fp64 for fp64
+    inputs (the finite-difference gradient checks)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def flash_attention_ref(q, k, v, q_off, window: int, sm_scale: float,
                         return_lse: bool = False):
     """q (B, Sq, H, Dk), k (B, Sk, KV, Dk), v (B, Sk, KV, Dv), q_off (B,)
-    int -> out (B, Sq, H, Dv) in q's dtype [+ lse (B, Sq, H) fp32]. Row r
-    of batch b sits at absolute position ``q_off[b] + r``; key t at t."""
+    int -> out (B, Sq, H, Dv) in q's dtype [+ lse (B, Sq, H) fp32, fp64
+    for fp64 inputs]. Row r of batch b sits at absolute position
+    ``q_off[b] + r``; key t at t."""
     B, Sq, H, Dk = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qg = q.float().reshape(B, Sq, KV, G, Dk)
-    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * sm_scale
+    qg = _f(q).reshape(B, Sq, KV, G, Dk)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, _f(k)) * sm_scale
     qpos = q_off.to(q.device).long()[:, None] + torch.arange(Sq, device=q.device)
     kpos = torch.arange(Sk, device=q.device)
     keep = _keep(qpos[:, :, None], kpos[None, None, :], window)[:, None, None]
@@ -44,12 +54,77 @@ def flash_attention_ref(q, k, v, q_off, window: int, sm_scale: float,
     m = s.amax(-1, keepdim=True)
     p = torch.where(keep, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(), v.float())
+    acc = torch.einsum("bkgqt,btkd->bkgqd", _f(p.to(v.dtype)), _f(v))
     out = (acc / l).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, -1).to(q.dtype)
     if not return_lse:
         return out
     lse = (m + torch.log(l))[..., 0].permute(0, 3, 1, 2).reshape(B, Sq, H)
     return out, lse
+
+
+def _bwd_p_ds(q, k, v, lse, do, di, q_off, window: int, sm_scale: float):
+    """p and ds (B, KV, G, Sq, Sk), fp32, of the flash backward: p
+    recomputed from lse, ``ds = p (dp - di) sm_scale`` with ``dp = do
+    v^T``. Masked p is zeroed explicitly (the Pallas kernel's exp(NEG_INF
+    - lse) is 0 on every row that sees at least one key)."""
+    B, Sq, H, Dk = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = _f(q).reshape(B, Sq, KV, G, Dk)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, _f(k)) * sm_scale
+    qpos = q_off.to(q.device).long()[:, None] + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    keep = _keep(qpos[:, :, None], kpos[None, None, :], window)[:, None, None]
+    rows = lambda x: _f(x).reshape(B, Sq, KV, G).permute(0, 2, 3, 1)[..., None]
+    p = torch.where(keep, torch.exp(s - rows(lse)), 0.0)
+    dog = _f(do).reshape(B, Sq, KV, G, -1)
+    dp = torch.einsum("bqkgd,btkd->bkgqt", dog, _f(v))
+    return p, p * (dp - rows(di)) * sm_scale
+
+
+def flash_attention_di(out, do):
+    """rowsum(out * do) in fp32: (B, Sq, H, Dv) x2 -> (B, Sq, H)."""
+    return (_f(out) * _f(do)).sum(-1)
+
+
+def flash_attention_dq_ref(q, k, v, lse, do, di, q_off, window: int,
+                           sm_scale: float):
+    """dq (B, Sq, H, Dk) in q's dtype; ds is rounded to k's dtype before
+    the ``ds k`` product, as ``_dq_kernel`` rounds it."""
+    B, Sq, H, Dk = q.shape
+    _, ds = _bwd_p_ds(q, k, v, lse, do, di, q_off, window, sm_scale)
+    dq = torch.einsum("bkgqt,btkd->bqkgd", _f(ds.to(k.dtype)), _f(k))
+    return dq.reshape(B, Sq, H, Dk).to(q.dtype)
+
+
+def flash_attention_dkv_ref(q, k, v, lse, do, di, q_off, window: int,
+                            sm_scale: float):
+    """(dk, dv) (B, Sk, KV, D) in k's / v's dtype, each summed over the G
+    query heads of its group; p is rounded to do's dtype and ds to q's
+    before the contractions, as ``_dkv_kernel`` rounds them."""
+    B, Sq, H, Dk = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    p, ds = _bwd_p_ds(q, k, v, lse, do, di, q_off, window, sm_scale)
+    qg = _f(q).reshape(B, Sq, KV, G, Dk)
+    dog = _f(do).reshape(B, Sq, KV, G, -1)
+    dk = torch.einsum("bkgqt,bqkgd->btkd", _f(ds.to(q.dtype)), qg)
+    dv = torch.einsum("bkgqt,bqkgd->btkd", _f(p.to(do.dtype)), dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, q_off, window: int,
+                            sm_scale: float):
+    """The flash backward as the Pallas kernels compute it (a direct
+    formula, not autograd): ``di = rowsum(out do)`` in fp32, then
+    :func:`flash_attention_dq_ref` and :func:`flash_attention_dkv_ref`.
+    Returns (dq, dk, dv)."""
+    di = flash_attention_di(out, do)
+    dq = flash_attention_dq_ref(q, k, v, lse, do, di, q_off, window,
+                                sm_scale)
+    dk, dv = flash_attention_dkv_ref(q, k, v, lse, do, di, q_off, window,
+                                     sm_scale)
+    return dq, dk, dv
 
 
 def decode_partials_ref(q, k, v, pos, window: int, sm_scale: float,

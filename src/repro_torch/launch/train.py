@@ -1,11 +1,19 @@
-"""Training launcher: the paper's BSP training of AlexNet on k ranks.
+"""Training launcher: the paper's BSP training of AlexNet, and of the
+decoder LMs, on k ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
         --ranks 2 --exchanger asa16 --sharded-update --batch 128 --steps 20
 
-    # on the CPU, with the kernels' plain versions (a smoke-sized AlexNet):
-    PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
-        --smoke --device cpu --ranks 2 --batch 8 --steps 5
+    # a decoder LM (the JAX package's examples/train_lm_bsp.py recipe):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --ranks 2 --batch 4 --seq 1024 --steps 6 --exchanger asa16 \\
+        --sharded-update --ckpt /path/ckpt --ckpt-every 3
+    PYTHONPATH=src python -m repro_torch.launch.train --preset train_lm_bsp \\
+        --ranks 2 --steps 300 --resume /path/ckpt --ckpt /path/ckpt
+
+    # on the CPU, with the kernels' plain versions (a smoke-sized model):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --smoke --device cpu --ranks 2 --batch 4 --seq 64 --steps 4
 
 Starts k rank processes (``torch.multiprocessing``, spawn), each joining
 one process group through a file rendezvous in a temporary directory.
@@ -15,13 +23,21 @@ two ranks on one device), and the exchanger stages each collective
 through pinned host memory. The NCCL arm is not exercised by any test of
 this repository (it needs k cards).
 
-Each rank reads its own share of every global batch (``batch`` images)
-from batch files of ``ImageSource`` images at ``image_size + 8`` pixels,
-which the ``ParallelLoader`` crops to ``image_size`` (the JAX example
-crops to ``image_size - 8``, which its full-size AlexNet cannot take).
-Momentum SGD 0.9 with weight decay 5e-4 and the paper's AlexNet LR
-policy (/10 every third of the run). Convolutions and matmuls run in
-full fp32 (TF32 off), as the reference computes them.
+Each rank reads its own share of every global batch (``batch`` examples)
+from batch files that the ``ParallelLoader`` streams to the device: file
+j of rank r holds the source's batch ``j * k + r``. AlexNet: ``ImageSource``
+images at ``image_size + 8`` pixels, cropped to ``image_size`` (the JAX
+example crops to ``image_size - 8``, which its full-size AlexNet cannot
+take); momentum SGD 0.9 with weight decay 5e-4 and the paper's AlexNet LR
+policy (/10 every third of the run); convolutions and matmuls in full
+fp32 (TF32 off), as the reference computes them. Decoders:
+``LMTokenSource`` tokens of ``--seq`` positions (int32 tokens and labels,
+untouched by the loader); momentum SGD 0.9 with weight decay 1e-4 and
+``warmup_cosine(0.01, 20, steps)``, the JAX package's
+``examples/train_lm_bsp.py`` recipe, whose ~100M config ``--preset
+train_lm_bsp`` builds. ``--ckpt`` saves checkpoints (every
+``--ckpt-every`` steps and at the end; one directory per rank when k > 1)
+and ``--resume`` continues from one.
 """
 from __future__ import annotations
 
@@ -36,15 +52,49 @@ import torch.multiprocessing as mp
 
 from repro_torch import default_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.configs.registry import ASSIGNED_ARCHS
 from repro_torch.data.prefetch import ParallelLoader
-from repro_torch.data.synthetic import ImageSource
+from repro_torch.data.synthetic import (ImageSource, LMTokenSource,
+                                        materialize_batch_files)
 from repro_torch.kernels import fused_sgd as fs
 from repro_torch.models import build_model, count_params
-from repro_torch.optim import sgd_momentum, step_decay
+from repro_torch.models.transformer import layer_kinds
+from repro_torch.optim import sgd_momentum, step_decay, warmup_cosine
 from repro_torch.train.engine import TrainPlan
 from repro_torch.train.loop import train
 
 CROP_MARGIN = 8
+
+
+def _dense_decoder(cfg) -> bool:
+    return (cfg.family == "decoder" and cfg.num_meta_tokens == 0
+            and set(layer_kinds(cfg)) == {"dense"}
+            and not cfg.attention.kv_lora_rank)
+
+
+# the archs this launcher trains: AlexNet and the ported (dense) decoders
+TRAIN_ARCHS = ("alexnet",) + tuple(a for a in ASSIGNED_ARCHS
+                                   if _dense_decoder(get_config(a)))
+
+
+def train_lm_bsp_config():
+    """The ~100M llama derivative of the JAX package's
+    ``examples/train_lm_bsp.py``: 6 layers, d_model 768, d_ff 2048, vocab
+    32768, 12 heads over 4 KV heads of 64, tied embeddings, no remat."""
+    return get_config("llama3.2-1b").with_overrides(
+        num_layers=6, d_model=768, d_ff=2048, vocab_size=32768,
+        attention=AttentionConfig(num_heads=12, num_kv_heads=4, head_dim=64),
+        tie_embeddings=True, scan_layers=True, remat=False)
+
+
+PRESETS = {"train_lm_bsp": train_lm_bsp_config}
+
+
+def launch_config(opts):
+    if opts.get("preset"):
+        return PRESETS[opts["preset"]]()
+    return (get_smoke_config if opts["smoke"] else get_config)(opts["arch"])
 
 
 def pick_backend(device: torch.device, k: int) -> str:
@@ -81,25 +131,53 @@ def run_ranks(fn, k: int, args=(), backend: str = "gloo") -> None:
                            nprocs=k, join=True, start_method="spawn")
 
 
+class RankShare:
+    """Rank ``rank``'s share of each global batch of ``source``: its batch
+    j is the source's batch ``j * k + rank``."""
+
+    def __init__(self, source, rank: int, k: int):
+        self.source, self.rank, self.k = source, rank, k
+
+    def batch(self, batch_size: int, step: int):
+        return self.source.batch(batch_size, step * self.k + self.rank)
+
+
+def rank_source(cfg, seq: int = 0):
+    """Images at ``image_size + 8`` pixels for a convnet, else ``seq``
+    positions of ``LMTokenSource`` tokens."""
+    if cfg.family == "conv":
+        return ImageSource(cfg.image_size + CROP_MARGIN, cfg.num_classes)
+    return LMTokenSource(cfg.vocab_size, seq)
+
+
 def write_rank_batches(cfg, rank: int, k: int, batch: int, count: int,
-                       out_dir: str) -> list[str]:
-    """``count`` batch files of this rank's share: file j holds
-    ``ImageSource(image_size + 8).batch(batch, j * k + rank)``."""
-    src = ImageSource(cfg.image_size + CROP_MARGIN, cfg.num_classes)
-    os.makedirs(out_dir, exist_ok=True)
-    paths = []
-    for j in range(count):
-        path = os.path.join(out_dir, f"rank{rank}_batch_{j:05d}.npz")
-        np.savez(path, **src.batch(batch, j * k + rank))
-        paths.append(path)
-    return paths
+                       out_dir: str, seq: int = 0) -> list[str]:
+    """``count`` batch files of this rank's share of ``rank_source``."""
+    return materialize_batch_files(RankShare(rank_source(cfg, seq), rank, k),
+                                   out_dir, count, batch)
 
 
 def rank_loader(cfg, files, device, steps: int, seed: int):
-    mean = np.zeros((cfg.image_size + CROP_MARGIN,) * 2 + (3,), np.float32)
-    return ParallelLoader(files, image_mean=mean, crop=cfg.image_size,
-                          depth=2, device=device, seed=seed,
-                          epochs=-(-steps // len(files)))
+    """Images are mean-subtracted (a zero mean) and cropped; token batches
+    pass through as they are."""
+    crop = {}
+    if cfg.family == "conv":
+        crop = dict(image_mean=np.zeros(
+            (cfg.image_size + CROP_MARGIN,) * 2 + (3,), np.float32),
+            crop=cfg.image_size)
+    return ParallelLoader(files, depth=2, device=device, seed=seed,
+                          epochs=-(-steps // len(files)), **crop)
+
+
+def recipe(cfg, steps: int):
+    """(optimizer, lr schedule) of the arch's reference recipe."""
+    if cfg.family == "conv":
+        return (sgd_momentum(momentum=0.9, weight_decay=5e-4,
+                             fused_kernel=fs.fused_sgd),
+                step_decay(0.01, steps_per_drop=max(steps // 3, 1)))
+    return (sgd_momentum(momentum=0.9, weight_decay=1e-4,
+                         fused_kernel=fs.fused_sgd),
+            warmup_cosine(0.01, 20, steps))
 
 
 def set_fp32_math() -> None:
@@ -114,20 +192,22 @@ def _train_rank(rank, k, opts, backend, data_dir):
     dev = rank_device(torch.device(opts["device"]), rank, backend)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    cfg = (get_smoke_config if opts["smoke"] else get_config)(opts["arch"])
+    cfg = launch_config(opts)
     model = build_model(cfg, dev)
     files = write_rank_batches(cfg, rank, k, opts["batch"],
                                min(opts["steps"], 8),
-                               os.path.join(data_dir, f"rank{rank}"))
+                               os.path.join(data_dir, f"rank{rank}"),
+                               seq=opts["seq"])
     loader = rank_loader(cfg, files, dev, opts["steps"], seed=rank)
     plan = TrainPlan(exchanger=opts["exchanger"], scheme=opts["scheme"],
                      sharded_update=opts["sharded_update"])
-    opt = sgd_momentum(momentum=0.9, weight_decay=5e-4,
-                       fused_kernel=fs.fused_sgd)
-    lr = step_decay(0.01, steps_per_drop=max(opts["steps"] // 3, 1))
+    opt, lr = recipe(cfg, opts["steps"])
     try:
         state, report = train(model, opt, lr, loader, plan=plan,
                               num_steps=opts["steps"], log_every=5,
+                              ckpt_path=opts["ckpt"],
+                              ckpt_every=opts["ckpt_every"],
+                              resume_from=opts["resume"],
                               print_fn=print if rank == 0 else
                               (lambda *a: None))
     finally:
@@ -136,29 +216,44 @@ def _train_rank(rank, k, opts, backend, data_dir):
         n = count_params(state["params"])
         split = ", ".join(f"{p} {s * 1e3:.1f} ms"
                           for p, s in report.phase_s.items())
+        rate = (f"{report.steady_examples_per_s:.1f} images/s"
+                if cfg.family == "conv" else
+                f"{report.steady_tokens_per_s:.1f} tokens/s")
+        losses = (f"loss {report.losses[0]:.4f} -> {report.losses[-1]:.4f}"
+                  if report.losses else "no steps left to run")
         print(f"done: {report.steps} steps of {cfg.name} ({n:,} params) on "
               f"{k} ranks ({backend}, {dev}), {plan.exchanger}"
-              f"{' sharded' if plan.sharded_update else ''}: "
-              f"{report.steady_examples_per_s:.1f} images/s steady "
+              f"{' sharded' if plan.sharded_update else ''}: {rate} steady "
               f"(first step {report.first_step_time:.2f} s; per step "
-              f"{split}), loss {report.losses[0]:.4f} -> "
-              f"{report.losses[-1]:.4f}")
+              f"{split}), {losses}")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="alexnet", choices=["alexnet"])
+    ap.add_argument("--arch", default="alexnet", choices=TRAIN_ARCHS)
+    ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
+                    help="a named config in place of --arch")
     ap.add_argument("--smoke", action="store_true",
-                    help="the reduced config (96 px, 16 classes)")
+                    help="the reduced config (AlexNet: 96 px, 16 classes; "
+                         "decoders: 2 layers, d_model 256)")
     ap.add_argument("--exchanger", default="asa16",
                     help="ar | asa | asa16 | asabf16 | asa8 | none")
     ap.add_argument("--scheme", default="subgd", choices=["subgd", "awagd"])
     ap.add_argument("--sharded-update", action="store_true",
                     help="RS -> update -> AG on this rank's 1/k shard")
     ap.add_argument("--ranks", type=int, default=2)
-    ap.add_argument("--batch", type=int, default=128,
-                    help="images per rank and step")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="examples per rank and step (AlexNet 128, "
+                         "decoders 8)")
+    ap.add_argument("--seq", type=int, default=256,
+                    help="tokens per example (decoders)")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory to save into")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save every N steps (0: at the end only)")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint directory to continue from")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
@@ -168,6 +263,8 @@ def main(argv=None):
                   sharded_update=args.sharded_update)
     except ValueError as e:
         ap.error(str(e))
+    if args.batch is None:
+        args.batch = 128 if args.arch == "alexnet" and not args.preset else 8
     dev = default_device(args.device)
     backend = pick_backend(dev, args.ranks)
     opts = dict(vars(args), device=str(dev))

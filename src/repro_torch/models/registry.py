@@ -10,6 +10,9 @@
   page_size=0) -> (logits, cache)``
 - ``chunk_prefill(params, cache, tokens, pos0, valid, *, seq_len,
   block_tables=None, page_size=0) -> (logits, cache)``
+- ``loss_fn(params, batch, gen=None) -> (loss, metrics)``  next-token
+  cross-entropy on ``batch`` {tokens, labels}; differentiable, so
+  gradients flow through the cast to the fp32 masters
 
 Every call casts fp32 matrices to the compute dtype (``cast_params``);
 a caller that keeps params already cast (the serving engine) pays
@@ -97,6 +100,10 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         with torch.no_grad():
             return transformer.init_decoder(gen, cfg, dev)
 
+    def loss_fn(params, batch, gen=None):
+        del gen                 # dense decoders draw no randomness
+        return transformer.decoder_loss(cast_params(params, cdt), batch, cfg)
+
     @torch.no_grad()
     def forward(params, batch):
         return transformer.decoder_forward(cast_params(params, cdt), batch,
@@ -124,7 +131,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
             seq_len=seq_len, block_tables=block_tables, page_size=page_size)
 
     return Model(cfg, dev, init, forward, init_cache, decode_step,
-                 chunk_prefill, init_paged_cache)
+                 chunk_prefill, init_paged_cache, loss_fn)
 
 
 def count_params(params) -> int:

@@ -10,16 +10,24 @@ consecutive same-kind layers, ``{"attn": {"k", "v"}}`` with a leading
 layer axis, so a paged pool is ``(layers, P, page_size, KV, hd)``. Decode
 and prefill write the caches in place and return them.
 
+Training runs ``decoder_loss`` under autograd. With ``cfg.remat`` each
+layer runs under ``torch.utils.checkpoint`` (non-reentrant), the
+counterpart of the JAX package's ``jax.checkpoint(body)``: only the
+layer inputs are kept, and the backward recomputes each layer's forward
+(the flash forward kernel launches twice per layer and step).
+
 Only the ``dense`` layer kind is ported; MoE, SSM and hybrid layers come
 with a later slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import dtype_of, embed_init, dense_init, rms_norm
+from repro_torch.models.common import (dtype_of, embed_init, dense_init,
+                                       rms_norm, softmax_xent)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
 LATER_SLICE = ("only dense decoder layers are ported; MoE, SSM and hybrid "
@@ -176,9 +184,25 @@ def decoder_forward(params, batch, cfg: ArchConfig):
     positions = torch.arange(S, device=h.device).expand(B, S)
     wins = layer_windows(cfg, "train", S)
     attn_impl = attn_mod.resolve_attn_impl(cfg.attention)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp, win in zip(params["layers"], wins):
-        h = _apply_layer(lp, h, positions, cfg, win, attn_impl)
+        if remat:
+            h = checkpoint(_apply_layer, lp, h, positions, cfg, win,
+                           attn_impl, use_reentrant=False)
+        else:
+            h = _apply_layer(lp, h, positions, cfg, win, attn_impl)
     return _head(params, h, cfg, dtype)
+
+
+def decoder_loss(params, batch, cfg: ArchConfig):
+    """Mean next-token cross-entropy over the positions with ``labels >=
+    0``, plus the aux loss (0 for dense layers). Returns (loss, {"loss",
+    "aux"})."""
+    logits = decoder_forward(params, batch, cfg)
+    labels = batch["labels"]
+    loss = softmax_xent(logits, labels.clamp_min(0), labels >= 0)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"loss": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

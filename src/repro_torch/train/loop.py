@@ -1,6 +1,5 @@
-"""Training loop for one rank: engine step + batch iterable + metrics
-(counterpart of ``repro/train/loop.py``; the bsp plan, no checkpoints
-yet — ROADMAP queue 1: LM training).
+"""Training loop for one rank: engine step + batch iterable + metrics +
+checkpoints (counterpart of ``repro/train/loop.py``; the bsp plan).
 
 Every rank of the process group runs ``train`` on its own share of each
 global batch; the engine's exchanger keeps the replicas in step.
@@ -22,6 +21,15 @@ Losses stay on the device between flushes: one host sync every
 search, the allocator's first allocations) is kept apart as
 ``TrainReport.first_step_time`` and out of ``steady_examples_per_s``.
 Dropout draws from a generator seeded from (seed, step, rank).
+
+Checkpoints (``checkpoint/ckpt.py``): with ``ckpt_path`` the state is
+saved every ``ckpt_every`` steps (0: only at the end) and at the last
+step, keeping ``ckpt_keep`` steps, each rank into its
+``ckpt.rank_dir``. ``resume_from`` restores the engine-initialised state
+from such a directory and continues to ``num_steps``; it first draws and
+drops the batches the checkpointed run consumed, so a run saved at step
+s and resumed to n takes the same batches, dropout draws and learning
+rates as an unbroken run of n steps.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.checkpoint.ckpt import (rank_dir, restore_for_resume,
+                                        save_checkpoint)
 from repro_torch.core.bsp import PHASES, PhaseTimer
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer
@@ -48,6 +58,7 @@ class TrainReport:
     examples_per_s: float = 0.0
     first_step_time: float = 0.0
     steady_examples_per_s: float = 0.0
+    steady_tokens_per_s: float = 0.0
     # mean seconds per steady step of each phase (fwd_bwd/exchange/update)
     phase_s: dict = field(default_factory=dict)
     # per steady step: the transport's host staging of gloo collectives on
@@ -82,17 +93,26 @@ def _sync(device) -> None:
 def train(model: Model, optimizer: Optimizer, lr_fn, batches,
           plan: TrainPlan = TrainPlan(), *, group=None, num_steps: int = 100,
           seed: int = 0, log_every: int = 10, state=None,
+          ckpt_path: str | None = None, ckpt_every: int = 0,
+          ckpt_keep: int = 3, resume_from: str | None = None,
           print_fn=print) -> tuple[dict, TrainReport]:
     """``batches``: iterable of this rank's batches (dicts of tensors on
     the model's device, e.g. a ``ParallelLoader``); ``plan`` picks the
     algorithm and its knobs; ``group`` is the process group (None: the
-    default one, or a single rank when none is initialised)."""
+    default one, or a single rank when none is initialised).
+    ``ckpt_path``/``ckpt_every``/``ckpt_keep`` save checkpoints and
+    ``resume_from`` continues from one (see the module docstring)."""
     engine = build_engine(plan, model, optimizer, lr_fn, group)
     tr = engine.transport
     dev = model.device
     if state is None:
         state = engine.init_state(torch.Generator(device=dev).manual_seed(
             seed))
+    start_step = 0
+    if resume_from:
+        state, start_step = restore_for_resume(
+            rank_dir(resume_from, tr.rank, tr.k), state,
+            expect_algo=plan.algo)
     reg = Registry("train")
     c_steps, c_examples = reg.counter("train/steps"), reg.counter(
         "train/examples")
@@ -108,15 +128,19 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
     if wire:
         reg.gauge("exchange/bytes_per_step").set(wire["bytes_per_step"])
 
-    report = TrainReport(metrics=reg)
+    report = TrainReport(steps=start_step, metrics=reg)
     flush_every = min(log_every, _FLUSH_CAP) if log_every else _FLUSH_CAP
     device_losses, timers = [], []
     phase_sum = {p: 0.0 for p in PHASES}
     n_examples = n_tokens = 0
-    steady_base_ex = 0
+    steady_base_ex = steady_base_tok = 0
+    saved_at = None
     tr_base = (0, 0.0, 0.0)
     t0 = t_steady0 = time.perf_counter()
     it = iter(batches)
+    for _ in range(start_step):        # the batches the saved run consumed
+        if next(it, None) is None:
+            return state, report
 
     def flush():
         t_f = time.perf_counter()
@@ -131,7 +155,7 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
         timers.clear()
         return losses[-1] if losses else None
 
-    for i in range(num_steps):
+    for i in range(start_step, num_steps):
         t_iter0 = time.perf_counter()
         batch = next(it, None)
         if batch is None:
@@ -150,14 +174,14 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
         if wire:
             c_wire.inc(wire["bytes_per_step"])
         h_data.observe(t_step0 - t_iter0)
-        if i == 0:
+        if i == start_step:
             # the first step carries the one-time costs: wait for it and
             # keep it out of the steady figures
             _sync(dev)
             report.first_step_time = time.perf_counter() - t_step0
             flush()
             t_steady0 = time.perf_counter()
-            steady_base_ex = n_examples
+            steady_base_ex, steady_base_tok = n_examples, n_tokens
             tr_base = (tr.staged_bytes, tr.stage_s, tr.wire_s)
         else:
             h_step.observe(time.perf_counter() - t_iter0)
@@ -173,16 +197,25 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
                 g_exps.set((n_examples - steady_base_ex) / steady_t)
         elif len(device_losses) >= flush_every:
             flush()
+        if ckpt_path and ckpt_every and (i + 1) % ckpt_every == 0:
+            save_checkpoint(rank_dir(ckpt_path, tr.rank, tr.k), state,
+                            step=i + 1, algo=plan.algo, keep=ckpt_keep)
+            saved_at = i + 1
         report.steps = i + 1
     _sync(dev)
     flush()
+    if ckpt_path and report.steps != saved_at:
+        save_checkpoint(rank_dir(ckpt_path, tr.rank, tr.k), state,
+                        step=report.steps, algo=plan.algo, keep=ckpt_keep)
     now = time.perf_counter()
     report.wall_time = now - t0
     report.examples_per_s = n_examples / max(report.wall_time, 1e-9)
-    steady_steps = report.steps - 1
+    steady_steps = report.steps - start_step - 1
     if steady_steps > 0 and now > t_steady0:
         report.steady_examples_per_s = ((n_examples - steady_base_ex)
                                         / (now - t_steady0))
+        report.steady_tokens_per_s = ((n_tokens - steady_base_tok)
+                                      / (now - t_steady0))
         report.phase_s = {p: phase_sum[p] / steady_steps for p in PHASES}
         report.staged_bytes, report.stage_s, report.wire_s = (
             (now_v - base) / steady_steps for now_v, base in zip(

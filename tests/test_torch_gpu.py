@@ -7,7 +7,11 @@ run on a GPU machine with
 Tolerances: fp32 1e-5 (sums in another order); bf16 1e-2 on outputs of
 magnitude <~ 1 (bf16 eps is 2^-8, and the kernel rounds p per tile where
 the plain version rounds it once); sampled indices and the paged vs
-contiguous decode are exact. The training kernels (chunk_sum, the fp16
+contiguous decode are exact. The flash backward (dq, dk/dv) against its
+plain version: max |d| <= 1e-5 (fp32), 1e-2 (fp16) or 2e-2 (bf16) of
+the output's largest magnitude; both round ds and p to the input dtype
+per element, but sum them in another order, and ds carries the
+cancellation of dp - di. The training kernels (chunk_sum, the fp16
 casts, fused_sgd, fused_rs_update) are exact: they add rows in the plain
 version's order and round every product and sum on its own (no FMA).
 """
@@ -43,7 +47,9 @@ def _rn(g, dev, dtype, *shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 37, 53, 4, 1, 32, 0),
                                    (2, 24, 40, 4, 4, 32, 8),
-                                   (1, 32, 1024, 32, 8, 64, 0)])
+                                   (1, 32, 1024, 32, 8, 64, 0),
+                                   (2, 45, 45, 12, 4, 64, 9),     # G = 3
+                                   (1, 1000, 1000, 12, 4, 64, 0)])
 def test_flash_attention_kernel(dev, dtype, shape):
     B, Sq, Sk, H, KV, D, win = shape
     g = torch.Generator(device=dev).manual_seed(0)
@@ -59,6 +65,95 @@ def test_flash_attention_kernel(dev, dtype, shape):
     assert K.LAUNCHES == {"flash_attention": 1}
     assert (out.float() - want.float()).abs().max() <= TOL[dtype]
     assert (lse - want_lse).abs().max() <= 1e-4
+
+
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [
+    # B, Sq, Sk, H, KV, D, window, q_off
+    (2, 37, 53, 4, 4, 32, 0, "vector"),      # G = 1, ragged, q_off (16, 0)
+    (2, 45, 45, 12, 4, 64, 9, None),         # G = 3, window 9
+    (1, 61, 70, 8, 2, 64, 0, 9),             # G = 4, ragged
+    (2, 24, 40, 16, 1, 32, 9, "vector"),     # G = 16, window 9
+    (1, 1000, 1000, 12, 4, 64, 0, None),     # G = 3, S = 1000
+])
+def test_flash_backward_kernels(dev, dtype, shape):
+    B, Sq, Sk, H, KV, D, win, off = shape
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (_rn(g, dev, dtype, B, Sq, H, D), _rn(g, dev, dtype, B, Sk, KV, D),
+               _rn(g, dev, dtype, B, Sk, KV, D))
+    do = _rn(g, dev, dtype, B, Sq, H, D)
+    q_off = fa._positions([Sk - Sq, 0][:B] if off == "vector" else off, B, dev)
+    scale = 1 / math.sqrt(D)
+    out, lse = fa.flash_attention(q, k, v, q_off=q_off, window=win,
+                                  return_lse=True)
+    K.reset_launches()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=q_off,
+                                 window=win, sm_scale=scale)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, q_off, win,
+                                       scale)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_attention_dq": 1, "flash_attention_dkv": 1}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
+
+
+def test_flash_attention_autograd_launches_the_kernels(dev):
+    """Gradients through ``flash_attention`` on the card: one forward, one
+    dq and one dk/dv launch, and the einsum path's gradients in fp32."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(2, 33, 12, 64, generator=g, device=dev),
+               torch.randn(2, 33, 4, 64, generator=g, device=dev),
+               torch.randn(2, 33, 4, 64, generator=g, device=dev))
+    cot = torch.randn(2, 33, 12, 64, generator=g, device=dev)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    K.reset_launches()
+    out = fa.flash_attention(*qkv, window=5)
+    got = torch.autograd.grad((out * cot).sum(), qkv)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_attention": 1, "flash_attention_dq": 1,
+                          "flash_attention_dkv": 1}
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    pos = torch.arange(33, device=dev)
+    keep = (pos[None] <= pos[:, None]) & (pos[:, None] - pos[None] < 5)
+    qg = qkv[0].reshape(2, 33, 4, 3, 64)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, qkv[1]) / 8.0
+    p = torch.softmax(s.masked_fill(~keep, -1e30), -1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, qkv[2]).reshape(2, 33, 12, 64)
+    want = torch.autograd.grad((o * cot).sum(), qkv)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_flash_backward_plain_version_gradcheck(dev):
+    """The plain forward and backward, composed as a Function, against
+    finite differences in fp64 on the card: G = 3, a window, a ragged
+    key length and a vector q_off."""
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = ref.flash_attention_ref(q, k, v, q_off, 3, 0.25, True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse = ctx.saved_tensors
+            return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, q_off,
+                                               3, 0.25)
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    f64 = dict(dtype=torch.float64, device=dev, generator=g)
+    q_off = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    q = torch.randn(2, 5, 6, 4, **f64).requires_grad_(True)
+    k = torch.randn(2, 7, 2, 4, **f64).requires_grad_(True)
+    v = torch.randn(2, 7, 2, 4, **f64).requires_grad_(True)
+    assert torch.autograd.gradcheck(PlainFlash.apply, (q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

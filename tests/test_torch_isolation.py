@@ -43,7 +43,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.train.loop, repro_torch.data.prefetch, "
             "repro_torch.launch.train, repro_torch.kernels.chunk_sum, "
             "repro_torch.kernels.quantize, repro_torch.kernels.fused_sgd, "
-            "repro_torch.kernels.fused_rs_update; "
+            "repro_torch.kernels.fused_rs_update, repro_torch.checkpoint, "
+            "repro_torch.train.serve; "
             "from repro_torch import kernels; "
             "assert not any(m.split('.')[0] in ('jax', 'repro') "
             "for m in sys.modules), sorted(sys.modules); "

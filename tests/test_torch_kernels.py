@@ -4,7 +4,11 @@ interpret mode, on the same inputs made from a seed with numpy.
 
 Tolerances: fp32 throughout. 1e-5 (abs and rel) for attention outputs
 and lse — both sides accumulate fp32 sums in a different order; token
-indices and the paged-vs-contiguous identity are exact.
+indices and the paged-vs-contiguous identity are exact. The flash
+backward (the port's autograd against ``jax.grad`` through the Pallas
+custom VJP): rtol 1e-4 / atol 1e-5, the JAX package's own bound for its
+kernels against its oracle; the plain backward against autograd of an
+einsum attention in fp64: 1e-10.
 """
 import numpy as np
 import pytest
@@ -93,6 +97,111 @@ def test_flash_attention_lse_is_logsumexp():
     s = np.where(np.tril(np.ones((6, 6), bool)), s, -np.inf)
     want = np.log(np.exp(s).sum(-1)).transpose(0, 2, 1)
     np.testing.assert_allclose(lse.numpy(), want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention backward (dq, dk/dv)
+# ---------------------------------------------------------------------------
+
+def _grads(q, k, v, cot, **kw):
+    qkv = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    out = tfa.flash_attention(*qkv, **kw)
+    return torch.autograd.grad((out * _t(cot)).sum(), qkv)
+
+
+@pytest.mark.parametrize("window", [0, 9])
+@pytest.mark.parametrize("H,KV,S", [(4, 2, 24), (4, 4, 30), (4, 1, 24),
+                                    (6, 2, 24)])          # G = 2, 1, 4, 3
+def test_flash_attention_grads_match_pallas(window, H, KV, S):
+    """The JAX package's backward grid (block 8, ragged 30) plus G = 3."""
+    rng = np.random.default_rng(window + H + S + KV)
+    D = 16
+    q, k, v = _rand(rng, 1, S, H, D), _rand(rng, 1, S, KV, D), \
+        _rand(rng, 1, S, KV, D)
+    cot = _rand(rng, 1, S, H, D)
+
+    def f(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, window=window, block_q=8,
+                                           block_k=8, interpret=True) * cot)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+    got = _grads(q, k, v, cot, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+def _einsum_attention(q, k, v, q_off, window, scale):
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qpos = q_off.long()[:, None] + torch.arange(Sq)
+    keep = tref._keep(qpos[:, :, None], torch.arange(Sk)[None, None],
+                      window)[:, None, None]
+    s = torch.einsum("bqkgd,btkd->bkgqt", q.reshape(B, Sq, KV, H // KV, D),
+                     k) * scale
+    p = torch.softmax(torch.where(keep, s, -1e30), -1)
+    return torch.einsum("bkgqt,btkd->bqkgd", p, v).reshape(B, Sq, H, -1)
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 29, 4, 2, 0, "vector"),
+                                   (1, 24, 24, 6, 2, 9, None),
+                                   (2, 20, 20, 4, 4, 5, 3)])
+def test_flash_bwd_ref_is_the_einsum_gradient(shape):
+    """The plain backward (a direct formula) against autograd of an
+    einsum attention, in fp64: ragged Sk, a vector q_off, G = 3, window."""
+    B, Sq, Sk, H, KV, window, off = shape
+    rng = np.random.default_rng(Sq)
+    D = 8
+    f64 = lambda *s_: torch.from_numpy(rng.standard_normal(s_))
+    q, k, v, do = f64(B, Sq, H, D), f64(B, Sk, KV, D), f64(B, Sk, KV, D), \
+        f64(B, Sq, H, D)
+    q_off = tfa._positions(torch.tensor([Sk - Sq, 0][:B]) if off == "vector"
+                           else off, B, "cpu")
+    out, lse = tref.flash_attention_ref(q, k, v, q_off, window, 0.3, True)
+    got = tref.flash_attention_bwd_ref(q, k, v, out, lse, do, q_off, window,
+                                       0.3)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(_einsum_attention(*qkv, q_off, window, 0.3),
+                               qkv, do)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-10)
+
+
+def test_flash_attention_gradcheck_fp64():
+    """Finite differences through the port's autograd Function (the plain
+    versions on the CPU) at G = 3 with a window and a vector q_off."""
+    rng = np.random.default_rng(5)
+    f64 = lambda *s_: torch.from_numpy(rng.standard_normal(s_)) \
+        .requires_grad_(True)
+    q, k, v = f64(2, 5, 6, 4), f64(2, 7, 2, 4), f64(2, 7, 2, 4)
+    q_off = torch.tensor([2, 1], dtype=torch.int32)
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tfa.flash_attention(q, k, v, q_off=q_off, window=3),
+        (q, k, v))
+
+
+def test_flash_lse_is_non_differentiable():
+    """lse carries no gradient (the reference's stop_gradient): it does not
+    require grad, a loss that adds it changes no gradient, and the out
+    gradient stays intact."""
+    rng = np.random.default_rng(14)
+    q = _t(_rand(rng, 1, 16, 4, 16)).requires_grad_(True)
+    k, v = _t(_rand(rng, 1, 16, 2, 16)), _t(_rand(rng, 1, 16, 2, 16))
+    out, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    assert out.requires_grad and not lse.requires_grad
+    (g_out,) = torch.autograd.grad(out.sum(), q, retain_graph=True)
+    (g_both,) = torch.autograd.grad(out.sum() + lse.sum(), q)
+    assert torch.equal(g_out, g_both) and g_out.abs().max() > 0
+
+
+def test_cpu_backward_launches_no_kernel():
+    K.reset_launches()
+    q = torch.zeros(1, 4, 2, 32, requires_grad=True)
+    tfa.flash_attention(q, q, q).sum().backward()
+    assert K.LAUNCHES == {}
 
 
 # ---------------------------------------------------------------------------

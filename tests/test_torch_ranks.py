@@ -1,5 +1,5 @@
 """Rank bodies of the port's multi-rank tests (``test_torch_exchange.py``,
-``test_torch_train.py``). Each runs in a spawned gloo process, which
+``test_torch_train.py``, ``test_torch_lm_train.py``). Each runs in a spawned gloo process, which
 imports the module that holds it; this one imports torch and the port
 only, not JAX, so a rank starts in about a second. It holds no tests.
 """
@@ -126,3 +126,31 @@ def bsp_worker(rank, k, out_dir):
         res[name] = {"params": state["params"], "losses": losses,
                      "step": state["step"]}
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# BSP steps of the smoke decoder on k ranks
+# ---------------------------------------------------------------------------
+
+LM_LR = 0.05
+
+
+def lm_bsp_worker(rank, k, out_dir, cfg):
+    """Two ``asa`` steps of ``cfg`` from the saved parameters, this rank on
+    its half of each saved global batch."""
+    params = torch.load(os.path.join(out_dir, "init.pt"))
+    batches = torch.load(os.path.join(out_dir, "batches.pt"))
+    model = dataclasses.replace(build_model(cfg, "cpu"),
+                                init=lambda gen: tree_map(torch.clone, params))
+    opt = topt.sgd_momentum(momentum=0.9, weight_decay=1e-4)
+    state = tbsp.init_train_state(model, opt, None)
+    step = tbsp.make_bsp_step(model, opt, tex.get_exchanger("asa"),
+                              tsched.constant(LM_LR))
+    losses = []
+    for b in batches:
+        half = b["tokens"].shape[0] // k
+        mine = {n: v[rank * half:(rank + 1) * half] for n, v in b.items()}
+        state, metrics = step(state, mine)
+        losses.append(float(metrics["loss"]))
+    torch.save({"params": state["params"], "losses": losses},
+               os.path.join(out_dir, f"lm_rank{rank}.pt"))
