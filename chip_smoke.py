@@ -17,7 +17,13 @@ and the CUDA toolkit. In order:
    The training path's kernels (chunk_sum, the fp16 casts, fused_sgd,
    fused_rs_update) are held the same way at full-width AlexNet shapes:
    the f6.w bucket of 37,748,736 elements and its k=2 shard of
-   18,874,368, against bytes over 3.35 TB/s.
+   18,874,368, against bytes over 3.35 TB/s. So are the blockwise int8
+   quantizers (quant_int8, dequant_int8), which no path calls: a round
+   trip through their wrappers on the f6.w bucket is their path (counts
+   zeroed before it and read after), then each is held bit for bit to its
+   plain version at that length and at 2,048,777, with an all-zero block
+   and exact .5 ties, and timed (no PyTorch call computes the same
+   function, so no library yardstick).
 4. Engine: serves 16 requests through the port's ``Engine`` on full
    llama3.2-1b (16 layers, random weights from a seeded generator, bf16):
    paged KV cache, fused sampling, chunked prefill, a shared-prompt
@@ -36,7 +42,8 @@ and the CUDA toolkit. In order:
    classes, 60,965,224 parameters, fp32, TF32 off) on k=2 gloo rank
    processes that share the card; each rank takes batches of 128
    ``ImageSource`` images through the ``ParallelLoader`` (235 px cropped
-   to 227), momentum SGD 0.9, weight decay 5e-4, ``step_decay``. Three
+   to 227), momentum SGD 0.9, weight decay 5e-4, the launcher's
+   ``recipe`` (``warmup_cosine``) as for every convnet. Three
    runs of 8 steps: (a) ``asa16`` with the sharded update (the
    ``fused_rs_update`` kernel), (b) ``asa16`` unsharded with
    ``sgd_momentum(fused_kernel=fused_sgd)`` (``chunk_sum``, the fp16
@@ -45,6 +52,13 @@ and the CUDA toolkit. In order:
    and must equal what its bucket plan predicts; every loss must be
    finite; and one ``asa`` step of the two ranks on two halves of a batch
    must equal one step of a group of one on the whole batch.
+   The same phase trains the paper's GoogLeNet (224 px, 1000 classes,
+   both aux heads, 11,543,272 parameters; batch 32 a rank): (a) ``asa16``
+   sharded with the fused tail, 6 steps, (b) ``ring16`` unsharded with
+   ``fused_sgd``, 4 steps, and the k=2 = k=1 check to 1e-7; and VGG-16
+   (224 px, 138,357,544 parameters; batch 16 a rank): ``asa16`` sharded,
+   3 steps. Each prints its rate, step split, staging and peak memory a
+   rank; its launches must equal the prediction.
 6. LM train: BSP training of full llama3.2-1b (16 layers, 1,235,814,400
    parameters, bf16 compute over fp32 masters, remat) on k=2 gloo ranks
    sharing the card: batches of 4 x 1024 ``LMTokenSource`` tokens a rank
@@ -57,6 +71,12 @@ and the CUDA toolkit. In order:
    two halves equals one step of a group of one on the whole batch, and
    that a run saved at step 3 and resumed to 6 equals an unbroken 6-step
    run bit for bit.
+7. Training kernels at the paths' own shapes: at every (padded, shard)
+   bucket shape that the LM, AlexNet, GoogLeNet and VGG-16 runs reported,
+   ``quant_fp16`` / ``dequant_fp16`` (whole buckets, chunks and single
+   shards, at either end of a bucket, as a ring hop casts them) and
+   ``fused_rs_update`` equal their plain versions bit for bit, and so
+   does ``fused_sgd`` at every leaf and shard shape of the convnets.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -92,8 +112,10 @@ K_TOL = 1e-6          # one asa step, k=2 ranks on two halves vs a group of
                       # (TF32 and cuDNN off) the gradients differ only by
                       # summation order (~1e-6 of |g|, so ~1e-8 at lr 0.01),
                       # and p - lr g rounds to 1 ulp of |p| < 1 (<= 1.2e-7)
-TRAIN_STEPS = 8       # steps of each training run
-TRAIN_BATCH = 128     # images per rank and step
+K_TOL_GOOGLENET = 1e-7   # the same for GoogLeNet (|p| < 1 there, so one
+                         # ulp of the update is <= 6e-8)
+GOOGLENET_PARAMS = 11_543_272   # at 224 px: aux fc1 sized for the 3x3 map
+                                # the forward makes (the paper: 13,378,280)
 BWD_TOL = 2e-2        # flash dq/dk/dv at bf16, max |d| over the output's max
                       # |plain|: both versions round ds and p to bf16 per
                       # element but sum them in another order, and ds carries
@@ -739,17 +761,83 @@ def train_kernel_phase(torch, ref, flush):
                       "plain_ms": _median_ms(lambda: plain(q, sc),
                                              flush=flush),
                       "bound_ms": b_q[0], "bound_by": b_q[1]}))
-    return rows
+    del q, sc, got_q, want_q, ps, ms_, mask, p, gr, m, recv
+    int8_launches = int8_kernel_rows(torch, ref, qz, flush, row)
+    return rows, int8_launches
 
 
-def lm_wire_check(torch, ref, shapes, dev="cuda"):
-    """The asa16 wire and update kernels at every bucket shape of the LM
-    run, bit for bit against their plain versions: per (padded, shard)
-    bucket, quant_fp16 of the (k, shard) chunks and of the shard,
-    fused_rs_update of the (k, shard) fp16 receive (with the LM's
-    momentum and weight decay over a mixed 0/1 decay mask), and
-    dequant_fp16 of the gathered (padded,) bucket. The values reach past
-    fp16's range, so overflow to inf is exercised."""
+INT8_ODD = 2048 * 1000 + 777       # a length that is not a multiple of 2048
+
+
+def int8_kernel_rows(torch, ref, qz, flush, row, dev="cuda"):
+    """The blockwise int8 quantizers: a round trip through the wrappers on
+    the f6.w bucket (the counts zeroed just before and read just after:
+    the path's launches), then each kernel held bit for bit to its plain
+    version at that length and at INT8_ODD, and timed at the first. The
+    rows go through ``row``; returns the round trip's launches. The input,
+    ties and an all-zero block included, is the CPU tests' own."""
+    from test_torch_ranks import int8_input
+
+    from repro_torch import kernels as K
+    n = F6_BUCKET
+    x, pos = int8_input(n, dev)
+    K.reset_launches()
+    q, sc = qz.quant_int8(x)
+    back = qz.dequant_int8(q, sc)
+    _sync(torch, x.device)
+    launches = dict(K.LAUNCHES)
+    if launches != {"quant_int8": 1, "dequant_int8": 1}:
+        _fail(f"int8 round trip launched {launches}")
+    step = sc.repeat_interleave(2048)[:n]
+    if not bool(((back - x).abs() <= 0.5 * step + 2.0 ** -22 * x.abs())
+                .all()):
+        _fail("int8 round trip lands further than half a step")
+    if pos.numel() < 40 or bool((q[pos].int() % 2).any()):
+        _fail(f"{pos.numel()} ties, rounded to {q[pos].tolist()[:8]}...")
+    print(f"int8 round trip of {n} values: {pos.numel()} ties rounded to "
+          f"even, max |x - dq(q(x))| / scale "
+          f"{((back - x).abs() / step).max().item():.6f}")
+    if sc[1].item() != ref.quant_int8_ref(torch.zeros(1, device=x.device))[
+            1].item() or bool(q[2048:4096].any()):
+        _fail("the all-zero block does not quantize to 0 with scale 1e-12")
+    for n_, xx in ((INT8_ODD, int8_input(INT8_ODD, dev)[0]),
+                   (n, x)):
+        qq, ss = ref.quant_int8_ref(xx)
+        got = qz.quant_int8(xx)
+        if not (torch.equal(got[0], qq) and torch.equal(
+                got[1].view(torch.int32), ss.view(torch.int32))):
+            _fail(f"quant_int8 differs from its plain version at n={n_}")
+        if not torch.equal(qz.dequant_int8(qq, ss).view(torch.int32),
+                           ref.dequant_int8_ref(qq, ss).view(torch.int32)):
+            _fail(f"dequant_int8 differs from its plain version at n={n_}")
+    nb = sc.numel()
+    qr, sr = ref.quant_int8_ref(x)
+    # no single PyTorch call computes blockwise-absmax int8: library_ms None
+    row("quant_int8", "exchange.cu", "src/repro/kernels/quantize.py:80",
+        (q.view(torch.int8).float(), sc), (qr.float(), sr),
+        _median_ms(lambda: qz.quant_int8(x), flush=flush),
+        _median_ms(lambda: ref.quant_int8_ref(x), flush=flush), None,
+        _bound(4 * n + n + 4 * nb, 5 * n, FP32_FLOP_S),
+        _host_ms(lambda: qz.quant_int8(x)))
+    row("dequant_int8", "exchange.cu", "src/repro/kernels/quantize.py:106",
+        qz.dequant_int8(q, sc), ref.dequant_int8_ref(q, sc),
+        _median_ms(lambda: qz.dequant_int8(q, sc), flush=flush),
+        _median_ms(lambda: ref.dequant_int8_ref(q, sc), flush=flush), None,
+        _bound(n + 4 * nb + 4 * n, n, FP32_FLOP_S),
+        _host_ms(lambda: qz.dequant_int8(q, sc)))
+    return launches
+
+
+def wire_check(torch, ref, shapes, label, weight_decay, dev="cuda"):
+    """The wire and update kernels at every bucket shape of a training run,
+    bit for bit against their plain versions: per (padded, shard) bucket,
+    quant_fp16 of the (k, shard) chunks, of the first shard and of the last
+    (a row that starts shard values into the bucket, as a ring hop sends
+    it), dequant_fp16 of the gathered (padded,) bucket and of a received
+    (shard,) row at either end, and fused_rs_update of the (k, shard) fp16
+    receive (with the run's momentum and weight decay over a mixed 0/1
+    decay mask). The values reach past fp16's range, so overflow to inf is
+    exercised."""
     from repro_torch.kernels import fused_rs_update as fru
     from repro_torch.kernels import quantize as qz
     k = 2
@@ -761,30 +849,54 @@ def lm_wire_check(torch, ref, shapes, dev="cuda"):
     same = lambda a, b: torch.equal(bits(a), bits(b))
     for padded, s in shapes:
         if padded != k * s:
-            _fail(f"LM bucket {padded} is not {k} shards of {s}")
+            _fail(f"{label} bucket {padded} is not {k} shards of {s}")
         x = rn(k, s) * 20000
         recv = x.half()
         ps, ms_ = rn(s) * 0.01, rn(s) * 0.001
         mask = (torch.rand(s, generator=g, device=dev) < 0.9).float()
         got = fru.fused_rs_update(recv, ps, ms_, lr, wd_mask=mask,
                                   scale=1 / k, momentum=0.9,
-                                  weight_decay=1e-4)
+                                  weight_decay=weight_decay)
         want = ref.fused_rs_update_ref(recv, ps, ms_, mask, lr, 0.9, False,
-                                       1 / k, 1e-4, None)
+                                       1 / k, weight_decay, None)
         ok = {"quant_fp16 (k, shard)": same(qz.quant_fp16(x),
-                                            ref.quant_fp16_ref(x)),
-              "quant_fp16 (shard,)": same(qz.quant_fp16(x[0]),
-                                          ref.quant_fp16_ref(x[0])),
-              "dequant_fp16 (padded,)": same(
-                  qz.dequant_fp16(recv.reshape(-1)),
-                  ref.dequant_fp16_ref(recv.reshape(-1))),
-              "fused_rs_update": all(same(a, b) for a, b in zip(got, want))}
-        print(f"LM bucket {padded} = {k} x {s}, bit for bit: "
-              + json.dumps(ok))
+                                            ref.quant_fp16_ref(x))}
+        for r in (0, k - 1):
+            ok[f"quant_fp16 shard {r}"] = same(qz.quant_fp16(x[r]),
+                                               ref.quant_fp16_ref(x[r]))
+            ok[f"dequant_fp16 shard {r}"] = same(
+                qz.dequant_fp16(recv[r]), ref.dequant_fp16_ref(recv[r]))
+        ok["dequant_fp16 (padded,)"] = same(
+            qz.dequant_fp16(recv.reshape(-1)),
+            ref.dequant_fp16_ref(recv.reshape(-1)))
+        ok["fused_rs_update"] = all(same(a, b) for a, b in zip(got, want))
         if not all(ok.values()):
-            _fail(f"LM bucket {padded}: a wire or update kernel differs "
+            _fail(f"{label} bucket {padded}: a wire or update kernel differs "
                   f"from its plain version: {ok}")
         del x, recv, ps, ms_, mask, got, want
+    print(f"{label}: the fp16 wire kernels and fused_rs_update equal their "
+          f"plain versions bit for bit at all {len(shapes)} bucket shapes "
+          f"(padded, shard): {json.dumps(shapes)}")
+
+
+def sgd_check(torch, ref, shapes, label, dev="cuda"):
+    """fused_sgd bit for bit against its plain version at every leaf and
+    shard shape of a training run (the unsharded update calls it on every
+    leaf, the sharded one on the small leaves or the shards)."""
+    from repro_torch.kernels import fused_sgd as fs
+    g = torch.Generator(device=dev).manual_seed(4323)
+    rn = lambda s: torch.randn(s, generator=g, device=dev)
+    lr = torch.tensor([0.01], device=dev)
+    for shape in shapes:
+        p, gr, m = rn(shape) * 0.01, rn(shape) * 0.001, rn(shape) * 0.001
+        got = fs.fused_sgd(p, gr, m, lr, 0.9)
+        want = ref.fused_sgd_ref(p, gr, m, lr, 0.9)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want)):
+            _fail(f"{label}: fused_sgd differs from its plain version at "
+                  f"{tuple(shape)}")
+    print(f"{label}: fused_sgd equals its plain version bit for bit at all "
+          f"{len(shapes)} leaf and shard shapes")
 
 
 def conv_precision(torch):
@@ -818,36 +930,53 @@ def conv_precision(torch):
           + json.dumps(out))
 
 
-def _predicted_launches(rsplan, n_leaves: int, run: str, steps: int,
-                        fused: bool):
+def _predicted_launches(rsplan, n_leaves: int, ex: str, sharded: bool,
+                        steps: int, fused: bool, k: int = 2):
     """Kernel launches of one rank over ``steps`` steps of a run, from its
     bucket plan: nb buckets (reduce-scattered, each shard updated and
     all-gathered) and ns small leaves (all-reduced, flat-updated).
     ``fused``: the sharded runs take the fused_rs_update kernel (the
     default where the parameters are on the card)."""
     nb, ns = rsplan.num_buckets, len(rsplan.small)
-    if run == "b":       # asa16 unsharded: fp16 RS out, the sum, fp16 AG
+    asa16 = ex == "asa16"
+    if ex == "ring16":   # k - 1 hops of each half, fp16 out and in per hop
+        hops = 2 * (k - 1) * nb
+        per_step = {"quant_fp16": hops, "dequant_fp16": hops}
+        per_step["fused_sgd"] = ns + nb if sharded else n_leaves
+    elif not sharded:    # asa16: fp16 RS out, the sum, fp16 AG
         per_step = {"quant_fp16": 2 * nb, "dequant_fp16": nb,  # out and in,
                     "chunk_sum": nb, "fused_sgd": n_leaves}   # every leaf
     elif fused:          # sharded: fused tail, fp16 parameter AG
         per_step = {"fused_rs_update": nb, "fused_sgd": ns,
-                    "quant_fp16": nb * (2 if run == "a" else 1),
+                    "quant_fp16": nb * (2 if asa16 else 1),
                     "dequant_fp16": nb}
     else:                # sharded, unfused: sum (fp16 wire) + flat update
         per_step = {"fused_sgd": nb + ns, "dequant_fp16": nb,
-                    "quant_fp16": nb * (2 if run == "a" else 1)}
-        if run == "a":
+                    "quant_fp16": nb * (2 if asa16 else 1)}
+        if asa16:
             per_step["chunk_sum"] = nb
-    return {name: c * steps for name, c in per_step.items()}
+    return {name: c * steps for name, c in per_step.items() if c}
 
 
-TRAIN_RUNS = (("a", "asa16", True), ("b", "asa16", False),
-              ("c", "asa8", True))
+# The convnet training phases: per arch, the full config's parameter count,
+# images per rank and step, the runs (name, exchanger, sharded, steps),
+# and whether one asa step of k=2 on halves is held to k=1 on the whole
+# batch, and to what bound.
+TRAIN_ARCHS = {
+    "alexnet": dict(params=60_965_224, batch=128,
+                    runs=(("a", "asa16", True, 8), ("b", "asa16", False, 8),
+                          ("c", "asa8", True, 8)), k_tol=K_TOL),
+    "googlenet": dict(params=GOOGLENET_PARAMS, batch=32,
+                      runs=(("a", "asa16", True, 6),
+                            ("b", "ring16", False, 4)), k_tol=K_TOL_GOOGLENET),
+    "vggnet": dict(params=138_357_544, batch=16,
+                   runs=(("a", "asa16", True, 3),), k_tol=None),
+}
 
 
-def _train_rank(rank, k, out_dir, device, smoke):
-    """One rank of the training phase (a spawned process on ``device``:
-    cuda:0, or the CPU with the smoke config to rehearse)."""
+def _train_rank(rank, k, out_dir, device, smoke, arch="alexnet"):
+    """One rank of a convnet training phase (a spawned process on
+    ``device``: cuda:0, or the CPU with the smoke config to rehearse)."""
     import os
 
     import torch
@@ -857,131 +986,158 @@ def _train_rank(rank, k, out_dir, device, smoke):
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import bsp, exchanger
     from repro_torch.data.synthetic import ImageSource
-    from repro_torch.kernels import fused_sgd as fs
-    from repro_torch.launch.train import (rank_loader, set_fp32_math,
+    from repro_torch.launch.train import (rank_loader, recipe, set_fp32_math,
                                           write_rank_batches)
     from repro_torch.models import build_model, count_params
-    from repro_torch.optim import constant, sgd_momentum, step_decay
+    from repro_torch.optim import constant
     from repro_torch.train.engine import TrainPlan
     from repro_torch.train.loop import train
     from repro_torch.tree import leaves
 
+    spec = TRAIN_ARCHS[arch]
     set_fp32_math()
     dev = torch.device(device)
-    if dev.type == "cuda":
+    cuda = dev.type == "cuda"
+    if cuda:
         torch.cuda.set_device(dev)
-    cfg = (get_smoke_config if smoke else get_config)("alexnet")
+    cfg = (get_smoke_config if smoke else get_config)(arch)
     model = build_model(cfg, dev)
     shapes = build_model(cfg, "meta").init(None)
     n_params = count_params(shapes)
-    if not smoke and n_params != 60_965_224:
-        _fail(f"AlexNet has {n_params} parameters, not 60,965,224")
-    batch = 4 if smoke else TRAIN_BATCH
+    if not smoke and n_params != spec["params"]:
+        _fail(f"{arch} has {n_params} parameters, not {spec['params']:,}")
+    batch = 4 if smoke else spec["batch"]
     rsplan = exchanger.make_rs_plan(shapes, k)
     n_leaves = len(leaves(shapes))
     files = write_rank_batches(cfg, rank, k, batch, 4,
                                os.path.join(out_dir, f"data{rank}"))
-    opt = sgd_momentum(momentum=0.9, weight_decay=5e-4,
-                       fused_kernel=fs.fused_sgd)
-    lr = step_decay(0.01, steps_per_drop=TRAIN_STEPS // 2)
-    out = {"runs": {}, "rank": rank}
-    for run, ex, sharded in TRAIN_RUNS:
-        loader = rank_loader(cfg, files, dev, TRAIN_STEPS, seed=rank)
+    out = {"runs": {}, "rank": rank, "params": n_params,
+           "buckets": rsplan.num_buckets, "small_leaves": len(rsplan.small),
+           "bucket_shapes": sorted({(b.padded, b.shard_len)
+                                    for b in rsplan.buckets}),
+           "leaf_shapes": sorted({tuple(t.shape) for t in leaves(shapes)})}
+    for run, ex, sharded, steps in spec["runs"]:
+        opt, lr = recipe(cfg, steps)
+        loader = rank_loader(cfg, files, dev, steps, seed=rank)
         plan = TrainPlan(exchanger=ex, sharded_update=sharded)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
         _, rep = train(model, opt, lr, loader, plan=plan,
-                       num_steps=TRAIN_STEPS, log_every=TRAIN_STEPS,
+                       num_steps=steps, log_every=steps,
                        seed=0, print_fn=lambda *a: None)
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
         loader.stop()
         out["runs"][run] = dict(
-            exchanger=ex, sharded=sharded, steps=rep.steps,
+            exchanger=ex, sharded=sharded, steps=rep.steps, want_steps=steps,
             losses=rep.losses, images_per_s=rep.steady_examples_per_s,
             first_step_s=rep.first_step_time,
             phase_ms={p: v * 1e3 for p, v in rep.phase_s.items()},
             staged_mb_per_step=rep.staged_bytes / 1e6,
             stage_ms_per_step=rep.stage_s * 1e3,
             wire_ms_per_step=rep.wire_s * 1e3,
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9 if cuda
+                         else None),
             launches=launches,
-            predicted=_predicted_launches(rsplan, n_leaves, run,
-                                          TRAIN_STEPS, dev.type == "cuda"))
+            predicted=_predicted_launches(rsplan, n_leaves, ex, sharded,
+                                          steps, cuda, k))
+        del rep
+        if cuda:
+            torch.cuda.empty_cache()
 
-    # one asa step: the two ranks on two halves of a batch, then a group
-    # of one (rank 0) on the whole batch, from the same parameters
-    solo = dist.new_group([0])
-    src = ImageSource(cfg.image_size, cfg.num_classes)
-    full = {n_: torch.from_numpy(v).to(dev)
-            for n_, v in src.batch(2 * batch // 4, 12345).items()}
-    half = {n_: v[rank * batch // 4:(rank + 1) * batch // 4]
-            for n_, v in full.items()}
-    params = model.init(torch.Generator(device=dev).manual_seed(7))
-    asa = exchanger.get_exchanger("asa")
-    state = {"params": params, "opt": opt.init(params), "step": 0}
-    names = [f"{a}.{b}" for a in sorted(params) for b in sorted(params[a])]
-    # cuDNN off: its fp32 weight-gradient path for c2 (5x5, 48 input
-    # channels a group) errs by ~1 % of the gradient's scale, differently
-    # at batch 32 and 64 (see the c2 line of the parent), which would
-    # swamp the exchange's own agreement that this check is about
-    with torch.backends.cudnn.flags(enabled=False):
-        two, _ = bsp.make_bsp_step(model, opt, asa, constant(0.01))(state,
-                                                                    half)
+    if spec["k_tol"] is not None:
+        # one asa step: the two ranks on two halves of a batch, then a
+        # group of one (rank 0) on the whole batch, from the same parameters
+        solo = dist.new_group([0])
+        src = ImageSource(cfg.image_size, cfg.num_classes)
+        full = {n_: torch.from_numpy(v).to(dev)
+                for n_, v in src.batch(2 * batch // 4, 12345).items()}
+        half = {n_: v[rank * batch // 4:(rank + 1) * batch // 4]
+                for n_, v in full.items()}
+        params = model.init(torch.Generator(device=dev).manual_seed(7))
+        asa = exchanger.get_exchanger("asa")
+        state = {"params": params, "opt": opt.init(params), "step": 0}
+        names = _leaf_names(params)
+        # cuDNN off: its fp32 weight-gradient path for AlexNet's c2 (5x5, 48
+        # input channels a group) errs by ~1 % of the gradient's scale,
+        # differently at batch 32 and 64 (see the c2 line), which would
+        # swamp the exchange's own agreement that this check is about
+        with torch.backends.cudnn.flags(enabled=False):
+            two, _ = bsp.make_bsp_step(model, opt, asa, constant(0.01))(
+                state, half)
+            if rank == 0:
+                one, _ = bsp.make_bsp_step(model, opt, asa, constant(0.01),
+                                           group=solo)(state, full)
         if rank == 0:
-            one, _ = bsp.make_bsp_step(model, opt, asa, constant(0.01),
-                                       group=solo)(state, full)
-    if rank == 0:
-        per_leaf = {
-            n_: {"max_abs_dp": (a - b).abs().max().item(),
-                 "max_abs_step": (b - p0).abs().max().item()}
-            for n_, a, b, p0 in zip(names, leaves(two["params"]),
-                                    leaves(one["params"]), leaves(params))}
-        out["k2_vs_k1"] = per_leaf
-        out["k2_vs_k1_max_abs_dp"] = max(v["max_abs_dp"]
-                                         for v in per_leaf.values())
+            per_leaf = {
+                n_: {"max_abs_dp": (a - b).abs().max().item(),
+                     "max_abs_step": (b - p0).abs().max().item()}
+                for n_, a, b, p0 in zip(names, leaves(two["params"]),
+                                        leaves(one["params"]),
+                                        leaves(params))}
+            out["k2_vs_k1"] = per_leaf
+            out["k2_vs_k1_max_abs_dp"] = max(v["max_abs_dp"]
+                                             for v in per_leaf.values())
     dist.barrier()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def train_phase(device="cuda:0", smoke=False):
-    """Spawns the k=2 rank processes and checks what they report."""
+def train_phase(device="cuda:0", smoke=False, arch="alexnet"):
+    """Spawns the k=2 rank processes of ``arch`` and checks what they
+    report; returns rank 0's launches summed over its runs, and its
+    (padded, shard) bucket shapes with the leaf and shard shapes that
+    fused_sgd updates."""
     import tempfile
 
     from repro_torch.launch.train import run_ranks
     k = 2
+    spec = TRAIN_ARCHS[arch]
     with tempfile.TemporaryDirectory() as td:
         t0 = time.perf_counter()
-        run_ranks(_train_rank, k, (td, device, smoke), backend="gloo")
+        run_ranks(_train_rank, k, (td, device, smoke, arch), backend="gloo")
         wall = time.perf_counter() - t0
         ranks = [json.loads(Path(td, f"rank{r}.json").read_text())
                  for r in range(k)]
-    print(f"train phase: {k} gloo ranks on {device}, {wall:.1f}s")
+    r0 = ranks[0]
+    print(f"{arch} train phase: {k} gloo ranks on {device}, {wall:.1f}s; "
+          f"{r0['params']:,} parameters in {r0['buckets']} buckets and "
+          f"{r0['small_leaves']} small leaves")
     total = {}
-    for run, ex, sharded in TRAIN_RUNS:
-        r0 = ranks[0]["runs"][run]
+    for run, ex, sharded, steps in spec["runs"]:
         for rk in ranks:
             rr = rk["runs"][run]
             bad = [x for x in rr["losses"] if not math.isfinite(x)]
-            if len(rr["losses"]) != TRAIN_STEPS or bad:
-                _fail(f"run {run} rank {rk['rank']}: losses {rr['losses']}")
+            if len(rr["losses"]) != steps or bad:
+                _fail(f"{arch} run {run} rank {rk['rank']}: losses "
+                      f"{rr['losses']}")
             if rr["launches"] != rr["predicted"]:
-                _fail(f"run {run} rank {rk['rank']}: launches "
+                _fail(f"{arch} run {run} rank {rk['rank']}: launches "
                       f"{rr['launches']} != predicted {rr['predicted']}")
-        for name, c in r0["launches"].items():
+        rr = r0["runs"][run]
+        for name, c in rr["launches"].items():
             total[name] = total.get(name, 0) + c
-        print(f"train run ({run}) {ex}{' sharded' if sharded else ''}: " +
-              json.dumps({key: r0[key] for key in (
+        print(f"{arch} train run ({run}) {ex}{' sharded' if sharded else ''}"
+              f", {steps} steps: " + json.dumps({key: rr[key] for key in (
                   "images_per_s", "first_step_s", "phase_ms",
                   "staged_mb_per_step", "stage_ms_per_step",
                   "wire_ms_per_step", "launches", "predicted", "losses")}))
-    dp = ranks[0]["k2_vs_k1_max_abs_dp"]
-    print("k2_vs_k1 per leaf: " + json.dumps(ranks[0]["k2_vs_k1"]))
-    print(f"asa step, k=2 on halves vs k=1 on the batch: max |dp| {dp} "
-          f"(bound {K_TOL})")
-    if not dp <= K_TOL:
-        _fail(f"k=2 and k=1 asa steps differ by {dp} > {K_TOL}")
-    return total
+        print(f"{arch} run ({run}) peak memory per rank, GB: " + json.dumps(
+            [rk["runs"][run]["peak_mem_gb"] for rk in ranks]))
+    if spec["k_tol"] is not None:
+        dp = r0["k2_vs_k1_max_abs_dp"]
+        print(f"{arch} k2_vs_k1 per leaf: " + json.dumps(r0["k2_vs_k1"]))
+        print(f"{arch} asa step, k=2 on halves vs k=1 on the batch: max |dp| "
+              f"{dp} (bound {spec['k_tol']})")
+        if not dp <= spec["k_tol"]:
+            _fail(f"{arch}: k=2 and k=1 asa steps differ by {dp} > "
+                  f"{spec['k_tol']}")
+    buckets = [tuple(b) for b in r0["bucket_shapes"]]
+    sgd_shapes = ([tuple(sh) for sh in r0["leaf_shapes"]]
+                  + sorted({(sh,) for _, sh in buckets}))
+    return total, (buckets, sgd_shapes)
 
 
 def _lm_rank(rank, k, out_dir, device, smoke):
@@ -1037,8 +1193,8 @@ def _lm_rank(rank, k, out_dir, device, smoke):
     if not smoke and n_params != LM_PARAMS:
         _fail(f"llama3.2-1b has {n_params} parameters, not {LM_PARAMS:,}")
     rsplan = exchanger.make_rs_plan(state["params"], k)
-    predicted = _predicted_launches(rsplan, len(leaves(state["params"])), "a",
-                                    LM_STEPS, cuda)
+    predicted = _predicted_launches(rsplan, len(leaves(state["params"])),
+                                    "asa16", True, LM_STEPS, cuda, k)
     L = cfg.num_layers
     predicted.update(flash_attention=(2 if cfg.remat else 1) * L * LM_STEPS,
                      flash_attention_dq=L * LM_STEPS,
@@ -1174,7 +1330,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    # the port, and the CPU tests' JAX-free input makers (test_torch_ranks)
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     from repro_torch import configs as cfg_mod
     from repro_torch import kernels as K
     from repro_torch import models, serve
@@ -1202,7 +1359,8 @@ def main() -> int:
     # would only touch the convolutions of the train phase)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows += train_kernel_phase(torch, ref, flush=l2.zero_)
+    train_rows, int8_launches = train_kernel_phase(torch, ref, flush=l2.zero_)
+    rows += train_rows
     rows += lm_kernel_phase(torch, ref, fa, flush=l2.zero_)
     del l2
     torch.cuda.empty_cache()
@@ -1213,11 +1371,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_grad_check(torch, llama, models, torch.device("cuda"))
     torch.cuda.empty_cache()
-    # launches per kernel and main path (serve, AlexNet training, LM
-    # training), each path counted from zero around its run
-    by_path = {"serve": launches, "alexnet_train": train_phase()}
+    # launches per kernel and main path (serve, the convnets' training, LM
+    # training, the int8 round trip), each path counted from zero around
+    # its run
+    by_path, conv_shapes = {"serve": launches}, {}
+    for arch in TRAIN_ARCHS:
+        by_path[f"{arch}_train"], conv_shapes[arch] = train_phase(arch=arch)
+    by_path["int8_roundtrip"] = int8_launches
     by_path["lm_train"], lm_buckets = lm_train_phase()
-    lm_wire_check(torch, ref, lm_buckets)
+    # the kernels of every training path, held to their plain versions at
+    # the shapes that path gave them
+    wire_check(torch, ref, lm_buckets, "LM", 1e-4)
+    for arch, (buckets, sgd_shapes) in conv_shapes.items():
+        wire_check(torch, ref, buckets, arch, 5e-4)
+        sgd_check(torch, ref, sgd_shapes, arch)
+        torch.cuda.empty_cache()
 
     out = []
     for r in rows:

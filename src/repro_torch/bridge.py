@@ -1,10 +1,13 @@
 """Parameter bridge: the JAX package's parameter trees, given as numpy
 arrays, to the port's parameters.
 
-Convnets (``conv_params_from_jax``): conv weights go from the JAX
-package's HWIO to PyTorch's OIHW (a transpose; grouped convs split their
-output channels contiguously on both sides, so no regrouping); FC
-weights and all biases keep their layout.
+Convnets (``conv_params_from_jax``): every 4-D leaf is a conv weight and
+goes from the JAX package's HWIO to PyTorch's OIHW (a transpose, 1x1
+convs included; grouped convs split their output channels contiguously
+on both sides, so no regrouping); FC weights and all biases keep their
+layout. The trees keep their nesting, so GoogLeNet's Inception modules
+(``i3a.b3r.w``, ...) and aux heads (``aux0_fc1.w``, ...) cross as they
+are.
 
 Decoders (``decoder_params_from_jax``): the JAX tree stacks consecutive same-kind layers into ``blocks[seg]``
 with a leading layer axis; the port keeps one dict per layer
@@ -65,8 +68,8 @@ def decoder_params_from_jax(tree, device=None) -> dict:
 
 
 def conv_params_from_jax(tree, device=None) -> dict:
-    """{layer: {w, b}} with HWIO conv weights (numpy leaves) -> the same
-    tree with OIHW conv weights as tensors."""
+    """A convnet tree with HWIO conv weights (numpy leaves, nested dicts of
+    {w, b}) -> the same tree with OIHW conv weights as tensors."""
     def leaf(a):
         a = np.asarray(a)
         if a.ndim == 4:

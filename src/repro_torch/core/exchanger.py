@@ -13,10 +13,13 @@ a gradient (or parameter) tree across the group:
                 ``dequant_fp16`` kernels), fp32 sum
 - ``asabf16`` : ASA with a bf16 wire (a plain cast, as in the JAX package)
 - ``asa8``    : int8 wire, one absmax scale per rank chunk
+- ``ring``    : ring reduce-scatter and all-gather, k - 1 hops each to
+                the next rank (``Transport.send_recv``)
+- ``ring16``  : the ring with an fp16 wire, rounded at every hop
 - ``none``    : identity
 
-``ring``/``ring16`` and ``hier``/``hier16`` are not ported yet (ROADMAP
-queue 1: "ring/hier exchangers"); ``get_exchanger`` raises for them.
+``hier``/``hier16`` (a two-level pod x data topology) are not ported yet
+(ROADMAP queue 1); ``get_exchanger`` raises for them.
 
 Every strategy splits into a ``reduce_scatter`` half (each rank keeps
 the fp32 mean of its 1/k shard of every bucket) and an ``all_gather``
@@ -147,6 +150,24 @@ class Transport:
             dist.all_reduce(o, op=dist.ReduceOp.SUM, group=self.group)
         return self._run(op, x, x.shape)
 
+    def _global(self, rank: int) -> int:
+        if self.group is None:
+            return rank
+        return dist.get_global_rank(self.group, rank)
+
+    def send_recv(self, x):
+        """One ring hop: send ``x`` to rank + 1 and return what rank - 1
+        sent (same shape and dtype)."""
+        nxt = self._global((self.rank + 1) % self.k)
+        prv = self._global((self.rank - 1) % self.k)
+
+        def op(o, i):
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, i, nxt, self.group),
+                    dist.P2POp(dist.irecv, o, prv, self.group)]):
+                req.wait()
+        return self._run(op, x, x.shape)
+
 
 def as_transport(group_or_transport) -> Transport:
     if isinstance(group_or_transport, Transport):
@@ -272,6 +293,38 @@ def _rs_asa_raw(flat, tr, transfer_dtype):
     return tr.all_to_all(_to_wire(chunks, transfer_dtype)), None
 
 
+def _rs_ring(flat, tr, inv_k, transfer_dtype):
+    """Ring reduce-scatter: at hop s rank i sends its partial of chunk
+    (i - s - 1) % k at the wire dtype and adds its own copy of chunk
+    (i - s - 2) % k to what it receives, so after k - 1 hops it holds
+    chunk i fully reduced (the sharded update's layout)."""
+    k, i = tr.k, tr.rank
+    if k == 1:
+        return flat * inv_k
+    x = flat.reshape(k, -1)
+    acc = x[(i - 1) % k]
+    for s in range(k - 1):
+        recv = _from_wire(tr.send_recv(_to_wire(acc, transfer_dtype)))
+        acc = recv + x[(i - s - 2) % k]
+    return acc * inv_k
+
+
+def _ag_ring(shard, tr, transfer_dtype):
+    """Ring all-gather: after s hops rank i holds rank (i - s)'s shard,
+    rounded to the wire dtype once per hop (its own shard stays fp32)."""
+    k, i = tr.k, tr.rank
+    if k == 1:
+        return shard
+    buf = torch.empty((k, shard.shape[0]), dtype=torch.float32,
+                      device=shard.device)
+    buf[i] = shard
+    cur = shard
+    for s in range(1, k):
+        cur = _from_wire(tr.send_recv(_to_wire(cur, transfer_dtype)))
+        buf[(i - s) % k] = cur
+    return buf.reshape(-1)
+
+
 def _ag_flat(shard, tr, transfer_dtype):
     """All-gather the (s,) fp32 shard to (k s,) at the wire dtype (int8
     requantizes with one fp32 scale per shard)."""
@@ -284,7 +337,8 @@ def _ag_flat(shard, tr, transfer_dtype):
     return _from_wire(tr.all_gather(_to_wire(shard, transfer_dtype)))
 
 
-_RS_FNS = {"ar": _rs_ar, "asa": _rs_asa}
+_RS_FNS = {"ar": _rs_ar, "asa": _rs_asa, "ring": _rs_ring}
+_AG_FNS = {"ar": _ag_flat, "asa": _ag_flat, "ring": _ag_ring}
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +348,10 @@ _RS_FNS = {"ar": _rs_ar, "asa": _rs_asa}
 @dataclass(frozen=True)
 class Exchanger:
     """Named strategy applied bucket-wise to a tree. ``kind`` is the
-    collective family (``ar`` | ``asa`` | ``none``); ``transfer_dtype`` is
-    the wire format of both halves (None: fp32). Every method takes a
-    process group (None: the default one) or a :class:`Transport`."""
+    collective family (``ar`` | ``asa`` | ``ring`` | ``none``);
+    ``transfer_dtype`` is the wire format of both halves (None: fp32).
+    Every method takes a process group (None: the default one) or a
+    :class:`Transport`."""
     name: str
     kind: str
     transfer_dtype: Any = None
@@ -367,7 +422,8 @@ class Exchanger:
         if wire_dtype is ...:
             wire_dtype = self.transfer_dtype
         tr = as_transport(group)
-        return [_ag_flat(s, tr, wire_dtype) for s in shards]
+        ag = _AG_FNS[self.kind]
+        return [ag(s, tr, wire_dtype) for s in shards]
 
     def exchange(self, grads, group=None, bucket_bytes: int = 0):
         """Mean-reduce ``grads`` across the group: ``reduce_scatter`` then
@@ -393,17 +449,19 @@ EXCHANGERS: dict[str, Exchanger] = {
     "asa16": Exchanger("asa16", "asa", torch.float16),
     "asabf16": Exchanger("asabf16", "asa", torch.bfloat16),
     "asa8": Exchanger("asa8", "asa", torch.int8),
+    "ring": Exchanger("ring", "ring"),
+    "ring16": Exchanger("ring16", "ring", torch.float16),
     "none": Exchanger("none", "none"),
 }
 # strategies of the JAX package that are not ported yet
-NOT_PORTED = ("ring", "ring16", "hier", "hier16")
+NOT_PORTED = ("hier", "hier16")
 
 
 def get_exchanger(name: str) -> Exchanger:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"exchanger {name!r} is not ported yet (ROADMAP queue 1: "
-            f"ring/hier exchangers); ported: {sorted(EXCHANGERS)}")
+            f"hier exchangers); ported: {sorted(EXCHANGERS)}")
     if name not in EXCHANGERS:
         raise KeyError(f"unknown exchanger {name!r}; known: "
                        f"{sorted(EXCHANGERS)}")

@@ -1,12 +1,15 @@
 // The ASA exchange's kernels for Hopper (sm_90a): the full-precision chunk
-// sum and the fp16 wire casts. Plain C interface, loaded with ctypes
-// (repro_torch/kernels/chunk_sum.py, quantize.py); each entry point launches
-// on the caller's stream and returns cudaGetLastError().
+// sum, the fp16 wire casts and the blockwise int8 quantizers. Plain C
+// interface, loaded with ctypes (repro_torch/kernels/chunk_sum.py,
+// quantize.py); each entry point launches on the caller's stream and
+// returns cudaGetLastError().
 //
 // Replaces (JAX package, Pallas/TPU):
 //   chunk_sum    src/repro/kernels/chunk_sum.py:_chunk_sum_kernel
 //   quant_fp16   src/repro/kernels/quantize.py:_cast_kernel (to float16)
 //   dequant_fp16 src/repro/kernels/quantize.py:_cast_kernel (to float32)
+//   quant_int8   src/repro/kernels/quantize.py:_quant_int8_kernel
+//   dequant_int8 src/repro/kernels/quantize.py:_dequant_int8_kernel
 //
 // chunk_sum: (k, n) receives of float32 / bfloat16 / float16 -> (n,) fp32,
 // summed in row order 0..k-1 with one rounding per add (__fadd_rn, never
@@ -24,6 +27,18 @@
 // start off the vector grid (the trap of fp16 rows of odd length), so the
 // alignment is tested per row; every thread of a warp sees the same row, so
 // the test does not diverge.
+//
+// quant_int8: one thread block per block of block_n values (at most
+// THREADS * MAX_PER). Each thread holds its values in registers, the block
+// max of |x| is reduced with warp shuffles and one shared-memory stage, and
+// then each value is written as rint(x / scale) clamped to +-127, with
+// scale = fma(absmax, fp32(1/127), 1e-12): a true IEEE division and
+// rounding half to even, as the plain version's torch.round(x / scale)
+// and the Pallas kernel's jnp.round do, so all three agree bit for bit.
+// Values past n count as zeros toward the last block's absmax and are not
+// written.
+// dequant_int8: a grid-stride loop over value blocks; each thread reads its
+// block's scale once and writes q * scale for its values.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -153,6 +168,53 @@ __global__ void dequant_fp16_kernel(const __half* __restrict__ x, float* __restr
     out[tail + threadIdx.x] = __half2float(x[tail + threadIdx.x]);
 }
 
+constexpr int MAX_PER = 16;       // values a thread holds: block_n <= 4096
+
+__global__ void quant_int8_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                                  float* __restrict__ scales, long long n, int block_n) {
+  __shared__ float warp_max[THREADS / 32];
+  const long long base = (long long)blockIdx.x * block_n;
+  float v[MAX_PER];
+  float m = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAX_PER; ++j) {
+    const int i = j * THREADS + threadIdx.x;
+    v[j] = (i < block_n && base + i < n) ? x[base + i] : 0.0f;
+    m = fmaxf(m, fabsf(v[j]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < THREADS / 32; ++w) m = fmaxf(m, warp_max[w]);
+  // XLA compiles the JAX kernel's absmax / 127 + 1e-12 into one fma by
+  // the fp32 reciprocal of 127; so does this line
+  const float scale = __fmaf_rn(m, 1.0f / 127.0f, 1e-12f);
+#pragma unroll
+  for (int j = 0; j < MAX_PER; ++j) {
+    const int i = j * THREADS + threadIdx.x;
+    if (i < block_n && base + i < n) {
+      const float r = fminf(fmaxf(rintf(__fdiv_rn(v[j], scale)), -127.0f), 127.0f);
+      q[base + i] = static_cast<int8_t>(static_cast<int>(r));
+    }
+  }
+  if (threadIdx.x == 0) scales[blockIdx.x] = scale;
+}
+
+__global__ void dequant_int8_kernel(const int8_t* __restrict__ q,
+                                    const float* __restrict__ scales, float* __restrict__ out,
+                                    long long n, int block_n, long long n_blocks) {
+  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const float s = scales[b];
+    const long long base = b * block_n;
+    const long long end = base + block_n < n ? base + block_n : n;
+    for (long long i = base + threadIdx.x; i < end; i += THREADS)
+      out[i] = __fmul_rn(static_cast<float>(q[i]), s);
+  }
+}
+
 template <typename T>
 int launch_chunk_sum(const void* x, void* out, int k, long long n, cudaStream_t s) {
   chunk_sum_kernel<T><<<grid_for(n / VEC), THREADS, 0, s>>>(
@@ -189,6 +251,31 @@ int dequant_fp16(const void* x, void* out, long long n, void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
   dequant_fp16_kernel<<<grid_for(n / VEC), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __half*>(x), static_cast<float*>(out), n);
+  return cudaGetLastError();
+}
+
+// x (n,) fp32 -> q (n,) int8 and scales (ceil(n / block_n),) fp32;
+// 0 < block_n <= 4096.
+int quant_int8(const void* x, void* q, void* scales, long long n, int block_n, void* stream) {
+  if (n <= 0 || block_n <= 0 || block_n > THREADS * MAX_PER) return cudaErrorInvalidValue;
+  const long long nb = (n + block_n - 1) / block_n;
+  if (nb > 0x7fffffffLL) return cudaErrorInvalidValue;
+  quant_int8_kernel<<<static_cast<unsigned>(nb), THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(scales), n,
+      block_n);
+  return cudaGetLastError();
+}
+
+// q (n,) int8 and scales (ceil(n / block_n),) fp32 -> out (n,) fp32
+int dequant_int8(const void* q, const void* scales, void* out, long long n, int block_n,
+                 void* stream) {
+  if (n <= 0 || block_n <= 0) return cudaErrorInvalidValue;
+  const long long nb = (n + block_n - 1) / block_n;
+  dequant_int8_kernel<<<grid_for(nb * THREADS), THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
+      static_cast<float*>(out), n, block_n, nb);
   return cudaGetLastError();
 }
 

@@ -51,6 +51,8 @@ SIGNATURES = {
         "chunk_sum": [_P, _P, _I, _L, _I, _P],
         "quant_fp16": [_P, _P, _L, _P],
         "dequant_fp16": [_P, _P, _L, _P],
+        "quant_int8": [_P, _P, _P, _L, _I, _P],
+        "dequant_int8": [_P, _P, _P, _L, _I, _P],
     },
     "sgd": {
         "fused_sgd": [_P] * 6 + [_L, _F, _I, _P],

@@ -1,12 +1,20 @@
-"""The fp16 wire casts of the ``asa16`` exchange (and of the fp16
-parameter all-gather of ``asa16``/``asa8``).
+"""The wire formats of the exchange.
 
-For CUDA tensors they launch ``csrc/exchange.cu:quant_fp16`` /
-``dequant_fp16`` (replacing ``repro/kernels/quantize.py:_cast_kernel``);
-for CPU tensors they run ``ref.quant_fp16_ref`` / ``dequant_fp16_ref``.
-Both round exactly as ``x.half()`` / ``h.float()`` do. The blockwise int8
-kernels of the same JAX module (``quant_int8`` / ``dequant_int8``) have
-no caller on any path yet and are not ported.
+- ``quant_fp16`` / ``dequant_fp16``: the fp16 casts of the ``asa16`` and
+  ``ring16`` exchanges (and of the fp16 parameter all-gather of
+  ``asa16``/``asa8``). For CUDA tensors they launch
+  ``csrc/exchange.cu:quant_fp16`` / ``dequant_fp16`` (replacing
+  ``repro/kernels/quantize.py:_cast_kernel``); for CPU tensors they run
+  ``ref.quant_fp16_ref`` / ``dequant_fp16_ref``. Both round exactly as
+  ``x.half()`` / ``h.float()`` do.
+- ``quant_int8`` / ``dequant_int8``: blockwise-absmax int8, one fp32
+  scale per block of ``BLOCK_N`` (2048) values. For CUDA tensors they launch
+  ``csrc/exchange.cu:quant_int8`` / ``dequant_int8`` (replacing
+  ``_quant_int8_kernel`` / ``_dequant_int8_kernel`` of the same JAX
+  module); for CPU tensors they run ``ref.quant_int8_ref`` /
+  ``dequant_int8_ref``, which they equal bit for bit on finite inputs.
+  As in the JAX package, no exchange calls them: ``asa8`` quantizes per
+  rank chunk.
 """
 from __future__ import annotations
 
@@ -42,3 +50,51 @@ def dequant_fp16(x):
     """fp16 -> fp32, any shape (exact)."""
     return _cast(x, torch.float16, torch.float32, "dequant_fp16",
                  ref.dequant_fp16_ref)
+
+
+BLOCK_N = 2048           # values per scale, as the JAX kernels' default
+
+
+def quant_int8(x):
+    """(n,) fp32 -> (q (n,) int8, scales (ceil(n / BLOCK_N),) fp32)."""
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise TypeError(f"quant_int8 takes a 1-D float32 tensor, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    if K.on_cpu(x):
+        return ref.quant_int8_ref(x, BLOCK_N)
+    x = x.contiguous()
+    n = x.shape[0]
+    q = torch.empty((n,), dtype=torch.int8, device=x.device)
+    scales = torch.empty((-(-n // BLOCK_N),), dtype=torch.float32,
+                         device=x.device)
+    if n == 0:
+        return q, scales
+    err = K.load("exchange").quant_int8(K.ptr(x), K.ptr(q), K.ptr(scales), n,
+                                        BLOCK_N, K.stream_ptr(x))
+    K.check(err, "quant_int8")
+    K.count("quant_int8")
+    return q, scales
+
+
+def dequant_int8(q, scales):
+    """(n,) int8 and (ceil(n / BLOCK_N),) fp32 scales -> (n,) fp32."""
+    if q.dtype != torch.int8 or q.dim() != 1:
+        raise TypeError(f"dequant_int8 takes a 1-D int8 tensor, got "
+                        f"{q.dtype} {tuple(q.shape)}")
+    n = q.shape[0]
+    if scales.dtype != torch.float32 or tuple(scales.shape) != (
+            -(-n // BLOCK_N),):
+        raise ValueError(f"dequant_int8 takes ({-(-n // BLOCK_N)},) "
+                         f"float32 scales, got {scales.dtype} "
+                         f"{tuple(scales.shape)}")
+    if K.on_cpu(q, scales):
+        return ref.dequant_int8_ref(q, scales, BLOCK_N)
+    q, scales = q.contiguous(), scales.contiguous()
+    out = torch.empty((n,), dtype=torch.float32, device=q.device)
+    if n == 0:
+        return out
+    err = K.load("exchange").dequant_int8(K.ptr(q), K.ptr(scales), K.ptr(out),
+                                          n, BLOCK_N, K.stream_ptr(q))
+    K.check(err, "dequant_int8")
+    K.count("dequant_int8")
+    return out

@@ -13,7 +13,8 @@ contraction, as the Pallas backward does. Exchange and update path:
 fp32 sums taken row by row in order 0..k-1, and every product and sum of
 the update rounded on its own in the order written here, which the CUDA
 kernels repeat operation for operation (no FMA), so the two agree bit
-for bit.
+for bit. The blockwise int8 quantizer's scale is the one fused
+multiply-add, because XLA makes it one in the JAX kernel.
 """
 from __future__ import annotations
 
@@ -231,6 +232,57 @@ def quant_fp16_ref(x):
 
 def dequant_fp16_ref(x):
     return x.to(torch.float32)
+
+
+def _pad_blocks(x, block_n: int):
+    """(n,) -> (ceil(n / block_n), block_n), zeros past n."""
+    pad = (-x.shape[0]) % block_n
+    return torch.nn.functional.pad(x, (0, pad)).reshape(-1, block_n)
+
+
+# fp32 1/127: XLA compiles the JAX kernel's ``absmax / 127.0 + 1e-12`` into
+# one fused multiply-add by this reciprocal, so the scale is rounded once
+INV_127 = (torch.tensor(1.0) / 127).item()
+EPS_1E12 = torch.tensor(1e-12).item()          # 1e-12 rounded to fp32
+
+
+def _fma_scale(absmax):
+    """fp32 ``fma(absmax, INV_127, EPS_1E12)``, rounded once: the fp64
+    product is exact, and where the fp64 sum lands exactly on an fp32 tie
+    it is stepped one fp64 ulp towards the sum's rounding error (TwoSum),
+    so the cast to fp32 rounds as the exact sum would."""
+    prod = absmax.double() * INV_127
+    s = prod + EPS_1E12
+    err = EPS_1E12 - (s - prod)                 # the fp64 sum's error
+    f = s.float()
+    other = torch.nextafter(f, torch.where(s > f.double(), torch.inf,
+                                           -torch.inf).float())
+    tie = (s - f.double()) == (other.double() - s)
+    nudged = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf)
+                             .double())
+    return torch.where(tie & (err != 0), nudged, s).float()
+
+
+def quant_int8_ref(x, block_n: int = 2048):
+    """(n,) float -> (q (n,) int8, scales (ceil(n / block_n),) fp32): per
+    block of ``block_n`` values, ``scale = absmax / 127 + 1e-12`` and ``q =
+    clip(round(x / scale), -127, 127)`` with a true division, rounding half
+    to even (as ``jnp.round``). The scale is what the JAX kernel computes
+    under XLA, ``fma(absmax, fp32(1/127), 1e-12)`` rounded once to fp32
+    (:func:`_fma_scale`). The zero padding of the last block counts toward
+    its absmax and changes nothing."""
+    n = x.shape[0]
+    blocks = _pad_blocks(x.float(), block_n)
+    scale = _fma_scale(blocks.abs().amax(dim=1))
+    q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127)
+    return q.to(torch.int8).reshape(-1)[:n], scale
+
+
+def dequant_int8_ref(q, scales, block_n: int = 2048):
+    """(n,) int8 and its per-block fp32 scales -> (n,) fp32 ``q * scale``."""
+    n = q.shape[0]
+    out = _pad_blocks(q, block_n).float() * scales[:, None]
+    return out.reshape(-1)[:n]
 
 
 def _lr(lr, like):

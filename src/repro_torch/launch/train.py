@@ -1,8 +1,10 @@
-"""Training launcher: the paper's BSP training of AlexNet, and of the
-decoder LMs, on k ranks.
+"""Training launcher: the paper's BSP training of its convnets (AlexNet,
+GoogLeNet, VGG-16), and of the decoder LMs, on k ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
         --ranks 2 --exchanger asa16 --sharded-update --batch 128 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch googlenet \\
+        --ranks 2 --exchanger ring16 --steps 20
 
     # a decoder LM (the JAX package's examples/train_lm_bsp.py recipe):
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
@@ -25,12 +27,13 @@ this repository (it needs k cards).
 
 Each rank reads its own share of every global batch (``batch`` examples)
 from batch files that the ``ParallelLoader`` streams to the device: file
-j of rank r holds the source's batch ``j * k + r``. AlexNet: ``ImageSource``
-images at ``image_size + 8`` pixels, cropped to ``image_size`` (the JAX
-example crops to ``image_size - 8``, which its full-size AlexNet cannot
-take); momentum SGD 0.9 with weight decay 5e-4 and the paper's AlexNet LR
-policy (/10 every third of the run); convolutions and matmuls in full
-fp32 (TF32 off), as the reference computes them. Decoders:
+j of rank r holds the source's batch ``j * k + r``. Convnets:
+``ImageSource`` images at ``image_size + 8`` pixels, cropped to
+``image_size`` (the JAX example crops to ``image_size - 8``, which its
+full-size AlexNet cannot take), by default 128 a rank for AlexNet, 32 for
+GoogLeNet and 16 for VGG-16; momentum SGD 0.9 with weight decay 5e-4 and
+the JAX launcher's ``warmup_cosine(0.01, 10, steps)``; convolutions and
+matmuls in full fp32 (TF32 off), as the reference computes them. Decoders:
 ``LMTokenSource`` tokens of ``--seq`` positions (int32 tokens and labels,
 untouched by the loader); momentum SGD 0.9 with weight decay 1e-4 and
 ``warmup_cosine(0.01, 20, steps)``, the JAX package's
@@ -53,14 +56,14 @@ import torch.multiprocessing as mp
 from repro_torch import default_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import AttentionConfig
-from repro_torch.configs.registry import ASSIGNED_ARCHS
+from repro_torch.configs.registry import ASSIGNED_ARCHS, PAPER_ARCHS
 from repro_torch.data.prefetch import ParallelLoader
 from repro_torch.data.synthetic import (ImageSource, LMTokenSource,
                                         materialize_batch_files)
 from repro_torch.kernels import fused_sgd as fs
 from repro_torch.models import build_model, count_params
 from repro_torch.models.transformer import layer_kinds
-from repro_torch.optim import sgd_momentum, step_decay, warmup_cosine
+from repro_torch.optim import sgd_momentum, warmup_cosine
 from repro_torch.train.engine import TrainPlan
 from repro_torch.train.loop import train
 
@@ -73,9 +76,13 @@ def _dense_decoder(cfg) -> bool:
             and not cfg.attention.kv_lora_rank)
 
 
-# the archs this launcher trains: AlexNet and the ported (dense) decoders
-TRAIN_ARCHS = ("alexnet",) + tuple(a for a in ASSIGNED_ARCHS
-                                   if _dense_decoder(get_config(a)))
+# the archs this launcher trains: the paper's convnets and the ported
+# (dense) decoders
+TRAIN_ARCHS = tuple(PAPER_ARCHS) + tuple(a for a in ASSIGNED_ARCHS
+                                         if _dense_decoder(get_config(a)))
+# examples per rank and step when --batch is not given
+CONV_BATCH = {"alexnet": 128, "googlenet": 32, "vggnet": 16}
+LM_BATCH = 8
 
 
 def train_lm_bsp_config():
@@ -170,11 +177,15 @@ def rank_loader(cfg, files, device, steps: int, seed: int):
 
 
 def recipe(cfg, steps: int):
-    """(optimizer, lr schedule) of the arch's reference recipe."""
+    """(optimizer, lr schedule) of the arch's reference recipe. Every
+    convnet takes the JAX package's launcher schedule,
+    ``warmup_cosine(0.01, 10, steps)``; VGG-16, which has no normalisation,
+    needs the warm-up (from He init a first step at 0.01 blows its loss up,
+    6.2 to 11,346 in one step at the smoke config)."""
     if cfg.family == "conv":
         return (sgd_momentum(momentum=0.9, weight_decay=5e-4,
                              fused_kernel=fs.fused_sgd),
-                step_decay(0.01, steps_per_drop=max(steps // 3, 1)))
+                warmup_cosine(0.01, 10, steps))
     return (sgd_momentum(momentum=0.9, weight_decay=1e-4,
                          fused_kernel=fs.fused_sgd),
             warmup_cosine(0.01, 20, steps))
@@ -234,17 +245,18 @@ def main(argv=None):
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
                     help="a named config in place of --arch")
     ap.add_argument("--smoke", action="store_true",
-                    help="the reduced config (AlexNet: 96 px, 16 classes; "
+                    help="the reduced config (convnets: 96 px, 16 classes; "
                          "decoders: 2 layers, d_model 256)")
     ap.add_argument("--exchanger", default="asa16",
-                    help="ar | asa | asa16 | asabf16 | asa8 | none")
+                    help="ar | asa | asa16 | asabf16 | asa8 | ring | ring16 "
+                         "| none")
     ap.add_argument("--scheme", default="subgd", choices=["subgd", "awagd"])
     ap.add_argument("--sharded-update", action="store_true",
                     help="RS -> update -> AG on this rank's 1/k shard")
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--batch", type=int, default=None,
                     help="examples per rank and step (AlexNet 128, "
-                         "decoders 8)")
+                         "GoogLeNet 32, VGG-16 16, decoders 8)")
     ap.add_argument("--seq", type=int, default=256,
                     help="tokens per example (decoders)")
     ap.add_argument("--steps", type=int, default=20)
@@ -264,7 +276,8 @@ def main(argv=None):
     except ValueError as e:
         ap.error(str(e))
     if args.batch is None:
-        args.batch = 128 if args.arch == "alexnet" and not args.preset else 8
+        args.batch = (LM_BATCH if args.preset else
+                      CONV_BATCH.get(args.arch, LM_BATCH))
     dev = default_device(args.device)
     backend = pick_backend(dev, args.ranks)
     opts = dict(vars(args), device=str(dev))

@@ -19,12 +19,14 @@ a caller that keeps params already cast (the serving engine) pays
 nothing for that. ``device`` defaults to ``cuda`` and raises when no GPU
 is visible; pass ``device="cpu"`` for the plain CPU path.
 
-The ``conv`` family (AlexNet; ``models/vision.py``) trains in fp32 and has
+The ``conv`` family (AlexNet, VGG-16, GoogLeNet; ``models/vision.py``)
+trains in fp32 and has
 
 - ``init(generator) -> params``             fp32, from an explicit
   ``torch.Generator`` (none on the ``meta`` device)
-- ``loss_fn(params, batch, gen=None) -> (loss, metrics)``  dropout draws
-  from ``gen``; None runs without dropout
+- ``loss_fn(params, batch, gen=None) -> (loss, metrics)``  AlexNet's
+  dropout draws from ``gen`` (None runs without it); GoogLeNet's loss
+  takes its two aux heads at 0.3 each
 - ``forward(params, batch) -> logits``
 """
 from __future__ import annotations
@@ -90,7 +92,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     if cfg.family != "decoder":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (decoder LMs and "
-            f"AlexNet)")
+            f"the paper's convnets)")
     cdt = dtype_of(cfg.dtype)
 
     def init(seed_or_generator=0):

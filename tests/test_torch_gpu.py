@@ -13,7 +13,12 @@ the output's largest magnitude; both round ds and p to the input dtype
 per element, but sum them in another order, and ds carries the
 cancellation of dp - di. The training kernels (chunk_sum, the fp16
 casts, fused_sgd, fused_rs_update) are exact: they add rows in the plain
-version's order and round every product and sum on its own (no FMA).
+version's order and round every product and sum on its own (no FMA); so
+are the blockwise int8 quantizers. VGG-16 and GoogLeNet on the card
+against the CPU in fp32 (TF32 off): logits and loss within 1e-4 of their
+scale (the libraries sum in another order). One ``ring16`` exchange of
+two ranks sharing the card: the mean within 5e-3 of the values' scale,
+the reference's bound.
 """
 import math
 
@@ -340,3 +345,81 @@ def test_training_kernels_raise_on_mixed_devices(dev):
     with pytest.raises(ValueError, match="cpu"):
         fs.fused_sgd(torch.zeros(8, device=dev), torch.zeros(8),
                      torch.zeros(8, device=dev), 0.1)
+
+
+# ---------------------------------------------------------------------------
+# blockwise int8, the convnets and the ring on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,off", [(1, 0), (2048, 0), (5000, 0), (5000, 1),
+                                   (65536 + 7, 0), (37_748_736, 0)])
+def test_int8_kernels_exact(dev, n, off):
+    from test_torch_ranks import int8_input
+    x = _offset(int8_input(n, dev)[0], off)
+    q, sc = qz.quant_int8(x)
+    wq, ws = ref.quant_int8_ref(x)
+    assert torch.equal(q, wq)
+    assert torch.equal(sc.view(torch.int32), ws.view(torch.int32))
+    qq = _offset(wq, off)
+    back = qz.dequant_int8(qq, ws)
+    assert torch.equal(back.view(torch.int32),
+                       ref.dequant_int8_ref(qq, ws).view(torch.int32))
+
+
+@pytest.mark.parametrize("absmax", [13 * 2.0 ** 18, 9 * 2.0 ** 18])
+def test_int8_scale_at_an_fp32_tie(dev, absmax):
+    """absmax * fp32(1/127) is an fp32 tie: the kernel's fma and the plain
+    version's emulation of it must round the same way."""
+    x = torch.zeros(3000, device=dev)
+    x[5], x[9], x[2500] = absmax, -absmax / 3, 1.0
+    q, sc = qz.quant_int8(x)
+    wq, ws = ref.quant_int8_ref(x)
+    assert torch.equal(q, wq)
+    assert torch.equal(sc.view(torch.int32), ws.view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["vggnet", "googlenet"])
+def test_convnet_forward_on_the_card_matches_the_cpu(dev, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import ImageSource
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config(arch)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    batch = {n: torch.from_numpy(v) for n, v in ImageSource(
+        cfg.image_size, cfg.num_classes).batch(4, 0).items()}
+    want = build_model(cfg, "cpu").loss_fn(params, batch)[0]
+    want_logits = build_model(cfg, "cpu").forward(params, batch)
+    gpu = build_model(cfg, dev)
+    on = lambda t: tree_map(lambda a: a.to(dev), t)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False       # full fp32
+    try:
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            got = gpu.loss_fn(on(params), on(batch))[0]
+            logits = gpu.forward(on(params), on(batch))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    scale = want_logits.abs().max().item()
+    assert (logits.cpu() - want_logits).abs().max().item() <= 1e-4 * scale
+    assert abs(got.item() - want.item()) <= 1e-4 * abs(want.item())
+
+
+def test_ring16_exchange_on_the_card(dev, tmp_path):
+    import numpy as np
+
+    from repro_torch.launch.train import run_ranks
+    from repro_torch.tree import leaves
+    from test_torch_ranks import ring_gpu_worker, value_tree
+    run_ranks(ring_gpu_worker, 2, (str(tmp_path),))
+    res = [torch.load(tmp_path / f"ring{r}.pt", weights_only=False)
+           for r in range(2)]
+    trees = [[t.numpy() for t in leaves(value_tree(100 + r))]
+             for r in range(2)]
+    for r in res:
+        for got, a, b in zip(r["leaves"], *trees):
+            want = (a + b) / 2
+            scale = float(np.abs(np.stack([a, b])).max())
+            np.testing.assert_allclose(got, want, rtol=0, atol=5e-3 * scale)
+        assert r["launches"]["quant_fp16"] > 0
+        assert r["launches"]["quant_fp16"] == r["launches"]["dequant_fp16"]

@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import bsp as tbsp
 from repro_torch.core import exchanger as tex
+from repro_torch.kernels import ref
 from repro_torch.models import build_model
 from repro_torch.models import vision as tvision
 from repro_torch.optim import optimizers as topt
@@ -22,7 +23,8 @@ from repro_torch.tree import leaves, tree_map
 # the exchange on k ranks
 # ---------------------------------------------------------------------------
 
-STRATEGIES = ("ar", "asa", "asa16", "asabf16", "asa8", "none")
+STRATEGIES = ("ar", "asa", "asa16", "asabf16", "asa8", "ring", "ring16",
+              "none")
 BUCKET_BYTES = (0, 16384)
 
 
@@ -43,6 +45,26 @@ def value_tree(seed):
          "blocks": [(1500,), (7,)]},
         lambda s: torch.from_numpy(rng.standard_normal(s).astype(
             np.float32)))
+
+
+def int8_input(n, device="cpu"):
+    """Seeded fp32 values for the blockwise int8 quantizers: randn * 3,
+    block 1 (where n reaches it) all zero, and in block 0 (n >= 256)
+    values whose fp32 quotient by the block's scale is exactly k + 0.5
+    (ties, which round half to even). Returns (x, tie positions)."""
+    g = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn(n, generator=g, device=device) * 3
+    x[2048:4096] = 0.0
+    pos = torch.zeros(0, dtype=torch.long, device=device)
+    if n >= 256:
+        x[0] = 15.0                      # block 0's absmax, so its scale
+        scale = ref.quant_int8_ref(x[:2048])[1][0]
+        ks = torch.arange(-120, 120, 3, device=device, dtype=torch.float32)
+        t = ((ks + 0.5).double() * scale.double()).float()
+        keep = (t / scale) == ks + 0.5
+        pos = torch.arange(1, 1 + int(keep.sum()), device=device)
+        x[pos] = t[keep]
+    return x, pos
 
 
 def _np(tree):
@@ -95,23 +117,27 @@ CASES = [
 ]
 
 
-def port_model(params):
-    """Smoke AlexNet on the CPU whose ``init`` returns ``params`` and
+# GoogLeNet's cases (test_torch_convnets.py): fp32 all-to-all and ring
+CONV_CASES = [("asa", "asa", {}, "fp32"), ("ring", "ring", {}, "fp32")]
+
+
+def port_model(params, arch="alexnet"):
+    """Smoke ``arch`` on the CPU whose ``init`` returns ``params`` and
     whose loss runs without dropout."""
-    cfg = get_smoke_config("alexnet")
+    cfg = get_smoke_config(arch)
     model = build_model(cfg, "cpu")
     return dataclasses.replace(
         model, init=lambda gen: tree_map(torch.clone, params),
         loss_fn=lambda p, b, gen=None: tvision.conv_loss(p, b, cfg, None))
 
 
-def bsp_worker(rank, k, out_dir):
+def bsp_worker(rank, k, out_dir, arch="alexnet", cases=CASES):
     params = torch.load(os.path.join(out_dir, "init.pt"))
     batches = torch.load(os.path.join(out_dir, "batches.pt"))
-    model = port_model(params)
+    model = port_model(params, arch)
     opt = topt.sgd_momentum(momentum=0.9, weight_decay=5e-4)
     res = {}
-    for name, exname, kw, _ in CASES:
+    for name, exname, kw, _ in cases:
         sharded = kw.get("sharded_update", False)
         state = (tbsp.init_sharded_train_state(model, opt, None)
                  if sharded else tbsp.init_train_state(model, opt, None))
@@ -154,3 +180,22 @@ def lm_bsp_worker(rank, k, out_dir, cfg):
         losses.append(float(metrics["loss"]))
     torch.save({"params": state["params"], "losses": losses},
                os.path.join(out_dir, f"lm_rank{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# the ring on the card (test_torch_gpu.py)
+# ---------------------------------------------------------------------------
+
+def ring_gpu_worker(rank, k, out_dir, name="ring16"):
+    """One ``name`` exchange of ``value_tree(100 + rank)`` on cuda:0 (the
+    ranks share the card over gloo); saves the result and the launches."""
+    from repro_torch import kernels as K
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tree = tree_map(lambda t: t.to(dev), value_tree(100 + rank))
+    K.reset_launches()
+    out = tex.get_exchanger(name).exchange(tree)
+    torch.cuda.synchronize()
+    torch.save({"leaves": [t.cpu().numpy() for t in leaves(out)],
+                "launches": dict(K.LAUNCHES)},
+               os.path.join(out_dir, f"ring{rank}.pt"))

@@ -156,9 +156,3 @@ def test_full_alexnet_parameter_count_on_meta():
     assert [tuple(_hwio_to_oihw(np.empty(l.shape)).shape)
             for l in jax.tree.leaves(jabs)] == \
         [tuple(t.shape) for t in jax.tree.leaves(params)]
-
-
-@pytest.mark.parametrize("arch", ["vggnet", "googlenet"])
-def test_unported_convnets_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_smoke_config(arch), "meta").init(None)
