@@ -8,7 +8,11 @@ and the CUDA toolkit. In order:
 
 1. Device: prints ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compiles every kernel source under ``src/repro_torch/csrc``
-   (one ``nvcc`` each, all started together).
+   (one ``nvcc`` each, all started together), then prints the registers
+   and spills (``ptxas -v``) of the flash backward's eight tensor-core
+   kernels (dq and dk/dv, bf16 and fp16, D 32 and 64) and fails unless
+   each one's SASS holds wgmma products (HGMMA) and TMA loads (UTMALDG)
+   and no atomics.
 3. Kernels: calls each kernel's wrapper at the serve path's full-width
    llama3.2-1b shapes in bf16, holds it to its plain PyTorch version on
    the same inputs, and times the kernel, the plain version and one
@@ -36,7 +40,8 @@ and the CUDA toolkit. In order:
    plain version at the LM training shapes (B 4, S 1024, 32 heads over 8,
    D 64, bf16), in fp32 at a smaller shape, and at G = 3 over a ragged
    S = 1000 (with the forward), and timed beside PyTorch's own flash
-   backward. A gradient check runs ``decoder_loss`` of full llama3.2-1b on
+   backward; two backward calls at the LM shapes must agree bit for bit,
+   and the order in which the flat grids launch their blocks is printed. A gradient check runs ``decoder_loss`` of full llama3.2-1b on
    2 x 512 tokens through the kernels and through the einsum attention.
 5. Train: the paper's BSP training of full-width AlexNet (227 px, 1000
    classes, 60,965,224 parameters, fp32, TF32 off) on k=2 gloo rank
@@ -87,6 +92,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -211,6 +217,75 @@ def _event_ms(fn, iters: int = 20, flush=None) -> float:
         times.append(s.elapsed_time(e))
     times.sort()
     return times[len(times) // 2]
+
+
+HOPPER_BWD = re.compile(r"bwd_d(?:q|kv)_hopper")
+
+
+def _kernel_label(mangled: str) -> str:
+    """``bwd_dq_hopper<bf16, 64>`` from a mangled kernel name."""
+    ty = "bf16" if "bfloat16" in mangled else "fp16"
+    return (f"{HOPPER_BWD.search(mangled).group(0)}<{ty}, "
+            f"{re.search(r'Li(\d+)E', mangled).group(1)}>")
+
+
+def bwd_build_report(K):
+    """The flash backward's tensor-core kernels as built: registers and
+    spills (``ptxas -v``), and in their SASS the wgmma products (HGMMA),
+    the TMA loads (UTMALDG) and no atomics (ATOM*, RED)."""
+    log = K.build_log("flash_attention").splitlines()
+    regs = {}
+    for n, line in enumerate(log):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m and HOPPER_BWD.search(m.group(1)):
+            props = " ".join(log[n + 1:n + 4])
+            regs[_kernel_label(m.group(1))] = dict(
+                registers=int(re.search(r"Used (\d+) registers", props).group(1)),
+                spill_stores=int(re.search(r"(\d+) bytes spill stores", props)
+                                 .group(1)),
+                spill_loads=int(re.search(r"(\d+) bytes spill loads", props)
+                                .group(1)))
+    print("flash backward kernels, ptxas: " + json.dumps(regs))
+    sass = subprocess.run(
+        [str(Path(K._nvcc()).parent / "cuobjdump"), "-sass",
+         str(K._target("flash_attention"))],
+        capture_output=True, text=True, timeout=300).stdout
+    ops, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            fn = _kernel_label(fn) if HOPPER_BWD.search(fn) else None
+            if fn:
+                ops[fn] = dict(HGMMA=0, UTMALDG=0, atomics=0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if fn and m:
+            op = m.group(1)
+            if op in ("HGMMA", "UTMALDG"):
+                ops[fn][op] += 1
+            elif op.startswith("ATOM") or op == "RED":
+                ops[fn]["atomics"] += 1
+    print("flash backward kernels, SASS instructions: " + json.dumps(ops))
+    if len(regs) != 8 or sorted(ops) != sorted(regs) or not all(
+            o["HGMMA"] > 0 and o["UTMALDG"] > 0 and o["atomics"] == 0
+            for o in ops.values()):
+        _fail("the bf16/fp16 flash backward kernels must be built with wgmma "
+              "and TMA loads and no atomics")
+
+
+def _bwd_grid_order(B, S, H, KV, tile=64):
+    """Live tiles per block of the tensor-core backward at a causal shape
+    (q_off 0, no window), in launch order, as csrc/flash_attention.cu lays
+    the flat grid out: dk/dv's block n takes key tile n // (KV * B), dq's q
+    tile nq - 1 - n // (KV * B), so the blocks with the most work go first.
+    Returns {kernel: [live tiles of each (kv head, batch) round]}."""
+    bq = tile // (H // KV)
+    nq, nk = -(-S // bq), -(-S // tile)
+    return {"dkv": [nq - max(0, -((bq - 1 - tile * j) // bq))
+                    for j in range(nk)],
+            "dq": [min(nk - 1, (min((i + 1) * bq, S) - 1) // tile) + 1
+                   for i in reversed(range(nq))]}
 
 
 def kernel_phase(torch, ref, fa, sg, flush):
@@ -413,6 +488,17 @@ def lm_kernel_phase(torch, ref, fa, flush, dev="cuda"):
                BWD_TOL, fwd_tol=FWD_TOL, seed=13, dev=dev)   # G = 3, ragged
     q, k, v, do, lse, qo, scale = (c[n] for n in ("q", "k", "v", "do", "lse",
                                                   "qo", "scale"))
+    again = fa.flash_attention_bwd(q, k, v, c["out"], lse, do, q_off=qo,
+                                   sm_scale=scale)
+    same = all(torch.equal(a, b) for a, b in zip(c["got"], again))
+    print(f"flash backward at the LM shape, two calls bitwise equal: {same}")
+    if not same:
+        _fail("two flash backward calls at the LM shape differ")
+    order = _bwd_grid_order(B, S, H, KV)
+    print(f"flash backward grid at the LM shape: {len(order['dkv']) * KV * B} "
+          f"dk/dv and {len(order['dq']) * KV * B} dq blocks, launched in rounds "
+          f"of {KV * B} (kv head, batch) pairs; live tiles a block, round by "
+          f"round: " + json.dumps(order))
     di = ref.flash_attention_di(c["out"], do)
     kw = dict(q_off=qo, window=0, sm_scale=scale)
     lib_ms = _library_bwd_ms(torch, q, k, v, do, flush)
@@ -1352,6 +1438,7 @@ def main() -> int:
     K.build_all()
     print(f"built {len(K.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s")
+    bwd_build_report(K)
 
     l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, ref, fa, sg, flush=l2.zero_)

@@ -20,17 +20,21 @@
 // (kv head, q tile) block, folds the G query heads of a KV group into the
 // rows of one block (as the TPU kernel folds them into its q tile), skips
 // key tiles above the causal diagonal or below the window, and never writes
-// a score matrix to device memory. Products are fp32 FMAs on values staged
-// in shared memory; a tensor-core (wgmma/mma.sync) version is later work.
-// The backward's bound and design are noted above its kernels.
+// a score matrix to device memory. Their products are fp32 FMAs on values
+// staged in shared memory. The backward at the training shapes is bound by
+// operations instead: in bf16/fp16 it runs on the tensor cores (wgmma, fed
+// by TMA), in fp32 on the CUDA cores; its notes are above its kernels.
 //
 // Numerics follow the TPU kernels: fp32 online softmax, NEG_INF = -1e30,
 // masked p zeroed explicitly, l clamped at 1e-30, and p rounded to the
 // value dtype before the PV product.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define NEG_INF (-1e30f)
 
@@ -206,12 +210,21 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 // lse (never stored), with ds = p * (dp - di) * sm_scale, dp = do . v and
 // di = rowsum(out * do) computed by the caller. Casts follow the TPU
 // kernels: ds to k's dtype before ds @ k (dq), p to do's dtype and ds to
-// q's dtype before the dv / dk contractions. At the training shapes
-// (B 4, S 1024, 32 heads over 8, D 64) both are bound by operations (~6D
-// and ~8D FLOPs per live (row, key) pair against ~4 bytes of input per
-// row and key column); these first versions run them as fp32 FMAs on the
-// CUDA cores from shared memory, like the forward, and a tensor-core
-// version is later work.
+// q's dtype before the dv / dk contractions.
+//
+// What bounds them: at the training shapes (B 4, S 1024, 32 heads over 8,
+// D 64) both are bound by operations -- 6D (dq) and 8D (dk/dv) FLOPs per
+// live (row, key) pair against ~4 bytes of input per row and key column,
+// far above the ~295 FLOP/byte where bf16 tensor cores become the limit.
+// So bf16/fp16 run on the tensor cores (the "Hopper" kernels below):
+// wgmma products with fp32 accumulators in registers, operand tiles
+// brought into shared memory by TMA, swizzled as wgmma reads them.
+//
+// fp32 stays on the CUDA cores (bwd_dq_kernel / bwd_dkv_kernel<float>):
+// its check is 1e-5 of the output's scale, which TF32 products (10-bit
+// mantissa) cannot meet, and fp32 is the path of the finite-difference
+// and equivalence checks, not of training. bwd_by_dtype dispatches on the
+// dtype explicitly; nothing falls back from one path to the other.
 
 constexpr int BWD_THREADS = 128;           // 4 warps
 constexpr int BWD_WARPS = BWD_THREADS / 32;
@@ -264,6 +277,7 @@ __device__ __forceinline__ void load_keys(float* dst, const T* __restrict__ src,
   }
 }
 
+// fp32 only (see above): the CUDA-core backward
 template <typename T, int D>
 __global__ void __launch_bounds__(BWD_THREADS)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -461,6 +475,498 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       dk[row * D + lane + 32 * dd] = from_f<T>(acc_k[u][dd]);
       dv[row * D + lane + 32 * dd] = from_f<T>(acc_v[u][dd]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward on Hopper's tensor cores (bf16 / fp16)
+// ---------------------------------------------------------------------------
+//
+// One warpgroup (128 threads) a block; every product is a wgmma of 64 rows.
+// dq: a block owns one q tile of HB_M = 64 rows ((64 / G) queries x their
+// G heads; the spare rows of G = 3, 5, ... stay zero and are not stored)
+// with Q and dO resident in shared memory, and walks its live key tiles of
+// 64 keys: S = Q K^T and dP = dO V^T from shared memory, P and dS in
+// registers, dQ += dS K with dS as the register A operand and K read
+// transposed (its keys are the contraction). dk/dv: a block owns 64 keys
+// of one kv head with K and V resident and walks the live q tiles in
+// transposed form, so that keys are the M side: S^T = K Q^T, dP^T = V
+// dO^T, then dV += P^T dO and dK += dS^T Q with the accumulators reused as
+// register A operands. dk/dv are summed over the G heads and all q tiles
+// in the block's registers: no atomics, one summation order, so two calls
+// agree bit for bit.
+//
+// Tiles arrive by TMA: K/V tiles (dq) and Q/dO tiles (dk/dv) stream
+// through a ring of 2 stages completed on mbarriers, the next tile in
+// flight while the current one is computed. A q tile of the (B, S, H, D)
+// tensor is the [queries][G][D] box of a 4-D view (D, H, S, B), so the
+// rows past S are zero-filled per batch row; a key tile the [64][1][D] box
+// of (D, KV, S, B). Rows of 128 bytes (D = 64) land in shared memory with
+// TMA's 128-byte swizzle, rows of 64 bytes (D = 32) with the 64-byte one,
+// which is the layout each wgmma descriptor names. lse and di of a q tile
+// (G fp32 values a query: under TMA's 16-byte box minimum when G < 4) come
+// by cp.async into the same 2-stage ring.
+//
+// Causal balance: a flat grid ordered heaviest first -- dk/dv's key tile 0
+// (which every query sees) for all (kv head, batch) pairs, then tile 1,
+// ...; dq's q tiles from the last (most live key tiles) down. Tiles above
+// the diagonal or outside the window are skipped (_tile_live); the
+// element mask runs only on tiles that cross the diagonal, the window edge
+// or a ragged end. p = 2^(s * sm_scale * log2 e - lse * log2 e).
+
+constexpr int HB_THREADS = 128;   // one warpgroup
+constexpr int HB_M = 64;          // rows of a q tile = keys of a key tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// A wait that outlives ~10 s of clock (a TMA that never lands) traps, so a
+// fault shows as a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > 20000000000LL) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// the box at (c0, c1, c2, c3) of a 4-D tensor map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// 4 bytes, zero-filled where src_bytes == 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from reading accumulators before the wgmma wait
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor of a tile of rows of D 16-bit values in
+// the swizzle TMA wrote: 128-byte (D = 64) or 64-byte (D = 32) rows, 8-row
+// groups 8 * 2D bytes apart. The same descriptor serves a K-major operand
+// (rows = M or N, D = the contraction) and a transposed B operand (rows =
+// the contraction, D = N: one swizzle atom wide, so the leading offset is
+// unused).
+template <int D> __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  constexpr uint64_t layout = D == 64 ? 1 : 2;       // SWIZZLE_128B : SWIZZLE_64B
+  constexpr uint64_t sbo = 8 * D * 2;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((sbo >> 4) << 32) |
+         (layout << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The wgmma products, for T = bf16 ("bf16") and fp16 ("f16"), accumulating
+// into fp32 registers d (the last argument picks T):
+//   wgmma_ss_n64: m64n64k16, A and B from shared memory, both K-major:
+//                 d += A B^T
+//   wgmma_rs_tb:  m64n{32,64}k16, A from registers, B from shared memory
+//                 transposed (N contiguous): d += A B
+#define WG_ACC16                                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                                       \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                                       \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                                     \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define WG_ACC32                                                                        \
+  WG_ACC16,                                                                             \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                                   \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                                   \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                                   \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_REGS32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGMMA_FUNCS(CT, TY)                                                             \
+  __device__ __forceinline__ void wgmma_ss_n64(float(&d)[32], uint64_t da, uint64_t db, \
+                                               CT) {                                    \
+    asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_REGS32 \
+                 ", %32, %33, 1, 1, 1, 0, 0;\n"                                         \
+                 : WG_ACC32                                                             \
+                 : "l"(da), "l"(db));                                                   \
+  }                                                                                     \
+  __device__ __forceinline__ void wgmma_rs_tb(float(&d)[16], const uint32_t(&a)[4],    \
+                                              uint64_t db, CT) {                        \
+    asm volatile("wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " WG_REGS16 \
+                 ", {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"                           \
+                 : WG_ACC16                                                             \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));                \
+  }                                                                                     \
+  __device__ __forceinline__ void wgmma_rs_tb(float(&d)[32], const uint32_t(&a)[4],    \
+                                              uint64_t db, CT) {                        \
+    asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_REGS32 \
+                 ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"                           \
+                 : WG_ACC32                                                             \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));                \
+  }
+WGMMA_FUNCS(__nv_bfloat16, "bf16")
+WGMMA_FUNCS(__half, "f16")
+#undef WGMMA_FUNCS
+
+template <int N> __device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Accumulator element c of a 64-row wgmma tile, for thread (warp w, lane):
+// row 16w + lane/4 + 8 * ((c >> 1) & 1), column 8 * (c >> 2) + 2 * (lane & 3)
+// + (c & 1). Elements c, c + 1 of the same row pack into A-operand register
+// (c >> 1) & 3 of k-step c >> 3 (16 columns a step).
+
+template <typename T, int D>
+__global__ void __launch_bounds__(HB_THREADS)
+bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+              const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              const float* __restrict__ lse, const float* __restrict__ di, T* __restrict__ dq,
+              const int* __restrict__ q_off, int B, int Sq, int Sk, int H, int KV, int win,
+              float sm_scale) {
+  constexpr int TILE = HB_M * D * 2;  // bytes of a 64-row tile
+  const int G = H / KV, block_q = HB_M / G, rows = block_q * G;
+  const int nq = (Sq + block_q - 1) / block_q, nk = (Sk + HB_M - 1) / HB_M;
+  // heaviest first: the last q tile sees the most key tiles
+  const int pairs = KV * B;
+  const int i = nq - 1 - (int)blockIdx.x / pairs;
+  const int h = (int)blockIdx.x % pairs % KV, b = (int)blockIdx.x % pairs / KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qoff = q_off[b];
+  const int first_q = qoff + i * block_q;                    // positions of the
+  const int last_q = qoff + min((i + 1) * block_q, Sq) - 1;  // tile's queries
+  // live key tiles [j_lo, j_lo + n_tiles): causal below, window above
+  const int j_lo = win > 0 ? max(0, floor_div(first_q - win + 1, HB_M)) : 0;
+  const int j_hi = last_q < 0 ? -1 : min(nk - 1, last_q / HB_M);
+  const int n_tiles = max(0, j_hi - j_lo + 1);
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align_1024(smem_raw);   // [64][D] Q, then dO, then K x2, V x2
+  uint8_t* sdo = sq + TILE;
+  uint8_t* sk = sdo + TILE;
+  uint8_t* sv = sk + 2 * TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + 2 * TILE);  // q/do, kv stage 0, 1
+  const uint32_t a_q = smem_u32(sq), a_do = smem_u32(sdo), a_k = smem_u32(sk),
+                 a_v = smem_u32(sv), bar_q = smem_u32(bars), bar_kv = bar_q + 8;
+
+  // spare rows (G not dividing 64) stay zero: the q box covers `rows` rows
+  for (int e = tid; e < 2 * TILE / 16; e += HB_THREADS)
+    reinterpret_cast<uint4*>(sq)[e] = make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  auto load_kv = [&](int t) {
+    const uint32_t bar = bar_kv + 8 * (t & 1);
+    mbar_expect_tx(bar, 2 * TILE);
+    tma_load(a_k + (t & 1) * TILE, &tm_k, bar, 0, h, (j_lo + t) * HB_M, b);
+    tma_load(a_v + (t & 1) * TILE, &tm_v, bar, 0, h, (j_lo + t) * HB_M, b);
+  };
+  if (tid == 0) {
+    mbar_init(bar_q);
+    mbar_init(bar_kv);
+    mbar_init(bar_kv + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_tiles > 0) {
+      mbar_expect_tx(bar_q, 2 * rows * D * 2);
+      tma_load(a_q, &tm_q, bar_q, 0, h * G, i * block_q, b);
+      tma_load(a_do, &tm_do, bar_q, 0, h * G, i * block_q, b);
+      load_kv(0);
+      if (n_tiles > 1) load_kv(1);
+    }
+  }
+  __syncthreads();
+
+  // this thread's two rows: lse and di, pre-scaled for exp2
+  const int r0 = 16 * warp + lane / 4;
+  float lse2[2], di_r[2];
+  int qpos[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int r = r0 + 8 * u, qi = i * block_q + r / G;
+    const bool valid = r < rows && qi < Sq;
+    const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
+    lse2[u] = valid ? lse[row] * LOG2E : 0.f;
+    di_r[u] = valid ? di[row] : 0.f;
+    qpos[u] = qoff + qi;
+  }
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc[D / 2];
+  zero(acc);
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1, j = j_lo + t, k0 = j * HB_M;
+    mbar_wait(bar_kv + 8 * s, (t >> 1) & 1);
+    const uint32_t ks = a_k + s * TILE, vs = a_v + s * TILE;
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, gmma_desc<D>(a_q + 32 * kk), gmma_desc<D>(ks + 32 * kk), T());
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, gmma_desc<D>(a_do + 32 * kk), gmma_desc<D>(vs + 32 * kk), T());
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // the element mask only where the tile crosses the diagonal, the
+    // window edge or the ragged end of the keys
+    const bool edge = k0 + HB_M > Sk || k0 + HB_M - 1 > first_q ||
+                      (win > 0 && last_q - k0 >= win);
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int c = 0; c < 32; c += 2) {
+      const int u = (c >> 1) & 1;
+      float v2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p = ex2(fmaf(sc[c + e], scale2, -lse2[u]));
+        if (edge) {
+          const int kpos = k0 + 8 * (c >> 2) + 2 * (lane & 3) + e;
+          const bool keep = kpos <= qpos[u] && kpos < Sk && window_keep(qpos[u], kpos, win);
+          p = keep ? p : 0.f;
+        }
+        v2[e] = p * (dp[c + e] - di_r[u]) * sm_scale;
+      }
+      ds[c >> 3][(c >> 1) & 3] = pack2<T>(v2[0], v2[1]);
+    }
+    // dQ += dS K: the keys are the contraction, K read transposed
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(acc, ds[kk], gmma_desc<D>(ks + kk * 16 * D * 2), T());
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && t + 2 < n_tiles) load_kv(t + 2);
+  }
+
+#pragma unroll
+  for (int c = 0; c < D / 2; c += 2) {
+    const int r = r0 + 8 * ((c >> 1) & 1), qi = i * block_q + r / G;
+    if (r >= rows || qi >= Sq) continue;
+    const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
+    *reinterpret_cast<uint32_t*>(dq + row * D + 8 * (c >> 2) + 2 * (lane & 3)) =
+        pack2<T>(acc[c], acc[c + 1]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(HB_THREADS)
+bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+               const float* __restrict__ lse, const float* __restrict__ di, T* __restrict__ dk,
+               T* __restrict__ dv, const int* __restrict__ q_off, int B, int Sq, int Sk, int H,
+               int KV, int win, float sm_scale) {
+  constexpr int TILE = HB_M * D * 2;
+  const int G = H / KV, block_q = HB_M / G, rows = block_q * G;
+  const int nq = (Sq + block_q - 1) / block_q;
+  // heaviest first: key tile 0 (seen by every query) of every (kv head,
+  // batch) pair, then key tile 1, ...
+  const int pairs = KV * B;
+  const int j = (int)blockIdx.x / pairs;
+  const int h = (int)blockIdx.x % pairs % KV, b = (int)blockIdx.x % pairs / KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qoff = q_off[b];
+  const int k0 = j * HB_M, k_last = k0 + HB_M - 1;
+  // live q tiles [i_lo, i_lo + n_tiles): the tile's newest query at or past
+  // the oldest key, and (window) its oldest query within reach of the
+  // newest key
+  const int i_lo = max(0, -floor_div(qoff + block_q - 1 - k0, block_q));
+  const int i_end = win > 0 ? min(nq, floor_div(k_last + win - 1 - qoff, block_q) + 1) : nq;
+  const int n_tiles = max(0, i_end - i_lo);
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = align_1024(smem_raw);  // K, V, then Q x2, dO x2
+  uint8_t* sv = sk + TILE;
+  uint8_t* sq = sv + TILE;
+  uint8_t* sdo = sq + 2 * TILE;
+  float* slse = reinterpret_cast<float*>(sdo + 2 * TILE);  // [2][64], then di [2][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slse + 4 * HB_M);  // kv, q/do stage 0, 1
+  const uint32_t a_k = smem_u32(sk), a_v = smem_u32(sv), a_q = smem_u32(sq),
+                 a_do = smem_u32(sdo), bar_kv = smem_u32(bars), bar_q = bar_kv + 8;
+
+  for (int e = tid; e < 4 * TILE / 16; e += HB_THREADS)
+    reinterpret_cast<uint4*>(sq)[e] = make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  auto load_q = [&](int t) {
+    const int s = t & 1, i = i_lo + t;
+    const uint32_t bar = bar_q + 8 * s;
+    mbar_expect_tx(bar, 2 * rows * D * 2);
+    tma_load(a_q + s * TILE, &tm_q, bar, 0, h * G, i * block_q, b);
+    tma_load(a_do + s * TILE, &tm_do, bar, 0, h * G, i * block_q, b);
+  };
+  // lse (threads 0-63) and di (64-127) of q tile t's rows, zeros past Sq
+  // and in the spare rows; one cp.async group a tile, empty past the end
+  auto load_stats = [&](int t) {
+    if (t < n_tiles) {
+      const int r = tid & (HB_M - 1), qi = (i_lo + t) * block_q + r / G;
+      const float* src = tid < HB_M ? lse : di;
+      const bool valid = r < rows && qi < Sq;
+      const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
+      cp_async4(smem_u32(slse + (tid < HB_M ? 0 : 2 * HB_M) + (t & 1) * HB_M + r),
+                valid ? src + row : src, valid ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  if (tid == 0) {
+    mbar_init(bar_kv);
+    mbar_init(bar_q);
+    mbar_init(bar_q + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_tiles > 0) {
+      mbar_expect_tx(bar_kv, 2 * TILE);
+      tma_load(a_k, &tm_k, bar_kv, 0, h, k0, b);
+      tma_load(a_v, &tm_v, bar_kv, 0, h, k0, b);
+      load_q(0);
+      if (n_tiles > 1) load_q(1);
+    }
+  }
+  load_stats(0);
+  load_stats(1);
+  __syncthreads();
+
+  const int c0 = 16 * warp + lane / 4;  // this thread's keys: k0 + c0, k0 + c0 + 8
+  const float scale2 = sm_scale * LOG2E;
+  float dk_acc[D / 2], dv_acc[D / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  if (n_tiles > 0) mbar_wait(bar_kv, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1, i = i_lo + t;
+    cp_async_wait<1>();  // this thread's lse/di copies of tile t ...
+    __syncthreads();     // ... and every thread's
+    mbar_wait(bar_q + 8 * s, (t >> 1) & 1);
+    const uint32_t qs = a_q + s * TILE, dos = a_do + s * TILE;
+    const float* ls = slse + s * HB_M;
+    const float* dis = slse + 2 * HB_M + s * HB_M;
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, gmma_desc<D>(a_k + 32 * kk), gmma_desc<D>(qs + 32 * kk), T());
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, gmma_desc<D>(a_v + 32 * kk), gmma_desc<D>(dos + 32 * kk), T());
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const int first_q = qoff + i * block_q;
+    const bool edge = k0 + HB_M > Sk || (i + 1) * block_q > Sq || k_last > first_q ||
+                      (win > 0 && first_q + block_q - 1 - k0 >= win);
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int c = 0; c < 32; c += 2) {
+      const int kpos = k0 + c0 + 8 * ((c >> 1) & 1);
+      float p2[2], d2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * (c >> 2) + 2 * (lane & 3) + e;  // row of the q tile
+        float p = ex2(fmaf(sc[c + e], scale2, -ls[r] * LOG2E));
+        if (edge) {
+          const int qi = i * block_q + r / G, qp = qoff + qi;
+          const bool keep = r < rows && qi < Sq && kpos <= qp && kpos < Sk &&
+                            window_keep(qp, kpos, win);
+          p = keep ? p : 0.f;
+        }
+        p2[e] = p;
+        d2[e] = p * (dp[c + e] - dis[r]) * sm_scale;
+      }
+      pa[c >> 3][(c >> 1) & 3] = pack2<T>(p2[0], p2[1]);
+      da[c >> 3][(c >> 1) & 3] = pack2<T>(d2[0], d2[1]);
+    }
+    // dV += P^T dO, dK += dS^T Q: the q rows are the contraction
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb(dv_acc, pa[kk], gmma_desc<D>(dos + kk * 16 * D * 2), T());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb(dk_acc, da[kk], gmma_desc<D>(qs + kk * 16 * D * 2), T());
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && t + 2 < n_tiles) load_q(t + 2);
+    load_stats(t + 2);
+  }
+
+#pragma unroll
+  for (int c = 0; c < D / 2; c += 2) {
+    const int kpos = k0 + c0 + 8 * ((c >> 1) & 1);
+    if (kpos >= Sk) continue;
+    const size_t off = (((size_t)b * Sk + kpos) * KV + h) * D + 8 * (c >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(dk + off) = pack2<T>(dk_acc[c], dk_acc[c + 1]);
+    *reinterpret_cast<uint32_t*>(dv + off) = pack2<T>(dv_acc[c], dv_acc[c + 1]);
   }
 }
 
@@ -692,22 +1198,105 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, reached through the runtime so
+// the library needs no -lcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got) ==
+            cudaSuccess &&
+        got == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (B, S, N, D) tensor of 16-bit values as the 4-D map (D, N, S, B) with
+// boxes of (D, n_box, s_box, 1), swizzled as gmma_desc<D> reads them;
+// elements past S are zero-filled
+template <typename T, int D>
+cudaError_t row_map(CUtensorMap* map, const void* base, int B, int S, int N, int n_box,
+                    int s_box) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
+                                 (cuuint64_t)S * N * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)n_box, (cuuint32_t)s_box, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_hopper(bool dq_pass, const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse, const void* di, void* o1,
+                              void* o2, const void* q_off, int B, int Sq, int Sk, int H, int KV,
+                              int win, float sm_scale, cudaStream_t stream) {
+  const int block_q = HB_M / (H / KV);
+  CUtensorMap mq, mdo, mk, mv;
+  cudaError_t e;
+  if ((e = row_map<T, D>(&mq, q, B, Sq, H, H / KV, block_q)) != cudaSuccess ||
+      (e = row_map<T, D>(&mdo, dout, B, Sq, H, H / KV, block_q)) != cudaSuccess ||
+      (e = row_map<T, D>(&mk, k, B, Sk, KV, 1, HB_M)) != cudaSuccess ||
+      (e = row_map<T, D>(&mv, v, B, Sk, KV, 1, HB_M)) != cudaSuccess)
+    return e;
+  // six 64-row tiles, dk/dv's lse/di stages, 3 mbarriers, 1024-byte alignment
+  const int smem = 6 * HB_M * D * 2 + 4 * HB_M * 4 + 64 + 1024;
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(di);
+  const int* qo = static_cast<const int*>(q_off);
+  if (dq_pass) {
+    auto kern = bwd_dq_hopper<T, D>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const int nq = (Sq + block_q - 1) / block_q;
+    kern<<<nq * KV * B, HB_THREADS, smem, stream>>>(mq, mdo, mk, mv, l, d, static_cast<T*>(o1),
+                                                     qo, B, Sq, Sk, H, KV, win, sm_scale);
+  } else {
+    auto kern = bwd_dkv_hopper<T, D>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const int nk = (Sk + HB_M - 1) / HB_M;
+    kern<<<nk * KV * B, HB_THREADS, smem, stream>>>(mq, mdo, mk, mv, l, d, static_cast<T*>(o1),
+                                                     static_cast<T*>(o2), qo, B, Sq, Sk, H, KV,
+                                                     win, sm_scale);
+  }
+  return cudaGetLastError();
+}
+
+// fp32 on the CUDA cores, bf16/fp16 on the tensor cores (see the note above
+// the backward kernels)
 template <int D>
 cudaError_t bwd_by_dtype(int dtype, bool dq_pass, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* di, void* o1, void* o2,
                          const void* q_off, int B, int Sq, int Sk, int H, int KV, int win,
                          float sm_scale, cudaStream_t s) {
-#define BWD_CASE(T)                                                                        \
-  return dq_pass ? launch_bwd_dq<T, D>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV, \
-                                       win, sm_scale, s)                                    \
-                 : launch_bwd_dkv<T, D>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, \
-                                        KV, win, sm_scale, s)
   switch (dtype) {
-    case 0: BWD_CASE(float);
-    case 1: BWD_CASE(__nv_bfloat16);
-    case 2: BWD_CASE(__half);
+    case 0:
+      return dq_pass ? launch_bwd_dq<float, D>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV,
+                                               win, sm_scale, s)
+                     : launch_bwd_dkv<float, D>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk,
+                                                H, KV, win, sm_scale, s);
+    case 1:
+      return launch_bwd_hopper<__nv_bfloat16, D>(dq_pass, q, k, v, dout, lse, di, o1, o2, q_off,
+                                                 B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 2:
+      return launch_bwd_hopper<__half, D>(dq_pass, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq,
+                                          Sk, H, KV, win, sm_scale, s);
   }
-#undef BWD_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -769,7 +1358,8 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 // Backward of flash_fwd. q/dout (B, Sq, H, D), k/v (B, Sk, KV, D) in one
 // dtype; lse and di = rowsum(out * dout) (B, Sq, H) fp32; q_off (B,) int32.
 // dq (B, Sq, H, D); dk/dv (B, Sk, KV, D), summed over the G heads of a group.
-// G = H/KV <= 16, rows of a q tile = (16 / G) * G (dq) and (32 / G) * G (dk/dv).
+// G = H/KV <= 16. bf16/fp16 (tensor cores): q tiles of (64 / G) * G rows, key
+// tiles of 64; fp32: (16 / G) * G rows (dq) and (32 / G) * G (dk/dv).
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                  const void* di, void* dq, const void* q_off, int B, int Sq, int Sk, int H,
                  int KV, int D, int dtype, int window, float sm_scale, void* stream) {

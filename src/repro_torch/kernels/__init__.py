@@ -15,6 +15,8 @@ show that a path went through the kernel.
 
 Built without ``--use_fast_math``: the sampling kernel's ``row / T +
 noise`` must round exactly as the plain version's IEEE division does.
+Built with ``ptxas -v``: :func:`build_log` returns each kernel's
+registers, shared memory and spills from the build.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "slot_gather", "exchange", "sgd")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -112,6 +114,7 @@ def _finish(name: str, proc, out: Path) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(proc.tmp, out)        # atomic: a reader never sees half a .so
 
 
@@ -122,6 +125,14 @@ def build_all(names=SOURCES) -> dict[str, Path]:
     for n, (proc, out) in started.items():
         _finish(n, proc, out)
     return {n: out for n, (_, out) in started.items()}
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for the current build of ``csrc/<name>.cu``
+    (``ptxas -v``: registers, shared memory, spills per kernel); empty
+    before the first build."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

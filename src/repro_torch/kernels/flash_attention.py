@@ -29,8 +29,10 @@ Kernels (design notes in the CUDA source):
   gathered lanes with ``block_k = page_size`` bit for bit.
 
 Every kernel takes a GQA group size G = H / KV of at most 16: a block
-holds ``16 // G`` (dq: 16, dk/dv: 32 rows) queries of G heads each, the
-spare rows idle where G does not divide the row count.
+holds the G heads of ``rows // G`` queries, the spare rows idle where G
+does not divide the row count (forward 16 rows; the backward in bf16 and
+fp16 64, on the tensor cores; in fp32 dq 16 and dk/dv 32, on the CUDA
+cores).
 """
 from __future__ import annotations
 
@@ -99,12 +101,19 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
     return (out, lse) if return_lse else out
 
 
+def _tma_ready(t):
+    """Contiguous, and 16-byte aligned as a TMA tensor map needs (a
+    contiguous view can start at any element)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _bwd_inputs(name, q, k, v, lse, do, di):
     _check_cuda(name, q, k, v)
     if do.dtype != q.dtype or do.shape[:3] != q.shape[:3]:
         raise TypeError(f"{name}: do {tuple(do.shape)} {do.dtype} does not "
                         f"match q {tuple(q.shape)} {q.dtype}")
-    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+    return (_tma_ready(q), _tma_ready(k), _tma_ready(v), _tma_ready(do),
             lse.float().contiguous(), di.float().contiguous())
 
 

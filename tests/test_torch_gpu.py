@@ -84,6 +84,16 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 1e-2}
     (1, 61, 70, 8, 2, 64, 0, 9),             # G = 4, ragged
     (2, 24, 40, 16, 1, 32, 9, "vector"),     # G = 16, window 9
     (1, 1000, 1000, 12, 4, 64, 0, None),     # G = 3, S = 1000
+    # the edges of the 64-row q tiles and 64-key tiles of the bf16/fp16
+    # kernels: one short of a tile, one past, two past
+    (1, 63, 63, 8, 8, 64, 0, None),          # G = 1
+    (2, 65, 65, 4, 2, 32, 0, "vector"),      # G = 2
+    (1, 129, 129, 8, 1, 64, 0, None),        # G = 8
+    (2, 129, 129, 2, 1, 64, 64, "vector"),   # G = 2, window on a tile edge
+    (2, 65, 200, 3, 1, 32, 33, "vector"),    # G = 3, a chunk at (135, 0)
+    (2, 63, 129, 4, 1, 64, 0, "vector"),     # G = 4, a chunk at (66, 0)
+    (1, 100, 1000, 16, 1, 64, 0, 900),       # G = 16, the last chunk
+    (2, 1000, 1000, 8, 1, 32, 129, None),    # G = 8, window 129, D 32
 ])
 def test_flash_backward_kernels(dev, dtype, shape):
     B, Sq, Sk, H, KV, D, win, off = shape
@@ -106,6 +116,45 @@ def test_flash_backward_kernels(dev, dtype, shape):
         assert a.dtype == b.dtype == dtype and a.shape == b.shape
         err = (a.float() - b.float()).abs().max().item()
         assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("window", [0, 200])
+def test_flash_backward_is_deterministic(dev, dtype, window):
+    """dk/dv are summed over the G heads and every q tile inside one block,
+    in one order and without atomics, and dq over its key tiles the same
+    way: two calls give the same bits."""
+    B, S, H, KV, D = 2, 1000, 16, 4, 64
+    g = torch.Generator(device=dev).manual_seed(10)
+    q, do = _rn(g, dev, dtype, B, S, H, D), _rn(g, dev, dtype, B, S, H, D)
+    k, v = _rn(g, dev, dtype, B, S, KV, D), _rn(g, dev, dtype, B, S, KV, D)
+    q_off = fa._positions(0, B, dev)
+    out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    kw = dict(q_off=q_off, window=window, sm_scale=1 / math.sqrt(D))
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_flash_backward_takes_unaligned_views(dev):
+    """Contiguous views that start at an odd element (a TMA tensor map
+    needs 16-byte alignment) give the same gradients as aligned copies."""
+    B, S, H, KV, D = 1, 70, 8, 2, 64
+    g = torch.Generator(device=dev).manual_seed(11)
+    flat = lambda n: _rn(g, dev, torch.bfloat16, n + 1)[1:]
+    q, do = (flat(B * S * H * D).view(B, S, H, D) for _ in range(2))
+    k, v = (flat(B * S * KV * D).view(B, S, KV, D) for _ in range(2))
+    assert q.data_ptr() % 16 and k.data_ptr() % 16
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    kw = dict(q_off=fa._positions(0, B, dev), sm_scale=1 / math.sqrt(D))
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = fa.flash_attention_bwd(*(t.clone() for t in (q, k, v, out, lse,
+                                                         do)), **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_autograd_launches_the_kernels(dev):
