@@ -9,10 +9,11 @@ and the CUDA toolkit. In order:
 1. Device: prints ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compiles every kernel source under ``src/repro_torch/csrc``
    (one ``nvcc`` each, all started together), then prints the registers
-   and spills (``ptxas -v``) of the flash backward's eight tensor-core
-   kernels (dq and dk/dv, bf16 and fp16, D 32 and 64) and fails unless
-   each one's SASS holds wgmma products (HGMMA) and TMA loads (UTMALDG)
-   and no atomics.
+   and spills (``ptxas -v``) of the flash attention's 18 tensor-core
+   kernels (forward, dq and dk/dv; bf16 and fp16; D 32, 64 and 128) and
+   fails unless each one's SASS holds wgmma products (HGMMA) and TMA
+   loads (UTMALDG) and no atomics, and unless the forward's six spill
+   nothing.
 3. Kernels: calls each kernel's wrapper at the serve path's full-width
    llama3.2-1b shapes in bf16, holds it to its plain PyTorch version on
    the same inputs, and times the kernel, the plain version and one
@@ -28,21 +29,35 @@ and the CUDA toolkit. In order:
    plain version at that length and at 2,048,777, with an all-zero block
    and exact .5 ties, and timed (no PyTorch call computes the same
    function, so no library yardstick).
+   The serve path's flash kernels are also held to their plain versions
+   at head dim 128 (qwen1.5-4b's 20 heads over 20) in bf16, fp16 and
+   fp32: the prefill chunk and the decode, contiguous and paged, timed
+   beside their D-64 times; the sampler, bit for bit, at qwen1.5-4b's
+   vocab of 151,936 as at llama3.2-1b's 128,256.
 4. Engine: serves 16 requests through the port's ``Engine`` on full
    llama3.2-1b (16 layers, random weights from a seeded generator, bf16):
    paged KV cache, fused sampling, chunked prefill, a shared-prompt
    prefix hit. The launch counts are zeroed just before and read just
    after, and every kernel of the path must have launched. A short
-   ``page_size=0`` pass reaches the contiguous ``flash_decode``. One
-   prompt's teacher-forced prefill and decode logits through the kernels
-   are held to the einsum path.
+   ``page_size=0`` pass reaches the contiguous ``flash_decode``. Three
+   prompts' teacher-forced prefill and decode logits through the kernels
+   are held to the einsum path, each printed beside its distance from
+   the kernels in fp32. Then the same for full qwen1.5-4b (40
+   layers, d_model 2560, 20 heads of 128 over 20 KV heads, QKV bias,
+   vocab 151,936): the flash kernels at head dim 128 and G = 1.
    The flash backward's two kernels (dq, and dk/dv) are held to their
    plain version at the LM training shapes (B 4, S 1024, 32 heads over 8,
    D 64, bf16), in fp32 at a smaller shape, and at G = 3 over a ragged
    S = 1000 (with the forward), and timed beside PyTorch's own flash
    backward; two backward calls at the LM shapes must agree bit for bit,
-   and the order in which the flat grids launch their blocks is printed. A gradient check runs ``decoder_loss`` of full llama3.2-1b on
-   2 x 512 tokens through the kernels and through the einsum attention.
+   and the order in which the flat grids launch their blocks is printed.
+   At head dim 128 the forward and the backward are held the same way at
+   B 2, S 1024, 20 heads over 20 and 64 over 8 (bf16 and fp16) and in
+   fp32 at a smaller shape, two backward calls must agree bit for bit,
+   and their times are printed beside the D-64 ones. A gradient check
+   runs ``decoder_loss`` of full llama3.2-1b on 2 x 512 tokens through
+   the kernels and through the einsum attention, and the same for
+   qwen1.5-4b at full width, its depth cut to 4 layers.
 5. Train: the paper's BSP training of full-width AlexNet (227 px, 1000
    classes, 60,965,224 parameters, fp32, TF32 off) on k=2 gloo rank
    processes that share the card; each rank takes batches of 128
@@ -110,6 +125,15 @@ FWD_TOL = 1e-2        # bf16 output (eps 2^-8 ~ 3.9e-3) of |o| <~ 1 values;
 DECODE_TOL = 1e-2     # bf16 output, fp32 sums in another order
 LOGIT_TOL = 0.1       # flash vs einsum logits, bf16 through 16 layers:
                       # the einsum path runs its softmax in bf16
+QWEN_LOGIT_TOL = 0.15  # the same through qwen1.5-4b's 40 layers: on an
+                       # H100 its 3 prompts x 6 calls read 0.094 at most,
+                       # while each bf16 path lay 0.083 from the kernels in
+                       # fp32 (the control printed beside it), so two
+                       # correct bf16 paths may differ by up to ~0.17
+QWEN_GRAD_LAYERS = 4  # qwen1.5-4b's gradient check: full width, depth cut
+                      # from 40 to 4 layers (three models' gradients of the
+                      # 151,936 x 2560 embedding and head fit beside the
+                      # engine's leftovers; 4 layers reach every kernel)
 UPDATE_TOL = 0.0      # training kernels: they add rows in the plain
                       # version's order and round every product and sum on
                       # its own (no FMA), so they are held bit for bit
@@ -137,7 +161,10 @@ GRAD_TOL = 5e-2       # each leaf's gradient there, relative Frobenius error:
                       # with the plain versions, the attention projections
                       # the worst, while each side lay 2.7e-2 / 2.8e-2 from
                       # the kernels in fp32 (printed here too): the bf16
-                      # policy, not the kernels, sets the disagreement
+                      # policy, not the kernels, sets the disagreement.
+                      # qwen1.5-4b cut to 4 layers of d_model 2560 (D 128,
+                      # G 1) read 2.4e-2 (max) on an H100, each side 2.2e-2
+                      # / 2.6e-2 from fp32: the same policy, the same limit
 LM_STEPS = 6          # steps of the LM training run
 LM_BATCH, LM_SEQ = 4, 1024   # sequences of tokens per rank and step
 LM_PARAMS = 1_235_814_400    # llama3.2-1b with tied embeddings
@@ -219,25 +246,27 @@ def _event_ms(fn, iters: int = 20, flush=None) -> float:
     return times[len(times) // 2]
 
 
-HOPPER_BWD = re.compile(r"bwd_d(?:q|kv)_hopper")
+HOPPER = re.compile(r"fwd_hopper|bwd_d(?:q|kv)_hopper")
+HOPPER_KERNELS = 18     # forward, dq, dk/dv x bf16, fp16 x D 32, 64, 128
 
 
 def _kernel_label(mangled: str) -> str:
     """``bwd_dq_hopper<bf16, 64>`` from a mangled kernel name."""
     ty = "bf16" if "bfloat16" in mangled else "fp16"
-    return (f"{HOPPER_BWD.search(mangled).group(0)}<{ty}, "
+    return (f"{HOPPER.search(mangled).group(0)}<{ty}, "
             f"{re.search(r'Li(\d+)E', mangled).group(1)}>")
 
 
-def bwd_build_report(K):
-    """The flash backward's tensor-core kernels as built: registers and
-    spills (``ptxas -v``), and in their SASS the wgmma products (HGMMA),
-    the TMA loads (UTMALDG) and no atomics (ATOM*, RED)."""
+def hopper_build_report(K):
+    """The flash forward's and backward's tensor-core kernels as built:
+    registers and spills (``ptxas -v``), and in their SASS the wgmma
+    products (HGMMA), the TMA loads (UTMALDG) and no atomics (ATOM*,
+    RED). The forward kernels must not spill."""
     log = K.build_log("flash_attention").splitlines()
     regs = {}
     for n, line in enumerate(log):
         m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m and HOPPER_BWD.search(m.group(1)):
+        if m and HOPPER.search(m.group(1)):
             props = " ".join(log[n + 1:n + 4])
             regs[_kernel_label(m.group(1))] = dict(
                 registers=int(re.search(r"Used (\d+) registers", props).group(1)),
@@ -245,7 +274,7 @@ def bwd_build_report(K):
                                  .group(1)),
                 spill_loads=int(re.search(r"(\d+) bytes spill loads", props)
                                 .group(1)))
-    print("flash backward kernels, ptxas: " + json.dumps(regs))
+    print("flash tensor-core kernels, ptxas: " + json.dumps(regs))
     sass = subprocess.run(
         [str(Path(K._nvcc()).parent / "cuobjdump"), "-sass",
          str(K._target("flash_attention"))],
@@ -254,7 +283,7 @@ def bwd_build_report(K):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split(":", 1)[1].strip()
-            fn = _kernel_label(fn) if HOPPER_BWD.search(fn) else None
+            fn = _kernel_label(fn) if HOPPER.search(fn) else None
             if fn:
                 ops[fn] = dict(HGMMA=0, UTMALDG=0, atomics=0)
             continue
@@ -266,12 +295,16 @@ def bwd_build_report(K):
                 ops[fn][op] += 1
             elif op.startswith("ATOM") or op == "RED":
                 ops[fn]["atomics"] += 1
-    print("flash backward kernels, SASS instructions: " + json.dumps(ops))
-    if len(regs) != 8 or sorted(ops) != sorted(regs) or not all(
+    print("flash tensor-core kernels, SASS instructions: " + json.dumps(ops))
+    if len(regs) != HOPPER_KERNELS or sorted(ops) != sorted(regs) or not all(
             o["HGMMA"] > 0 and o["UTMALDG"] > 0 and o["atomics"] == 0
             for o in ops.values()):
-        _fail("the bf16/fp16 flash backward kernels must be built with wgmma "
-              "and TMA loads and no atomics")
+        _fail(f"the {HOPPER_KERNELS} bf16/fp16 flash kernels must be built "
+              f"with wgmma and TMA loads and no atomics")
+    spills = {n: r for n, r in regs.items() if n.startswith("fwd_hopper")
+              and r["spill_stores"] + r["spill_loads"] > 0}
+    if spills:
+        _fail(f"the flash forward kernels spill: {spills}")
 
 
 def _bwd_grid_order(B, S, H, KV, tile=64):
@@ -288,42 +321,37 @@ def _bwd_grid_order(B, S, H, KV, tile=64):
                    for i in reversed(range(nq))]}
 
 
-def kernel_phase(torch, ref, fa, sg, flush):
-    """Each kernel against its plain version at the serve path's shapes."""
+def _serve_flash(torch, ref, fa, g, H, KV, D, dtype, flush=None, dev="cuda"):
+    """The serve path's flash kernels at one head layout and dtype, each
+    held to its plain version: a 32-query prefill chunk at the end of a
+    1 K lane (with its lse), and the one-token decode of 8 slots at
+    positions 64..1000 over 1 K lanes, contiguous and paged (pages of 16,
+    a random page table, the null page past each position). With
+    ``flush``, each kernel's time beside its plain version's, the library
+    call's and its bound. Returns {kernel name: row}."""
     import torch.nn.functional as F
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(1234)
-    bf = torch.bfloat16
-    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(bf)
-    rows = []
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else None
+    es = torch.finfo(dtype).bits // 8                # bytes a value
+    scale = 1 / math.sqrt(D)
+    src = "src/repro_torch/csrc/flash_attention.cu"
+    label = f"{H}/{KV} heads, D {D}, {str(dtype)[6:]}"
 
     # --- flash_attention: one 32-row prefill chunk at the end of a 1 K lane
-    B, Sq, Sk, H, KV, D = 1, 32, 1024, 32, 8, 64
+    B, Sq, Sk = 1, 32, 1024
     q, k, v = rn(B, Sq, H, D), rn(B, Sk, KV, D), rn(B, Sk, KV, D)
     q_off = torch.tensor([Sk - Sq], dtype=torch.int32, device=dev)
-    scale = 1 / math.sqrt(D)
-    got = fa.flash_attention(q, k, v, q_off=q_off)
-    want = ref.flash_attention_ref(q, k, v, q_off, 0, scale)
+    got, lse = fa.flash_attention(q, k, v, q_off=q_off, return_lse=True)
+    want, want_lse = ref.flash_attention_ref(q, k, v, q_off, 0, scale, True)
     err = (got.float() - want.float()).abs().max().item()
-    if not err <= FWD_TOL:
-        _fail(f"flash_attention vs plain: max err {err} > {FWD_TOL}")
-    qpos = torch.arange(Sq, device=dev) + int(q_off)
-    mask = (torch.arange(Sk, device=dev)[None] <= qpos[:, None])
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    keys = int((qpos + 1).clamp(max=Sk).sum())          # live (row, key) pairs
-    live_rows = min(int(q_off) + Sq, Sk)
-    rows.append(dict(
-        name="flash_attention", src="src/repro_torch/csrc/flash_attention.cu",
+    err_l = (lse - want_lse).abs().max().item()
+    if not (err <= (tol or FWD_TOL) and err_l <= 1e-3):
+        _fail(f"flash_attention ({label}) vs plain: max err {err}, lse "
+              f"{err_l}")
+    rows = {"flash_attention": dict(
+        name="flash_attention", src=src,
         replaces="src/repro/kernels/flash_attention.py:97", err=err,
-        ms=_median_ms(lambda: fa.flash_attention(q, k, v, q_off=q_off),
-                      flush=flush),
-        host_ms=_host_ms(lambda: fa.flash_attention(q, k, v, q_off=q_off)),
-        plain_ms=_median_ms(lambda: ref.flash_attention_ref(q, k, v, q_off, 0,
-                                                            scale), flush=flush),
-        library_ms=_median_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), flush=flush),
-        bound=_bound(2 * (q.numel() * 2) + 2 * live_rows * KV * D * 2 + 4 * B,
-                     4 * D * H * keys)))
+        lse_err=err_l)}
 
     # --- decode: 8 slots at positions 64..1000; lanes of 1 K, pages of 16
     B, S, ps = 8, 1024, 16
@@ -338,82 +366,137 @@ def kernel_phase(torch, ref, fa, sg, flush):
     live = (torch.arange(NP, device=dev)[None] * ps <= pos[:, None].long())
     tables = torch.where(live, tables, 0).to(torch.int32)  # null page past pos
     lk, lv = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
-    need = int((pos.long() + 1).sum())                 # visible keys, all slots
-    dec_bytes = 2 * qd.numel() * 2 + 2 * need * KV * D * 2 + 4 * B
-    dec_flops = 4 * D * H * need
     got_c = fa.flash_decode(qd, lk, lv, pos)
     want_c = ref.flash_decode_ref(qd, lk, lv, pos, 0, scale, 512)
     err_c = (got_c.float() - want_c.float()).abs().max().item()
     got_p = fa.flash_decode_paged(qd, kp, vp, tables, pos, page_size=ps)
     want_p = ref.flash_decode_paged_ref(qd, kp, vp, tables, pos, 0, scale, ps)
     err_p = (got_p.float() - want_p.float()).abs().max().item()
-    if not (err_c <= DECODE_TOL and err_p <= DECODE_TOL):
-        _fail(f"flash decode vs plain: max err {err_c} / {err_p}")
-    same = fa.flash_decode(qd, lk, lv, pos, block_k=ps)
-    if not torch.equal(got_p, same):
-        _fail("flash_decode_paged != flash_decode(gathered, block_k=16)")
+    if not (err_c <= (tol or DECODE_TOL) and err_p <= (tol or DECODE_TOL)):
+        _fail(f"flash decode ({label}) vs plain: max err {err_c} / {err_p}")
+    if not torch.equal(got_p, fa.flash_decode(qd, lk, lv, pos, block_k=ps)):
+        _fail(f"flash_decode_paged != flash_decode(gathered, block_k=16) "
+              f"({label})")
+    rows["flash_decode"] = dict(
+        name="flash_decode", src=src,
+        replaces="src/repro/kernels/flash_attention.py:391", err=err_c)
+    rows["flash_decode_paged"] = dict(
+        name="flash_decode_paged", src=src,
+        replaces="src/repro/kernels/flash_attention.py:490", err=err_p)
+    if flush is None:
+        return rows
+
+    qpos = torch.arange(Sq, device=dev) + int(q_off)
+    mask = (torch.arange(Sk, device=dev)[None] <= qpos[:, None])
+    keys = int((qpos + 1).clamp(max=Sk).sum())          # live (row, key) pairs
+    live_rows = min(int(q_off) + Sq, Sk)
     dmask = (torch.arange(S, device=dev)[None] <= pos[:, None])[:, None, None]
-    rows.append(dict(
-        name="flash_decode", src="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:391", err=err_c,
-        ms=_median_ms(lambda: fa.flash_decode(qd, lk, lv, pos), flush=flush),
-        host_ms=_host_ms(lambda: fa.flash_decode(qd, lk, lv, pos)),
-        plain_ms=_median_ms(lambda: ref.flash_decode_ref(qd, lk, lv, pos, 0,
-                                                         scale, 512),
+    need = int((pos.long() + 1).sum())                 # visible keys, all slots
+    dec_bytes = 2 * qd.numel() * es + 2 * need * KV * D * es + 4 * B
+    dec_flops = 4 * D * H * need
+    calls = dict(
+        flash_attention=(
+            lambda: fa.flash_attention(q, k, v, q_off=q_off),
+            lambda: ref.flash_attention_ref(q, k, v, q_off, 0, scale),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True),
+            _bound(2 * q.numel() * es + 2 * live_rows * KV * D * es + 4 * B,
+                   4 * D * H * keys)),
+        flash_decode=(
+            lambda: fa.flash_decode(qd, lk, lv, pos),
+            lambda: ref.flash_decode_ref(qd, lk, lv, pos, 0, scale, 512),
+            lambda: F.scaled_dot_product_attention(
+                qd.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2),
+                attn_mask=dmask, enable_gqa=True),
+            _bound(dec_bytes, dec_flops)),
+        flash_decode_paged=(
+            lambda: fa.flash_decode_paged(qd, kp, vp, tables, pos,
+                                          page_size=ps),
+            lambda: ref.flash_decode_paged_ref(qd, kp, vp, tables, pos, 0,
+                                               scale, ps),
+            None,                         # no single library call pages
+            _bound(dec_bytes + tables.numel() * 4, dec_flops)))
+    for name, (fn, plain, lib, bound) in calls.items():
+        rows[name].update(
+            ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
+            plain_ms=_median_ms(plain, flush=flush),
+            library_ms=None if lib is None else _median_ms(lib, flush=flush),
+            bound=bound)
+    return rows
+
+
+def _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev="cuda"):
+    """slot_gather_sample at (S_, C, V) on the card held bit for bit to
+    its plain version (half the slots greedy, half at temperature 0.8),
+    and timed beside it and beside an argmax of the selected rows."""
+    tiny = torch.finfo(torch.float32).tiny
+    lg = torch.randn(S_, C, V, generator=g, device=dev).to(torch.bfloat16)
+    sel = torch.randint(0, C, (S_,), generator=g, device=dev)
+    oh = torch.nn.functional.one_hot(sel, C).float()
+    T = torch.tensor([0.8, 0.0] * 4, device=dev)[:S_]
+    u = torch.rand(S_, V, generator=g, device=dev).clamp_min(tiny)
+    nz = -torch.log(-torch.log(u))
+    gk, sk = sg.slot_gather_sample(lg, oh, T, nz)
+    gr, sr = ref.slot_gather_sample_ref(lg, oh, T, nz)
+    if not (torch.equal(gk, gr) and torch.equal(sk, sr)):
+        _fail(f"slot_gather_sample ({S_}, {C}, {V}) differs from plain")
+    row = lg[torch.arange(S_, device=dev), sel]
+    return dict(
+        name="slot_gather_sample", src="src/repro_torch/csrc/slot_gather.cu",
+        replaces="src/repro/kernels/slot_gather.py:37",
+        err=float(max((gk - gr).abs().max().item(),
+                      (sk - sr).abs().max().item())),
+        ms=_median_ms(lambda: sg.slot_gather_sample(lg, oh, T, nz),
+                      flush=flush),
+        host_ms=_host_ms(lambda: sg.slot_gather_sample(lg, oh, T, nz)),
+        plain_ms=_median_ms(lambda: ref.slot_gather_sample_ref(lg, oh, T, nz),
                             flush=flush),
-        library_ms=_median_ms(lambda: F.scaled_dot_product_attention(
-            qd.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2),
-            attn_mask=dmask, enable_gqa=True), flush=flush),
-        bound=_bound(dec_bytes, dec_flops)))
-    rows.append(dict(
-        name="flash_decode_paged", src="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:490", err=err_p,
-        ms=_median_ms(lambda: fa.flash_decode_paged(qd, kp, vp, tables, pos,
-                                                    page_size=ps), flush=flush),
-        host_ms=_host_ms(lambda: fa.flash_decode_paged(qd, kp, vp, tables, pos,
-                                                       page_size=ps)),
-        plain_ms=_median_ms(lambda: ref.flash_decode_paged_ref(
-            qd, kp, vp, tables, pos, 0, scale, ps), flush=flush),
-        library_ms=None,                  # no single library call pages
-        bound=_bound(dec_bytes + tables.numel() * 4, dec_flops)))
+        library_ms=_median_ms(lambda: torch.argmax(row, -1), flush=flush),
+        # the kernel reads only the one-hot-selected row of each slot
+        bound=_bound(S_ * V * (2 + 4) + oh.numel() * 4 + S_ * 12, 3 * S_ * V))
+
+
+def kernel_phase(torch, ref, fa, sg, flush):
+    """Each serve kernel against its plain version at the serve path's
+    shapes: llama3.2-1b's (32 heads over 8, D 64, vocab 128,256; the
+    rows) and qwen1.5-4b's (20 over 20, D 128, vocab 151,936), the flash
+    kernels there in every dtype they take."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1234)
+    flash = _serve_flash(torch, ref, fa, g, 32, 8, 64, torch.bfloat16, flush)
+    rows = list(flash.values())
 
     # --- slot_gather_sample: decode (8, 1, V) and the prefill tail (1, 32, V)
-    V = 128256
-    tiny = torch.finfo(torch.float32).tiny
-    for S_, C in ((8, 1), (1, 32)):
-        lg = rn(S_, C, V)
-        sel = torch.randint(0, C, (S_,), generator=g, device=dev)
-        oh = torch.nn.functional.one_hot(sel, C).float()
-        T = torch.tensor([0.8, 0.0] * 4, device=dev)[:S_]
-        u = torch.rand(S_, V, generator=g, device=dev).clamp_min(tiny)
-        nz = -torch.log(-torch.log(u))
-        gk, sk = sg.slot_gather_sample(lg, oh, T, nz)
-        gr, sr = ref.slot_gather_sample_ref(lg, oh, T, nz)
-        if not (torch.equal(gk, gr) and torch.equal(sk, sr)):
-            _fail(f"slot_gather_sample ({S_}, {C}, {V}) differs from plain")
-        row = lg[torch.arange(S_, device=dev), sel]
-        r = dict(
-            name="slot_gather_sample", src="src/repro_torch/csrc/slot_gather.cu",
-            replaces="src/repro/kernels/slot_gather.py:37",
-            err=float(max((gk - gr).abs().max().item(),
-                          (sk - sr).abs().max().item())),
-            ms=_median_ms(lambda: sg.slot_gather_sample(lg, oh, T, nz),
-                          flush=flush),
-            host_ms=_host_ms(lambda: sg.slot_gather_sample(lg, oh, T, nz)),
-            plain_ms=_median_ms(lambda: ref.slot_gather_sample_ref(lg, oh, T,
-                                                                   nz),
-                                flush=flush),
-            library_ms=_median_ms(lambda: torch.argmax(row, -1), flush=flush),
-            # the kernel reads only the one-hot-selected row of each slot
-            bound=_bound(S_ * V * (2 + 4) + oh.numel() * 4 + S_ * 12,
-                         3 * S_ * V))
-        if C == 1:
-            rows.append(r)
-        else:
-            print("slot_gather_sample prefill tail (1, 32, 128256): "
-                  + json.dumps({k_: r[k_] for k_ in
-                                ("ms", "plain_ms", "library_ms", "host_ms",
-                                 "bound")}))
+    for V in (128256, 151936):
+        for S_, C in ((8, 1), (1, 32)):
+            r = _sampler_check(torch, ref, sg, g, S_, C, V, flush)
+            if (V, C) == (128256, 1):
+                rows.append(r)
+            else:
+                print(f"slot_gather_sample ({S_}, {C}, {V}), equal to plain: "
+                      + json.dumps({k_: r[k_] for k_ in (
+                          "ms", "plain_ms", "library_ms", "host_ms",
+                          "bound")}))
+
+    # --- the flash kernels at head dim 128, G = 1
+    g = torch.Generator(device=dev).manual_seed(128)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        bf = dtype == torch.bfloat16
+        d128 = _serve_flash(torch, ref, fa, g, 20, 20, 128, dtype,
+                            flush if bf else None)
+        errs[str(dtype)[6:]] = dict(
+            {n: r["err"] for n, r in d128.items()},
+            lse=d128["flash_attention"]["lse_err"])
+        if bf:
+            beside = {n: dict({k_: r[k_] for k_ in (
+                "ms", "plain_ms", "library_ms", "bound")},
+                ms_d64=flash[n]["ms"]) for n, r in d128.items()}
+    print("flash kernels at D 128 (20 heads over 20), max |d| vs plain: "
+          + json.dumps(errs))
+    print("flash serve kernels at D 128, bf16, beside D 64 (llama3.2-1b "
+          "shapes): " + json.dumps(beside))
     return rows
 
 
@@ -475,39 +558,31 @@ def _library_bwd_ms(torch, q, k, v, do, flush):
                                  0.0, True, seed, off), flush=flush)
 
 
-def lm_kernel_phase(torch, ref, fa, flush, dev="cuda"):
-    """The flash backward kernels against their plain version at the LM
-    training shapes, in fp32 at a smaller shape, and at G = 3 over a
-    ragged S; rows for the dq and dk/dv kernels."""
-    B, S, H, KV, D = LM_BATCH, LM_SEQ, 32, 8, 64
-    c = _check_bwd(torch, ref, fa, torch.bfloat16, (B, S, H, KV, D), BWD_TOL,
-                   fwd_tol=FWD_TOL, seed=11, dev=dev)
-    _check_bwd(torch, ref, fa, torch.float32, (1, 256, 8, 2, D),
-               BWD_TOL_FP32, fwd_tol=1e-5, seed=12, dev=dev)
-    _check_bwd(torch, ref, fa, torch.bfloat16, (2, S - 24, 12, 4, D),
-               BWD_TOL, fwd_tol=FWD_TOL, seed=13, dev=dev)   # G = 3, ragged
+def _lm_flash(torch, ref, fa, flush, shape, seed, dev="cuda"):
+    """The flash forward and backward in bf16 at one causal training
+    shape held to their plain versions, two backward calls bitwise equal,
+    and the forward's, dq's and dk/dv's times beside PyTorch's own calls
+    and their bounds (dq and dk/dv beside their plain versions too).
+    Returns ({"fwd", "flash_attention_dq", "flash_attention_dkv": row},
+    the _check_bwd result)."""
+    B, S, H, KV, D = shape
+    c = _check_bwd(torch, ref, fa, torch.bfloat16, shape, BWD_TOL,
+                   fwd_tol=FWD_TOL, seed=seed, dev=dev)
     q, k, v, do, lse, qo, scale = (c[n] for n in ("q", "k", "v", "do", "lse",
                                                   "qo", "scale"))
     again = fa.flash_attention_bwd(q, k, v, c["out"], lse, do, q_off=qo,
                                    sm_scale=scale)
     same = all(torch.equal(a, b) for a, b in zip(c["got"], again))
-    print(f"flash backward at the LM shape, two calls bitwise equal: {same}")
+    print(f"flash backward {shape}, two calls bitwise equal: {same}")
     if not same:
-        _fail("two flash backward calls at the LM shape differ")
-    order = _bwd_grid_order(B, S, H, KV)
-    print(f"flash backward grid at the LM shape: {len(order['dkv']) * KV * B} "
-          f"dk/dv and {len(order['dq']) * KV * B} dq blocks, launched in rounds "
-          f"of {KV * B} (kv head, batch) pairs; live tiles a block, round by "
-          f"round: " + json.dumps(order))
+        _fail(f"two flash backward calls at {shape} differ")
     di = ref.flash_attention_di(c["out"], do)
     kw = dict(q_off=qo, window=0, sm_scale=scale)
     lib_ms = _library_bwd_ms(torch, q, k, v, do, flush)
-    print(f"library flash backward (dq, dk, dv together): {lib_ms} ms")
     pairs = B * H * S * (S + 1) // 2           # live (row, key) pairs
     row_b, kv_b, st_b = B * S * H * D * 2, B * S * KV * D * 2, B * S * H * 4
-    # the forward at the same shapes (its kernel row is at the serve shape)
     fwd = _bound(2 * row_b + 2 * kv_b + st_b, 4 * D * pairs)
-    print("flash forward at the LM training shapes: " + json.dumps(dict(
+    rows = {"fwd": dict(
         ms=_median_ms(lambda: fa.flash_attention(q, k, v, q_off=qo,
                                                  return_lse=True),
                       flush=flush),
@@ -516,8 +591,7 @@ def lm_kernel_phase(torch, ref, fa, flush, dev="cuda"):
                                  q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), is_causal=True,
                                  enable_gqa=True), flush=flush),
-        bound_ms=fwd[0], bound_by=fwd[1])))
-    rows = []
+        bound_ms=fwd[0], bound_by=fwd[1])}
     for name, line, fn, plain, nbytes, flops, outs in (
             ("flash_attention_dq", 179,
              lambda: fa.flash_attention_dq(q, k, v, lse, do, di, **kw),
@@ -529,18 +603,56 @@ def lm_kernel_phase(torch, ref, fa, flush, dev="cuda"):
              lambda: ref.flash_attention_dkv_ref(q, k, v, lse, do, di, qo, 0,
                                                  scale),
              2 * row_b + 4 * kv_b + 2 * st_b, 8 * D * pairs, ("dk", "dv"))):
-        rows.append(dict(
+        rows[name] = dict(
             name=name, src="src/repro_torch/csrc/flash_attention.cu",
             replaces=f"src/repro/kernels/flash_attention.py:{line}",
             err=max(c["abs_errs"][o] for o in outs),
             rel_err=max(c["errs"][o] for o in outs),
             ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
             plain_ms=_median_ms(plain, flush=flush), library_ms=lib_ms,
-            bound=_bound(nbytes, flops)))
+            bound=_bound(nbytes, flops))
+    return rows, c
+
+
+def lm_kernel_phase(torch, ref, fa, flush, dev="cuda"):
+    """The flash forward and backward kernels against their plain versions
+    at the LM training shapes (B 4, S 1024, 32/8 heads, D 64; the rows),
+    in fp32 at a smaller shape, at G = 3 over a ragged S, and at head dim
+    128: an LM-like shape (B 2, S 1024, 20 heads over 20, qwen1.5-4b's
+    G = 1) in bf16 and fp16, G = 8 (64 heads over 8) in both, and fp32;
+    the D-128 times printed beside the D-64 ones."""
+    B, S, H, KV, D = LM_BATCH, LM_SEQ, 32, 8, 64
+    d64, _ = _lm_flash(torch, ref, fa, flush, (B, S, H, KV, D), 11, dev)
+    d128, c128 = _lm_flash(torch, ref, fa, flush, (2, S, 20, 20, 128), 21,
+                           dev)
+    for i, (dtype, shape) in enumerate((
+            (torch.float32, (1, 256, 8, 2, D)),
+            (torch.bfloat16, (2, S - 24, 12, 4, D)),       # G = 3, ragged
+            (torch.float16, (2, S, 20, 20, 128)),
+            (torch.bfloat16, (1, S, 64, 8, 128)),
+            (torch.float16, (1, S, 64, 8, 128)),
+            (torch.float32, (1, 256, 8, 2, 128)))):
+        fp32 = dtype == torch.float32
+        _check_bwd(torch, ref, fa, dtype, shape,
+                   BWD_TOL_FP32 if fp32 else BWD_TOL,
+                   fwd_tol=1e-5 if fp32 else FWD_TOL, seed=12 + i, dev=dev)
+    order = _bwd_grid_order(B, S, H, KV)
+    print(f"flash backward grid at the LM shape: {len(order['dkv']) * KV * B} "
+          f"dk/dv and {len(order['dq']) * KV * B} dq blocks, launched in rounds "
+          f"of {KV * B} (kv head, batch) pairs; live tiles a block, round by "
+          f"round: " + json.dumps(order))
+    print("flash forward at the LM training shapes: " + json.dumps(d64["fwd"]))
+    rows = [d64["flash_attention_dq"], d64["flash_attention_dkv"]]
     print("flash backward at B 4, S 1024, 32/8 heads, D 64, bf16: " +
           json.dumps({r["name"]: {k_: r[k_] for k_ in (
               "err", "rel_err", "ms", "plain_ms", "library_ms", "bound")}
               for r in rows}))
+    beside = {n: dict({k_: r[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                            "bound", "bound_ms") if k_ in r},
+                      ms_d64=d64[n]["ms"]) for n, r in d128.items()}
+    print("flash kernels at D 128 (B 2, S 1024, 20/20 heads), bf16, beside "
+          "D 64 (B 4, S 1024, 32/8 heads): " + json.dumps(dict(
+              beside, errs=c128["errs"])))
     return rows
 
 
@@ -595,7 +707,8 @@ def lm_grad_check(torch, cfg, models, dev):
     errs = rel("flash", "ref")
     worst = sorted(zip(errs, names), reverse=True)[:4]
     d_loss = abs(out["flash"][0] - out["ref"][0])
-    print(f"grad check, {cfg.name} on 2 x 512 tokens, kernels vs einsum: "
+    print(f"grad check, {cfg.name} ({L} layers) on 2 x 512 tokens, kernels "
+          f"vs einsum: "
           f"loss {out['flash'][0]:.6f} vs {out['ref'][0]:.6f} (|d| "
           f"{d_loss:.3g}); leaf gradients, relative Frobenius error: max "
           f"{max(errs):.4g}, median {float(np.median(errs)):.4g}, worst "
@@ -617,7 +730,7 @@ def _sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def engine_phase(torch, K, cfg, models, serve, dev):
+def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
     """``cfg`` through the Engine on ``dev``; returns (launches, stats)."""
     model = models.build_model(cfg, dev)
     t0 = time.perf_counter()
@@ -673,7 +786,7 @@ def engine_phase(torch, K, cfg, models, serve, dev):
         launches_per_prefill_chunk=launches["flash_attention"] / chunks,
         token_latency_ms={str(q): v * 1e3 for q, v in
                           st.token_latency_percentiles().items()})
-    print("engine " + json.dumps(stats))
+    print(f"engine {cfg.name} " + json.dumps(stats))
 
     # contiguous pool: the path that reaches flash_decode
     eng0 = serve.Engine(model, eng.params, max_slots=4, max_seq=256,
@@ -688,45 +801,63 @@ def engine_phase(torch, K, cfg, models, serve, dev):
         _fail("flash_decode was not launched by the contiguous engine run")
     if any(len(res0[int(r)]) != 8 for r in rids0):
         _fail("contiguous engine run did not finish its requests")
-    print("contiguous engine launches " + json.dumps(dict(K.LAUNCHES)))
+    print(f"contiguous engine launches ({cfg.name}) "
+          + json.dumps(dict(K.LAUNCHES)))
 
-    check_flash_vs_ref(torch, cfg, models, eng.params, prompts[0][:64], dev)
+    check_flash_vs_ref(torch, cfg, models, eng.params,
+                       [p[:64] for p in prompts if len(p) >= 64][:3], dev,
+                       logit_tol)
     return launches, stats
 
 
-def check_flash_vs_ref(torch, cfg, models, params, prompt, dev):
-    """Teacher-forced prefill (2 chunks) + 4 decode steps of one prompt
-    through the kernels and through the einsum path, on a paged cache."""
+def check_flash_vs_ref(torch, cfg, models, params, prompts, dev, logit_tol):
+    """Teacher-forced prefill (2 chunks) + 4 decode steps of each prompt
+    through the kernels and through the einsum path, on a paged cache,
+    held to ``logit_tol``; beside them, each path's distance from the
+    kernels in fp32 on the same weights (the control: how far bf16
+    alone moves the logits)."""
     from repro_torch.configs.base import with_attn_impl
-    outs = {}
-    for impl in ("flash", "ref"):
-        m = models.build_model(with_attn_impl(cfg, impl), dev)
-        pool = m.init_paged_cache(1, 16, 9)
-        tables = torch.arange(1, 9, dtype=torch.int32, device=dev)[None]
-        toks = torch.tensor(prompt, dtype=torch.int64, device=dev)
-        logits = []
-        for c in range(0, 64, 32):
-            lg, pool = m.chunk_prefill(params, pool, toks[None, c:c + 32], c,
-                                       32, seq_len=128, block_tables=tables,
-                                       page_size=16)
-            logits.append(lg.float())
-        for i in range(4):
-            lg, pool = m.decode_step(params, pool,
-                                     {"tokens": toks[None, i:i + 1]},
-                                     torch.tensor([64 + i], device=dev),
-                                     seq_len=128, block_tables=tables,
-                                     page_size=16)
-            logits.append(lg.float())
-        outs[impl] = logits
-    errs = [(a - b).abs().max().item() for a, b in zip(outs["flash"],
-                                                        outs["ref"])]
+    from repro_torch.tree import flatten, unflatten
+    leaves, treedef = flatten(params)
+    runs = {"flash": (with_attn_impl(cfg, "flash"), params),
+            "ref": (with_attn_impl(cfg, "ref"), params),
+            "fp32": (cfg.with_overrides(dtype="float32"),
+                     unflatten(treedef, [t.float() for t in leaves]))}
+    del leaves
+    outs = {impl: [] for impl in runs}
+    for impl, (c, ps) in runs.items():
+        m = models.build_model(c, dev)
+        for prompt in prompts:
+            pool = m.init_paged_cache(1, 16, 9)
+            tables = torch.arange(1, 9, dtype=torch.int32, device=dev)[None]
+            toks = torch.tensor(prompt, dtype=torch.int64, device=dev)
+            for ch in range(0, 64, 32):
+                lg, pool = m.chunk_prefill(ps, pool, toks[None, ch:ch + 32],
+                                           ch, 32, seq_len=128,
+                                           block_tables=tables, page_size=16)
+                outs[impl].append(lg.float())
+            for i in range(4):
+                lg, pool = m.decode_step(ps, pool,
+                                         {"tokens": toks[None, i:i + 1]},
+                                         torch.tensor([64 + i], device=dev),
+                                         seq_len=128, block_tables=tables,
+                                         page_size=16)
+                outs[impl].append(lg.float())
+    del runs
+    err = lambda a, b: [(x - y).abs().max().item()
+                        for x, y in zip(outs[a], outs[b])]
+    errs = err("flash", "ref")
     scale = max(b.abs().max().item() for b in outs["ref"])
     top1 = sum(int((a.argmax(-1) == b.argmax(-1)).all())
                for a, b in zip(outs["flash"], outs["ref"]))
-    print(f"flash vs ref logits: max err per call {errs}, max |logit| "
-          f"{scale:.3f}, calls with equal top-1 {top1}/{len(errs)}")
-    if not all(math.isfinite(e) for e in errs) or max(errs) > LOGIT_TOL:
-        _fail(f"flash vs ref logits differ by {max(errs)} > {LOGIT_TOL}")
+    print(f"flash vs ref logits ({cfg.name}, {len(prompts)} prompts): max "
+          f"err per call {errs}, max |logit| {scale:.3f}, calls with equal "
+          f"top-1 {top1}/{len(errs)}; vs the kernels in fp32: flash max "
+          f"{max(err('flash', 'fp32')):.4g}, ref max "
+          f"{max(err('ref', 'fp32')):.4g}")
+    if not all(math.isfinite(e) for e in errs) or max(errs) > logit_tol:
+        _fail(f"{cfg.name}: flash vs ref logits differ by {max(errs)} > "
+              f"{logit_tol}")
 
 
 # ---------------------------------------------------------------------------
@@ -1438,7 +1569,7 @@ def main() -> int:
     K.build_all()
     print(f"built {len(K.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s")
-    bwd_build_report(K)
+    hopper_build_report(K)
 
     l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, ref, fa, sg, flush=l2.zero_)
@@ -1456,12 +1587,20 @@ def main() -> int:
     launches, stats = engine_phase(torch, K, llama, models, serve,
                                    torch.device("cuda"))
     torch.cuda.empty_cache()
+    qwen = cfg_mod.get_config("qwen1.5-4b")
+    qwen_launches, _ = engine_phase(torch, K, qwen, models, serve,
+                                    torch.device("cuda"), QWEN_LOGIT_TOL)
+    torch.cuda.empty_cache()
     lm_grad_check(torch, llama, models, torch.device("cuda"))
     torch.cuda.empty_cache()
-    # launches per kernel and main path (serve, the convnets' training, LM
-    # training, the int8 round trip), each path counted from zero around
-    # its run
-    by_path, conv_shapes = {"serve": launches}, {}
+    lm_grad_check(torch, qwen.with_overrides(num_layers=QWEN_GRAD_LAYERS),
+                  models, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    # launches per kernel and main path (serving llama3.2-1b and
+    # qwen1.5-4b, the convnets' training, LM training, the int8 round
+    # trip), each path counted from zero around its run
+    by_path = {"serve": launches, "serve_qwen1.5-4b": qwen_launches}
+    conv_shapes = {}
     for arch in TRAIN_ARCHS:
         by_path[f"{arch}_train"], conv_shapes[arch] = train_phase(arch=arch)
     by_path["int8_roundtrip"] = int8_launches

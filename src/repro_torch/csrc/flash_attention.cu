@@ -12,18 +12,27 @@
 //   flash_decode_split <- src/repro/kernels/flash_attention.py:_decode_kernel
 //                         and :_decode_paged_kernel (tables != NULL)
 //
-// What bounds them on an H100: at the serve path's shapes (one 32-row
-// prefill chunk over a <=1 K-row lane; 8 one-token decode rows per step)
-// both are bound by reading K/V from device memory -- 2*G score FLOPs per
-// key byte read is far below the ~295 FLOP/byte where bf16 tensor cores
-// become the limit. The design therefore reads each live K/V row once per
-// (kv head, q tile) block, folds the G query heads of a KV group into the
-// rows of one block (as the TPU kernel folds them into its q tile), skips
-// key tiles above the causal diagonal or below the window, and never writes
-// a score matrix to device memory. Their products are fp32 FMAs on values
-// staged in shared memory. The backward at the training shapes is bound by
-// operations instead: in bf16/fp16 it runs on the tensor cores (wgmma, fed
-// by TMA), in fp32 on the CUDA cores; its notes are above its kernels.
+// What bounds them on an H100: the forward and the backward at the
+// training shapes (B 4, S 1024, 32 heads over 8, D 64) are bound by
+// operations -- 4D (forward), 6D (dq) and 8D (dk/dv) FLOPs per live (row,
+// key) pair against ~4 bytes of input per row and key column, far above
+// the ~295 FLOP/byte where bf16 tensor cores become the limit. So in bf16
+// and fp16 they run on the tensor cores (the "Hopper" kernels: wgmma
+// products with fp32 accumulators in registers, operand tiles brought into
+// shared memory by TMA, swizzled as wgmma reads them); in fp32 on the CUDA
+// cores, whose 1e-5 checks TF32 products could not meet. The one-token
+// decode is bound by reading K/V from device memory (2*G score FLOPs per
+// key byte): it reads each live K/V row once per (kv head, split) block,
+// folds the G query heads of a KV group into the rows of one block (as the
+// TPU kernel folds them into its q tile), and never writes a score matrix
+// to device memory; its products are fp32 FMAs on values staged in shared
+// memory.
+//
+// Head dims: 32, 64 and 128 everywhere (the CUDA-core kernels hold D / 32
+// columns a lane; the tensor-core kernels take a D-128 row as two 64-value
+// panels, see Tile). GQA group size G = H / KV: up to 64 on the tensor-core
+// kernels (a 64-row tile holds 64 / G queries), up to 16 on the fp32
+// kernels and the decode.
 //
 // Numerics follow the TPU kernels: fp32 online softmax, NEG_INF = -1e30,
 // masked p zeroed explicitly, l clamped at 1e-30, and p rounded to the
@@ -74,24 +83,24 @@ __device__ __forceinline__ bool window_keep(int qpos, int kpos, int win) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (q tile, kv head, batch row)
+// forward in fp32 on the CUDA cores: one block per (q tile, kv head, batch
+// row). bf16/fp16 take fwd_hopper below.
 // ---------------------------------------------------------------------------
 
 constexpr int FWD_THREADS = 128;           // 4 warps
 constexpr int FWD_WARPS = FWD_THREADS / 32;
 // Row capacity of a block: block_q = FWD_ROWS / G queries of G heads each,
 // block_q * G rows; where G does not divide FWD_ROWS (G = 3: 15 rows) the
-// spare rows stay idle. Small on purpose: a 32-row prefill chunk of
-// llama3.2-1b (G = 4) then spreads over 8 q tiles x 8 kv heads = 64
-// blocks instead of 16, and each lane's serial FMA chain is 4x shorter.
+// spare rows stay idle. Small on purpose: the fp32 forward runs one FMA
+// chain a lane per row, so more blocks keep more of the SMs busy.
 constexpr int FWD_ROWS = 16;
 constexpr int FWD_RPW = FWD_ROWS / FWD_WARPS;
 constexpr int FWD_BK = 32;                 // keys per tile: one per lane
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FWD_THREADS)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ out, float* __restrict__ lse, const int* __restrict__ q_off,
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           float* __restrict__ out, float* __restrict__ lse, const int* __restrict__ q_off,
            int Sq, int Sk, int H, int KV, int block_q, int win, float sm_scale) {
   constexpr int DPL = D / 32;  // output columns per lane
   const int G = H / KV;
@@ -113,7 +122,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int qi = i * block_q + r / G;
     float x = 0.f;
     if (r < rows && qi < Sq)
-      x = to_f<T>(q[(((size_t)b * Sq + qi) * H + h * G + r % G) * D + d]);
+      x = q[(((size_t)b * Sq + qi) * H + h * G + r % G) * D + d];
     qs[e] = x;
   }
 
@@ -140,8 +149,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       float kx = 0.f, vx = 0.f;
       if (kpos < Sk) {
         const size_t off = (((size_t)b * Sk + kpos) * KV + h) * D + d;
-        kx = to_f<T>(k[off]);
-        vx = to_f<T>(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       ks[c * (D + 1) + d] = kx;
       vs[c * D + d] = vx;
@@ -170,7 +179,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       const float alpha = expf(m[t] - m_next);
       l[t] = alpha * l[t] + warp_sum(p);
       m[t] = m_next;
-      ps[r * FWD_BK + lane] = round_to<T>(p);
+      ps[r * FWD_BK + lane] = p;
 #pragma unroll
       for (int dd = 0; dd < DPL; ++dd) acc[t][dd] *= alpha;
     }
@@ -197,7 +206,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
     const float lc = fmaxf(l[t], 1e-30f);
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) out[row * D + lane + 32 * dd] = from_f<T>(acc[t][dd] / lc);
+    for (int dd = 0; dd < DPL; ++dd) out[row * D + lane + 32 * dd] = acc[t][dd] / lc;
     if (lse != nullptr && lane == 0) lse[row] = m[t] + logf(lc);
   }
 }
@@ -501,9 +510,8 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 // flight while the current one is computed. A q tile of the (B, S, H, D)
 // tensor is the [queries][G][D] box of a 4-D view (D, H, S, B), so the
 // rows past S are zero-filled per batch row; a key tile the [64][1][D] box
-// of (D, KV, S, B). Rows of 128 bytes (D = 64) land in shared memory with
-// TMA's 128-byte swizzle, rows of 64 bytes (D = 32) with the 64-byte one,
-// which is the layout each wgmma descriptor names. lse and di of a q tile
+// of (D, KV, S, B); each in the panels of Tile<D>, swizzled as the wgmma
+// descriptors (desc_k, desc_t) name them. lse and di of a q tile
 // (G fp32 values a query: under TMA's 16-byte box minimum when G < 4) come
 // by cp.async into the same 2-stage ring.
 //
@@ -517,6 +525,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 constexpr int HB_THREADS = 128;   // one warpgroup
 constexpr int HB_M = 64;          // rows of a q tile = keys of a key tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
@@ -591,17 +600,53 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// wgmma shared-memory descriptor of a tile of rows of D 16-bit values in
-// the swizzle TMA wrote: 128-byte (D = 64) or 64-byte (D = 32) rows, 8-row
-// groups 8 * 2D bytes apart. The same descriptor serves a K-major operand
-// (rows = M or N, D = the contraction) and a transposed B operand (rows =
-// the contraction, D = N: one swizzle atom wide, so the leading offset is
-// unused).
-template <int D> __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  constexpr uint64_t layout = D == 64 ? 1 : 2;       // SWIZZLE_128B : SWIZZLE_64B
-  constexpr uint64_t sbo = 8 * D * 2;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((sbo >> 4) << 32) |
+// Tile geometry at head dim D. A 64-row tile of 16-bit values lands in
+// shared memory as PANELS panels of [64][PCOLS], each written by one TMA
+// box: one panel at D 32 and 64, two of 64 columns at D 128 (a 128-byte
+// swizzle atom is 64 values wide, and a box with that swizzle may be at
+// most 128 bytes wide). Rows of 128 bytes take TMA's 128-byte swizzle, the
+// 64-byte rows of D 32 the 64-byte one.
+template <int D> struct Tile {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static constexpr int PCOLS = D < 64 ? D : 64;   // values in a panel row
+  static constexpr int ROWB = PCOLS * 2;          // bytes in a panel row
+  static constexpr int PANEL = HB_M * ROWB;       // bytes of a panel
+  static constexpr int PANELS = D / PCOLS;
+  static constexpr int BYTES = HB_M * D * 2;      // bytes of the tile
+};
+
+// wgmma shared-memory descriptor: start address, leading byte offset,
+// stride byte offset (8 rows of a panel) and the swizzle TMA wrote.
+template <int D> __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo) {
+  constexpr uint64_t layout = Tile<D>::ROWB == 128 ? 1 : 2;  // SWIZZLE_128B : SWIZZLE_64B
+  constexpr uint64_t sbo = 8 * Tile<D>::ROWB;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((sbo >> 4) << 32) |
          (layout << 62);
+}
+
+// A K-major operand (rows = M or N, D the contraction): k-step kk (16
+// values of D) lies in panel 16 kk / PCOLS, 32 bytes a step along its rows.
+// A step never leaves its swizzle atom, so the leading offset is unused.
+template <int D> __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using TL = Tile<D>;
+  return gmma_desc<D>(tile + (kk * 16 / TL::PCOLS) * TL::PANEL + (kk * 16 % TL::PCOLS) * 2, 16);
+}
+
+// A transposed B operand (rows = the contraction, D = N): k-step kk is rows
+// 16 kk .. 16 kk + 15 of each panel. At D 128, N spans two 64-value atoms,
+// one a panel: the leading offset is the panel stride (unused at D 32/64).
+template <int D> __device__ __forceinline__ uint64_t desc_t(uint32_t tile, int kk) {
+  using TL = Tile<D>;
+  return gmma_desc<D>(tile + kk * 16 * TL::ROWB, TL::PANELS > 1 ? TL::PANEL : 16);
+}
+
+// the panels of a tile by TMA: box (PCOLS, n, s, 1) at (PCOLS p, c1, c2, c3)
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c1, int c2, int c3) {
+#pragma unroll
+  for (int p = 0; p < Tile<D>::PANELS; ++p)
+    tma_load(dst + p * Tile<D>::PANEL, map, bar, p * Tile<D>::PCOLS, c1, c2, c3);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -624,7 +669,7 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
 // into fp32 registers d (the last argument picks T):
 //   wgmma_ss_n64: m64n64k16, A and B from shared memory, both K-major:
 //                 d += A B^T
-//   wgmma_rs_tb:  m64n{32,64}k16, A from registers, B from shared memory
+//   wgmma_rs_tb:  m64n{32,64,128}k16, A from registers, B from shared memory
 //                 transposed (N contiguous): d += A B
 #define WG_ACC16                                                                        \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                                       \
@@ -641,6 +686,21 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
 #define WG_REGS32 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_ACC64                                                                        \
+  WG_ACC32,                                                                             \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                                   \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                                   \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                                   \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                                   \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                                   \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                                   \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                                   \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WG_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define WGMMA_FUNCS(CT, TY)                                                             \
   __device__ __forceinline__ void wgmma_ss_n64(float(&d)[32], uint64_t da, uint64_t db, \
                                                CT) {                                    \
@@ -662,6 +722,13 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
                  ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"                           \
                  : WG_ACC32                                                             \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));                \
+  }                                                                                     \
+  __device__ __forceinline__ void wgmma_rs_tb(float(&d)[64], const uint32_t(&a)[4],    \
+                                              uint64_t db, CT) {                        \
+    asm volatile("wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " WG_REGS64 \
+                 ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"                          \
+                 : WG_ACC64                                                             \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));                \
   }
 WGMMA_FUNCS(__nv_bfloat16, "bf16")
 WGMMA_FUNCS(__half, "f16")
@@ -677,6 +744,215 @@ template <int N> __device__ __forceinline__ void zero(float (&d)[N]) {
 // + (c & 1). Elements c, c + 1 of the same row pack into A-operand register
 // (c >> 1) & 3 of k-step c >> 3 (16 columns a step).
 
+// ---------------------------------------------------------------------------
+// forward on Hopper's tensor cores (bf16 / fp16)
+// ---------------------------------------------------------------------------
+//
+// One warpgroup a block owns a q tile of HB_M = 64 rows ((64 / G) queries x
+// their G heads, the [64/G][G][D] box of the backward; the spare rows of G
+// not dividing 64 stay zero and are not stored) with Q resident in shared
+// memory, and walks its live key tiles of 64 keys, K and V streaming by TMA
+// through a ring of FWD_STAGES stages on mbarriers. S = Q K^T is a wgmma
+// from shared memory into fp32 registers; the online softmax runs on those
+// registers (exp2, log2 e folded into the scale; a row's maximum across
+// the 4 lanes that hold it); P, rounded to the value dtype, is used in
+// place as the register A operand of O += P V, with V read transposed (its
+// keys are the contraction), the fragment identity the backward uses for
+// dS. l sums the unrounded p, per thread until the end.
+//
+// Masking and order: tiles above the diagonal or older than the window are
+// never loaded (_tile_live); the element mask runs only on tiles that
+// cross the diagonal, the window edge or a ragged end of the keys. The
+// flat grid takes the last q tiles of every (kv head, batch) pair first:
+// they see the most keys.
+//
+// What hides the latency of a tile's steps (wgmma, wait, softmax, wgmma,
+// wait) is other blocks on the same SM, so the design keeps a block small:
+// one warpgroup, two K/V stages (40 KB of shared memory at D 64, 80 KB at
+// D 128), 74-127 registers, so five blocks share an SM at D 64 and two at
+// D 128. A third stage (fewer blocks an SM), two consumer warpgroups
+// sharing each K/V tile (in lockstep at every tile), and issuing the next
+// tile's S before this tile's softmax (more registers) were each slower on
+// an H100 at the training shapes and the serve chunk.
+//
+// The serve path's prefill chunk (32 queries of 32 heads over 8, one 1 K
+// lane) gives 2 q tiles x 8 kv heads = 16 blocks, each walking 16 key
+// tiles, and no more: a wgmma takes 64 rows, so smaller q tiles would idle
+// the tensor cores, and splitting the keys across blocks needs a second
+// pass to merge the partials (m, l, acc) as the decode does. chip_smoke.py
+// times the chunk against SDPA; on an H100 it takes less than SDPA without
+// the split.
+//
+// Outputs: out in the input dtype, lse in fp32 (m + log l, NEG_INF where a
+// row sees no key), l clamped at 1e-30 as _fwd_kernel does.
+
+constexpr int FWD_STAGES = 2;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(HB_THREADS)
+fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out, float* __restrict__ lse,
+           const int* __restrict__ q_off, int B, int Sq, int Sk, int H, int KV, int win,
+           float sm_scale) {
+  constexpr int TILE = Tile<D>::BYTES, ST = FWD_STAGES;
+  const int G = H / KV, block_q = HB_M / G, rows = block_q * G;
+  const int nq = (Sq + block_q - 1) / block_q, nk = (Sk + HB_M - 1) / HB_M;
+  // heaviest first: the last q tile sees the most key tiles
+  const int pairs = KV * B;
+  const int i = nq - 1 - (int)blockIdx.x / pairs;
+  const int h = (int)blockIdx.x % pairs % KV, b = (int)blockIdx.x % pairs / KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qoff = q_off[b];
+  const int first_q = qoff + i * block_q;                    // positions of the
+  const int last_q = qoff + min((i + 1) * block_q, Sq) - 1;  // tile's queries
+  // live key tiles [j_lo, j_lo + n_tiles): causal below, window above
+  const int j_lo = win > 0 ? max(0, floor_div(first_q - win + 1, HB_M)) : 0;
+  const int j_hi = last_q < 0 ? -1 : min(nk - 1, last_q / HB_M);
+  const int n_tiles = max(0, j_hi - j_lo + 1);
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align_1024(smem_raw);  // Q, then K x ST, V x ST
+  uint8_t* sk = sq + TILE;
+  uint8_t* sv = sk + ST * TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + ST * TILE);  // q, kv stages
+  const uint32_t a_q = smem_u32(sq), a_k = smem_u32(sk), a_v = smem_u32(sv),
+                 bar_q = smem_u32(bars), bar_kv = bar_q + 8;
+
+  if (rows < HB_M) {  // spare rows stay zero: the q box covers `rows` rows
+    for (int e = tid; e < TILE / 16; e += HB_THREADS)
+      reinterpret_cast<uint4*>(sq)[e] = make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_kv = [&](int t) {
+    const uint32_t bar = bar_kv + 8 * (t % ST);
+    mbar_expect_tx(bar, 2 * TILE);
+    tma_tile<D>(a_k + (t % ST) * TILE, &tm_k, bar, h, (j_lo + t) * HB_M, b);
+    tma_tile<D>(a_v + (t % ST) * TILE, &tm_v, bar, h, (j_lo + t) * HB_M, b);
+  };
+  if (tid == 0) {
+    mbar_init(bar_q);
+    for (int s = 0; s < ST; ++s) mbar_init(bar_kv + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_tiles > 0) {
+      mbar_expect_tx(bar_q, rows * D * 2);
+      tma_tile<D>(a_q, &tm_q, bar_q, h * G, i * block_q, b);
+      for (int t = 0; t < ST && t < n_tiles; ++t) load_kv(t);
+    }
+  }
+  __syncthreads();
+
+  // this thread's two rows r0 and r0 + 8: their positions, and the running
+  // max (log2 units) and partial sum of each
+  const int r0 = 16 * warp + lane / 4;
+  int qpos[2];
+  float m2[2], l[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    qpos[u] = qoff + i * block_q + (r0 + 8 * u) / G;
+    m2[u] = NEG_INF;
+    l[u] = 0.f;
+  }
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc[D / 2];
+  zero(acc);
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % ST, k0 = (j_lo + t) * HB_M;
+    mbar_wait(bar_kv + 8 * s, (t / ST) & 1);
+    const uint32_t ks = a_k + s * TILE, vs = a_v + s * TILE;
+    float sc[32];
+    zero(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sc, desc_k<D>(a_q, kk), desc_k<D>(ks, kk), T());
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+
+    // the element mask only where the tile crosses the diagonal, the
+    // window edge or the ragged end of the keys
+    const bool edge = k0 + HB_M > Sk || k0 + HB_M - 1 > first_q ||
+                      (win > 0 && last_q - k0 >= win);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int u = (c >> 1) & 1;
+      float x = sc[c] * scale2;
+      if (edge) {
+        const int kpos = k0 + 8 * (c >> 2) + 2 * (lane & 3) + (c & 1);
+        const bool keep = kpos <= qpos[u] && kpos < Sk && window_keep(qpos[u], kpos, win);
+        x = keep ? x : NEG_INF;
+      }
+      sc[c] = x;
+      mx[u] = fmaxf(mx[u], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+      const float m_next = fmaxf(m2[u], mx[u]);
+      alpha[u] = ex2(m2[u] - m_next);
+      m2[u] = m_next;
+      l[u] *= alpha[u];
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int c = 0; c < 32; c += 2) {
+      const int u = (c >> 1) & 1;
+      float p2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // explicit zeroing: while every key so far is masked m2 is still
+        // NEG_INF and 2^(x - m2) would be 1, not 0
+        float p = ex2(sc[c + e] - m2[u]);
+        if (edge && sc[c + e] == NEG_INF) p = 0.f;
+        l[u] += p;
+        p2[e] = p;
+      }
+      pa[c >> 3][(c >> 1) & 3] = pack2<T>(p2[0], p2[1]);
+    }
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) acc[c] *= alpha[(c >> 1) & 1];
+    // O += P V: the keys are the contraction, V read transposed
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(acc, pa[kk], desc_t<D>(vs, kk), T());
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && t + ST < n_tiles) load_kv(t + ST);
+  }
+
+  float lc[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    lc[u] = fmaxf(l[u], 1e-30f);
+  }
+#pragma unroll
+  for (int c = 0; c < D / 2; c += 2) {
+    const int u = (c >> 1) & 1, r = r0 + 8 * u, qi = i * block_q + r / G;
+    if (r >= rows || qi >= Sq) continue;
+    const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
+    *reinterpret_cast<uint32_t*>(out + row * D + 8 * (c >> 2) + 2 * (lane & 3)) =
+        pack2<T>(acc[c] / lc[u], acc[c + 1] / lc[u]);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = r0 + 8 * u, qi = i * block_q + r / G;
+      if (r >= rows || qi >= Sq) continue;
+      const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
+      lse[row] = (m2[u] == NEG_INF ? NEG_INF : m2[u] * LN2) + logf(lc[u]);
+    }
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(HB_THREADS)
 bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
@@ -684,7 +960,7 @@ bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
               const float* __restrict__ lse, const float* __restrict__ di, T* __restrict__ dq,
               const int* __restrict__ q_off, int B, int Sq, int Sk, int H, int KV, int win,
               float sm_scale) {
-  constexpr int TILE = HB_M * D * 2;  // bytes of a 64-row tile
+  constexpr int TILE = Tile<D>::BYTES;
   const int G = H / KV, block_q = HB_M / G, rows = block_q * G;
   const int nq = (Sq + block_q - 1) / block_q, nk = (Sk + HB_M - 1) / HB_M;
   // heaviest first: the last q tile sees the most key tiles
@@ -717,8 +993,8 @@ bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
   auto load_kv = [&](int t) {
     const uint32_t bar = bar_kv + 8 * (t & 1);
     mbar_expect_tx(bar, 2 * TILE);
-    tma_load(a_k + (t & 1) * TILE, &tm_k, bar, 0, h, (j_lo + t) * HB_M, b);
-    tma_load(a_v + (t & 1) * TILE, &tm_v, bar, 0, h, (j_lo + t) * HB_M, b);
+    tma_tile<D>(a_k + (t & 1) * TILE, &tm_k, bar, h, (j_lo + t) * HB_M, b);
+    tma_tile<D>(a_v + (t & 1) * TILE, &tm_v, bar, h, (j_lo + t) * HB_M, b);
   };
   if (tid == 0) {
     mbar_init(bar_q);
@@ -727,8 +1003,8 @@ bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if (n_tiles > 0) {
       mbar_expect_tx(bar_q, 2 * rows * D * 2);
-      tma_load(a_q, &tm_q, bar_q, 0, h * G, i * block_q, b);
-      tma_load(a_do, &tm_do, bar_q, 0, h * G, i * block_q, b);
+      tma_tile<D>(a_q, &tm_q, bar_q, h * G, i * block_q, b);
+      tma_tile<D>(a_do, &tm_do, bar_q, h * G, i * block_q, b);
       load_kv(0);
       if (n_tiles > 1) load_kv(1);
     }
@@ -763,10 +1039,10 @@ bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(sc, gmma_desc<D>(a_q + 32 * kk), gmma_desc<D>(ks + 32 * kk), T());
+      wgmma_ss_n64(sc, desc_k<D>(a_q, kk), desc_k<D>(ks, kk), T());
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dp, gmma_desc<D>(a_do + 32 * kk), gmma_desc<D>(vs + 32 * kk), T());
+      wgmma_ss_n64(dp, desc_k<D>(a_do, kk), desc_k<D>(vs, kk), T());
     wg_commit();
     wg_wait_all();
     fence_regs(sc);
@@ -796,7 +1072,7 @@ bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     // dQ += dS K: the keys are the contraction, K read transposed
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(acc, ds[kk], gmma_desc<D>(ks + kk * 16 * D * 2), T());
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(acc, ds[kk], desc_t<D>(ks, kk), T());
     wg_commit();
     wg_wait_all();
     fence_regs(acc);
@@ -821,7 +1097,7 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
                const float* __restrict__ lse, const float* __restrict__ di, T* __restrict__ dk,
                T* __restrict__ dv, const int* __restrict__ q_off, int B, int Sq, int Sk, int H,
                int KV, int win, float sm_scale) {
-  constexpr int TILE = HB_M * D * 2;
+  constexpr int TILE = Tile<D>::BYTES;
   const int G = H / KV, block_q = HB_M / G, rows = block_q * G;
   const int nq = (Sq + block_q - 1) / block_q;
   // heaviest first: key tile 0 (seen by every query) of every (kv head,
@@ -857,8 +1133,8 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     const int s = t & 1, i = i_lo + t;
     const uint32_t bar = bar_q + 8 * s;
     mbar_expect_tx(bar, 2 * rows * D * 2);
-    tma_load(a_q + s * TILE, &tm_q, bar, 0, h * G, i * block_q, b);
-    tma_load(a_do + s * TILE, &tm_do, bar, 0, h * G, i * block_q, b);
+    tma_tile<D>(a_q + s * TILE, &tm_q, bar, h * G, i * block_q, b);
+    tma_tile<D>(a_do + s * TILE, &tm_do, bar, h * G, i * block_q, b);
   };
   // lse (threads 0-63) and di (64-127) of q tile t's rows, zeros past Sq
   // and in the spare rows; one cp.async group a tile, empty past the end
@@ -880,8 +1156,8 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if (n_tiles > 0) {
       mbar_expect_tx(bar_kv, 2 * TILE);
-      tma_load(a_k, &tm_k, bar_kv, 0, h, k0, b);
-      tma_load(a_v, &tm_v, bar_kv, 0, h, k0, b);
+      tma_tile<D>(a_k, &tm_k, bar_kv, h, k0, b);
+      tma_tile<D>(a_v, &tm_v, bar_kv, h, k0, b);
       load_q(0);
       if (n_tiles > 1) load_q(1);
     }
@@ -910,10 +1186,10 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(sc, gmma_desc<D>(a_k + 32 * kk), gmma_desc<D>(qs + 32 * kk), T());
+      wgmma_ss_n64(sc, desc_k<D>(a_k, kk), desc_k<D>(qs, kk), T());
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dp, gmma_desc<D>(a_v + 32 * kk), gmma_desc<D>(dos + 32 * kk), T());
+      wgmma_ss_n64(dp, desc_k<D>(a_v, kk), desc_k<D>(dos, kk), T());
     wg_commit();
     wg_wait_all();
     fence_regs(sc);
@@ -947,10 +1223,10 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_tb(dv_acc, pa[kk], gmma_desc<D>(dos + kk * 16 * D * 2), T());
+      wgmma_rs_tb(dv_acc, pa[kk], desc_t<D>(dos, kk), T());
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_tb(dk_acc, da[kk], gmma_desc<D>(qs + kk * 16 * D * 2), T());
+      wgmma_rs_tb(dk_acc, da[kk], desc_t<D>(qs, kk), T());
     wg_commit();
     wg_wait_all();
     fence_regs(dk_acc);
@@ -1113,7 +1389,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                        const void* q_off, int B, int Sq, int Sk, int H, int KV, int win,
                        float sm_scale, cudaStream_t stream) {
@@ -1121,15 +1397,15 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
   const int block_q = FWD_ROWS / G;
   const size_t smem = sizeof(float) * (FWD_ROWS * D + FWD_BK * (D + 1) + FWD_BK * D +
                                        FWD_ROWS * FWD_BK);
-  auto kern = fwd_kernel<T, D>;
+  auto kern = fwd_kernel<D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((Sq + block_q - 1) / block_q, KV, B);
   kern<<<grid, FWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), static_cast<const int*>(q_off), Sq, Sk, H,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), static_cast<const int*>(q_off), Sq, Sk, H,
       KV, block_q, win, sm_scale);
   return cudaGetLastError();
 }
@@ -1219,8 +1495,8 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A (B, S, N, D) tensor of 16-bit values as the 4-D map (D, N, S, B) with
-// boxes of (D, n_box, s_box, 1), swizzled as gmma_desc<D> reads them;
-// elements past S are zero-filled
+// boxes of (PCOLS, n_box, s_box, 1), one a panel of Tile<D>, swizzled as
+// the wgmma descriptors read them; elements past S are zero-filled
 template <typename T, int D>
 cudaError_t row_map(CUtensorMap* map, const void* base, int B, int S, int N, int n_box,
                     int s_box) {
@@ -1229,13 +1505,13 @@ cudaError_t row_map(CUtensorMap* map, const void* base, int B, int S, int N, int
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
                                  (cuuint64_t)S * N * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)n_box, (cuuint32_t)s_box, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)Tile<D>::PCOLS, (cuuint32_t)n_box, (cuuint32_t)s_box, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = enc(
       map, std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      Tile<D>::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1254,7 +1530,7 @@ cudaError_t launch_bwd_hopper(bool dq_pass, const void* q, const void* k, const 
       (e = row_map<T, D>(&mv, v, B, Sk, KV, 1, HB_M)) != cudaSuccess)
     return e;
   // six 64-row tiles, dk/dv's lse/di stages, 3 mbarriers, 1024-byte alignment
-  const int smem = 6 * HB_M * D * 2 + 4 * HB_M * 4 + 64 + 1024;
+  const int smem = 6 * Tile<D>::BYTES + 4 * HB_M * 4 + 64 + 1024;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   const int* qo = static_cast<const int*>(q_off);
@@ -1277,8 +1553,33 @@ cudaError_t launch_bwd_hopper(bool dq_pass, const void* q, const void* k, const 
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16/fp16 on the tensor cores (see the note above
-// the backward kernels)
+template <typename T, int D>
+cudaError_t launch_fwd_hopper(const void* q, const void* k, const void* v, void* out, void* lse,
+                              const void* q_off, int B, int Sq, int Sk, int H, int KV, int win,
+                              float sm_scale, cudaStream_t stream) {
+  const int G = H / KV, block_q = HB_M / G;
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = row_map<T, D>(&mq, q, B, Sq, H, G, block_q)) != cudaSuccess ||
+      (e = row_map<T, D>(&mk, k, B, Sk, KV, 1, HB_M)) != cudaSuccess ||
+      (e = row_map<T, D>(&mv, v, B, Sk, KV, 1, HB_M)) != cudaSuccess)
+    return e;
+  // Q, the K/V ring, the mbarriers, 1024-byte alignment
+  constexpr int ST = FWD_STAGES;
+  const int smem = (1 + 2 * ST) * Tile<D>::BYTES + 8 * (1 + ST) + 1024;
+  auto kern = fwd_hopper<T, D>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int nq = (Sq + block_q - 1) / block_q;
+  kern<<<nq * KV * B, HB_THREADS, smem, stream>>>(mq, mk, mv, static_cast<T*>(out),
+                                                   static_cast<float*>(lse),
+                                                   static_cast<const int*>(q_off), B, Sq, Sk, H,
+                                                   KV, win, sm_scale);
+  return cudaGetLastError();
+}
+
+// fp32 on the CUDA cores, bf16/fp16 on the tensor cores (see the note at
+// the top); nothing falls back from one path to the other
 template <int D>
 cudaError_t bwd_by_dtype(int dtype, bool dq_pass, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* di, void* o1, void* o2,
@@ -1300,15 +1601,19 @@ cudaError_t bwd_by_dtype(int dtype, bool dq_pass, const void* q, const void* k, 
   return cudaErrorInvalidValue;
 }
 
+// largest G = H / KV: a 64-row tile on the tensor cores, 16 rows in fp32
+int max_group(int dtype) { return dtype == 0 ? DQ_ROWS : HB_M; }
+
 int bwd_entry(bool dq_pass, const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* di, void* o1, void* o2, const void* q_off, int B,
               int Sq, int Sk, int H, int KV, int D, int dtype, int window, float sm_scale,
               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KV <= 0 || H % KV != 0 || H / KV > DQ_ROWS || B <= 0 || Sq <= 0 || Sk <= 0)
+  if (KV <= 0 || H % KV != 0 || H / KV > max_group(dtype) || B <= 0 || Sq <= 0 || Sk <= 0)
     return cudaErrorInvalidValue;
   if (D == 32) return bwd_by_dtype<32>(dtype, dq_pass, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
   if (D == 64) return bwd_by_dtype<64>(dtype, dq_pass, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
+  if (D == 128) return bwd_by_dtype<128>(dtype, dq_pass, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1317,9 +1622,9 @@ cudaError_t fwd_by_dtype(int dtype, const void* q, const void* k, const void* v,
                          void* lse, const void* q_off, int B, int Sq, int Sk, int H, int KV,
                          int win, float sm_scale, cudaStream_t s) {
   switch (dtype) {
-    case 0: return launch_fwd<float, D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
-    case 1: return launch_fwd<__nv_bfloat16, D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
-    case 2: return launch_fwd<__half, D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 0: return launch_fwd<D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 1: return launch_fwd_hopper<__nv_bfloat16, D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 2: return launch_fwd_hopper<__half, D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1343,23 +1648,27 @@ extern "C" {
 
 // q (B, Sq, H, D), k/v (B, Sk, KV, D), q_off (B,) int32 on the device;
 // out (B, Sq, H, D) in the input dtype, lse (B, Sq, H) fp32 or NULL.
-// dtype: 0 float32, 1 bfloat16, 2 float16. D: 32 or 64. G = H/KV <= 16: a block
-// holds (16 / G) queries of G heads each, the spare rows idle.
+// dtype: 0 float32, 1 bfloat16, 2 float16. D: 32, 64 or 128. bf16/fp16
+// (tensor cores): G = H/KV <= 64, a block holds (64 / G) queries of G heads
+// each; fp32: G <= 16, (16 / G) queries; the spare rows idle.
 int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
               const void* q_off, int B, int Sq, int Sk, int H, int KV, int D, int dtype,
               int window, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KV <= 0 || H % KV != 0 || H / KV > FWD_ROWS) return cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || H / KV > max_group(dtype) || B <= 0 || Sq <= 0 || Sk <= 0)
+    return cudaErrorInvalidValue;
   if (D == 32) return fwd_by_dtype<32>(dtype, q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
   if (D == 64) return fwd_by_dtype<64>(dtype, q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
+  if (D == 128) return fwd_by_dtype<128>(dtype, q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
   return cudaErrorInvalidValue;
 }
 
 // Backward of flash_fwd. q/dout (B, Sq, H, D), k/v (B, Sk, KV, D) in one
 // dtype; lse and di = rowsum(out * dout) (B, Sq, H) fp32; q_off (B,) int32.
 // dq (B, Sq, H, D); dk/dv (B, Sk, KV, D), summed over the G heads of a group.
-// G = H/KV <= 16. bf16/fp16 (tensor cores): q tiles of (64 / G) * G rows, key
-// tiles of 64; fp32: (16 / G) * G rows (dq) and (32 / G) * G (dk/dv).
+// D 32, 64 or 128. bf16/fp16 (tensor cores): G = H/KV <= 64, q tiles of
+// (64 / G) * G rows, key tiles of 64; fp32: G <= 16, (16 / G) * G rows (dq)
+// and (32 / G) * G (dk/dv).
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                  const void* di, void* dq, const void* q_off, int B, int Sq, int Sk, int H,
                  int KV, int D, int dtype, int window, float sm_scale, void* stream) {
@@ -1378,6 +1687,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 // q (B, 1, H, D); contiguous: k/v (B, S, KV, D), tables NULL, NP 0;
 // paged: k/v (P, block_k, KV, D), tables (B, NP) int32, S unused.
 // pos (B,) int32. Partials m/l (B, KV, ns, G) and acc (B, KV, ns, G, D) fp32.
+// D 32, 64 or 128; G = H/KV <= 16.
 int flash_decode_split(const void* q, const void* k, const void* v, const void* tables,
                        const void* pos, void* m, void* l, void* acc, int B, int H, int KV,
                        int D, int dtype, int S, int NP, int block_k, int ns, int kv_len,
@@ -1386,6 +1696,7 @@ int flash_decode_split(const void* q, const void* k, const void* v, const void* 
   if (KV <= 0 || H % KV != 0 || H / KV > DEC_MAX_G || block_k <= 0) return cudaErrorInvalidValue;
   if (D == 32) return decode_by_dtype<32>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, window, sm_scale, s);
   if (D == 64) return decode_by_dtype<64>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, window, sm_scale, s);
+  if (D == 128) return decode_by_dtype<128>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, window, sm_scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -12,7 +12,9 @@ it launches the kernel in ``csrc/flash_attention.cu`` or raises.
 Kernels (design notes in the CUDA source):
 
 - ``flash_attention`` -> ``flash_fwd``, replacing
-  ``repro/kernels/flash_attention.py:_fwd_kernel``. Differentiable in q,
+  ``repro/kernels/flash_attention.py:_fwd_kernel``: in bf16/fp16
+  ``fwd_hopper`` (wgmma products, TMA-fed K/V tiles), in fp32 the
+  CUDA-core ``fwd_kernel``. Differentiable in q,
   k and v through :class:`FlashAttention` (the counterpart of the JAX
   package's custom VJP): the forward saves (out, lse) and the backward
   runs ``flash_attention_dq`` -> ``flash_bwd_dq`` (``_dq_kernel``) and
@@ -28,11 +30,12 @@ Kernels (design notes in the CUDA source):
   rows through the block table, so it equals ``flash_decode`` on the
   gathered lanes with ``block_k = page_size`` bit for bit.
 
-Every kernel takes a GQA group size G = H / KV of at most 16: a block
-holds the G heads of ``rows // G`` queries, the spare rows idle where G
-does not divide the row count (forward 16 rows; the backward in bf16 and
-fp16 64, on the tensor cores; in fp32 dq 16 and dk/dv 32, on the CUDA
-cores).
+On the card every kernel takes head dims 32, 64 and 128 (Dk == Dv) and
+refuses others with ``NotImplementedError``. A block holds the G = H / KV
+heads of ``rows // G`` queries, the spare rows idle where G does not
+divide the row count: the forward and backward in bf16 and fp16 run on the
+tensor cores with 64-row tiles, so G <= 64; in fp32 (forward 16 rows, dq
+16, dk/dv 32, on the CUDA cores) and in the decode G <= 16.
 """
 from __future__ import annotations
 
@@ -45,30 +48,45 @@ from repro_torch import kernels as K
 from repro_torch.kernels import ref
 
 DEFAULT_DECODE_BLOCK_K = 512
-HEAD_DIMS = (32, 64)
-MAX_GROUP = 16       # largest G = H / KV; csrc FWD_ROWS, DQ_ROWS, DEC_MAX_G
+HEAD_DIMS = (32, 64, 128)
+# largest G = H / KV per path: a 64-row tile on the tensor cores (bf16/fp16
+# forward and backward; csrc HB_M), 16 rows on the CUDA cores (fp32:
+# FWD_ROWS, DQ_ROWS) and in the decode (DEC_MAX_G)
+MAX_GROUP_TENSOR_CORES = 64
+MAX_GROUP_FP32 = 16
+MAX_GROUP_DECODE = 16
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _check_cuda(name: str, q, k, v):
+def _check_cuda(name: str, q, k, v, decode: bool = False):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{name}: q/k/v dtypes differ: {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     K.dtype_code(q)
     Dk, Dv = q.shape[-1], v.shape[-1]
-    if Dk != Dv or Dk not in HEAD_DIMS:
+    if Dk != Dv:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel takes head_dim in {HEAD_DIMS} with "
-            f"Dk == Dv (got Dk={Dk}, Dv={Dv}); other head dims and the MLA "
-            f"absorbed layout (KV=1, Dk != Dv) come with the MLA serving "
-            f"slice")
-    H, KV = q.shape[2], k.shape[2]
-    if H // KV > MAX_GROUP:
+            f"{name}: the CUDA kernels take Dk == Dv (got Dk={Dk}, "
+            f"Dv={Dv}); the MLA absorbed layout (KV=1, Dk != Dv) comes with "
+            f"the MLA slice")
+    if Dk not in HEAD_DIMS:
         raise NotImplementedError(
-            f"{name}: GQA group size {H // KV} > {MAX_GROUP}")
+            f"{name}: head_dim {Dk} is not one the CUDA kernels take "
+            f"({', '.join(map(str, HEAD_DIMS))})")
+    G = q.shape[2] // k.shape[2]
+    if decode:
+        limit, path = MAX_GROUP_DECODE, "the decode"
+    elif q.dtype == torch.float32:
+        limit, path = MAX_GROUP_FP32, "fp32"
+    else:
+        limit, path = MAX_GROUP_TENSOR_CORES, "bf16/fp16"
+    if G > limit:
+        raise NotImplementedError(
+            f"{name}: GQA group size G = {G} > {limit}, the most {path} "
+            f"takes")
 
 
 def _positions(x, batch: int, device) -> torch.Tensor:
@@ -77,6 +95,13 @@ def _positions(x, batch: int, device) -> torch.Tensor:
         x = 0
     t = torch.as_tensor(x, dtype=torch.int32, device=device).reshape(-1)
     return t.expand(batch).contiguous()
+
+
+def _tma_ready(t):
+    """Contiguous, and 16-byte aligned as a TMA tensor map needs (a
+    contiguous view can start at any element)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _forward(q, k, v, q_off, window: int, sm_scale: float,
@@ -88,7 +113,7 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
     _check_cuda("flash_attention", q, k, v)
     B, Sq, H, Dk = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     out = torch.empty((B, Sq, H, v.shape[-1]), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -99,13 +124,6 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
     K.check(err, "flash_fwd")
     K.count("flash_attention")
     return (out, lse) if return_lse else out
-
-
-def _tma_ready(t):
-    """Contiguous, and 16-byte aligned as a TMA tensor map needs (a
-    contiguous view can start at any element)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _bwd_inputs(name, q, k, v, lse, do, di):
@@ -257,7 +275,7 @@ def flash_decode(q, k, v, pos, *, window: int = 0, sm_scale=None,
     pos = _positions(pos, B, q.device)
     if K.on_cpu(q, k, v):
         return ref.flash_decode_ref(q, k, v, pos, window, sm_scale, block_k)
-    _check_cuda("flash_decode", q, k, v)
+    _check_cuda("flash_decode", q, k, v, decode=True)
     return _decode_call("flash_decode", q, k, v, None, pos, S=S, NP=0,
                         block_k=block_k, ns=-(-S // block_k), kv_len=S,
                         window=window, sm_scale=sm_scale)
@@ -288,7 +306,7 @@ def flash_decode_paged(q, k_pages, v_pages, tables, pos, *, page_size: int,
     if K.on_cpu(q, k_pages, v_pages, tables):
         return ref.flash_decode_paged_ref(q, k_pages, v_pages, tables, pos,
                                           window, sm_scale, page_size)
-    _check_cuda("flash_decode_paged", q, k_pages, v_pages)
+    _check_cuda("flash_decode_paged", q, k_pages, v_pages, decode=True)
     tables = tables.to(torch.int32).reshape(B, NP).contiguous()
     return _decode_call("flash_decode_paged", q, k_pages, v_pages, tables,
                         pos, S=0, NP=NP, block_k=page_size, ns=NP,

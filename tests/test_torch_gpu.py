@@ -4,10 +4,10 @@ run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_gpu.py
 
-Tolerances: fp32 1e-5 (sums in another order); bf16 1e-2 on outputs of
-magnitude <~ 1 (bf16 eps is 2^-8, and the kernel rounds p per tile where
-the plain version rounds it once); sampled indices and the paged vs
-contiguous decode are exact. The flash backward (dq, dk/dv) against its
+Tolerances: fp32 1e-5 (sums in another order); bf16 and fp16 1e-2 on
+outputs of magnitude <~ 1 (bf16 eps is 2^-8, and the kernel rounds p per
+tile where the plain version rounds it once); sampled indices, two calls
+of one kernel, and the paged vs contiguous decode are exact. The flash backward (dq, dk/dv) against its
 plain version: max |d| <= 1e-5 (fp32), 1e-2 (fp16) or 2e-2 (bf16) of
 the output's largest magnitude; both round ds and p to the input dtype
 per element, but sum them in another order, and ds carries the
@@ -35,7 +35,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import slot_gather as sg
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 
 
 @pytest.fixture
@@ -49,12 +49,25 @@ def _rn(g, dev, dtype, *shape):
     return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 37, 53, 4, 1, 32, 0),
-                                   (2, 24, 40, 4, 4, 32, 8),
-                                   (1, 32, 1024, 32, 8, 64, 0),
-                                   (2, 45, 45, 12, 4, 64, 9),     # G = 3
-                                   (1, 1000, 1000, 12, 4, 64, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [
+    # B, Sq, Sk, H, KV, D, window; q_off = (Sk - Sq, 0)
+    (2, 37, 53, 4, 1, 32, 0),
+    (2, 24, 40, 4, 4, 32, 8),
+    (1, 32, 1024, 32, 8, 64, 0),           # the serve chunk, llama3.2-1b
+    (2, 45, 45, 12, 4, 64, 9),             # G = 3
+    (1, 1000, 1000, 12, 4, 64, 0),
+    (1, 32, 1024, 20, 20, 128, 0),         # the serve chunk, qwen1.5-4b
+    # the 64-row q tiles and 64-key tiles of the bf16/fp16 kernel: one
+    # short of a tile, one past, two past, and ragged
+    (2, 63, 63, 8, 1, 128, 0),             # G = 8
+    (1, 65, 65, 12, 1, 128, 0),            # G = 12
+    (2, 129, 129, 8, 8, 64, 0),            # G = 1
+    (1, 1000, 1000, 8, 1, 128, 200),       # G = 8, window 200
+    (2, 65, 200, 4, 2, 32, 33),            # Sq < Sk, a chunk at (135, 0)
+    (2, 100, 300, 20, 20, 128, 64),        # window on a tile edge
+])
 def test_flash_attention_kernel(dev, dtype, shape):
     B, Sq, Sk, H, KV, D, win = shape
     g = torch.Generator(device=dev).manual_seed(0)
@@ -94,6 +107,11 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 1e-2}
     (2, 63, 129, 4, 1, 64, 0, "vector"),     # G = 4, a chunk at (66, 0)
     (1, 100, 1000, 16, 1, 64, 0, 900),       # G = 16, the last chunk
     (2, 1000, 1000, 8, 1, 32, 129, None),    # G = 8, window 129, D 32
+    # head dim 128: two 64-value panels a row
+    (2, 65, 65, 4, 4, 128, 0, "vector"),     # G = 1
+    (1, 129, 129, 8, 1, 128, 0, None),       # G = 8
+    (2, 100, 300, 12, 1, 128, 50, "vector"), # G = 12, window 50
+    (1, 1000, 1000, 20, 20, 128, 0, None),   # G = 1, S = 1000
 ])
 def test_flash_backward_kernels(dev, dtype, shape):
     B, Sq, Sk, H, KV, D, win, off = shape
@@ -120,11 +138,12 @@ def test_flash_backward_kernels(dev, dtype, shape):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("window", [0, 200])
-def test_flash_backward_is_deterministic(dev, dtype, window):
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_is_deterministic(dev, dtype, window, D):
     """dk/dv are summed over the G heads and every q tile inside one block,
     in one order and without atomics, and dq over its key tiles the same
     way: two calls give the same bits."""
-    B, S, H, KV, D = 2, 1000, 16, 4, 64
+    B, S, H, KV = 2, 1000, 16, 4
     g = torch.Generator(device=dev).manual_seed(10)
     q, do = _rn(g, dev, dtype, B, S, H, D), _rn(g, dev, dtype, B, S, H, D)
     k, v = _rn(g, dev, dtype, B, S, KV, D), _rn(g, dev, dtype, B, S, KV, D)
@@ -136,6 +155,52 @@ def test_flash_backward_is_deterministic(dev, dtype, window):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_forward_is_deterministic(dev, dtype, D):
+    """Each output row is one block's, summed over its key tiles in one
+    order: two calls give the same bits, out and lse."""
+    B, S, H, KV = 2, 1000, 16, 4
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = _rn(g, dev, dtype, B, S, H, D)
+    k, v = _rn(g, dev, dtype, B, S, KV, D), _rn(g, dev, dtype, B, S, KV, D)
+    first = fa.flash_attention(q, k, v, window=300, return_lse=True)
+    second = fa.flash_attention(q, k, v, window=300, return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [
+    # B, S, H, KV, D, window: G above the fp32 kernels' 16
+    (1, 70, 24, 1, 64, 0),                   # G = 24: 2 queries a tile
+    (2, 40, 64, 1, 128, 0),                  # G = 64: 1 query a tile
+    (2, 50, 48, 2, 32, 7),                   # G = 24, window 7
+])
+def test_flash_large_groups_on_the_tensor_cores(dev, dtype, shape):
+    """bf16/fp16 forward and backward at G up to 64 (a 64-row tile holds
+    64 / G queries), against the plain versions."""
+    B, S, H, KV, D, win = shape
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, do = _rn(g, dev, dtype, B, S, H, D), _rn(g, dev, dtype, B, S, H, D)
+    k, v = _rn(g, dev, dtype, B, S, KV, D), _rn(g, dev, dtype, B, S, KV, D)
+    q_off = fa._positions(0, B, dev)
+    scale = 1 / math.sqrt(D)
+    out, lse = fa.flash_attention(q, k, v, window=win, return_lse=True)
+    want, want_lse = ref.flash_attention_ref(q, k, v, q_off, win, scale,
+                                             True)
+    assert (out.float() - want.float()).abs().max() <= TOL[dtype]
+    assert (lse - want_lse).abs().max() <= 1e-4
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=q_off,
+                                 window=win, sm_scale=scale)
+    wantb = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, q_off, win,
+                                        scale)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, wantb):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
 
 
 def test_flash_backward_takes_unaligned_views(dev):
@@ -210,11 +275,14 @@ def test_flash_backward_plain_version_gradcheck(dev):
     assert torch.autograd.gradcheck(PlainFlash.apply, (q, k, v))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("block_k,window", [(8, 0), (16, 7), (512, 0)])
-def test_flash_decode_kernels(dev, dtype, block_k, window):
+@pytest.mark.parametrize("H,KV,D", [(8, 2, 64), (20, 20, 128), (16, 2, 128),
+                                    (12, 1, 128)])      # G = 4, 1, 8, 12
+def test_flash_decode_kernels(dev, dtype, block_k, window, H, KV, D):
     g = torch.Generator(device=dev).manual_seed(1)
-    B, H, KV, D, ps, NP = 4, 8, 2, 64, 16, 8
+    B, ps, NP = 4, 16, 8
     P = B * NP + 1
     q = _rn(g, dev, dtype, B, 1, H, D)
     kp, vp = _rn(g, dev, dtype, P, ps, KV, D), _rn(g, dev, dtype, P, ps, KV, D)
@@ -235,6 +303,7 @@ def test_flash_decode_kernels(dev, dtype, block_k, window):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,C,V", [(8, 1, 128256), (1, 32, 128256),
+                                   (8, 1, 151936), (1, 32, 151936),
                                    (3, 5, 1000)])
 def test_slot_gather_kernel_exact(dev, dtype, S, C, V):
     g = torch.Generator(device=dev).manual_seed(2)
@@ -249,17 +318,50 @@ def test_slot_gather_kernel_exact(dev, dtype, S, C, V):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_unsupported_head_dim_names_the_mla_slice(dev):
-    x = torch.zeros(1, 4, 2, 48, device=dev)
-    with pytest.raises(NotImplementedError, match="MLA"):
+@pytest.mark.parametrize("D", [16, 48, 96, 256])
+def test_unsupported_head_dim_is_refused_by_name(dev, D):
+    """A head dim outside 32, 64, 128 raises NotImplementedError naming
+    it, in every entry; the MLA layout (Dk != Dv) keeps its own message."""
+    x = torch.zeros(1, 4, 2, D, device=dev, dtype=torch.bfloat16)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match=f"head_dim {D} "):
         fa.flash_attention(x, x, x)
+    with pytest.raises(NotImplementedError, match=f"head_dim {D} "):
+        fa.flash_decode(x[:, :1], x, x, pos)
+    mla_v = torch.zeros(1, 4, 2, 32 if D != 32 else 64, device=dev,
+                        dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        fa.flash_attention(x, x, mla_v)
 
 
-def test_engine_on_the_card_launches_every_kernel(dev):
+def test_group_size_limits_name_the_path(dev):
+    """G above 16 runs in bf16/fp16 (tensor cores) and is refused in fp32
+    and by the decode; above 64 it is refused everywhere."""
+    q = torch.zeros(1, 4, 17, 64, device=dev)
+    kv = torch.zeros(1, 4, 1, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="G = 17 > 16"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(NotImplementedError, match="G = 17 > 16"):
+        fa.flash_decode(q[:, :1].bfloat16(), kv.bfloat16(), kv.bfloat16(), 3)
+    fa.flash_attention(q.bfloat16(), kv.bfloat16(), kv.bfloat16())
+    q65 = torch.zeros(1, 4, 65, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="G = 65 > 64"):
+        fa.flash_attention(q65, kv.bfloat16(), kv.bfloat16())
+
+
+@pytest.mark.parametrize("arch,head_dim", [("llama3.2-1b", None),
+                                           ("qwen1.5-4b", 128)])
+def test_engine_on_the_card_launches_every_kernel(dev, arch, head_dim):
+    import dataclasses
+
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, SamplingParams
-    model = build_model(get_smoke_config("llama3.2-1b"), dev)
+    cfg = get_smoke_config(arch)
+    if head_dim:
+        cfg = cfg.with_overrides(attention=dataclasses.replace(
+            cfg.attention, head_dim=head_dim))
+    model = build_model(cfg, dev)
     params = model.init(0)
     for page_size, kernel in ((16, "flash_decode_paged"), (0, "flash_decode")):
         eng = Engine(model, params, max_slots=2, max_seq=64, prefill_chunk=16,
