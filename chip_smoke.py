@@ -13,7 +13,8 @@ and the CUDA toolkit. In order:
    kernels (forward, dq and dk/dv; bf16 and fp16; D 32, 64 and 128) and
    fails unless each one's SASS holds wgmma products (HGMMA) and TMA
    loads (UTMALDG) and no atomics, and unless the forward's six spill
-   nothing.
+   nothing; then those of the 36 split-KV decode kernels (dtype x D x
+   rows a block) and the 3 combine kernels.
 3. Kernels: calls each kernel's wrapper at the serve path's full-width
    llama3.2-1b shapes in bf16, holds it to its plain PyTorch version on
    the same inputs, and times the kernel, the plain version and one
@@ -29,11 +30,17 @@ and the CUDA toolkit. In order:
    plain version at that length and at 2,048,777, with an all-zero block
    and exact .5 ties, and timed (no PyTorch call computes the same
    function, so no library yardstick).
-   The serve path's flash kernels are also held to their plain versions
-   at head dim 128 (qwen1.5-4b's 20 heads over 20) in bf16, fp16 and
-   fp32: the prefill chunk and the decode, contiguous and paged, timed
-   beside their D-64 times; the sampler, bit for bit, at qwen1.5-4b's
-   vocab of 151,936 as at llama3.2-1b's 128,256.
+   The decode is the split kernel and the combine kernel (held alone to
+   its plain version on partials whose dead chunks hold NaN); paged must
+   equal contiguous at block_k = 16 and two calls must agree, bit for
+   bit. The serve path's flash kernels are also held to their plain
+   versions at head dim 128 (qwen1.5-4b's 20 heads over 20) in bf16, fp16
+   and fp32: the prefill chunk and the decode, contiguous and paged,
+   timed beside their D-64 times; the decode over 8 K lanes (8 slots at
+   positions up to 8191: many chunks a lane), timed beside SDPA; every
+   flash entry at head dims 16, 48 and 96 (zero-padded by the wrappers to
+   32, 64, 128) in bf16; the sampler, bit for bit, at qwen1.5-4b's vocab
+   of 151,936 as at llama3.2-1b's 128,256.
 4. Engine: serves 16 requests through the port's ``Engine`` on full
    llama3.2-1b (16 layers, random weights from a seeded generator, bf16):
    paged KV cache, fused sampling, chunked prefill, a shared-prompt
@@ -307,6 +314,36 @@ def hopper_build_report(K):
         _fail(f"the flash forward kernels spill: {spills}")
 
 
+def decode_build_report(K):
+    """Registers and spills (``ptxas -v``) of every decode instantiation
+    (dtype x head dim x rows a block) and of the combine kernel. Returns
+    {label: {registers, spill_stores, spill_loads}}."""
+    log = K.build_log("flash_attention").splitlines()
+    out = {}
+    for n, line in enumerate(log):
+        m = re.search(r"Compiling entry function '(\w*decode\w*)'", line)
+        if not m:
+            continue
+        name = m.group(1)
+        ty = ("bf16" if "bfloat16" in name else "fp16" if "__half" in name
+              else "fp32")
+        ints = re.findall(r"Li(\d+)E", name)
+        kind = "decode_combine_kernel" if "combine" in name else "decode_kernel"
+        props = " ".join(log[n + 1:n + 4])
+        out[f"{kind}<{', '.join([ty] + ints)}>"] = dict(
+            registers=int(re.search(r"Used (\d+) registers", props).group(1)),
+            spill_stores=int(re.search(r"(\d+) bytes spill stores", props)
+                             .group(1)),
+            spill_loads=int(re.search(r"(\d+) bytes spill loads", props)
+                            .group(1)))
+    spills = sum(r["spill_stores"] + r["spill_loads"] for r in out.values())
+    print(f"flash decode kernels, ptxas ({len(out)} kernels, {spills} bytes "
+          f"of spills): " + json.dumps(out))
+    if not out:
+        _fail("no decode kernel in the flash_attention build log")
+    return out
+
+
 def _bwd_grid_order(B, S, H, KV, tile=64):
     """Live tiles per block of the tensor-core backward at a causal shape
     (q_off 0, no window), in launch order, as csrc/flash_attention.cu lays
@@ -325,10 +362,9 @@ def _serve_flash(torch, ref, fa, g, H, KV, D, dtype, flush=None, dev="cuda"):
     """The serve path's flash kernels at one head layout and dtype, each
     held to its plain version: a 32-query prefill chunk at the end of a
     1 K lane (with its lse), and the one-token decode of 8 slots at
-    positions 64..1000 over 1 K lanes, contiguous and paged (pages of 16,
-    a random page table, the null page past each position). With
-    ``flush``, each kernel's time beside its plain version's, the library
-    call's and its bound. Returns {kernel name: row}."""
+    positions 64..1000 over 1 K lanes with its combine (_serve_decode).
+    With ``flush``, each kernel's time beside its plain version's, the
+    library call's and its bound. Returns {kernel name: row}."""
     import torch.nn.functional as F
     rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
     tol = 1e-5 if dtype == torch.float32 else None
@@ -353,11 +389,53 @@ def _serve_flash(torch, ref, fa, g, H, KV, D, dtype, flush=None, dev="cuda"):
         replaces="src/repro/kernels/flash_attention.py:97", err=err,
         lse_err=err_l)}
 
-    # --- decode: 8 slots at positions 64..1000; lanes of 1 K, pages of 16
-    B, S, ps = 8, 1024, 16
+    rows.update(_serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush,
+                              SERVE_POSITIONS, 1024, dev))
+    if flush is None:
+        return rows
+    qpos = torch.arange(Sq, device=dev) + int(q_off)
+    mask = (torch.arange(Sk, device=dev)[None] <= qpos[:, None])
+    keys = int((qpos + 1).clamp(max=Sk).sum())          # live (row, key) pairs
+    live_rows = min(int(q_off) + Sq, Sk)
+    fn = lambda: fa.flash_attention(q, k, v, q_off=q_off)
+    rows["flash_attention"].update(
+        ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
+        plain_ms=_median_ms(
+            lambda: ref.flash_attention_ref(q, k, v, q_off, 0, scale),
+            flush=flush),
+        library_ms=_median_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), flush=flush),
+        bound=_bound(2 * q.numel() * es + 2 * live_rows * KV * D * es + 4 * B,
+                     4 * D * H * keys))
+    return rows
+
+
+SERVE_POSITIONS = (64, 200, 333, 480, 512, 700, 871, 1000)  # 8 slots, 1 K lanes
+LONG_POSITIONS = (0, 511, 1024, 2047, 4095, 5000, 7777, 8191)  # 8 K lanes
+
+
+def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
+                  dev="cuda"):
+    """The one-token decode of len(positions) slots over lanes of S keys,
+    contiguous and paged (pages of 16, a random page table, the null page
+    past each position), held to the plain version; paged equal to
+    contiguous at block_k = 16 bit for bit, and two calls equal bit for
+    bit. The combine kernel held to its plain version on the plain
+    version's chunk partials, its dead chunks poisoned with NaN. With
+    ``flush``, each kernel's time beside its plain version's, SDPA's
+    (contiguous) and its bound. Returns {kernel name: row}."""
+    import torch.nn.functional as F
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else DECODE_TOL
+    es = torch.finfo(dtype).bits // 8                # bytes a value
+    scale = 1 / math.sqrt(D)
+    src = "src/repro_torch/csrc/flash_attention.cu"
+    label = f"{len(positions)} slots over {S} keys, {H}/{KV} heads, D {D}, " \
+        f"{str(dtype)[6:]}"
+    B, ps = len(positions), 16
     NP = S // ps
-    pos = torch.tensor([64, 200, 333, 480, 512, 700, 871, 1000],
-                       dtype=torch.int32, device=dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     qd = rn(B, 1, H, D)
     P = B * NP + 1                                    # + the null page 0
     kp, vp = rn(P, ps, KV, D), rn(P, ps, KV, D)
@@ -372,37 +450,52 @@ def _serve_flash(torch, ref, fa, g, H, KV, D, dtype, flush=None, dev="cuda"):
     got_p = fa.flash_decode_paged(qd, kp, vp, tables, pos, page_size=ps)
     want_p = ref.flash_decode_paged_ref(qd, kp, vp, tables, pos, 0, scale, ps)
     err_p = (got_p.float() - want_p.float()).abs().max().item()
-    if not (err_c <= (tol or DECODE_TOL) and err_p <= (tol or DECODE_TOL)):
+    if not (err_c <= tol and err_p <= tol):
         _fail(f"flash decode ({label}) vs plain: max err {err_c} / {err_p}")
     if not torch.equal(got_p, fa.flash_decode(qd, lk, lv, pos, block_k=ps)):
         _fail(f"flash_decode_paged != flash_decode(gathered, block_k=16) "
               f"({label})")
-    rows["flash_decode"] = dict(
-        name="flash_decode", src=src,
-        replaces="src/repro/kernels/flash_attention.py:391", err=err_c)
-    rows["flash_decode_paged"] = dict(
-        name="flash_decode_paged", src=src,
-        replaces="src/repro/kernels/flash_attention.py:490", err=err_p)
+    if not (torch.equal(got_c, fa.flash_decode(qd, lk, lv, pos)) and
+            torch.equal(got_p, fa.flash_decode_paged(qd, kp, vp, tables, pos,
+                                                     page_size=ps))):
+        _fail(f"two flash decode calls differ ({label})")
+
+    # the combine, on the chunks the contiguous call makes
+    chunk, ns = fa.decode_plan(S, fa.DEFAULT_DECODE_BLOCK_K, _sms(torch, dev))
+    m, l, acc = ref.decode_partials_ref(qd, lk, lv, pos, 0, scale, chunk)
+    chunk_live = (torch.arange(ns, device=dev)[None] * chunk
+                  <= pos[:, None].long())               # (B, ns)
+    dead = ~chunk_live[:, None, :, None]
+    m, l = m.masked_fill(dead, float("nan")), l.masked_fill(dead, float("nan"))
+    acc = acc.masked_fill(dead[..., None], float("nan"))
+    comb = lambda: fa.decode_combine(m, l, acc, pos, chunk=chunk, kv_len=S,
+                                     dtype=dtype)
+    comb_plain = lambda: ref.combine_live_splits(m, l, acc, pos, 0, chunk,
+                                                 S).to(dtype)
+    err_m = (comb().float() - comb_plain().float()).abs().max().item()
+    if not err_m <= tol:
+        _fail(f"flash_decode_combine ({label}) vs plain: max err {err_m}")
+    rows = {"flash_decode": dict(
+                name="flash_decode", src=src,
+                replaces="src/repro/kernels/flash_attention.py:391",
+                err=err_c),
+            "flash_decode_paged": dict(
+                name="flash_decode_paged", src=src,
+                replaces="src/repro/kernels/flash_attention.py:490",
+                err=err_p),
+            "flash_decode_combine": dict(
+                name="flash_decode_combine", src=src,
+                replaces="src/repro/kernels/flash_attention.py:474",
+                err=err_m)}
     if flush is None:
         return rows
 
-    qpos = torch.arange(Sq, device=dev) + int(q_off)
-    mask = (torch.arange(Sk, device=dev)[None] <= qpos[:, None])
-    keys = int((qpos + 1).clamp(max=Sk).sum())          # live (row, key) pairs
-    live_rows = min(int(q_off) + Sq, Sk)
     dmask = (torch.arange(S, device=dev)[None] <= pos[:, None])[:, None, None]
     need = int((pos.long() + 1).sum())                 # visible keys, all slots
     dec_bytes = 2 * qd.numel() * es + 2 * need * KV * D * es + 4 * B
     dec_flops = 4 * D * H * need
+    parts = int(chunk_live.sum()) * H           # live (chunk, query row) pairs
     calls = dict(
-        flash_attention=(
-            lambda: fa.flash_attention(q, k, v, q_off=q_off),
-            lambda: ref.flash_attention_ref(q, k, v, q_off, 0, scale),
-            lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask, enable_gqa=True),
-            _bound(2 * q.numel() * es + 2 * live_rows * KV * D * es + 4 * B,
-                   4 * D * H * keys)),
         flash_decode=(
             lambda: fa.flash_decode(qd, lk, lv, pos),
             lambda: ref.flash_decode_ref(qd, lk, lv, pos, 0, scale, 512),
@@ -416,14 +509,25 @@ def _serve_flash(torch, ref, fa, g, H, KV, D, dtype, flush=None, dev="cuda"):
             lambda: ref.flash_decode_paged_ref(qd, kp, vp, tables, pos, 0,
                                                scale, ps),
             None,                         # no single library call pages
-            _bound(dec_bytes + tables.numel() * 4, dec_flops)))
+            _bound(dec_bytes + int(live.sum()) * 4, dec_flops)),
+        flash_decode_combine=(
+            comb, comb_plain,
+            None,                         # no single library call merges
+            _bound(parts * (2 + D) * 4 + 4 * B + qd.numel() * es,
+                   parts * 3 * D, FP32_FLOP_S)))
     for name, (fn, plain, lib, bound) in calls.items():
         rows[name].update(
             ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
             plain_ms=_median_ms(plain, flush=flush),
             library_ms=None if lib is None else _median_ms(lib, flush=flush),
             bound=bound)
+    rows["flash_decode_combine"].update(chunk=chunk, chunks=ns)
     return rows
+
+
+def _sms(torch, dev) -> int:
+    return torch.cuda.get_device_properties(
+        torch.device(dev)).multi_processor_count if str(dev) != "cpu" else 132
 
 
 def _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev="cuda"):
@@ -491,13 +595,63 @@ def kernel_phase(torch, ref, fa, sg, flush):
             lse=d128["flash_attention"]["lse_err"])
         if bf:
             beside = {n: dict({k_: r[k_] for k_ in (
-                "ms", "plain_ms", "library_ms", "bound")},
+                "ms", "host_ms", "plain_ms", "library_ms", "bound")},
                 ms_d64=flash[n]["ms"]) for n, r in d128.items()}
     print("flash kernels at D 128 (20 heads over 20), max |d| vs plain: "
           + json.dumps(errs))
     print("flash serve kernels at D 128, bf16, beside D 64 (llama3.2-1b "
           "shapes): " + json.dumps(beside))
+
+    # --- the decode over 8 K lanes: many chunks a lane
+    long = _serve_decode(torch, ref, fa, g, 32, 8, 64, torch.bfloat16, flush,
+                         LONG_POSITIONS, 8192)
+    print("flash decode over 8 K lanes (8 slots at positions up to 8191, "
+          "32/8 heads, D 64, bf16): " + json.dumps(
+              {n: {k_: r[k_] for k_ in ("err", "ms", "host_ms", "plain_ms",
+                                        "library_ms", "bound")}
+               for n, r in long.items()}))
+    odd_head_dims(torch, ref, fa, g)
     return rows
+
+
+ODD_HEAD_DIMS = (16, 48, 96)
+
+
+def odd_head_dims(torch, ref, fa, g, dev="cuda"):
+    """Every flash entry at head dims the kernels are not built for (the
+    wrappers zero-pad them to the next of 32, 64, 128), in bf16, held to
+    its plain version: the forward with lse and the backward at B 2, S
+    300, 8 heads over 2, window 100, q_off (0, 17); both decodes and the
+    combine at the serve shape (_serve_decode)."""
+    dtype = torch.bfloat16
+    rn = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(dtype)
+    errs = {}
+    for D in ODD_HEAD_DIMS:
+        B, S, H, KV, win = 2, 300, 8, 2, 100
+        q, k, v, do = rn(B, S, H, D), rn(B, S, KV, D), rn(B, S, KV, D), \
+            rn(B, S, H, D)
+        qo = torch.tensor([0, 17], dtype=torch.int32, device=dev)
+        scale = 1 / math.sqrt(D)
+        out, lse = fa.flash_attention(q, k, v, q_off=qo, window=win,
+                                      return_lse=True)
+        want, want_lse = ref.flash_attention_ref(q, k, v, qo, win, scale, True)
+        e = dict(fwd=(out.float() - want.float()).abs().max().item(),
+                 lse=(lse - want_lse).abs().max().item())
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=qo,
+                                     window=win, sm_scale=scale)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, qo, win,
+                                            scale)
+        e.update({n: _rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                       got, wants)})
+        if not (e["fwd"] <= FWD_TOL and e["lse"] <= 1e-3 and
+                max(e["dq"], e["dk"], e["dv"]) <= BWD_TOL):
+            _fail(f"flash at head dim {D} vs plain: {e}")
+        dec = _serve_decode(torch, ref, fa, g, H, KV, D, dtype, None,
+                            SERVE_POSITIONS, 1024, dev)
+        errs[D] = dict(e, **{n: r["err"] for n, r in dec.items()})
+    print(f"flash kernels at head dims {ODD_HEAD_DIMS} (padded to 32, 64, "
+          f"128), bf16, max |d| vs plain (dq, dk, dv over max |plain|): "
+          + json.dumps(errs))
 
 
 def _rel_err(a, b) -> float:
@@ -764,7 +918,8 @@ def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
     _sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    for name in ("flash_attention", "flash_decode_paged", "slot_gather_sample"):
+    for name in ("flash_attention", "flash_decode_paged",
+                 "flash_decode_combine", "slot_gather_sample"):
         if launches.get(name, 0) <= 0:
             _fail(f"{name} was not launched by the paged engine run")
     for r in rids:
@@ -797,6 +952,8 @@ def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
     res0 = eng0.run()
     _sync(torch, dev)
     launches["flash_decode"] = K.LAUNCHES.get("flash_decode", 0)
+    launches["flash_decode_combine"] += K.LAUNCHES.get("flash_decode_combine",
+                                                       0)
     if launches["flash_decode"] <= 0:
         _fail("flash_decode was not launched by the contiguous engine run")
     if any(len(res0[int(r)]) != 8 for r in rids0):
@@ -1570,6 +1727,7 @@ def main() -> int:
     print(f"built {len(K.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s")
     hopper_build_report(K)
+    decode_build_report(K)
 
     l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, ref, fa, sg, flush=l2.zero_)

@@ -22,7 +22,8 @@
 // card's ~295 flops per byte. So the design is only to keep many wide loads
 // in flight: a grid-stride loop in which each thread owns VEC consecutive
 // elements, read and written as 16-byte (or 8-byte for 16-bit types)
-// vectors where the address allows, scalars where it does not. A (k, n)
+// vectors where the address allows, scalars where it does not
+// (quant_fp16: 8 values a thread and step, see quant_fp16_kernel). A (k, n)
 // receive with n = ceil(total / k) not a multiple of VEC has rows that
 // start off the vector grid (the trap of fp16 rows of odd length), so the
 // alignment is tested per row; every thread of a warp sees the same row, so
@@ -120,29 +121,64 @@ __global__ void chunk_sum_kernel(const T* __restrict__ x, float* __restrict__ ou
   }
 }
 
-__global__ void quant_fp16_kernel(const float* __restrict__ x, __half* __restrict__ out,
-                                  long long n) {
-  const long long groups = n / VEC;
-  const bool al = aligned_to(x, 16) && aligned_to(out, 8);
-  for (long long gi = blockIdx.x * (long long)blockDim.x + threadIdx.x; gi < groups;
-       gi += (long long)gridDim.x * blockDim.x) {
-    const long long j = gi * VEC;
-    float v[VEC];
-    load4<float>(x + j, al, v);
-    union {
-      uint2 u;
-      __half h[VEC];
-    } w;
+// quant_fp16 has a shape of its own (the one cast that trailed its PyTorch
+// call on the shared one above): each thread converts CAST_VEC = 8 values a
+// step, two 16-byte loads and one 16-byte store, and issues the loads of
+// CAST_UNROLL = 2 steps (THREADS apart) before it converts either: 64 bytes
+// in flight a thread. The grid covers the array in one pass (at the f6.w
+// bucket 9216 blocks, some 70 waves of 8 blocks on each of 132 SMs): on an
+// H100 a grid of one wave walking the array in a stride loop was slower,
+// and 4 or 8 steps in flight, warp-coalesced 8-byte stores, streaming
+// cache hints or L2 prefetch hints were no faster.
+constexpr int CAST_VEC = 8;
+constexpr int CAST_UNROLL = 2;
+
+inline int cast_grid(long long groups) {
+  const long long per = (long long)THREADS * CAST_UNROLL;
+  const long long b = (groups + per - 1) / per;
+  return static_cast<int>(b < 1 ? 1 : b);
+}
+
+__global__ void __launch_bounds__(THREADS)
+quant_fp16_kernel(const float* __restrict__ x, __half* __restrict__ out, long long n) {
+  const long long groups = n / CAST_VEC;
+  const bool al = aligned_to(x, 16) && aligned_to(out, 16);
+  const long long g0 = blockIdx.x * (long long)THREADS * CAST_UNROLL + threadIdx.x;
+  float v[CAST_UNROLL][CAST_VEC];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) w.h[i] = __float2half_rn(v[i]);
+  for (int u = 0; u < CAST_UNROLL; ++u) {
+    const long long g = g0 + u * THREADS;
+    if (g >= groups) break;
+    const float* src = x + g * CAST_VEC;
     if (al) {
-      *reinterpret_cast<uint2*>(out + j) = w.u;
+      const float4 a = reinterpret_cast<const float4*>(src)[0];
+      const float4 b = reinterpret_cast<const float4*>(src)[1];
+      v[u][0] = a.x; v[u][1] = a.y; v[u][2] = a.z; v[u][3] = a.w;
+      v[u][4] = b.x; v[u][5] = b.y; v[u][6] = b.z; v[u][7] = b.w;
     } else {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) out[j + i] = w.h[i];
+      for (int i = 0; i < CAST_VEC; ++i) v[u][i] = src[i];
     }
   }
-  const long long tail = groups * VEC;
+#pragma unroll
+  for (int u = 0; u < CAST_UNROLL; ++u) {
+    const long long g = g0 + u * THREADS;
+    if (g >= groups) break;
+    union {
+      uint4 u4;
+      __half h[CAST_VEC];
+    } w;
+#pragma unroll
+    for (int i = 0; i < CAST_VEC; ++i) w.h[i] = __float2half_rn(v[u][i]);
+    __half* dst = out + g * CAST_VEC;
+    if (al) {
+      *reinterpret_cast<uint4*>(dst) = w.u4;
+    } else {
+#pragma unroll
+      for (int i = 0; i < CAST_VEC; ++i) dst[i] = w.h[i];
+    }
+  }
+  const long long tail = groups * CAST_VEC;   // the n % 8 tail, block 0
   if (blockIdx.x == 0 && tail + threadIdx.x < n)
     out[tail + threadIdx.x] = __float2half_rn(x[tail + threadIdx.x]);
 }
@@ -241,7 +277,7 @@ int chunk_sum(const void* x, void* out, int k, long long n, int dtype, void* str
 // x (n,) fp32 -> out (n,) fp16
 int quant_fp16(const void* x, void* out, long long n, void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
-  quant_fp16_kernel<<<grid_for(n / VEC), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  quant_fp16_kernel<<<cast_grid(n / CAST_VEC), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<__half*>(out), n);
   return cudaGetLastError();
 }

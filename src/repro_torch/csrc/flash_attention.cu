@@ -11,6 +11,8 @@
 //   flash_bwd_dkv      <- src/repro/kernels/flash_attention.py:_dkv_kernel
 //   flash_decode_split <- src/repro/kernels/flash_attention.py:_decode_kernel
 //                         and :_decode_paged_kernel (tables != NULL)
+//   flash_decode_combine <- the same file's _combine_kv_splits (plain jnp
+//                         outside the pallas_call there)
 //
 // What bounds them on an H100: the forward and the backward at the
 // training shapes (B 4, S 1024, 32 heads over 8, D 64) are bound by
@@ -22,15 +24,16 @@
 // shared memory by TMA, swizzled as wgmma reads them); in fp32 on the CUDA
 // cores, whose 1e-5 checks TF32 products could not meet. The one-token
 // decode is bound by reading K/V from device memory (2*G score FLOPs per
-// key byte): it reads each live K/V row once per (kv head, split) block,
-// folds the G query heads of a KV group into the rows of one block (as the
-// TPU kernel folds them into its q tile), and never writes a score matrix
-// to device memory; its products are fp32 FMAs on values staged in shared
-// memory.
+// key byte): it reads each visible K/V row once per (kv head, chunk)
+// block, folds the G query heads of a KV group into the rows of one block
+// (as the TPU kernel folds them into its q tile), and never writes a score
+// matrix to device memory; its products are fp32 FMAs in registers on
+// 16-byte loads (see decode_kernel).
 //
 // Head dims: 32, 64 and 128 everywhere (the CUDA-core kernels hold D / 32
 // columns a lane; the tensor-core kernels take a D-128 row as two 64-value
-// panels, see Tile). GQA group size G = H / KV: up to 64 on the tensor-core
+// panels, see Tile); the Python wrappers zero-pad any other head dim up to
+// 128 to the next of them. GQA group size G = H / KV: up to 64 on the tensor-core
 // kernels (a 64-row tile holds 64 / G queries), up to 16 on the fp32
 // kernels and the decode.
 //
@@ -1247,145 +1250,368 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 }
 
 // ---------------------------------------------------------------------------
-// split-KV decode: one block per (split, kv head, slot)
+// split-KV decode: one block per (key chunk, kv head [x row group], slot),
+// then one combine block per (kv head, slot)
 // ---------------------------------------------------------------------------
+//
+// Bound by bytes: the G query rows of a KV group do 4 G FLOPs for each pair
+// of K and V values read (2 G a byte at 16 bits, G <= 16), against the ~20
+// FLOPs a byte at which the fp32 CUDA cores would become the limit. So
+// tensor cores would not help; the design keeps enough loads in flight
+// across the 132 SMs and reads each visible K/V row once:
+// - Grid. The host (decode_plan, kernels/flash_attention.py) cuts a lane
+//   into chunks of at least 128 keys, a multiple of the page size, from the
+//   lane length, the page size and the SM count alone; the serve shapes (8
+//   slots, 1 K lanes, 8 or 20 KV heads) give 512 or 1280 blocks, launched
+//   chunk by chunk. A block whose chunk holds no visible key returns at
+//   once and writes nothing; a live one loads only its keys in [lo, hi):
+//   none past pos, none before the window.
+// - Every warp on every key. A lane loads 16 bytes of a K row and 16 of
+//   the V row (8 bf16/fp16 values, 4 fp32), so a row takes D / 8 lanes (D /
+//   4 in fp32) and a warp step 32 / (D / 8) rows, the 4 warps taking
+//   interleaved steps. Each of the block's R query rows' dot product is
+//   summed over the row's lanes by xor shuffles. Each lane group keeps its
+//   own online softmax (m, l, acc) of the R rows in registers, in one pass
+//   over K and V together; the groups of a warp merge by shuffles, then the
+//   warps through shared memory, in a fixed order.
+// - Bytes in flight: a lane issues the K and V loads of U steps (U x 32
+//   bytes) before it uses any, and a block is 128 threads, so several live
+//   blocks share an SM.
+// - G > 8 takes two row groups (blockIdx.x = h * groups + group), each its
+//   own block reading the chunk (the second read mostly from L2), so that a
+//   lane holds at most 8 rows of q and acc in registers.
+// Where the time goes on an H100 at the llama3.2-1b serve shape (each call
+// replayed from a CUDA graph after an L2 flush): two launches, and in the
+// split kernel a chain of round trips (pos with q and the page ids, then K
+// and V) and compute that is not negligible beside its loads. Loads are
+// kept in flight in registers, not in a cp.async ring: U = 4, 8 or 16
+// steps made no measurable difference, nor did launching chunk by chunk
+// rather than chunk fastest; 256 threads a block (fewer blocks an SM) and
+// a cap of 128 registers (spills) were slower. What helped: loading q and
+// the page ids with pos rather than after it, exp by ex2, and the
+// combine's one round of loads.
+// The combine (decode_combine_kernel) merges the live chunks' partials in a
+// fixed order and writes the output in q's dtype. Nothing is atomic, so two
+// calls agree bit for bit; dead chunks are not read, so they need not be
+// written. The numerics are the TPU kernels' (see the note at the top),
+// with p rounded to the value dtype against the running max.
+// Paged and contiguous lanes differ only in where key t's row is: row
+// b*S + t of (B*S, KV, D), or row tables[b, t / page] * page + t % page of
+// the pages. The rest is the same code, so the paged result equals the
+// contiguous one on the gathered lanes bit for bit when both split alike
+// (block_k = page_size).
+
+// e^x as ex2.approx of x log2(e), as the tensor-core kernels take it: far
+// fewer instructions than expf, and the decode's compute is not negligible
+// beside its loads at the serve shapes
+__device__ __forceinline__ float exp_fast(float x) { return ex2(x * LOG2E); }
 
 constexpr int DEC_THREADS = 128;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_MAX_G = 16;
-constexpr int DEC_RPW = DEC_MAX_G / DEC_WARPS;
-constexpr int DEC_SUB = 32;  // keys staged in shared memory at a time
+constexpr int COMBINE_THREADS = 256;
+constexpr int COMBINE_REGS = 8;   // chunks a combine thread holds in registers
 
-// Split j of slot b covers logical keys [j*block_k, (j+1)*block_k). Its rows
-// start at row `base` of a (rows, KV, D) array: b*S + j*block_k in the
-// contiguous lanes (B, S, KV, D), or tables[b, j]*page_size in the pages
-// (P, page_size, KV, D) with block_k == page_size. Everything else is the
-// same code, so the paged result is bit-identical to the contiguous one on
-// the gathered lanes with block_k = page_size.
-template <typename T, int D>
+// visible keys [lo, hi) of chunk c from position p; empty when lo >= hi
+__device__ __forceinline__ void chunk_keys(int c, int chunk, int p, int win, int kv_len,
+                                           int& lo, int& hi) {
+  lo = c * chunk;
+  hi = min(min(lo + chunk, kv_len), p + 1);
+  if (win > 0) lo = max(lo, p - win + 1);
+}
+
+// 16 bytes of T -> 16 / sizeof(T) floats
+template <typename T> __device__ __forceinline__ void unpack16(const uint4& u, float* f);
+template <> __device__ __forceinline__ void unpack16<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+template <> __device__ __forceinline__ void unpack16<__half>(const uint4& u, float* f) {
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// R query rows a block (G = 1, 2, 4, or up to 8 per row group); partials
+// m/l (B, KV, ns, G), acc (B, KV, ns, G, D) fp32, written for live chunks
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ tables, const int* __restrict__ pos,
               float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ acc_out,
-              int H, int KV, int S, int NP, int block_k, int kv_len, int win, float sm_scale) {
-  constexpr int DPL = D / 32;
-  const int G = H / KV;
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int ns = gridDim.x;
+              int H, int KV, int S, int NP, int page, int chunk, int kv_len, int win,
+              float sm_scale) {
+  constexpr int VEC = 16 / sizeof(T);          // values a lane loads at once
+  constexpr int LPR = D / VEC;                 // lanes a key row
+  constexpr int RPS = 32 / LPR;                // key rows a warp step
+  constexpr int KT = DEC_WARPS * RPS;          // keys a block step
+  constexpr int U = R >= 8 ? 2 : 8;            // steps whose loads a lane keeps in flight
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "a key row is 2^n lanes of a warp");
+  const int G = H / KV, groups = (G + R - 1) / R;
+  const int h = blockIdx.x / groups, g0 = (blockIdx.x % groups) * R;
+  const int b = blockIdx.y, c = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int p_b = pos[b];
-  const size_t part = ((size_t)b * KV + h) * ns + j;  // (B, KV, ns) index
+  const int r = lane / LPR, seg = lane % LPR;
+  const int c0 = c * chunk;
 
-  // _tile_live(0, j, pos, win, 1, block_k): dead splits write the neutral
-  // partial (m=NEG_INF, l=0, acc=0), which drops out of the combine exactly
-  const bool live = j * block_k <= p_b && (win <= 0 || (j + 1) * block_k > p_b - win + 1);
-  if (!live) {
-    for (int e = threadIdx.x; e < G * D; e += DEC_THREADS) acc_out[part * G * D + e] = 0.f;
-    for (int g = threadIdx.x; g < G; g += DEC_THREADS) {
-      m_out[part * G + g] = NEG_INF;
-      l_out[part * G + g] = 0.f;
-    }
-    return;
+  extern __shared__ int page_ids[];            // the chunk's physical pages
+  __shared__ float sm_m[DEC_WARPS][R], sm_l[DEC_WARPS][R];
+  __shared__ float sm_acc[DEC_WARPS][R][D];
+  // q and the page ids do not depend on pos: their loads go out with pos's
+  if (tables != nullptr) {
+    const int n_pages = min(chunk / page, NP - c0 / page);
+    for (int i = threadIdx.x; i < n_pages; i += DEC_THREADS)
+      page_ids[i] = tables[(size_t)b * NP + c0 / page + i];
   }
-  const size_t base = tables != nullptr ? (size_t)tables[(size_t)b * NP + j] * block_k
-                                        : (size_t)b * S + (size_t)j * block_k;
-
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [G][D]
-  float* ks = qs + DEC_MAX_G * D;      // [DEC_SUB][D + 1]
-  float* vs = ks + DEC_SUB * (D + 1);  // [DEC_SUB][D]
-  float* sc = vs + DEC_SUB * D;        // [G][block_k] scores, then p
-
-  for (int e = threadIdx.x; e < G * D; e += DEC_THREADS)
-    qs[e] = to_f<T>(q[((size_t)b * H + h * G) * D + e]);
-
-  // scores: lane = key, warp = query rows g = warp + DEC_WARPS*u
-  for (int st = 0; st < block_k; st += DEC_SUB) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < DEC_SUB * D; e += DEC_THREADS) {
-      const int c = e / D, d = e % D;
-      const int kp = j * block_k + st + c;
-      float kx = 0.f;
-      if (st + c < block_k && kp < kv_len) kx = to_f<T>(k[((base + st + c) * KV + h) * D + d]);
-      ks[c * (D + 1) + d] = kx;
-    }
-    __syncthreads();
-    const int c = st + lane;
-    if (c < block_k) {
-      const int kp = j * block_k + c;
-      const bool keep = kp <= p_b && kp < kv_len && window_keep(p_b, kp, win);
+  float qv[R][VEC];
 #pragma unroll
-      for (int u = 0; u < DEC_RPW; ++u) {
-        const int g = warp + DEC_WARPS * u;
-        if (g >= G) break;
-        float s = 0.f;
-        for (int d = 0; d < D; ++d) s += qs[g * D + d] * ks[lane * (D + 1) + d];
-        sc[g * block_k + c] = keep ? s * sm_scale : NEG_INF;
+  for (int g = 0; g < R; ++g) {
+    if (g0 + g < G) {
+      unpack16<T>(ld16(q + ((size_t)b * H + h * G + g0 + g) * D + seg * VEC), qv[g]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qv[g][i] = 0.f;
+    }
+  }
+  const int p = pos[b];
+  int lo, hi;
+  chunk_keys(c, chunk, p, win, kv_len, lo, hi);
+  if (lo >= hi) return;
+  if (tables != nullptr) __syncthreads();
+
+  float m[R], l[R], acc[R][VEC];
+#pragma unroll
+  for (int g = 0; g < R; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+  }
+  const int s_end = (hi - c0 + KT - 1) / KT;
+  for (int s0 = (lo - c0) / KT; s0 < s_end; s0 += U) {
+    uint4 kr[U], vr[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = c0 + (s0 + u) * KT + warp * RPS + r;
+      ok[u] = t >= lo && t < hi;
+      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      if (ok[u]) {
+        const size_t row = tables != nullptr
+                               ? (size_t)page_ids[(t - c0) / page] * page + (t - c0) % page
+                               : (size_t)b * S + t;
+        const size_t off = (row * KV + h) * D + seg * VEC;
+        kr[u] = ld16(k + off);
+        vr[u] = ld16(v + off);
+      }
+    }
+    float sc[U][R];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[VEC];
+      unpack16<T>(kr[u], kf);
+#pragma unroll
+      for (int g = 0; g < R; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) d += qv[g][i] * kf[i];
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        sc[u][g] = d * sm_scale;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < R; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ok[u]) mx = fmaxf(mx, sc[u][g]);
+      const float alpha = exp_fast(m[g] - mx);
+      m[g] = mx;
+      l[g] *= alpha;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[g][i] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[VEC];
+      unpack16<T>(vr[u], vf);
+#pragma unroll
+      for (int g = 0; g < R; ++g) {
+        const float pu = ok[u] ? exp_fast(sc[u][g] - m[g]) : 0.f;
+        l[g] += pu;
+        const float pr = round_to<T>(pu);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[g][i] += pr * vf[i];
+      }
+    }
+  }
+
+  // merge the warp's lane groups (rows of a step), then the warps
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < R; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lother = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mx = fmaxf(m[g], mo);
+      const float a = exp_fast(m[g] - mx), a_o = exp_fast(mo - mx);
+      l[g] = a * l[g] + a_o * lother;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        acc[g][i] = a * acc[g][i] + a_o * __shfl_xor_sync(0xffffffffu, acc[g][i], o);
+      m[g] = mx;
+    }
+  }
+  if (r == 0) {
+#pragma unroll
+    for (int g = 0; g < R; ++g) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sm_acc[warp][g][seg * VEC + i] = acc[g][i];
+      if (seg == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
       }
     }
   }
   __syncthreads();
-
-  // softmax statistics of the split, per query row (one warp per row)
-  float l_row[DEC_RPW];
+  const size_t part = ((size_t)b * KV + h) * gridDim.z + c;  // (B, KV, ns) index
+  for (int e = threadIdx.x; e < R * D; e += DEC_THREADS) {
+    const int g = e / D, d = e % D;
+    if (g0 + g >= G) break;
+    float M = sm_m[0][g];
 #pragma unroll
-  for (int u = 0; u < DEC_RPW; ++u) {
-    const int g = warp + DEC_WARPS * u;
-    l_row[u] = 0.f;
-    if (g >= G) break;
-    float mx = NEG_INF;
-    for (int c = lane; c < block_k; c += 32) mx = fmaxf(mx, sc[g * block_k + c]);
-    mx = warp_max(mx);
-    float ls = 0.f;
-    for (int c = lane; c < block_k; c += 32) {
-      const int kp = j * block_k + c;
-      const bool keep = kp <= p_b && kp < kv_len && window_keep(p_b, kp, win);
-      const float p = keep ? expf(sc[g * block_k + c] - mx) : 0.f;
-      ls += p;
-      sc[g * block_k + c] = round_to<T>(p);
+    for (int w = 1; w < DEC_WARPS; ++w) M = fmaxf(M, sm_m[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float a = exp_fast(sm_m[w][g] - M);
+      L += a * sm_l[w][g];
+      A += a * sm_acc[w][g][d];
     }
-    l_row[u] = warp_sum(ls);
-    if (lane == 0) {
-      m_out[part * G + g] = mx;
-      l_out[part * G + g] = l_row[u];
+    acc_out[(part * G + g0 + g) * D + d] = A;
+    if (d == 0) {
+      m_out[part * G + g0 + g] = M;
+      l_out[part * G + g0 + g] = L;
     }
   }
+}
 
-  // acc[g][d] = sum_c p[g][c] * v[c][d]
-  float acc[DEC_RPW][DPL];
+// out (B, 1, H, D) in T from the partials of the chunks that hold a key
+// visible from pos[b]: one block per (kv head, slot). The live chunks are
+// the run [c_first, c_last]. A run of at most COMBINE_REGS chunks is merged
+// from registers after one round of loads. A longer one: its m and l go to
+// shared memory in one coalesced pass; a warp per query row takes the max
+// and turns each m into its weight exp(m - M), and sums l under those
+// weights (lanes over chunks, then a shuffle tree: a fixed order); then
+// each thread sums its (row, column) of acc over the chunks, 8 loads in
+// flight.
+template <typename T>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
+                      const float* __restrict__ acc, const int* __restrict__ pos,
+                      T* __restrict__ out, int H, int KV, int D, int chunk, int ns, int kv_len,
+                      int win) {
+  extern __shared__ float sm[];  // weights [n][G], then l [n][G], then L [G]
+  const int G = H / KV, h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p = pos[b];
+  const int c_first = win > 0 ? max(0, (p - win + 1) / chunk) : 0;
+  const int n = p < 0 ? 0 : max(0, min(ns - 1, p / chunk) - c_first + 1);  // the run
+  const size_t base = ((size_t)b * KV + h) * ns + c_first;
+  if (n <= COMBINE_REGS) {
+    // a short run (the serve shapes): each thread loads the m, l and acc of
+    // its (row, column) for every chunk at once, and merges in chunk order
+    for (int e = threadIdx.x; e < G * D; e += COMBINE_THREADS) {
+      const int g = e / D;
+      float mc[COMBINE_REGS], lc[COMBINE_REGS], ac[COMBINE_REGS];
 #pragma unroll
-  for (int u = 0; u < DEC_RPW; ++u)
+      for (int c = 0; c < COMBINE_REGS; ++c) {
+        int lo = 0, hi = 0;
+        if (c < n) chunk_keys(c_first + c, chunk, p, win, kv_len, lo, hi);
+        const bool live = lo < hi;
+        mc[c] = live ? m[(base + c) * G + g] : NEG_INF;
+        lc[c] = live ? l[(base + c) * G + g] : 0.f;
+        ac[c] = live ? acc[(base + c) * G * D + e] : 0.f;
+      }
+      float M = NEG_INF;
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) acc[u][dd] = 0.f;
-  for (int st = 0; st < block_k; st += DEC_SUB) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < DEC_SUB * D; e += DEC_THREADS) {
-      const int c = e / D, d = e % D;
-      const int kp = j * block_k + st + c;
-      float vx = 0.f;
-      if (st + c < block_k && kp < kv_len) vx = to_f<T>(v[((base + st + c) * KV + h) * D + d]);
-      vs[c * D + d] = vx;
+      for (int c = 0; c < COMBINE_REGS; ++c) M = fmaxf(M, mc[c]);
+      float L = 0.f, A = 0.f;
+#pragma unroll
+      for (int c = 0; c < COMBINE_REGS; ++c) {
+        const float a = mc[c] > NEG_INF ? exp_fast(mc[c] - M) : 0.f;
+        L += a * lc[c];
+        A += a * ac[c];
+      }
+      out[((size_t)b * H + h * G) * D + e] = from_f<T>(A / fmaxf(L, 1e-30f));
     }
-    __syncthreads();
-    const int n = min(DEC_SUB, block_k - st);
+    return;
+  }
+  float* w = sm;
+  float* lw = sm + (size_t)n * G;
+  float* L = lw + (size_t)n * G;
+  for (int i = threadIdx.x; i < n * G; i += COMBINE_THREADS) {
+    int lo, hi;
+    chunk_keys(c_first + i / G, chunk, p, win, kv_len, lo, hi);
+    w[i] = lo < hi ? m[base * G + i] : NEG_INF;
+    lw[i] = lo < hi ? l[base * G + i] : 0.f;
+  }
+  __syncthreads();
+  for (int g = warp; g < G; g += COMBINE_THREADS / 32) {
+    float M = NEG_INF;
+    for (int c = lane; c < n; c += 32) M = fmaxf(M, w[c * G + g]);
+    M = warp_max(M);
+    float s = 0.f;
+    for (int c = lane; c < n; c += 32) {
+      const float mc = w[c * G + g];
+      const float a = mc > NEG_INF ? exp_fast(mc - M) : 0.f;  // 0: a dead chunk's
+      w[c * G + g] = a;                                    // acc is never read
+      s += a * lw[c * G + g];
+    }
+    s = warp_sum(s);
+    if (lane == 0) L[g] = s;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < G * D; e += COMBINE_THREADS) {
+    const int g = e / D;
+    const float* a = acc + base * G * D + e;
+    float A = 0.f;
+    int c = 0;
+    for (; c + 8 <= n; c += 8) {
+      float x[8];
 #pragma unroll
-    for (int u = 0; u < DEC_RPW; ++u) {
-      const int g = warp + DEC_WARPS * u;
-      if (g >= G) break;
-      for (int c = 0; c < n; ++c) {
-        const float pc = sc[g * block_k + st + c];
+      for (int u = 0; u < 8; ++u) x[u] = a[(size_t)(c + u) * G * D];
 #pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) acc[u][dd] += pc * vs[c * D + lane + 32 * dd];
+      for (int u = 0; u < 8; ++u) {
+        const float wt = w[(c + u) * G + g];
+        if (wt != 0.f) A += wt * x[u];
       }
     }
-  }
-#pragma unroll
-  for (int u = 0; u < DEC_RPW; ++u) {
-    const int g = warp + DEC_WARPS * u;
-    if (g >= G) break;
-#pragma unroll
-    for (int dd = 0; dd < DPL; ++dd)
-      acc_out[(part * G + g) * D + lane + 32 * dd] = acc[u][dd];
+    for (; c < n; ++c) {
+      const float wt = w[c * G + g];
+      if (wt != 0.f) A += wt * a[(size_t)c * G * D];
+    }
+    out[((size_t)b * H + h * G) * D + e] = from_f<T>(A / fmaxf(L[g], 1e-30f));
   }
 }
 
@@ -1410,24 +1636,57 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
   return cudaGetLastError();
 }
 
+template <typename T, int D, int R>
+cudaError_t launch_decode_rows(const void* q, const void* k, const void* v, const void* tables,
+                               const void* pos, void* m, void* l, void* acc, int B, int H,
+                               int KV, int S, int NP, int page, int chunk, int ns, int kv_len,
+                               int win, float sm_scale, cudaStream_t stream) {
+  const int groups = (H / KV + R - 1) / R;
+  const size_t smem = tables != nullptr ? sizeof(int) * ((chunk + page - 1) / page) : 0;
+  auto kern = decode_kernel<T, D, R>;
+  if (smem > 16 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  // chunk slowest: every slot's first chunks, the live ones, start first
+  dim3 grid(KV * groups, B, ns);
+  kern<<<grid, DEC_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(tables), static_cast<const int*>(pos), static_cast<float*>(m),
+      static_cast<float*>(l), static_cast<float*>(acc), H, KV, S, NP, page, chunk, kv_len, win,
+      sm_scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* tables,
                           const void* pos, void* m, void* l, void* acc, int B, int H, int KV,
-                          int S, int NP, int block_k, int ns, int kv_len, int win,
-                          float sm_scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (DEC_MAX_G * D + DEC_SUB * (D + 1) + DEC_SUB * D +
-                                       (size_t)(H / KV) * block_k);
-  auto kern = decode_kernel<T, D>;
+                          int S, int NP, int page, int chunk, int ns, int kv_len, int win,
+                          float sm_scale, cudaStream_t s) {
+  const int G = H / KV;
+  if (G == 1)
+    return launch_decode_rows<T, D, 1>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
+  if (G == 2)
+    return launch_decode_rows<T, D, 2>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
+  if (G <= 4)
+    return launch_decode_rows<T, D, 4>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
+  return launch_decode_rows<T, D, 8>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
+}
+
+template <typename T>
+cudaError_t launch_combine(const void* m, const void* l, const void* acc, const void* pos,
+                           void* out, int B, int H, int KV, int D, int chunk, int ns, int kv_len,
+                           int win, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)2 * ns * (H / KV) + H / KV);
+  auto kern = decode_combine_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(ns, KV, B);
-  kern<<<grid, DEC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(tables), static_cast<const int*>(pos), static_cast<float*>(m),
-      static_cast<float*>(l), static_cast<float*>(acc), H, KV, S, NP, block_k, kv_len, win,
-      sm_scale);
+  dim3 grid(KV, B);
+  kern<<<grid, COMBINE_THREADS, smem, stream>>>(
+      static_cast<const float*>(m), static_cast<const float*>(l), static_cast<const float*>(acc),
+      static_cast<const int*>(pos), static_cast<T*>(out), H, KV, D, chunk, ns, kv_len, win);
   return cudaGetLastError();
 }
 
@@ -1632,12 +1891,12 @@ cudaError_t fwd_by_dtype(int dtype, const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t decode_by_dtype(int dtype, const void* q, const void* k, const void* v,
                             const void* tables, const void* pos, void* m, void* l, void* acc,
-                            int B, int H, int KV, int S, int NP, int block_k, int ns, int kv_len,
-                            int win, float sm_scale, cudaStream_t s) {
+                            int B, int H, int KV, int S, int NP, int page, int chunk, int ns,
+                            int kv_len, int win, float sm_scale, cudaStream_t s) {
   switch (dtype) {
-    case 0: return launch_decode<float, D>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, win, sm_scale, s);
-    case 1: return launch_decode<__nv_bfloat16, D>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, win, sm_scale, s);
-    case 2: return launch_decode<__half, D>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, win, sm_scale, s);
+    case 0: return launch_decode<float, D>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
+    case 1: return launch_decode<__nv_bfloat16, D>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
+    case 2: return launch_decode<__half, D>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1685,18 +1944,38 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // q (B, 1, H, D); contiguous: k/v (B, S, KV, D), tables NULL, NP 0;
-// paged: k/v (P, block_k, KV, D), tables (B, NP) int32, S unused.
-// pos (B,) int32. Partials m/l (B, KV, ns, G) and acc (B, KV, ns, G, D) fp32.
-// D 32, 64 or 128; G = H/KV <= 16.
+// paged: k/v (P, page, KV, D), tables (B, NP) int32, S unused. pos (B,)
+// int32. Lanes of kv_len keys in ns chunks of `chunk` keys (a multiple of
+// `page`). Partials m/l (B, KV, ns, G) and acc (B, KV, ns, G, D) fp32,
+// written only for chunks that hold a visible key. D 32, 64 or 128; G =
+// H/KV <= 16; q, k, v 16-byte aligned.
 int flash_decode_split(const void* q, const void* k, const void* v, const void* tables,
                        const void* pos, void* m, void* l, void* acc, int B, int H, int KV,
-                       int D, int dtype, int S, int NP, int block_k, int ns, int kv_len,
+                       int D, int dtype, int S, int NP, int page, int chunk, int ns, int kv_len,
                        int window, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KV <= 0 || H % KV != 0 || H / KV > DEC_MAX_G || block_k <= 0) return cudaErrorInvalidValue;
-  if (D == 32) return decode_by_dtype<32>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, window, sm_scale, s);
-  if (D == 64) return decode_by_dtype<64>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, window, sm_scale, s);
-  if (D == 128) return decode_by_dtype<128>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, block_k, ns, kv_len, window, sm_scale, s);
+  if (KV <= 0 || H % KV != 0 || H / KV > DEC_MAX_G || B <= 0 || page <= 0 || chunk <= 0 ||
+      chunk % page != 0 || ns <= 0 || (long long)ns * chunk < kv_len)
+    return cudaErrorInvalidValue;
+  if (D == 32) return decode_by_dtype<32>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, window, sm_scale, s);
+  if (D == 64) return decode_by_dtype<64>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, window, sm_scale, s);
+  if (D == 128) return decode_by_dtype<128>(dtype, q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, window, sm_scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// The merge of flash_decode_split's partials (layouts as there) over the
+// chunks that hold a key visible from pos (B,): out (B, 1, H, D) in dtype.
+int flash_decode_combine(const void* m, const void* l, const void* acc, const void* pos,
+                         void* out, int B, int H, int KV, int D, int dtype, int chunk, int ns,
+                         int kv_len, int window, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KV <= 0 || H % KV != 0 || B <= 0 || D <= 0 || chunk <= 0 || ns <= 0)
+    return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_combine<float>(m, l, acc, pos, out, B, H, KV, D, chunk, ns, kv_len, window, s);
+    case 1: return launch_combine<__nv_bfloat16>(m, l, acc, pos, out, B, H, KV, D, chunk, ns, kv_len, window, s);
+    case 2: return launch_combine<__half>(m, l, acc, pos, out, B, H, KV, D, chunk, ns, kv_len, window, s);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -23,23 +23,32 @@ Kernels (design notes in the CUDA source):
   is plain jnp outside the ``pallas_call`` in the JAX package. The lse
   output is non-differentiable (the reference's ``stop_gradient``).
 - ``flash_decode`` / ``flash_decode_paged`` -> ``flash_decode_split``,
-  replacing ``_decode_kernel`` / ``_decode_paged_kernel``. Both write the
-  per-split partials (m, l, acc); the combine across splits is plain
-  torch, as it is plain jnp outside the ``pallas_call`` in the JAX
-  package. The paged kernel is the contiguous kernel reading each split's
-  rows through the block table, so it equals ``flash_decode`` on the
-  gathered lanes with ``block_k = page_size`` bit for bit.
+  replacing ``_decode_kernel`` / ``_decode_paged_kernel``, then
+  ``decode_combine`` -> ``flash_decode_combine``, the online-softmax merge
+  of the chunk partials (plain jnp outside the ``pallas_call`` in the
+  JAX package, ``_combine_kv_splits``). The lanes split into chunks
+  chosen on the host by :func:`decode_plan` from the lane length, the
+  page size (``block_k`` on the contiguous path) and the SM count alone;
+  the paged kernel is the contiguous kernel reading each chunk's rows
+  through the block table, so it equals ``flash_decode`` on the gathered
+  lanes with ``block_k = page_size`` bit for bit. Neither the wrapper
+  nor the kernels read ``pos`` on the host, so a decode step can be
+  captured in a CUDA graph.
 
-On the card every kernel takes head dims 32, 64 and 128 (Dk == Dv) and
-refuses others with ``NotImplementedError``. A block holds the G = H / KV
-heads of ``rows // G`` queries, the spare rows idle where G does not
-divide the row count: the forward and backward in bf16 and fp16 run on the
-tensor cores with 64-row tiles, so G <= 64; in fp32 (forward 16 rows, dq
-16, dk/dv 32, on the CUDA cores) and in the decode G <= 16.
+On the card every kernel takes head dims up to 128 (Dk == Dv): 32, 64
+and 128 natively, any other zero-padded to the next of them by
+:func:`pad_head_dim` (exact: zero columns add nothing to q.k, and the
+padded output columns are sliced off). Above 128 raises
+``NotImplementedError`` naming the MLA slice. A block holds the G = H /
+KV heads of ``rows // G`` queries, the spare rows idle where G does not
+divide the row count: the forward and backward in bf16 and fp16 run on
+the tensor cores with 64-row tiles, so G <= 64; in fp32 (forward 16
+rows, dq 16, dk/dv 32, on the CUDA cores) and in the decode G <= 16.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -47,8 +56,16 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels import ref
 
-DEFAULT_DECODE_BLOCK_K = 512
+# the contiguous decode's page size: chunks are multiples of it. The JAX
+# package's 512 would give a 1 K lane two chunks, too few blocks for the
+# card's SMs; the plain version on the CPU splits by it
+DEFAULT_DECODE_BLOCK_K = 128
+# head dims the kernels are built for; others up to the largest are padded
 HEAD_DIMS = (32, 64, 128)
+# keys of the shortest decode chunk, and the most chunks a lane takes per
+# SM (a long lane gets longer chunks rather than more of them)
+DECODE_MIN_CHUNK = 128
+DECODE_CHUNKS_PER_SM = 2
 # largest G = H / KV per path: a 64-row tile on the tensor cores (bf16/fp16
 # forward and backward; csrc HB_M), 16 rows on the CUDA cores (fp32:
 # FWD_ROWS, DQ_ROWS) and in the decode (DEC_MAX_G)
@@ -59,6 +76,31 @@ MAX_GROUP_DECODE = 16
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def kernel_head_dim(name: str, D: int) -> int:
+    """The head dim the kernels compute ``D`` at: the next of
+    :data:`HEAD_DIMS`. Above the largest raises, naming the MLA slice."""
+    for d in HEAD_DIMS:
+        if D <= d:
+            return d
+    raise NotImplementedError(
+        f"{name}: head_dim {D} is more than the CUDA kernels take "
+        f"({HEAD_DIMS[-1]}); head dims above it (MLA's 192, the absorbed "
+        f"576/512) come with the MLA slice")
+
+
+def pad_head_dim(D: int, *ts):
+    """Each tensor's last dim zero-padded from its ``D`` columns to
+    ``kernel_head_dim(D)`` (the tensors themselves where no pad is
+    needed). Exact for attention: zero q/k columns add nothing to q.k,
+    zero v/do columns give zero output, dv and dq/dk columns, and
+    rowsum(do o) is unchanged; the caller passes ``sm_scale`` of the true
+    D and slices the outputs back to D."""
+    pad = kernel_head_dim("pad_head_dim", D) - D
+    if pad == 0:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
 
 
 def _check_cuda(name: str, q, k, v, decode: bool = False):
@@ -72,10 +114,7 @@ def _check_cuda(name: str, q, k, v, decode: bool = False):
             f"{name}: the CUDA kernels take Dk == Dv (got Dk={Dk}, "
             f"Dv={Dv}); the MLA absorbed layout (KV=1, Dk != Dv) comes with "
             f"the MLA slice")
-    if Dk not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name}: head_dim {Dk} is not one the CUDA kernels take "
-            f"({', '.join(map(str, HEAD_DIMS))})")
+    kernel_head_dim(name, Dk)
     G = q.shape[2] // k.shape[2]
     if decode:
         limit, path = MAX_GROUP_DECODE, "the decode"
@@ -89,8 +128,16 @@ def _check_cuda(name: str, q, k, v, decode: bool = False):
             f"takes")
 
 
+def _unpad(t, D: int):
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def _positions(x, batch: int, device) -> torch.Tensor:
     """None / int / (B,) -> contiguous (B,) int32 on ``device``."""
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.int32
+            and x.shape == (batch,) and x.device == device
+            and x.is_contiguous()):
+        return x
     if x is None:
         x = 0
     t = torch.as_tensor(x, dtype=torch.int32, device=device).reshape(-1)
@@ -111,10 +158,12 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
         return ref.flash_attention_ref(q, k, v, q_off, window, sm_scale,
                                        return_lse)
     _check_cuda("flash_attention", q, k, v)
+    D = q.shape[-1]
+    q, k, v = pad_head_dim(D, q, k, v)
     B, Sq, H, Dk = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
-    out = torch.empty((B, Sq, H, v.shape[-1]), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
     err = K.load("flash_attention").flash_fwd(
@@ -123,14 +172,18 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
         ctypes.c_float(sm_scale), K.stream_ptr(q))
     K.check(err, "flash_fwd")
     K.count("flash_attention")
+    out = _unpad(out, D)
     return (out, lse) if return_lse else out
 
 
 def _bwd_inputs(name, q, k, v, lse, do, di):
+    """The kernels' inputs: q, k, v and do padded to the kernel head dim
+    and TMA-ready, lse and di contiguous fp32."""
     _check_cuda(name, q, k, v)
-    if do.dtype != q.dtype or do.shape[:3] != q.shape[:3]:
+    if do.dtype != q.dtype or do.shape != q.shape:
         raise TypeError(f"{name}: do {tuple(do.shape)} {do.dtype} does not "
                         f"match q {tuple(q.shape)} {q.dtype}")
+    q, k, v, do = pad_head_dim(q.shape[-1], q, k, v, do)
     return (_tma_ready(q), _tma_ready(k), _tma_ready(v), _tma_ready(do),
             lse.float().contiguous(), di.float().contiguous())
 
@@ -143,6 +196,7 @@ def flash_attention_dq(q, k, v, lse, do, di, *, q_off, window: int = 0,
     if K.on_cpu(q, k, v, lse, do, di):
         return ref.flash_attention_dq_ref(q, k, v, lse, do, di, q_off,
                                           window, sm_scale)
+    D_true = q.shape[-1]
     q, k, v, do, lse, di = _bwd_inputs("flash_attention_dq", q, k, v, lse,
                                        do, di)
     B, Sq, H, D = q.shape
@@ -154,7 +208,7 @@ def flash_attention_dq(q, k, v, lse, do, di, *, q_off, window: int = 0,
         int(window), ctypes.c_float(sm_scale), K.stream_ptr(q))
     K.check(err, "flash_bwd_dq")
     K.count("flash_attention_dq")
-    return dq
+    return _unpad(dq, D_true)
 
 
 def flash_attention_dkv(q, k, v, lse, do, di, *, q_off, window: int = 0,
@@ -164,6 +218,7 @@ def flash_attention_dkv(q, k, v, lse, do, di, *, q_off, window: int = 0,
     if K.on_cpu(q, k, v, lse, do, di):
         return ref.flash_attention_dkv_ref(q, k, v, lse, do, di, q_off,
                                            window, sm_scale)
+    D_true = q.shape[-1]
     q, k, v, do, lse, di = _bwd_inputs("flash_attention_dkv", q, k, v, lse,
                                        do, di)
     B, Sq, H, D = q.shape
@@ -176,7 +231,7 @@ def flash_attention_dkv(q, k, v, lse, do, di, *, q_off, window: int = 0,
         K.stream_ptr(q))
     K.check(err, "flash_bwd_dkv")
     K.count("flash_attention_dkv")
-    return dk, dv
+    return _unpad(dk, D_true), _unpad(dv, D_true)
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, q_off, window: int = 0,
@@ -236,31 +291,92 @@ def flash_attention(q, k, v, *, q_off=None, window: int = 0, sm_scale=None,
     return _forward(q, k, v, q_off, window, float(sm_scale), return_lse)
 
 
-def _decode_call(name, q, k, v, tables, pos, *, S, NP, block_k, ns, kv_len,
+def decode_plan(lane_len: int, page: int, sm_count: int):
+    """(chunk, n_chunks): the decode's split of a lane of ``lane_len`` keys
+    into chunks of ``chunk`` keys, a multiple of ``page`` (the page size,
+    or ``block_k`` on the contiguous path), one block per chunk, KV head
+    and slot. A function of these three alone, so the paged and
+    contiguous paths split alike and no device value is read: chunks of
+    DECODE_MIN_CHUNK keys while a lane has at most
+    DECODE_CHUNKS_PER_SM x ``sm_count`` of them, longer chunks past that
+    (fewer partials to merge)."""
+    chunk = max(DECODE_MIN_CHUNK,
+                -(-lane_len // (DECODE_CHUNKS_PER_SM * sm_count)))
+    chunk = _round_up(chunk, page)
+    return chunk, -(-lane_len // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_call(name, q, k, v, tables, pos, *, S, NP, page, lane_len,
                  window, sm_scale):
-    B, _, H, Dk = q.shape
+    """The split kernel's partials in one fp32 workspace, then the combine
+    kernel into the output; q, k, v already padded to the kernel head
+    dim."""
+    B, _, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
+    chunk, ns = decode_plan(lane_len, page, _sm_count(q.device.index or 0))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m = torch.empty((B, KV, ns, G), **f32)
-    l = torch.empty((B, KV, ns, G), **f32)
-    acc = torch.empty((B, KV, ns, G, v.shape[-1]), **f32)
-    err = K.load("flash_attention").flash_decode_split(
-        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(tables), K.ptr(pos), K.ptr(m),
-        K.ptr(l), K.ptr(acc), B, H, KV, Dk, K.dtype_code(q), S, NP, block_k,
-        ns, kv_len, window, ctypes.c_float(sm_scale), K.stream_ptr(q))
+    n_ml = B * KV * ns * G
+    ws = torch.empty(n_ml * (2 + D), dtype=torch.float32, device=q.device)
+    m, l, acc = (ctypes.c_void_p(ws.data_ptr() + 4 * n_ml * i)
+                 for i in range(3))
+    lib = K.load("flash_attention")
+    err = lib.flash_decode_split(
+        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(tables), K.ptr(pos), m, l, acc,
+        B, H, KV, D, K.dtype_code(q), S, NP, page, chunk, ns, lane_len,
+        window, ctypes.c_float(sm_scale), K.stream_ptr(q))
     K.check(err, "flash_decode_split")
     K.count(name)
-    return ref.combine_kv_splits(m, l, acc).to(q.dtype)
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    _combine_launch(lib, m, l, acc, pos, out, KV, chunk, ns, lane_len,
+                    window)
+    return out
+
+
+def _combine_launch(lib, m, l, acc, pos, out, KV, chunk, ns, kv_len, window):
+    B, _, H, D = out.shape
+    err = lib.flash_decode_combine(
+        m, l, acc, K.ptr(pos), K.ptr(out), B, H, KV, D, K.dtype_code(out),
+        chunk, ns, kv_len, window, K.stream_ptr(out))
+    K.check(err, "flash_decode_combine")
+    K.count("flash_decode_combine")
+
+
+def decode_combine(m, l, acc, pos, *, chunk: int, kv_len: int,
+                   window: int = 0, dtype=torch.float32):
+    """The online-softmax merge of decode partials m/l (B, KV, ns, G) and
+    acc (B, KV, ns, G, D), fp32, over the chunks of ``chunk`` keys that
+    hold a key visible from ``pos`` (B,) (``kv_len`` keys a lane, the
+    ``window``); the others are never read. Returns (B, 1, KV * G, D) in
+    ``dtype``. On the card the kernel ``flash_decode_combine``, in chunk
+    order, so two calls agree bit for bit."""
+    B, KV, ns, G = m.shape
+    D = acc.shape[-1]
+    pos = _positions(pos, B, m.device)
+    if K.on_cpu(m, l, acc, pos):
+        return ref.combine_live_splits(m, l, acc, pos, window, chunk,
+                                       kv_len).to(dtype)
+    if not (m.dtype == l.dtype == acc.dtype == torch.float32):
+        raise TypeError("decode_combine takes fp32 partials")
+    m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
+    out = torch.empty((B, 1, KV * G, D), dtype=dtype, device=m.device)
+    _combine_launch(K.load("flash_attention"), K.ptr(m), K.ptr(l),
+                    K.ptr(acc), pos, out, KV, chunk, ns, kv_len, int(window))
+    return out
 
 
 def flash_decode(q, k, v, pos, *, window: int = 0, sm_scale=None,
                  block_k: int = DEFAULT_DECODE_BLOCK_K):
     """Split-KV one-token decode. q (B, 1, H, Dk); k/v the full (B, S, KV,
     D) cache lanes; pos an int or (B,) per-slot positions (key t visible
-    iff t <= pos[b] and within the window). The lanes split into
-    ceil(S / block_k) chunks, each an independent partial; the partials
+    iff t <= pos[b] and within the window). On the CPU the plain version
+    splits the lanes into ceil(S / block_k) partials; on the card into
+    :func:`decode_plan`'s chunks, multiples of ``block_k``. The partials
     merge with the online-softmax combine. Returns (B, 1, H, Dv)."""
     B, Sq, H, Dk = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -276,20 +392,22 @@ def flash_decode(q, k, v, pos, *, window: int = 0, sm_scale=None,
     if K.on_cpu(q, k, v):
         return ref.flash_decode_ref(q, k, v, pos, window, sm_scale, block_k)
     _check_cuda("flash_decode", q, k, v, decode=True)
-    return _decode_call("flash_decode", q, k, v, None, pos, S=S, NP=0,
-                        block_k=block_k, ns=-(-S // block_k), kv_len=S,
-                        window=window, sm_scale=sm_scale)
+    qp, kp, vp = pad_head_dim(Dk, q, k, v)
+    out = _decode_call("flash_decode", qp, kp, vp, None, pos, S=S, NP=0,
+                       page=block_k, lane_len=S, window=window,
+                       sm_scale=sm_scale)
+    return _unpad(out, Dk)
 
 
 def flash_decode_paged(q, k_pages, v_pages, tables, pos, *, page_size: int,
                        window: int = 0, sm_scale=None):
-    """Split-KV decode over a paged cache: split j of slot b reads physical
-    page ``tables[b, j]``. q (B, 1, H, Dk); k_pages/v_pages (P, page_size,
-    KV, D); tables (B, NP) int32; pos (B,). Pages past ``pos // page_size``
-    are skipped with neutral partials, so whatever page the table maps
-    there (typically the null page 0) never reaches the combine. Returns
-    (B, 1, H, Dv), equal to ``flash_decode`` on the gathered lanes with
-    ``block_k=page_size``."""
+    """Split-KV decode over a paged cache: logical page j of slot b is
+    physical page ``tables[b, j]``. q (B, 1, H, Dk); k_pages/v_pages (P,
+    page_size, KV, D); tables (B, NP) int32; pos (B,). Only the pages that
+    hold a visible key are read, so whatever page the table maps past
+    ``pos // page_size`` (typically the null page 0) never reaches the
+    result. Returns (B, 1, H, Dv), equal to ``flash_decode`` on the
+    gathered lanes with ``block_k=page_size``."""
     B, Sq, H, Dk = q.shape
     ps, KV = k_pages.shape[1], k_pages.shape[2]
     if Sq != 1:
@@ -308,7 +426,8 @@ def flash_decode_paged(q, k_pages, v_pages, tables, pos, *, page_size: int,
                                           window, sm_scale, page_size)
     _check_cuda("flash_decode_paged", q, k_pages, v_pages, decode=True)
     tables = tables.to(torch.int32).reshape(B, NP).contiguous()
-    return _decode_call("flash_decode_paged", q, k_pages, v_pages, tables,
-                        pos, S=0, NP=NP, block_k=page_size, ns=NP,
-                        kv_len=NP * page_size, window=window,
-                        sm_scale=sm_scale)
+    qp, kp, vp = pad_head_dim(Dk, q, k_pages, v_pages)
+    out = _decode_call("flash_decode_paged", qp, kp, vp, tables, pos, S=0,
+                       NP=NP, page=page_size, lane_len=NP * page_size,
+                       window=window, sm_scale=sm_scale)
+    return _unpad(out, Dk)

@@ -183,6 +183,26 @@ def combine_kv_splits(m, l, acc):
     return out.reshape(B, 1, KV * G, acc.shape[-1])
 
 
+def combine_live_splits(m, l, acc, pos, window: int, chunk: int,
+                        kv_len: int):
+    """:func:`combine_kv_splits` over the chunks of ``chunk`` keys that
+    hold a key visible from ``pos`` (B,) in lanes of ``kv_len`` keys; the
+    others are taken as neutral whatever they hold (the decode kernel
+    does not write them). -> (B, 1, H, Dv) fp32."""
+    ns = m.shape[2]
+    pos = pos.to(m.device).long()[:, None]
+    j = torch.arange(ns, device=m.device)[None]
+    lo, hi = j * chunk, torch.minimum((j + 1) * chunk, pos + 1).clamp(
+        max=kv_len)
+    if window > 0:
+        lo = torch.maximum(lo, pos - window + 1)
+    live = (lo < hi)[:, None, :, None]                     # (B,1,ns,1)
+    m = torch.where(live, m, NEG_INF)
+    l = torch.where(live, l, 0.0)
+    acc = torch.where(live[..., None], acc, 0.0)
+    return combine_kv_splits(m, l, acc)
+
+
 def flash_decode_ref(q, k, v, pos, window: int, sm_scale: float,
                      block_k: int):
     m, l, acc = decode_partials_ref(q, k, v, pos, window, sm_scale, block_k)

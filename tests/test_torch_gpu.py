@@ -7,7 +7,9 @@ run on a GPU machine with
 Tolerances: fp32 1e-5 (sums in another order); bf16 and fp16 1e-2 on
 outputs of magnitude <~ 1 (bf16 eps is 2^-8, and the kernel rounds p per
 tile where the plain version rounds it once); sampled indices, two calls
-of one kernel, and the paged vs contiguous decode are exact. The flash backward (dq, dk/dv) against its
+of one kernel, and the paged vs contiguous decode are exact. Head dims
+other than 32, 64 and 128 (padded by the wrappers) are held as those
+are. The flash backward (dq, dk/dv) against its
 plain version: max |d| <= 1e-5 (fp32), 1e-2 (fp16) or 2e-2 (bf16) of
 the output's largest magnitude; both round ds and p to the input dtype
 per element, but sum them in another order, and ds carries the
@@ -275,30 +277,97 @@ def test_flash_backward_plain_version_gradcheck(dev):
     assert torch.autograd.gradcheck(PlainFlash.apply, (q, k, v))
 
 
+# slots, pages of 16 a lane, positions: a short lane, the serve shape (1 K
+# lanes at positions 64..1000) and a long lane of 8 K keys (many chunks)
+LANES = {"short": (4, 8, [0, 15, 77, 127]),
+         "serve": (8, 64, [64, 200, 333, 480, 512, 700, 871, 1000]),
+         "long": (8, 512, [0, 511, 1024, 2047, 4095, 5000, 7777, 8191])}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("block_k,window", [(8, 0), (16, 7), (512, 0)])
 @pytest.mark.parametrize("H,KV,D", [(8, 2, 64), (20, 20, 128), (16, 2, 128),
-                                    (12, 1, 128)])      # G = 4, 1, 8, 12
-def test_flash_decode_kernels(dev, dtype, block_k, window, H, KV, D):
+                                    (12, 1, 128), (16, 1, 64)])
+# G = 4, 1, 8, 12, 16
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_flash_decode_kernels(dev, dtype, block_k, window, H, KV, D, lane):
     g = torch.Generator(device=dev).manual_seed(1)
-    B, ps, NP = 4, 16, 8
+    ps = 16
+    B, NP, positions = LANES[lane]
     P = B * NP + 1
     q = _rn(g, dev, dtype, B, 1, H, D)
     kp, vp = _rn(g, dev, dtype, P, ps, KV, D), _rn(g, dev, dtype, P, ps, KV, D)
     tables = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
         B, NP).to(torch.int32)
-    pos = torch.tensor([0, 15, 77, 127], dtype=torch.int32, device=dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     lk, lv = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
     scale = 1 / math.sqrt(D)
+    K.reset_launches()
     got = fa.flash_decode(q, lk, lv, pos, window=window, block_k=block_k)
     want = ref.flash_decode_ref(q, lk, lv, pos, window, scale, block_k)
     paged = fa.flash_decode_paged(q, kp, vp, tables, pos, page_size=ps,
                                   window=window)
     torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_decode": 1, "flash_decode_paged": 1,
+                          "flash_decode_combine": 2}
     assert (got.float() - want.float()).abs().max() <= TOL[dtype]
     assert torch.equal(paged, fa.flash_decode(q, lk, lv, pos, window=window,
                                               block_k=ps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True])
+def test_flash_decode_is_deterministic(dev, dtype, paged):
+    """Two calls at the long lane agree bit for bit: the combine merges the
+    chunks in order, with no atomics."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, NP, positions = LANES["long"]
+    ps, H, KV, D = 16, 32, 8, 64
+    P = B * NP + 1
+    q = _rn(g, dev, dtype, B, 1, H, D)
+    kp, vp = _rn(g, dev, dtype, P, ps, KV, D), _rn(g, dev, dtype, P, ps, KV, D)
+    tables = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
+        B, NP).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    if paged:
+        call = lambda: fa.flash_decode_paged(q, kp, vp, tables, pos,
+                                             page_size=ps, window=3000)
+    else:
+        lk, lv = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+        call = lambda: fa.flash_decode(q, lk, lv, pos, window=3000)
+    assert torch.equal(call(), call())
+
+
+@pytest.mark.parametrize("window", [0, 150])
+def test_decode_combine_kernel_reads_only_live_chunks(dev, window):
+    """The combine kernel against its plain version on partials whose dead
+    chunks hold NaN (the split kernel does not write them)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, KV, ns, G, D, chunk = 4, 2, 6, 3, 64, 64
+    kv_len = ns * chunk - 10
+    pos = torch.tensor([0, 63, 200, 373], dtype=torch.int32, device=dev)
+    m = torch.randn(B, KV, ns, G, generator=g, device=dev)
+    l = torch.rand(B, KV, ns, G, generator=g, device=dev) + 0.5
+    acc = torch.randn(B, KV, ns, G, D, generator=g, device=dev)
+    j = torch.arange(ns, device=dev)[None]
+    lo = j * chunk
+    hi = torch.minimum((j + 1) * chunk, pos[:, None].long() + 1).clamp(
+        max=kv_len)
+    if window:
+        lo = torch.maximum(lo, pos[:, None].long() - window + 1)
+    dead = ~(lo < hi)[:, None, :, None]
+    m, l = m.masked_fill(dead, float("nan")), l.masked_fill(dead, float("nan"))
+    acc = acc.masked_fill(dead[..., None], float("nan"))
+    want = ref.combine_live_splits(m, l, acc, pos, window, chunk, kv_len)
+    for dtype in (torch.float32, torch.bfloat16):
+        K.reset_launches()
+        got = fa.decode_combine(m, l, acc, pos, chunk=chunk, kv_len=kv_len,
+                                window=window, dtype=dtype)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {"flash_decode_combine": 1}
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.to(dtype).float()).abs().max() <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -318,20 +387,79 @@ def test_slot_gather_kernel_exact(dev, dtype, S, C, V):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("D", [16, 48, 96, 256])
+@pytest.mark.parametrize("D", [16, 24, 48, 96, 192, 256])
 def test_unsupported_head_dim_is_refused_by_name(dev, D):
-    """A head dim outside 32, 64, 128 raises NotImplementedError naming
-    it, in every entry; the MLA layout (Dk != Dv) keeps its own message."""
-    x = torch.zeros(1, 4, 2, D, device=dev, dtype=torch.bfloat16)
-    pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match=f"head_dim {D} "):
-        fa.flash_attention(x, x, x)
-    with pytest.raises(NotImplementedError, match=f"head_dim {D} "):
-        fa.flash_decode(x[:, :1], x, x, pos)
-    mla_v = torch.zeros(1, 4, 2, 32 if D != 32 else 64, device=dev,
-                        dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        fa.flash_attention(x, x, mla_v)
+    """A head dim the kernels are not built for: up to 128 every flash
+    entry computes it (padded to the next of 32, 64, 128) within its
+    tolerance of the plain version, in bf16 and fp32; above 128 every
+    entry raises NotImplementedError naming it and the MLA slice. The MLA
+    layout (Dk != Dv) keeps its own message."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    if D > 128:
+        x = torch.zeros(1, 4, 2, D, device=dev, dtype=torch.bfloat16)
+        pos = torch.zeros(1, dtype=torch.int32, device=dev)
+        lse, di = torch.zeros(1, 4, 2, device=dev), torch.zeros(1, 4, 2,
+                                                                device=dev)
+        refused = f"head_dim {D} .*MLA slice"
+        with pytest.raises(NotImplementedError, match=refused):
+            fa.flash_attention(x, x, x)
+        with pytest.raises(NotImplementedError, match=refused):
+            fa.flash_attention_dq(x, x, x, lse, x, di, q_off=pos, sm_scale=1.)
+        with pytest.raises(NotImplementedError, match=refused):
+            fa.flash_attention_dkv(x, x, x, lse, x, di, q_off=pos,
+                                   sm_scale=1.)
+        with pytest.raises(NotImplementedError, match=refused):
+            fa.flash_decode(x[:, :1], x, x, pos)
+        with pytest.raises(NotImplementedError, match=refused):
+            fa.flash_decode_paged(x[:, :1], x, x,
+                                  torch.zeros(1, 1, dtype=torch.int32,
+                                              device=dev), pos, page_size=4)
+        mla_v = torch.zeros(1, 4, 2, 64, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="MLA"):
+            fa.flash_attention(x, x, mla_v)
+        return
+    for dtype in (torch.bfloat16, torch.float32):
+        B, S, H, KV, win = 2, 100, 8, 2, 33
+        q, k, v = (_rn(g, dev, dtype, B, S, H, D), _rn(g, dev, dtype, B, S, KV, D),
+                   _rn(g, dev, dtype, B, S, KV, D))
+        do = _rn(g, dev, dtype, B, S, H, D)
+        q_off = fa._positions([0, 7], B, dev)
+        scale = 1 / math.sqrt(D)
+        K.reset_launches()
+        out, lse = fa.flash_attention(q, k, v, q_off=q_off, window=win,
+                                      return_lse=True)
+        want, want_lse = ref.flash_attention_ref(q, k, v, q_off, win, scale,
+                                                 True)
+        assert out.shape == want.shape and out.is_contiguous()
+        assert (out.float() - want.float()).abs().max() <= TOL[dtype]
+        assert (lse - want_lse).abs().max() <= 1e-3
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=q_off,
+                                       window=win, sm_scale=scale)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, q_off, win,
+                                            scale)
+        for name, a, b in zip(("dq", "dk", "dv"), grads, wants):
+            assert a.shape == b.shape and a.dtype == dtype, name
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
+        ps, NP = 16, 8
+        pos = torch.tensor([5, 127], dtype=torch.int32, device=dev)
+        kp, vp = (_rn(g, dev, dtype, B * NP + 1, ps, KV, D) for _ in range(2))
+        tables = (torch.randperm(B * NP, generator=g, device=dev) + 1).reshape(
+            B, NP).to(torch.int32)
+        lk, lv = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+        got = fa.flash_decode(q[:, :1], lk, lv, pos, window=win)
+        want = ref.flash_decode_ref(q[:, :1], lk, lv, pos, win, scale, 128)
+        assert (got.float() - want.float()).abs().max() <= TOL[dtype]
+        paged = fa.flash_decode_paged(q[:, :1], kp, vp, tables, pos,
+                                      page_size=ps, window=win)
+        assert torch.equal(paged, fa.flash_decode(q[:, :1], lk, lv, pos,
+                                                  window=win, block_k=ps))
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["flash_attention"] == 1
+        assert K.LAUNCHES["flash_attention_dq"] == 1
+        assert K.LAUNCHES["flash_attention_dkv"] == 1
+        assert K.LAUNCHES["flash_decode_paged"] == 1
+        assert K.LAUNCHES["flash_decode"] == 2
 
 
 def test_group_size_limits_name_the_path(dev):
