@@ -14,7 +14,8 @@ and the CUDA toolkit. In order:
    fails unless each one's SASS holds wgmma products (HGMMA) and TMA
    loads (UTMALDG) and no atomics, and unless the forward's six spill
    nothing; then those of the 36 split-KV decode kernels (dtype x D x
-   rows a block) and the 3 combine kernels.
+   rows a block) and the 3 combine kernels, and of the sampler's 6
+   (dtype x 16-byte or scalar loads).
 3. Kernels: calls each kernel's wrapper at the serve path's full-width
    llama3.2-1b shapes in bf16, holds it to its plain PyTorch version on
    the same inputs, and times the kernel, the plain version and one
@@ -40,7 +41,10 @@ and the CUDA toolkit. In order:
    positions up to 8191: many chunks a lane), timed beside SDPA; every
    flash entry at head dims 16, 48 and 96 (zero-padded by the wrappers to
    32, 64, 128) in bf16; the sampler, bit for bit, at qwen1.5-4b's vocab
-   of 151,936 as at llama3.2-1b's 128,256.
+   of 151,936 as at llama3.2-1b's 128,256, at the decode's (8, 1, V) and
+   the prefill tail's (1, 32, V), each shown by ``torch.profiler`` to be
+   one operation on the card and timed beside an argmax of its selected
+   rows, with its plan (CL blocks a slot, the slice of each).
 4. Engine: serves 16 requests through the port's ``Engine`` on full
    llama3.2-1b (16 layers, random weights from a seeded generator, bf16):
    paged KV cache, fused sampling, chunked prefill, a shared-prompt
@@ -257,10 +261,30 @@ HOPPER = re.compile(r"fwd_hopper|bwd_d(?:q|kv)_hopper")
 HOPPER_KERNELS = 18     # forward, dq, dk/dv x bf16, fp16 x D 32, 64, 128
 
 
+def _ptxas(log: str, pattern: str):
+    """(mangled name, {registers, spill_stores, spill_loads}) of each kernel
+    whose name matches ``pattern`` in a ``ptxas -v`` log."""
+    lines = log.splitlines()
+    for n, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m and re.search(pattern, m.group(1)):
+            props = " ".join(lines[n + 1:n + 4])
+            yield m.group(1), dict(
+                registers=int(re.search(r"Used (\d+) registers", props).group(1)),
+                spill_stores=int(re.search(r"(\d+) bytes spill stores", props)
+                                 .group(1)),
+                spill_loads=int(re.search(r"(\d+) bytes spill loads", props)
+                                .group(1)))
+
+
+def _dtype_label(mangled: str) -> str:
+    return ("bf16" if "bfloat16" in mangled else "fp16" if "__half" in mangled
+            else "fp32")
+
+
 def _kernel_label(mangled: str) -> str:
     """``bwd_dq_hopper<bf16, 64>`` from a mangled kernel name."""
-    ty = "bf16" if "bfloat16" in mangled else "fp16"
-    return (f"{HOPPER.search(mangled).group(0)}<{ty}, "
+    return (f"{HOPPER.search(mangled).group(0)}<{_dtype_label(mangled)}, "
             f"{re.search(r'Li(\d+)E', mangled).group(1)}>")
 
 
@@ -269,18 +293,8 @@ def hopper_build_report(K):
     registers and spills (``ptxas -v``), and in their SASS the wgmma
     products (HGMMA), the TMA loads (UTMALDG) and no atomics (ATOM*,
     RED). The forward kernels must not spill."""
-    log = K.build_log("flash_attention").splitlines()
-    regs = {}
-    for n, line in enumerate(log):
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m and HOPPER.search(m.group(1)):
-            props = " ".join(log[n + 1:n + 4])
-            regs[_kernel_label(m.group(1))] = dict(
-                registers=int(re.search(r"Used (\d+) registers", props).group(1)),
-                spill_stores=int(re.search(r"(\d+) bytes spill stores", props)
-                                 .group(1)),
-                spill_loads=int(re.search(r"(\d+) bytes spill loads", props)
-                                .group(1)))
+    regs = {_kernel_label(name): r for name, r in _ptxas(
+        K.build_log("flash_attention"), HOPPER.pattern)}
     print("flash tensor-core kernels, ptxas: " + json.dumps(regs))
     sass = subprocess.run(
         [str(Path(K._nvcc()).parent / "cuobjdump"), "-sass",
@@ -318,29 +332,31 @@ def decode_build_report(K):
     """Registers and spills (``ptxas -v``) of every decode instantiation
     (dtype x head dim x rows a block) and of the combine kernel. Returns
     {label: {registers, spill_stores, spill_loads}}."""
-    log = K.build_log("flash_attention").splitlines()
     out = {}
-    for n, line in enumerate(log):
-        m = re.search(r"Compiling entry function '(\w*decode\w*)'", line)
-        if not m:
-            continue
-        name = m.group(1)
-        ty = ("bf16" if "bfloat16" in name else "fp16" if "__half" in name
-              else "fp32")
-        ints = re.findall(r"Li(\d+)E", name)
+    for name, r in _ptxas(K.build_log("flash_attention"), "decode"):
         kind = "decode_combine_kernel" if "combine" in name else "decode_kernel"
-        props = " ".join(log[n + 1:n + 4])
-        out[f"{kind}<{', '.join([ty] + ints)}>"] = dict(
-            registers=int(re.search(r"Used (\d+) registers", props).group(1)),
-            spill_stores=int(re.search(r"(\d+) bytes spill stores", props)
-                             .group(1)),
-            spill_loads=int(re.search(r"(\d+) bytes spill loads", props)
-                            .group(1)))
+        ints = re.findall(r"Li(\d+)E", name)
+        out[f"{kind}<{', '.join([_dtype_label(name)] + ints)}>"] = r
     spills = sum(r["spill_stores"] + r["spill_loads"] for r in out.values())
     print(f"flash decode kernels, ptxas ({len(out)} kernels, {spills} bytes "
           f"of spills): " + json.dumps(out))
     if not out:
         _fail("no decode kernel in the flash_attention build log")
+    return out
+
+
+def sampler_build_report(K):
+    """Registers and spills (``ptxas -v``) of the sampler's six kernels
+    (dtype x 16-byte or scalar loads, the W in ``sample_kernel<T, W>``).
+    Returns {label: {registers, spill_stores, spill_loads}}."""
+    out = {}
+    for name, r in _ptxas(K.build_log("slot_gather"), "sample_kernel"):
+        width = re.search(r"Li(\d+)E", name).group(1)
+        out[f"sample_kernel<{_dtype_label(name)}, {width}>"] = r
+    print("slot_gather_sample kernels, ptxas: " + json.dumps(out))
+    if len(out) != 6:
+        _fail(f"expected 6 sampler kernels in the slot_gather build log, "
+              f"found {len(out)}")
     return out
 
 
@@ -530,10 +546,25 @@ def _sms(torch, dev) -> int:
         torch.device(dev)).multi_processor_count if str(dev) != "cpu" else 132
 
 
+def _device_ops(torch, fn) -> int:
+    """Operations one call of ``fn`` runs on the card (kernels, copies and
+    sets, counted by ``torch.profiler``), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev="cuda"):
     """slot_gather_sample at (S_, C, V) on the card held bit for bit to
     its plain version (half the slots greedy, half at temperature 0.8),
-    and timed beside it and beside an argmax of the selected rows."""
+    shown to be one operation on the card, and timed beside it and beside
+    an argmax of the selected rows. The plan (CL blocks a slot, slice)
+    comes with it."""
     tiny = torch.finfo(torch.float32).tiny
     lg = torch.randn(S_, C, V, generator=g, device=dev).to(torch.bfloat16)
     sel = torch.randint(0, C, (S_,), generator=g, device=dev)
@@ -545,15 +576,19 @@ def _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev="cuda"):
     gr, sr = ref.slot_gather_sample_ref(lg, oh, T, nz)
     if not (torch.equal(gk, gr) and torch.equal(sk, sr)):
         _fail(f"slot_gather_sample ({S_}, {C}, {V}) differs from plain")
+    call = lambda: sg.slot_gather_sample(lg, oh, T, nz)  # noqa: E731
+    ops = None if dev == "cpu" else _device_ops(torch, call)
+    if ops not in (None, 1):
+        _fail(f"slot_gather_sample ({S_}, {C}, {V}) runs {ops} operations "
+              f"on the card, not one kernel")
     row = lg[torch.arange(S_, device=dev), sel]
     return dict(
         name="slot_gather_sample", src="src/repro_torch/csrc/slot_gather.cu",
         replaces="src/repro/kernels/slot_gather.py:37",
         err=float(max((gk - gr).abs().max().item(),
                       (sk - sr).abs().max().item())),
-        ms=_median_ms(lambda: sg.slot_gather_sample(lg, oh, T, nz),
-                      flush=flush),
-        host_ms=_host_ms(lambda: sg.slot_gather_sample(lg, oh, T, nz)),
+        plan=sg.sampler_plan(S_, C, V, _sms(torch, dev)), device_ops=ops,
+        ms=_median_ms(call, flush=flush), host_ms=_host_ms(call),
         plain_ms=_median_ms(lambda: ref.slot_gather_sample_ref(lg, oh, T, nz),
                             flush=flush),
         library_ms=_median_ms(lambda: torch.argmax(row, -1), flush=flush),
@@ -572,16 +607,22 @@ def kernel_phase(torch, ref, fa, sg, flush):
     rows = list(flash.values())
 
     # --- slot_gather_sample: decode (8, 1, V) and the prefill tail (1, 32, V)
+    print("slot_gather_sample clusters the card holds at once, by blocks a "
+          "cluster: " + json.dumps({cl: sg.clusters_at_once(cl)
+                                    for cl in (4, 8, 16)}))
+    zeros = torch.zeros(8, dtype=torch.int32, device=dev)
+    print("timer floor: one trivial kernel (8 int32 set to 0) timed as the "
+          f"kernels are, ms: {_median_ms(zeros.zero_, flush=flush)}")
     for V in (128256, 151936):
         for S_, C in ((8, 1), (1, 32)):
             r = _sampler_check(torch, ref, sg, g, S_, C, V, flush)
             if (V, C) == (128256, 1):
                 rows.append(r)
-            else:
-                print(f"slot_gather_sample ({S_}, {C}, {V}), equal to plain: "
-                      + json.dumps({k_: r[k_] for k_ in (
-                          "ms", "plain_ms", "library_ms", "host_ms",
-                          "bound")}))
+            print(f"slot_gather_sample ({S_}, {C}, {V}), equal to plain, "
+                  f"library = argmax of these selected rows: " + json.dumps(
+                      {k_: r[k_] for k_ in ("plan", "device_ops", "ms",
+                                            "plain_ms", "library_ms",
+                                            "host_ms", "bound")}))
 
     # --- the flash kernels at head dim 128, G = 1
     g = torch.Generator(device=dev).manual_seed(128)
@@ -1728,6 +1769,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     hopper_build_report(K)
     decode_build_report(K)
+    sampler_build_report(K)
 
     l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, ref, fa, sg, flush=l2.zero_)

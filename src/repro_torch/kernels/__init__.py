@@ -21,6 +21,7 @@ registers, shared memory and spills from the build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,7 +49,8 @@ SIGNATURES = {
         "flash_decode_combine": [_P] * 5 + [_I] * 9 + [_P],
     },
     "slot_gather": {
-        "slot_gather_sample": [_P] * 8 + [_I] * 5 + [_P],
+        "slot_gather_sample": [_P] * 6 + [_I] * 6 + [_P],
+        "slot_gather_max_clusters": [_I, _P],
     },
     "exchange": {
         "chunk_sum": [_P, _P, _I, _L, _I, _P],
@@ -165,6 +167,12 @@ def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index`` (the plans size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def on_cpu(*ts: torch.Tensor) -> bool:

@@ -48,7 +48,6 @@ rows, dq 16, dk/dv 32, on the CUDA cores) and in the decode G <= 16.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -306,11 +305,6 @@ def decode_plan(lane_len: int, page: int, sm_count: int):
     return chunk, -(-lane_len // chunk)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _decode_call(name, q, k, v, tables, pos, *, S, NP, page, lane_len,
                  window, sm_scale):
     """The split kernel's partials in one fp32 workspace, then the combine
@@ -319,7 +313,7 @@ def _decode_call(name, q, k, v, tables, pos, *, S, NP, page, lane_len,
     B, _, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
-    chunk, ns = decode_plan(lane_len, page, _sm_count(q.device.index or 0))
+    chunk, ns = decode_plan(lane_len, page, K.sm_count(q.device.index or 0))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     n_ml = B * KV * ns * G
     ws = torch.empty(n_ml * (2 + D), dtype=torch.float32, device=q.device)

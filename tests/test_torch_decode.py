@@ -229,7 +229,7 @@ def host_side(monkeypatch):
     monkeypatch.setattr(K, "on_cpu", lambda *ts: False)
     monkeypatch.setattr(K, "load", lambda name: lib)
     monkeypatch.setattr(K, "stream_ptr", lambda t: None)
-    monkeypatch.setattr(tfa, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(K, "sm_count", lambda index: SMS)
 
     def no_read(*a, **k):
         raise _NoRead("a tensor's value was read on the host")

@@ -370,21 +370,58 @@ def test_decode_combine_kernel_reads_only_live_chunks(dev, window):
         assert (got.float() - want.to(dtype).float()).abs().max() <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,C,V", [(8, 1, 128256), (1, 32, 128256),
-                                   (8, 1, 151936), (1, 32, 151936),
-                                   (3, 5, 1000)])
-def test_slot_gather_kernel_exact(dev, dtype, S, C, V):
-    g = torch.Generator(device=dev).manual_seed(2)
+def _sampler_inputs(g, dev, dtype, S, C, V, case):
+    """Logits, one-hot, temperatures and noise for one sampler case:
+    random rows; equal maxima on both sides of every slice boundary of the
+    plan (temperature 1, no noise, so both argmaxes tie); a slot whose
+    selected row is all -inf and one whose row is half -inf; or logits and
+    noise as views whose row start is off a 16-byte boundary."""
     lg = _rn(g, dev, dtype, S, C, V)
-    oh = torch.nn.functional.one_hot(
-        torch.randint(0, C, (S,), generator=g, device=dev), C).float()
+    sel = torch.randint(0, C, (S,), generator=g, device=dev)
+    oh = torch.nn.functional.one_hot(sel, C).float()
     T = torch.rand(S, generator=g, device=dev) + 0.05
     u = torch.rand(S, V, generator=g, device=dev).clamp_min(1e-30)
     nz = -torch.log(-torch.log(u))
+    if case == "ties":
+        _, sl = sg.sampler_plan(S, C, V, K.sm_count(0))
+        lg = torch.zeros_like(lg)
+        for b in range(sl, V, sl):
+            lg[..., b - 1:b + 1] = 3.0
+        T, nz = torch.ones_like(T), torch.zeros_like(nz)
+    elif case == "neg_inf":
+        slots = torch.arange(S, device=dev)
+        lg[0, sel[0]] = -float("inf")
+        lg[slots[1:], sel[1:], : V // 2] = -float("inf")
+    elif case == "unaligned":
+        lg = torch.empty(lg.numel() + 1, dtype=dtype, device=dev)[1:] \
+            .view(S, C, V).copy_(lg)
+        nz = torch.empty(nz.numel() + 1, device=dev)[1:].view(S, V).copy_(nz)
+    return lg, oh, T, nz
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "neg_inf", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("S,C,V", [(8, 1, 128256), (1, 32, 128256),
+                                   (8, 1, 151936), (1, 32, 151936),
+                                   (3, 5, 1000),
+                                   (2, 3, 1537)])      # V % 8 != 0: scalar loads
+def test_slot_gather_kernel_exact(dev, dtype, S, C, V, case):
+    """The one-launch sampler equals the plain version bit for bit, on
+    every load path (16-byte and scalar), and two calls agree."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    lg, oh, T, nz = _sampler_inputs(g, dev, dtype, S, C, V, case)
+    K.reset_launches()
     got = sg.slot_gather_sample(lg, oh, T, nz)
+    again = sg.slot_gather_sample(lg, oh, T, nz)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"slot_gather_sample": 2}
     want = ref.slot_gather_sample_ref(lg, oh, T, nz)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if case == "ties" and sg.sampler_plan(S, C, V, K.sm_count(0))[0] > 1:
+        first = sg.sampler_plan(S, C, V, K.sm_count(0))[1] - 1
+        assert (got[0] == first).all() and (got[1] == first).all()
 
 
 @pytest.mark.parametrize("D", [16, 24, 48, 96, 192, 256])
