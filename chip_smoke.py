@@ -106,8 +106,32 @@ and the CUDA toolkit. In order:
    bucket shape that the LM, AlexNet, GoogLeNet and VGG-16 runs reported,
    ``quant_fp16`` / ``dequant_fp16`` (whole buckets, chunks and single
    shards, at either end of a bucket, as a ring hop casts them) and
-   ``fused_rs_update`` equal their plain versions bit for bit, and so
+   ``fused_rs_update`` equal their plain versions bit for bit (at the LM's
+   and AlexNet's buckets also on the overlap's fp32 receive), and so
    does ``fused_sgd`` at every leaf and shard shape of the convnets.
+8. Async, overlap and hier training (the paper's §4 and §3.2; it runs
+   after phase 6, before phase 7's checks), on gloo ranks sharing the
+   card, full-width models with random weights from a seeded
+   generator: ``easgd`` at alpha 0.5 and tau 1, 2, 4 and
+   ``asgd`` at tau 2 on full AlexNet (k = 2, 128 images a rank, the
+   centre on ``asa16``, ``fused_sgd`` every step), 8 steps each, each
+   printed with images/s, the mean local and sync step (its exchange and
+   staging) and the engine's wire bytes a step; the exchange kernels must
+   launch on the sync steps alone, as the bucket plan predicts, and a
+   local step must move no staged byte. ``overlap="buckets"`` (2
+   microbatches) beside the microbatched sharded step on full AlexNet (2
+   x 64 images, 8 steps) and full llama3.2-1b (2 x (2 x 1024) tokens, 3
+   steps), each with its step split, the exposed exchange (the timer's
+   exchange and the host's wait) against the collectives' whole time,
+   staged MB, rate and launches (m x the RS kernels, one
+   fused_rs_update a bucket). ``hier16`` sharded and ``hier`` unsharded
+   on full AlexNet, 4 ranks as 2 pods of 2, 32 images a rank, 4 steps,
+   the cross-pod leg's time apart. At the smoke config (fp32, cuDNN
+   off): ``asgd`` at tau 1 equals BSP at k x the lr (rtol 1e-5, atol
+   1e-6), an ``easgd`` tau-2 run saved at step 3 and resumed to 6 equals
+   the unbroken run bit for bit, the overlapped step equals the
+   microbatched one and k = 2 equals k = 1, and a ``hier`` step of 4
+   ranks on quarters equals a group of one on the whole batch (1e-6).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -1243,7 +1267,8 @@ def int8_kernel_rows(torch, ref, qz, flush, row, dev="cuda"):
     return launches
 
 
-def wire_check(torch, ref, shapes, label, weight_decay, dev="cuda"):
+def wire_check(torch, ref, shapes, label, weight_decay, dev="cuda",
+               overlap_m: int = 0):
     """The wire and update kernels at every bucket shape of a training run,
     bit for bit against their plain versions: per (padded, shard) bucket,
     quant_fp16 of the (k, shard) chunks, of the first shard and of the last
@@ -1252,7 +1277,9 @@ def wire_check(torch, ref, shapes, label, weight_decay, dev="cuda"):
     (shard,) row at either end, and fused_rs_update of the (k, shard) fp16
     receive (with the run's momentum and weight decay over a mixed 0/1
     decay mask). The values reach past fp16's range, so overflow to inf is
-    exercised."""
+    exercised. With ``overlap_m`` > 0 also dequant_fp16 of the (k, shard)
+    receive and fused_rs_update of an fp32 (k, shard) receive at scale
+    1 / (k m): the overlap's accumulated chunks."""
     from repro_torch.kernels import fused_rs_update as fru
     from repro_torch.kernels import quantize as qz
     k = 2
@@ -1285,11 +1312,26 @@ def wire_check(torch, ref, shapes, label, weight_decay, dev="cuda"):
             qz.dequant_fp16(recv.reshape(-1)),
             ref.dequant_fp16_ref(recv.reshape(-1)))
         ok["fused_rs_update"] = all(same(a, b) for a, b in zip(got, want))
+        if overlap_m:
+            ok["dequant_fp16 (k, shard)"] = same(qz.dequant_fp16(recv),
+                                                 ref.dequant_fp16_ref(recv))
+            acc = x * 0.01
+            got = fru.fused_rs_update(acc, ps, ms_, lr, wd_mask=mask,
+                                      scale=1 / (k * overlap_m),
+                                      momentum=0.9,
+                                      weight_decay=weight_decay)
+            want = ref.fused_rs_update_ref(acc, ps, ms_, mask, lr, 0.9, False,
+                                           1 / (k * overlap_m), weight_decay,
+                                           None)
+            ok["fused_rs_update (fp32 receive)"] = all(
+                same(a, b) for a, b in zip(got, want))
+            del acc
         if not all(ok.values()):
             _fail(f"{label} bucket {padded}: a wire or update kernel differs "
                   f"from its plain version: {ok}")
         del x, recv, ps, ms_, mask, got, want
-    print(f"{label}: the fp16 wire kernels and fused_rs_update equal their "
+    print(f"{label}: the fp16 wire kernels and fused_rs_update"
+          f"{' (fp16 and fp32 receives)' if overlap_m else ''} equal their "
           f"plain versions bit for bit at all {len(shapes)} bucket shapes "
           f"(padded, shard): {json.dumps(shapes)}")
 
@@ -1353,11 +1395,14 @@ def _predicted_launches(rsplan, n_leaves: int, ex: str, sharded: bool,
     ``fused``: the sharded runs take the fused_rs_update kernel (the
     default where the parameters are on the card)."""
     nb, ns = rsplan.num_buckets, len(rsplan.small)
+    ex = {"hier16": "asa16", "hier": "asa"}.get(ex, ex)   # the pod's wire
     asa16 = ex == "asa16"
     if ex == "ring16":   # k - 1 hops of each half, fp16 out and in per hop
         hops = 2 * (k - 1) * nb
         per_step = {"quant_fp16": hops, "dequant_fp16": hops}
         per_step["fused_sgd"] = ns + nb if sharded else n_leaves
+    elif not sharded and ex == "asa":   # fp32: the sum alone
+        per_step = {"chunk_sum": nb, "fused_sgd": n_leaves}
     elif not sharded:    # asa16: fp16 RS out, the sum, fp16 AG
         per_step = {"quant_fp16": 2 * nb, "dequant_fp16": nb,  # out and in,
                     "chunk_sum": nb, "fused_sgd": n_leaves}   # every leaf
@@ -1736,6 +1781,499 @@ def lm_train_phase(device="cuda:0", smoke=False):
     return dict(m["launches"]), [tuple(b) for b in m["bucket_shapes"]]
 
 
+# Phase 8: async (EASGD/ASGD), overlap and hier training. The runs: the
+# async plans on full AlexNet, 8 steps each, the centre on asa16; AlexNet
+# and llama3.2-1b with overlap="buckets" and with the microbatched sharded
+# step beside it; AlexNet on 4 ranks as 2 pods of 2.
+ASYNC_RUNS = (("easgd", 1), ("easgd", 2), ("easgd", 4), ("asgd", 2))
+ASYNC_STEPS = 8
+ASYNC_RTOL, ASYNC_ATOL = 1e-5, 1e-6   # asgd at tau 1 vs BSP at k x lr, as
+#                                       the reference's tests/test_engine.py
+OVERLAP_STEPS = 8
+OVERLAP_MB = 2          # microbatches of every overlap run
+LM_OVERLAP_STEPS = 3
+HIER_PODS, HIER_K = 2, 4
+HIER_STEPS = 4
+HIER_BATCH = 32         # images a rank
+
+
+def _async_launches(rsplan, n_leaves: int, steps: int, tau: int):
+    """An async asa16 run: fused_sgd on every leaf every step; the centre
+    exchange (fp16 RS out, the sum, fp16 AG out and in) on each sync step
+    alone."""
+    nb = rsplan.num_buckets
+    n_sync = sum(1 for i in range(steps) if (i + 1) % tau == 0)
+    return {"fused_sgd": n_leaves * steps, "quant_fp16": 2 * nb * n_sync,
+            "chunk_sum": nb * n_sync, "dequant_fp16": nb * n_sync}
+
+
+def _overlap_launches(rsplan, n_leaves: int, steps: int, m: int,
+                      fused: bool):
+    """An overlapped asa16 run: per microbatch and bucket the fp16 RS out
+    and, on the fused route, its receive dequantized to accumulate (else
+    its chunk_sum); once a step and bucket the update (fused_rs_update,
+    or fused_sgd on the shard) and the fp16 parameter AG out and in."""
+    nb, ns = rsplan.num_buckets, len(rsplan.small)
+    if fused:
+        per_step = {"quant_fp16": nb * (m + 1), "dequant_fp16": nb * (m + 1),
+                    "fused_rs_update": nb, "fused_sgd": ns}
+    else:
+        per_step = {"quant_fp16": nb * (m + 1), "chunk_sum": nb * m,
+                    "dequant_fp16": nb, "fused_sgd": nb + ns}
+    return {n: c * steps for n, c in per_step.items() if c}
+
+
+def _ms(split: dict) -> dict:
+    return {p: v * 1e3 for p, v in split.items()}
+
+
+def _kind_ms(by_kind: dict) -> dict:
+    """The loop's by_kind means, in ms and MB, with the whole step's ms."""
+    return {kind: {"steps": v["steps"],
+                   "step_ms": (v["fwd_bwd"] + v["exchange"]
+                               + v["update"]) * 1e3,
+                   "fwd_bwd_ms": v["fwd_bwd"] * 1e3,
+                   "exchange_ms": v["exchange"] * 1e3,
+                   "update_ms": v["update"] * 1e3,
+                   "stage_ms": v["stage_s"] * 1e3,
+                   "wire_ms": v["wire_s"] * 1e3,
+                   "staged_mb": v["staged_bytes"] / 1e6}
+            for kind, v in by_kind.items()}
+
+
+def _max_dp(torch, a, b) -> float:
+    from repro_torch.tree import leaves
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def _run_report(torch, rep, launches, predicted, cuda) -> dict:
+    """A run's rates, device split, transport counters and launches, with
+    the host's mean wait for a batch and its mean wall time a steady step
+    (the loop's ``train/data_time_s`` and ``train/step_time_s``)."""
+    h_data, h_step = (rep.metrics["train/data_time_s"],
+                      rep.metrics["train/step_time_s"])
+    return dict(
+        steps=rep.steps, losses=rep.losses,
+        data_wait_ms=h_data.sum / max(h_data.count, 1) * 1e3,
+        step_wall_ms=h_step.sum / max(h_step.count, 1) * 1e3,
+        images_per_s=rep.steady_examples_per_s,
+        tokens_per_s=rep.steady_tokens_per_s,
+        first_step_s=rep.first_step_time, phase_ms=_ms(rep.phase_s),
+        staged_mb_per_step=rep.staged_bytes / 1e6,
+        stage_ms_per_step=rep.stage_s * 1e3,
+        wire_ms_per_step=rep.wire_s * 1e3,
+        exposed_wait_ms_per_step=rep.exposed_s * 1e3,
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9 if cuda
+                     else None),
+        launches=launches, predicted=predicted)
+
+
+def _phase8_rank(rank, k, out_dir, device, smoke):
+    """One of the two ranks of phase 8's async and overlap runs."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import bsp, exchanger
+    from repro_torch.data.synthetic import ImageSource
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.launch.train import (rank_loader, recipe, set_fp32_math,
+                                          write_rank_batches)
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, sgd_momentum, warmup_cosine
+    from repro_torch.train.engine import TrainPlan, plan_wire
+    from repro_torch.train.loop import train
+    from repro_torch.tree import leaves
+
+    set_fp32_math()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    quiet = lambda *a: None
+    out = {"rank": rank}
+
+    def run(model, cfg, files, plan, steps, opt_lr, predicted):
+        """``predicted``: the launches, or a function of the trained
+        parameters that gives them."""
+        opt, lr = opt_lr
+        loader = rank_loader(cfg, files, dev, steps, seed=rank)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        st, rep = train(model, opt, lr, loader, plan=plan, num_steps=steps,
+                        log_every=steps, seed=0, print_fn=quiet)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        loader.stop()
+        if callable(predicted):
+            predicted = predicted(st["params"])
+        del st
+        res = _run_report(torch, rep, launches, predicted, cuda)
+        res["by_kind"] = _kind_ms(rep.by_kind)
+        return res
+
+    # --- EASGD/ASGD on full AlexNet, the centre on asa16
+    cfg = (get_smoke_config if smoke else get_config)("alexnet")
+    model = build_model(cfg, dev)
+    shapes = build_model(cfg, "meta").init(None)
+    rsplan = exchanger.make_rs_plan(shapes, k)
+    n_leaves = len(leaves(shapes))
+    batch = 4 if smoke else 128
+    files = write_rank_batches(cfg, rank, k, batch, 4,
+                               os.path.join(out_dir, f"data{rank}"))
+    out["async"] = {}
+    for algo, tau in ASYNC_RUNS:
+        plan = TrainPlan(algo=algo, tau=tau, exchanger="asa16")
+        res = run(model, cfg, files, plan, ASYNC_STEPS,
+                  recipe(cfg, ASYNC_STEPS),
+                  _async_launches(rsplan, n_leaves, ASYNC_STEPS, tau))
+        res["wire_bytes_per_step"] = plan_wire(plan, shapes, k)[
+            "bytes_per_step"]
+        res["tau"] = tau
+        out["async"][f"{algo} tau={tau}"] = res
+    # --- the overlap on full AlexNet beside the microbatched sharded step
+    out["overlap"] = {}
+    for name, kw in (("overlap", dict(overlap="buckets")),
+                     ("sharded", dict(sharded_update=True))):
+        plan = TrainPlan(exchanger="asa16", microbatches=OVERLAP_MB, **kw)
+        pred = (_overlap_launches(rsplan, n_leaves, OVERLAP_STEPS,
+                                  OVERLAP_MB, cuda) if plan.overlap
+                else _predicted_launches(rsplan, n_leaves, "asa16", True,
+                                         OVERLAP_STEPS, cuda, k))
+        out["overlap"][name] = run(model, cfg, files, plan, OVERLAP_STEPS,
+                                   recipe(cfg, OVERLAP_STEPS), pred)
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # --- the smoke config, fp32 asa, cuDNN off (its fp32 weight gradient
+    # errs by ~1 % of the scale, differently per batch; see the c2 line)
+    solo = dist.new_group([0])
+    scfg = get_smoke_config("alexnet")
+    smodel = build_model(scfg, dev)
+    sfiles = write_rank_batches(scfg, rank, k, 4, 6,
+                                os.path.join(out_dir, f"smoke{rank}"))
+    sgd = sgd_momentum(momentum=0.9, weight_decay=5e-4,
+                       fused_kernel=fs.fused_sgd)
+    with torch.backends.cudnn.flags(enabled=False):
+        # asgd at tau 1 from a synced start against BSP at k x the lr
+        finals = {}
+        for name, plan, lr in (
+                ("asgd", TrainPlan(algo="asgd", exchanger="asa"), 0.01),
+                ("bsp", TrainPlan(exchanger="asa"), 0.01 * k)):
+            loader = rank_loader(scfg, sfiles, dev, 3, seed=rank)
+            st, _ = train(smodel, sgd, constant(lr), loader, plan=plan,
+                          num_steps=3, log_every=0, seed=0, print_fn=quiet)
+            loader.stop()
+            finals[name] = st
+        worst = max(((x.float() - y.float()).abs()
+                     - (ASYNC_ATOL + ASYNC_RTOL * y.float().abs())).max()
+                    .item() for x, y in zip(leaves(finals["asgd"]["center"]),
+                                            leaves(finals["bsp"]["params"])))
+        out["asgd_vs_bsp"] = {
+            "max_abs_diff": _max_dp(torch, finals["asgd"]["center"],
+                                    finals["bsp"]["params"]),
+            "worst_excess": worst,
+            "snapped": _max_dp(torch, finals["asgd"]["params"],
+                               finals["asgd"]["center"]) == 0.0}
+        # resume inside a tau-2 window: saved at 3, resumed to 6
+        plan = TrainPlan(algo="easgd", tau=2, exchanger="asa16")
+        ck = os.path.join(out_dir, "async_ckpt")
+        states = []
+        for kw in (dict(num_steps=6), dict(num_steps=3, ckpt_path=ck,
+                                           ckpt_every=3),
+                   dict(num_steps=6, resume_from=ck)):
+            loader = rank_loader(scfg, sfiles, dev, 6, seed=rank)
+            st, rep = train(smodel, sgd, constant(0.01), loader, plan=plan,
+                            log_every=0, seed=0, print_fn=quiet, **kw)
+            loader.stop()
+            states.append((st, rep.steps))
+        (a, na), (_, n3), (b, nb) = states
+        out["async_resume"] = dict(
+            steps=[na, n3, nb],
+            bitwise_equal=all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for part in ("params", "opt", "center")
+                for x, y in zip(leaves(a[part]), leaves(b[part]))))
+        # the overlapped step against the microbatched one (k=2) and
+        # against a group of one on the whole batch (k=1)
+        src = ImageSource(scfg.image_size, scfg.num_classes)
+        full = {n_: torch.from_numpy(v).to(dev)
+                for n_, v in src.batch(4, 4321).items()}
+        half = {n_: v[rank * 2:(rank + 1) * 2] for n_, v in full.items()}
+        asa = exchanger.get_exchanger("asa")
+        gen7 = lambda: torch.Generator(device=dev).manual_seed(7)
+        s0 = bsp.init_sharded_train_state(smodel, sgd, gen7())
+        K.reset_launches()
+        ovl, _ = bsp.make_bsp_step(smodel, sgd, asa, constant(0.01),
+                                   overlap="buckets",
+                                   microbatches=OVERLAP_MB)(s0, half)
+        out["overlap_smoke_launches"] = dict(K.LAUNCHES)
+        mb, _ = bsp.make_bsp_step(smodel, sgd, asa, constant(0.01),
+                                  sharded_update=True,
+                                  microbatches=OVERLAP_MB)(s0, half)
+        out["overlap_vs_mb_max_abs_dp"] = _max_dp(torch, ovl["params"],
+                                                  mb["params"])
+        if rank == 0:
+            s1 = bsp.init_sharded_train_state(smodel, sgd, gen7(), solo)
+            one, _ = bsp.make_bsp_step(
+                smodel, sgd, asa, constant(0.01), group=solo,
+                overlap="buckets", microbatches=OVERLAP_MB)(s1, full)
+            out["overlap_k2_vs_k1_max_abs_dp"] = _max_dp(
+                torch, ovl["params"], one["params"])
+            out["overlap_max_abs_step"] = _max_dp(torch, one["params"],
+                                                  s1["params"])
+    del smodel
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # --- full llama3.2-1b with and without the overlap, 2 x (2 x 1024)
+    # tokens a rank, asa16, the fused RS tail
+    lcfg = (get_smoke_config if smoke else get_config)("llama3.2-1b")
+    lmodel = build_model(lcfg, dev)
+    lbatch, lseq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
+    lfiles = write_rank_batches(lcfg, rank, k, lbatch, LM_OVERLAP_STEPS,
+                                os.path.join(out_dir, f"lm{rank}"), seq=lseq)
+    L, m = lcfg.num_layers, OVERLAP_MB
+    flash = dict(flash_attention=(2 if lcfg.remat else 1) * L * m *
+                 LM_OVERLAP_STEPS, flash_attention_dq=L * m *
+                 LM_OVERLAP_STEPS, flash_attention_dkv=L * m *
+                 LM_OVERLAP_STEPS)
+    out["lm"] = {}
+    lm_opt = sgd_momentum(momentum=0.9, weight_decay=1e-4,
+                          fused_kernel=fs.fused_sgd)
+    def lm_predicted(overlap):
+        def of(params):
+            lplan = exchanger.make_rs_plan(params, k)
+            n = len(leaves(params))
+            pred = (_overlap_launches(lplan, n, LM_OVERLAP_STEPS, m, cuda)
+                    if overlap else _predicted_launches(
+                        lplan, n, "asa16", True, LM_OVERLAP_STEPS, cuda, k))
+            return dict(pred, **flash)
+        return of
+
+    for name, kw in (("overlap", dict(overlap="buckets")),
+                     ("sharded", dict(sharded_update=True))):
+        plan = TrainPlan(exchanger="asa16", microbatches=m, **kw)
+        out["lm"][name] = run(
+            lmodel, lcfg, lfiles, plan, LM_OVERLAP_STEPS,
+            (lm_opt, warmup_cosine(0.01, 2, LM_OVERLAP_STEPS)),
+            lm_predicted(plan.overlap))
+    dist.barrier()
+    with open(os.path.join(out_dir, f"p8_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _hier_rank(rank, k, out_dir, device, smoke):
+    """One of the 4 ranks (2 pods of 2) of phase 8's hier runs."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import bsp, exchanger
+    from repro_torch.data.synthetic import ImageSource
+    from repro_torch.launch.train import (rank_loader, recipe, set_fp32_math,
+                                          write_rank_batches)
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+    from repro_torch.tree import leaves
+
+    set_fp32_math()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    out = {"rank": rank}
+    cfg = (get_smoke_config if smoke else get_config)("alexnet")
+    model = build_model(cfg, dev)
+    shapes = build_model(cfg, "meta").init(None)
+    per_pod = k // HIER_PODS
+    rsplan = exchanger.make_rs_plan(shapes, per_pod)
+    n_leaves = len(leaves(shapes))
+    batch = 2 if smoke else HIER_BATCH
+    files = write_rank_batches(cfg, rank, k, batch, 4,
+                               os.path.join(out_dir, f"hier{rank}"))
+    out["runs"] = {}
+    for name, ex, sharded in (("hier16 sharded", "hier16", True),
+                              ("hier", "hier", False)):
+        plan = TrainPlan(exchanger=ex, sharded_update=sharded,
+                         data_axes=("pod", "data"))
+        opt, lr = recipe(cfg, HIER_STEPS)
+        loader = rank_loader(cfg, files, dev, HIER_STEPS, seed=rank)
+        K.reset_launches()
+        _, rep = train(model, opt, lr, loader, plan=plan,
+                       num_steps=HIER_STEPS, log_every=HIER_STEPS, seed=0,
+                       pods=HIER_PODS, print_fn=lambda *a: None)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        loader.stop()
+        res = _run_report(torch, rep, launches, _predicted_launches(
+            rsplan, n_leaves, ex, sharded, HIER_STEPS, False, per_pod),
+            cuda)
+        res["cross_pod_wire_ms_per_step"] = rep.lead_wire_s * 1e3
+        out["runs"][name] = res
+    # one hier fp32 step of the 4 ranks on quarters against a group of one
+    # on the whole batch, at the smoke config with cuDNN off
+    solo = dist.new_group([0])
+    tr = exchanger.make_transport(("pod", "data"), HIER_PODS)
+    scfg = get_smoke_config("alexnet")
+    smodel = build_model(scfg, dev)
+    src = ImageSource(scfg.image_size, scfg.num_classes)
+    full = {n_: torch.from_numpy(v).to(dev)
+            for n_, v in src.batch(k, 999).items()}
+    mine = {n_: v[rank:rank + 1] for n_, v in full.items()}
+    opt, _ = recipe(scfg, 1)
+    params = smodel.init(torch.Generator(device=dev).manual_seed(7))
+    state = {"params": params, "opt": opt.init(params), "step": 0}
+    with torch.backends.cudnn.flags(enabled=False):
+        four, _ = bsp.make_bsp_step(smodel, opt,
+                                    exchanger.get_exchanger("hier"),
+                                    constant(0.01), tr)(state, mine)
+        if rank == 0:
+            one, _ = bsp.make_bsp_step(smodel, opt,
+                                       exchanger.get_exchanger("asa"),
+                                       constant(0.01), solo)(state, full)
+            out["k4_vs_k1_max_abs_dp"] = _max_dp(torch, four["params"],
+                                                 one["params"])
+            out["k4_vs_k1_max_abs_step"] = _max_dp(torch, one["params"],
+                                                   params)
+    dist.barrier()
+    with open(os.path.join(out_dir, f"hier_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _check_runs(label, ranks, key, want_steps):
+    """Finite losses of the expected length and launches equal to the
+    prediction, on every rank, for each run under ``key``."""
+    for rk in ranks:
+        for name, rr in rk[key].items():
+            bad = [x for x in rr["losses"] if not math.isfinite(x)]
+            if len(rr["losses"]) != want_steps or bad:
+                _fail(f"{label} {name} rank {rk['rank']}: losses "
+                      f"{rr['losses']}")
+            if rr["launches"] != rr["predicted"]:
+                _fail(f"{label} {name} rank {rk['rank']}: launches "
+                      f"{rr['launches']} != predicted {rr['predicted']}")
+
+
+def _sum_launches(runs) -> dict:
+    total = {}
+    for rr in runs:
+        for name, c in rr["launches"].items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+_SHOW = ("images_per_s", "tokens_per_s", "first_step_s", "step_wall_ms",
+         "data_wait_ms", "phase_ms",
+         "exposed_wait_ms_per_step", "wire_ms_per_step", "stage_ms_per_step",
+         "staged_mb_per_step", "peak_mem_gb", "launches", "predicted",
+         "losses")
+
+
+def async_phase(device="cuda:0", smoke=False):
+    """Phase 8: spawns the 2 ranks of the async and overlap runs, then the
+    4 of the hier runs, and checks what they report; returns the launches
+    of each path (rank 0's, each run counted from zero)."""
+    import tempfile
+
+    from repro_torch.launch.train import run_ranks
+    k = 2
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        run_ranks(_phase8_rank, k, (td, device, smoke), backend="gloo")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(Path(td, f"p8_rank{r}.json").read_text())
+                 for r in range(k)]
+        t1 = time.perf_counter()
+        run_ranks(_hier_rank, HIER_K, (td, device, smoke), backend="gloo")
+        hwall = time.perf_counter() - t1
+        hranks = [json.loads(Path(td, f"hier_rank{r}.json").read_text())
+                  for r in range(HIER_K)]
+    print(f"async and overlap phase: {k} gloo ranks on {device}, "
+          f"{wall:.1f}s; hier phase: {HIER_K} ranks as {HIER_PODS} pods, "
+          f"{hwall:.1f}s")
+    _check_runs("async", ranks, "async", ASYNC_STEPS)
+    _check_runs("AlexNet overlap", ranks, "overlap", OVERLAP_STEPS)
+    _check_runs("LM overlap", ranks, "lm", LM_OVERLAP_STEPS)
+    _check_runs("hier", hranks, "runs", HIER_STEPS)
+    r0 = ranks[0]
+    for rk in ranks:
+        for name, rr in rk["async"].items():
+            local = rr["by_kind"].get("local")
+            if (rr["tau"] > 1) != (local is not None) or (
+                    local is not None and any(local[c] != 0.0 for c in (
+                        "staged_mb", "stage_ms", "wire_ms"))):
+                _fail(f"async {name} rank {rk['rank']}: a local step moved "
+                      f"the transport's counters: {rr['by_kind']}")
+    for name, rr in r0["async"].items():
+        print(f"async run ({name}, asa16 centre), {ASYNC_STEPS} steps: "
+              + json.dumps({key: rr[key] for key in (
+                  "images_per_s", "first_step_s", "step_wall_ms",
+                  "data_wait_ms", "by_kind",
+                  "wire_bytes_per_step", "launches", "predicted",
+                  "losses")}))
+    a = r0["asgd_vs_bsp"]
+    print(f"asgd tau=1 vs BSP at k x lr (smoke config, fp32 asa, 3 steps): "
+          f"max |dc| {a['max_abs_diff']}, worst excess over rtol "
+          f"{ASYNC_RTOL} / atol {ASYNC_ATOL}: {a['worst_excess']}; workers "
+          f"snapped to the centre: {a['snapped']}")
+    for rk in ranks:
+        if not (rk["asgd_vs_bsp"]["worst_excess"] <= 0.0
+                and rk["asgd_vs_bsp"]["snapped"]):
+            _fail(f"rank {rk['rank']}: asgd at tau 1 differs from BSP at "
+                  f"k x lr: {rk['asgd_vs_bsp']}")
+        r = rk["async_resume"]
+        if r["steps"] != [6, 3, 6] or not r["bitwise_equal"]:
+            _fail(f"rank {rk['rank']}: the easgd run resumed inside its "
+                  f"tau window differs from the unbroken one: {r}")
+    print("async resume check (easgd tau 2, saved at 3, resumed to 6): "
+          + json.dumps(r0["async_resume"]))
+    for group in ("overlap", "lm"):
+        for name, rr in r0[group].items():
+            print(f"{'AlexNet' if group == 'overlap' else 'LM'} run "
+                  f"({name}, asa16, {OVERLAP_MB} microbatches): "
+                  + json.dumps({key: rr[key] for key in _SHOW}))
+    dp = max(rk["overlap_vs_mb_max_abs_dp"] for rk in ranks)
+    dk = r0["overlap_k2_vs_k1_max_abs_dp"]
+    print(f"overlap step (smoke config, fp32 asa): vs the microbatched "
+          f"sharded step max |dp| {dp}, k=2 vs k=1 max |dp| {dk} (bound "
+          f"{K_TOL}; the step moved parameters by up to "
+          f"{r0['overlap_max_abs_step']}); launches "
+          + json.dumps(r0["overlap_smoke_launches"]))
+    if not (dp <= K_TOL and dk <= K_TOL):
+        _fail(f"the overlapped step differs: vs microbatched {dp}, k=2 vs "
+              f"k=1 {dk} > {K_TOL}")
+    h0 = hranks[0]
+    for name, rr in h0["runs"].items():
+        print(f"hier run ({name}, 2 pods x 2, {HIER_BATCH} a rank): "
+              + json.dumps({key: rr[key] for key in _SHOW + (
+                  "cross_pod_wire_ms_per_step",)}))
+    dh = h0["k4_vs_k1_max_abs_dp"]
+    print(f"hier step (smoke config, fp32), 4 ranks on quarters vs k=1 on "
+          f"the batch: max |dp| {dh} (bound {K_TOL}; the step moved "
+          f"parameters by up to {h0['k4_vs_k1_max_abs_step']})")
+    if not dh <= K_TOL:
+        _fail(f"hier: 4 ranks and a group of one differ by {dh} > {K_TOL}")
+    return {"easgd_train": _sum_launches(r0["async"].values()),
+            "overlap_train": _sum_launches(r0["overlap"].values()),
+            "lm_overlap_train": _sum_launches(r0["lm"].values()),
+            "hier_train": _sum_launches(h0["runs"].values())}
+
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1805,11 +2343,14 @@ def main() -> int:
         by_path[f"{arch}_train"], conv_shapes[arch] = train_phase(arch=arch)
     by_path["int8_roundtrip"] = int8_launches
     by_path["lm_train"], lm_buckets = lm_train_phase()
+    by_path.update(async_phase())
     # the kernels of every training path, held to their plain versions at
-    # the shapes that path gave them
-    wire_check(torch, ref, lm_buckets, "LM", 1e-4)
+    # the shapes that path gave them (the overlap's fp32 accumulated
+    # receives into fused_rs_update at the LM's and AlexNet's buckets)
+    wire_check(torch, ref, lm_buckets, "LM", 1e-4, overlap_m=OVERLAP_MB)
     for arch, (buckets, sgd_shapes) in conv_shapes.items():
-        wire_check(torch, ref, buckets, arch, 5e-4)
+        wire_check(torch, ref, buckets, arch, 5e-4,
+                   overlap_m=OVERLAP_MB if arch == "alexnet" else 0)
         sgd_check(torch, ref, sgd_shapes, arch)
         torch.cuda.empty_cache()
 

@@ -20,7 +20,20 @@ that has ``rs_fused_update``, the reduce-scatter hands its un-summed
 None: on when the parameters are on the card, the counterpart of the JAX
 package turning the Pallas kernel on where kernels compile).
 
-``overlap="buckets"`` is not ported yet (ROADMAP queue 1).
+``overlap="buckets"`` (the paper's §3.2 overlap of the exchange with
+backprop) implies the sharded update: with ``microbatches`` >= 2,
+microbatch i-1's bucket reduce-scatter is in flight while microbatch
+i's forward and backward are queued and run
+(:meth:`Exchanger.reduce_scatter_start`: the all-to-alls start on a
+helper thread once their device -> host copies are done), and is waited
+for after them. Every microbatch's gradient crosses the wire (m times
+the reduce-scatter volume); the shards accumulate in fp32, and on the
+fused route the raw chunks do and ``fused_rs_update`` runs once at the
+end with scale 1/(k m). The timer's ``exchange`` is then the exposed
+part, and the transport's ``wire_s`` the collectives' whole time.
+
+On a two-level transport (``hier``) the raw (fused) tail is refused:
+the shard is summed across pods before the update.
 """
 from __future__ import annotations
 
@@ -29,9 +42,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.exchanger import (Exchanger, RSPlan, Transport,
-                                        as_transport, make_rs_plan,
-                                        param_wire_dtype)
+from repro_torch.core.exchanger import (RAW_SINGLE_LEVEL, Exchanger, RSPlan,
+                                        Transport, _from_wire, as_transport,
+                                        make_rs_plan, param_wire_dtype)
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import flatten, leaves, unflatten
@@ -86,7 +99,8 @@ def init_train_state(model: Model, optimizer: Optimizer, gen):
 def init_sharded_train_state(model: Model, optimizer: Optimizer, gen,
                              group=None, bucket_bytes: int = 0):
     """Train state for the RS -> update -> AG path: this rank's fp32
-    master shard and flat optimizer state of every bucket (1/k of each),
+    master shard and flat optimizer state of every bucket (1/k of each;
+    on a two-level transport k and the shard's position are the pod's),
     replicated flat state for the small leaves, and the full compute
     params, which each step rebuilds from the wire-dtype all-gather (so
     the gather's rounding never feeds back into the update)."""
@@ -112,6 +126,14 @@ def init_sharded_train_state(model: Model, optimizer: Optimizer, gen,
 def _split_batch(batch: dict, m: int) -> list[dict]:
     return [{k: v[i * (v.shape[0] // m):(i + 1) * (v.shape[0] // m)]
              for k, v in batch.items()} for i in range(m)]
+
+
+def mean_metrics(metrics: dict, tr: Transport) -> dict:
+    """The metrics' mean over every rank: one all-reduce of a vector."""
+    names = sorted(metrics)
+    v = torch.stack([metrics[n].float().reshape(()) for n in names])
+    v = tr.all_reduce(v) / tr.world_k
+    return {n: v[i] for i, n in enumerate(names)}
 
 
 def shard_wd_mask(plan: RSPlan, b, start: int, device) -> torch.Tensor:
@@ -141,12 +163,12 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
     splits the batch and accumulates fp32 gradients before one exchange.
     ``sharded_update=True`` (subgd only) takes the RS -> update -> AG path
     on a state from :func:`init_sharded_train_state` with the same
-    ``bucket_bytes``."""
+    ``bucket_bytes``; ``overlap="buckets"`` implies it (module
+    docstring)."""
     if overlap not in (None, "buckets"):
         raise ValueError(f"unknown overlap mode {overlap!r}")
     if overlap:
-        raise NotImplementedError("overlap='buckets' is not ported yet "
-                                  "(ROADMAP queue 1: overlap='buckets')")
+        sharded_update = True
     if scheme not in ("subgd", "awagd"):
         raise ValueError(f"unknown scheme {scheme!r}")
     if sharded_update and scheme != "subgd":
@@ -156,23 +178,31 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
                            or optimizer.flat_init is None):
         raise ValueError(f"optimizer {optimizer.name!r} has no flat_init/"
                          "flat_update; cannot shard the update")
+    tr: Transport = as_transport(group)
     raw_ok = exchanger.supports_raw and optimizer.rs_fused_update is not None
+    if sharded_update and fuse_rs_update and tr.lead is not None:
+        raise ValueError(f"fuse_rs_update with {exchanger.name!r} on a "
+                         f"two-level transport: {RAW_SINGLE_LEVEL}")
     if sharded_update and fuse_rs_update and not raw_ok:
         raise ValueError(
             f"fuse_rs_update needs an all-to-all strategy and an optimizer "
             f"with rs_fused_update (got {exchanger.name!r} / "
             f"{optimizer.name!r})")
-    tr: Transport = as_transport(group)
+    raw_ok = raw_ok and tr.lead is None
+    overlapped = overlap == "buckets" and microbatches > 1
     masks: dict = {}
+
+    def one_grad(ls, treedef, mb, gen):
+        ps = [l.detach().requires_grad_(True) for l in ls]
+        loss, metrics = model.loss_fn(unflatten(treedef, ps), mb, gen)
+        gs = torch.autograd.grad(loss, ps)
+        return loss.detach(), metrics["aux"].detach(), gs
 
     def grad_of(params, batch, gen):
         ls, treedef = flatten(params)
 
         def one(mb):
-            ps = [l.detach().requires_grad_(True) for l in ls]
-            loss, metrics = model.loss_fn(unflatten(treedef, ps), mb, gen)
-            gs = torch.autograd.grad(loss, ps)
-            return loss.detach(), metrics["aux"].detach(), gs
+            return one_grad(ls, treedef, mb, gen)
 
         if microbatches <= 1:
             loss, aux, gs = one(batch)
@@ -187,12 +217,6 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
         m = float(microbatches)
         return ({"loss": loss_sum / m, "aux": aux_sum / m},
                 unflatten(treedef, [a / m for a in acc]))
-
-    def pmean(metrics):
-        names = sorted(metrics)
-        v = torch.stack([metrics[n].float().reshape(()) for n in names])
-        v = tr.all_reduce(v) / tr.k
-        return {n: v[i] for i, n in enumerate(names)}
 
     def step_unsharded(state, batch, gen, mark):
         params = state["params"]
@@ -215,19 +239,76 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
             mark("exchange")
         return new_params, new_opt, metrics
 
+    def overlapped_rs(params, batch, gen, mark, plan, use_raw):
+        """Microbatch i's forward and backward are queued while microbatch
+        i-1's reduce-scatter is in flight; returns (metrics, fp32 sums over
+        the microbatches of the shards, or of the raw chunks, and of the
+        small leaves' means). Only the last reduce-scatter is exposed."""
+        ls, treedef = flatten(params)
+        acc = accf = pending = None
+        loss_s = aux_s = 0.0
+
+        def absorb(pending):
+            """Add one microbatch's reduce-scatter to the sums, a bucket at
+            a time (one bucket's fp32 copy of the raw chunks at once)."""
+            nonlocal acc, accf
+            res = pending.finish()
+            parts = res["chunks" if use_raw else "shards"]
+            scales = res.get("scales") or [None] * len(parts)
+            if acc is None:
+                acc = [None] * len(parts)
+            for i in range(len(parts)):
+                part = _from_wire(parts[i]) if use_raw else parts[i]
+                parts[i] = None
+                if scales[i] is not None:              # int8 wire
+                    part = part * scales[i][:, None]
+                acc[i] = part if acc[i] is None else acc[i].add_(part)
+            accf = res["full"] if accf is None else [
+                a + f for a, f in zip(accf, res["full"])]
+
+        for mb in _split_batch(batch, microbatches):
+            loss, aux, gs = one_grad(ls, treedef, mb, gen)
+            mark("fwd_bwd")
+            if pending is not None:
+                absorb(pending)
+                mark("exchange")
+            pending = exchanger.reduce_scatter_start(
+                unflatten(treedef, list(gs)), tr, plan=plan, raw=use_raw)
+            del gs
+            mark("exchange")
+            loss_s, aux_s = loss_s + loss, aux_s + aux
+        absorb(pending)
+        mark("exchange")
+        m = float(microbatches)
+        return {"loss": loss_s / m, "aux": aux_s / m}, acc, accf
+
     def step_sharded(state, batch, gen, mark):
         params = state["params"]
         plan = make_rs_plan(params, tr.k, bucket_bytes)
         dev = _device_of(params)
         use_raw = (raw_ok and dev.type == "cuda" if fuse_rs_update is None
                    else bool(fuse_rs_update))
-        metrics, grads = grad_of(params, batch, gen)
-        mark("fwd_bwd")
         lr = lr_fn(state["step"])
-        res, _ = exchanger.reduce_scatter(grads, tr, plan=plan, raw=use_raw)
-        mark("exchange")
-        if use_raw:
-            scales = res["scales"] or [None] * plan.num_buckets
+        scales = [None] * plan.num_buckets
+        scale = 1.0 / plan.k
+        if overlapped:
+            metrics, acc, accf = overlapped_rs(params, batch, gen, mark,
+                                               plan, use_raw)
+            m = float(microbatches)
+            res = {"full": [a / m for a in accf]}
+            if use_raw:
+                res["chunks"] = acc
+                scale = 1.0 / (plan.k * m)
+            else:
+                res["shards"] = [a / m for a in acc]
+        else:
+            metrics, grads = grad_of(params, batch, gen)
+            mark("fwd_bwd")
+            res, _ = exchanger.reduce_scatter(grads, tr, plan=plan,
+                                              raw=use_raw)
+            mark("exchange")
+            if use_raw and res["scales"]:
+                scales = res["scales"]
         new_master, new_bstates = [], []
         for bi, b in enumerate(plan.buckets):
             key = (plan.shapes, bi, tr.rank, dev)
@@ -238,7 +319,7 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
             st = state["opt"]["buckets"][bi]
             if use_raw:
                 p_new, st_new = optimizer.rs_fused_update(
-                    res["chunks"][bi], p_sh, st, lr, masks[key], 1.0 / plan.k,
+                    res["chunks"][bi], p_sh, st, lr, masks[key], scale,
                     scales[bi])
             else:
                 p_new, st_new = optimizer.flat_update(
@@ -272,7 +353,7 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
             timer.start()
         mark = timer.mark if timer is not None else (lambda phase: None)
         new_params, new_opt, metrics = body(state, batch, gen, mark)
-        metrics = pmean(metrics)
+        metrics = mean_metrics(metrics, tr)
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}, metrics)
 

@@ -1,5 +1,6 @@
-"""Training launcher: the paper's BSP training of its convnets (AlexNet,
-GoogLeNet, VGG-16), and of the decoder LMs, on k ranks.
+"""Training launcher: the paper's BSP and async (EASGD/ASGD) training of
+its convnets (AlexNet, GoogLeNet, VGG-16), and of the decoder LMs, on k
+ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
         --ranks 2 --exchanger asa16 --sharded-update --batch 128 --steps 20
@@ -12,6 +13,17 @@ GoogLeNet, VGG-16), and of the decoder LMs, on k ranks.
         --sharded-update --ckpt /path/ckpt --ckpt-every 3
     PYTHONPATH=src python -m repro_torch.launch.train --preset train_lm_bsp \\
         --ranks 2 --steps 300 --resume /path/ckpt --ckpt /path/ckpt
+
+    # async EASGD (center exchange every 2 steps), the exchange overlapped
+    # with backprop, and the two-level hier16 exchange on 2 pods of 2:
+    PYTHONPATH=src python -m repro_torch.launch.train --algo easgd --tau 2
+    PYTHONPATH=src python -m repro_torch.launch.train --overlap buckets \\
+        --microbatches 2 --exchanger asa16
+    PYTHONPATH=src python -m repro_torch.launch.train --ranks 4 --pods 2 \\
+        --exchanger hier16 --sharded-update --batch 32
+    # the JAX package's examples/easgd_async.py sweep (tau 1, 2, 4 at
+    # alpha 0.5, then asgd at tau 2, on asa16):
+    PYTHONPATH=src python -m repro_torch.launch.train --preset easgd_async
 
     # on the CPU, with the kernels' plain versions (a smoke-sized model):
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
@@ -41,6 +53,17 @@ untouched by the loader); momentum SGD 0.9 with weight decay 1e-4 and
 train_lm_bsp`` builds. ``--ckpt`` saves checkpoints (every
 ``--ckpt-every`` steps and at the end; one directory per rank when k > 1)
 and ``--resume`` continues from one.
+
+``--algo easgd|asgd`` trains each rank as an EASGD worker with a center
+exchanged every ``--tau`` steps (``--alpha``: the elastic coefficient).
+``--overlap buckets`` overlaps each microbatch's reduce-scatter with the
+next one's backprop (``--microbatches`` >= 2; it implies the sharded
+update). ``--pods P`` splits the k ranks into P pods of consecutive
+ranks for the two-level exchange (``data_axes=("pod", "data")``; the
+``hier``/``hier16`` strategies). ``--preset easgd_async`` is the JAX
+package's ``examples/easgd_async.py``: the smoke llama3.2-1b at vocab
+256, 8 sequences of 64 tokens a rank, SGD 0.9 without weight decay at
+lr 0.02 (asgd 0.02 / k), its four plans one after the other.
 """
 from __future__ import annotations
 
@@ -63,7 +86,7 @@ from repro_torch.data.synthetic import (ImageSource, LMTokenSource,
 from repro_torch.kernels import fused_sgd as fs
 from repro_torch.models import build_model, count_params
 from repro_torch.models.transformer import layer_kinds
-from repro_torch.optim import sgd_momentum, warmup_cosine
+from repro_torch.optim import constant, sgd_momentum, warmup_cosine
 from repro_torch.train.engine import TrainPlan
 from repro_torch.train.loop import train
 
@@ -95,7 +118,23 @@ def train_lm_bsp_config():
         tie_embeddings=True, scan_layers=True, remat=False)
 
 
-PRESETS = {"train_lm_bsp": train_lm_bsp_config}
+def easgd_async_config():
+    """``examples/easgd_async.py``'s model: the smoke llama3.2-1b at vocab
+    256."""
+    return get_smoke_config("llama3.2-1b").with_overrides(vocab_size=256)
+
+
+PRESETS = {"train_lm_bsp": train_lm_bsp_config,
+           "easgd_async": easgd_async_config}
+# presets that run a sequence of plans: (TrainPlan keywords, constant lr,
+# whether the lr is divided by the ranks) each
+PRESET_RUNS = {
+    "easgd_async": tuple(
+        (dict(algo="easgd", exchanger="asa16", alpha=0.5, tau=tau), 0.02,
+         False) for tau in (1, 2, 4)) + (
+        (dict(algo="asgd", exchanger="asa16", tau=2), 0.02, True),),
+}
+PRESET_BATCH = {"easgd_async": (8, 64)}     # (sequences a rank, tokens)
 
 
 def launch_config(opts):
@@ -176,6 +215,19 @@ def rank_loader(cfg, files, device, steps: int, seed: int):
                           epochs=-(-steps // len(files)), **crop)
 
 
+def plan_from_opts(opts) -> TrainPlan:
+    """The TrainPlan of the launcher's flags."""
+    return TrainPlan(algo=opts["algo"], exchanger=opts["exchanger"],
+                     scheme=opts["scheme"],
+                     sharded_update=opts["sharded_update"],
+                     overlap=opts["overlap"],
+                     microbatches=opts["microbatches"],
+                     bucket_bytes=opts["bucket_bytes"], tau=opts["tau"],
+                     alpha=opts["alpha"],
+                     data_axes=(("pod", "data") if opts["pods"] > 1
+                                else ("data",)))
+
+
 def recipe(cfg, steps: int):
     """(optimizer, lr schedule) of the arch's reference recipe. Every
     convnet takes the JAX package's launcher schedule,
@@ -205,38 +257,62 @@ def _train_rank(rank, k, opts, backend, data_dir):
         torch.cuda.set_device(dev)
     cfg = launch_config(opts)
     model = build_model(cfg, dev)
-    files = write_rank_batches(cfg, rank, k, opts["batch"],
-                               min(opts["steps"], 8),
+    batch, seq = opts["batch"], opts["seq"]
+    files = write_rank_batches(cfg, rank, k, batch, min(opts["steps"], 8),
                                os.path.join(data_dir, f"rank{rank}"),
-                               seq=opts["seq"])
-    loader = rank_loader(cfg, files, dev, opts["steps"], seed=rank)
-    plan = TrainPlan(exchanger=opts["exchanger"], scheme=opts["scheme"],
-                     sharded_update=opts["sharded_update"])
-    opt, lr = recipe(cfg, opts["steps"])
-    try:
-        state, report = train(model, opt, lr, loader, plan=plan,
-                              num_steps=opts["steps"], log_every=5,
-                              ckpt_path=opts["ckpt"],
-                              ckpt_every=opts["ckpt_every"],
-                              resume_from=opts["resume"],
-                              print_fn=print if rank == 0 else
-                              (lambda *a: None))
-    finally:
-        loader.stop()
-    if rank == 0:
-        n = count_params(state["params"])
-        split = ", ".join(f"{p} {s * 1e3:.1f} ms"
-                          for p, s in report.phase_s.items())
-        rate = (f"{report.steady_examples_per_s:.1f} images/s"
-                if cfg.family == "conv" else
-                f"{report.steady_tokens_per_s:.1f} tokens/s")
-        losses = (f"loss {report.losses[0]:.4f} -> {report.losses[-1]:.4f}"
-                  if report.losses else "no steps left to run")
-        print(f"done: {report.steps} steps of {cfg.name} ({n:,} params) on "
-              f"{k} ranks ({backend}, {dev}), {plan.exchanger}"
-              f"{' sharded' if plan.sharded_update else ''}: {rate} steady "
-              f"(first step {report.first_step_time:.2f} s; per step "
-              f"{split}), {losses}")
+                               seq=seq)
+    runs = PRESET_RUNS.get(opts.get("preset")) or ((None, None, False),)
+    for kw, lr0, by_k in runs:
+        plan = TrainPlan(**kw) if kw else plan_from_opts(opts)
+        opt, lr = recipe(cfg, opts["steps"])
+        if lr0 is not None:      # the preset's own recipe
+            opt = sgd_momentum(momentum=0.9, weight_decay=0.0,
+                               fused_kernel=fs.fused_sgd)
+            lr = constant(lr0 / k if by_k else lr0)
+        loader = rank_loader(cfg, files, dev, opts["steps"], seed=rank)
+        try:
+            state, report = train(model, opt, lr, loader, plan=plan,
+                                  num_steps=opts["steps"], log_every=5,
+                                  ckpt_path=opts["ckpt"],
+                                  ckpt_every=opts["ckpt_every"],
+                                  resume_from=opts["resume"],
+                                  pods=opts["pods"],
+                                  print_fn=print if rank == 0 else
+                                  (lambda *a: None))
+        finally:
+            loader.stop()
+        if rank == 0:
+            _report(cfg, plan, state, report, k, backend, dev, opts["pods"])
+
+
+def _plan_label(plan: TrainPlan, pods: int) -> str:
+    label = plan.exchanger
+    if plan.is_async:
+        label = f"{plan.algo} tau={plan.tau} alpha={plan.alpha} on {label}"
+    if plan.sharded_update:
+        label += " sharded"
+    if plan.overlap:
+        label += f" overlap={plan.overlap}"
+    if plan.microbatches > 1:
+        label += f" microbatches={plan.microbatches}"
+    if pods > 1:
+        label += f" on {pods} pods"
+    return label
+
+
+def _report(cfg, plan, state, report, k, backend, dev, pods) -> None:
+    n = count_params(state["params"])
+    split = ", ".join(f"{p} {s * 1e3:.1f} ms"
+                      for p, s in report.phase_s.items())
+    rate = (f"{report.steady_examples_per_s:.1f} images/s"
+            if cfg.family == "conv" else
+            f"{report.steady_tokens_per_s:.1f} tokens/s")
+    losses = (f"loss {report.losses[0]:.4f} -> {report.losses[-1]:.4f}"
+              if report.losses else "no steps left to run")
+    print(f"done: {report.steps} steps of {cfg.name} ({n:,} params) on "
+          f"{k} ranks ({backend}, {dev}), {_plan_label(plan, pods)}: {rate} "
+          f"steady (first step {report.first_step_time:.2f} s; per step "
+          f"{split}), {losses}")
 
 
 def main(argv=None):
@@ -249,10 +325,28 @@ def main(argv=None):
                          "decoders: 2 layers, d_model 256)")
     ap.add_argument("--exchanger", default="asa16",
                     help="ar | asa | asa16 | asabf16 | asa8 | ring | ring16 "
-                         "| none")
+                         "| hier | hier16 | none")
     ap.add_argument("--scheme", default="subgd", choices=["subgd", "awagd"])
     ap.add_argument("--sharded-update", action="store_true",
                     help="RS -> update -> AG on this rank's 1/k shard")
+    ap.add_argument("--algo", default="bsp", choices=["bsp", "easgd", "asgd"],
+                    help="synchronous BSP, or async EASGD/ASGD workers")
+    ap.add_argument("--tau", type=int, default=1,
+                    help="easgd/asgd: steps between center exchanges")
+    ap.add_argument("--alpha", type=float, default=None,
+                    help="easgd elastic coefficient (default 0.5; asgd is "
+                         "pinned to 1)")
+    ap.add_argument("--overlap", default=None, choices=["buckets"],
+                    help="overlap each microbatch's reduce-scatter with the "
+                         "next one's backprop (implies --sharded-update)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="split each rank's batch and accumulate")
+    ap.add_argument("--bucket-bytes", type=int, default=0,
+                    help="pack leaves into flat buckets of up to this many "
+                         "bytes (0: one bucket a leaf)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="split the ranks into this many pods for the "
+                         "two-level exchange (hier, hier16)")
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--batch", type=int, default=None,
                     help="examples per rank and step (AlexNet 128, "
@@ -271,10 +365,15 @@ def main(argv=None):
                          "versions)")
     args = ap.parse_args(argv)
     try:
-        TrainPlan(exchanger=args.exchanger, scheme=args.scheme,
-                  sharded_update=args.sharded_update)
+        plan_from_opts(vars(args))
     except ValueError as e:
         ap.error(str(e))
+    if args.pods < 1 or args.ranks % args.pods:
+        ap.error(f"--ranks {args.ranks} do not split into --pods "
+                 f"{args.pods}")
+    if args.preset in PRESET_BATCH:
+        batch, args.seq = PRESET_BATCH[args.preset]
+        args.batch = args.batch or batch
     if args.batch is None:
         args.batch = (LM_BATCH if args.preset else
                       CONV_BATCH.get(args.arch, LM_BATCH))

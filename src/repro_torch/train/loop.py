@@ -1,5 +1,6 @@
 """Training loop for one rank: engine step + batch iterable + metrics +
-checkpoints (counterpart of ``repro/train/loop.py``; the bsp plan).
+checkpoints (counterpart of ``repro/train/loop.py``): bsp, easgd and asgd
+plans alike.
 
 Every rank of the process group runs ``train`` on its own share of each
 global batch; the engine's exchanger keeps the replicas in step.
@@ -20,7 +21,8 @@ Losses stay on the device between flushes: one host sync every
 ``log_every`` steps. The first step's wall time (cuDNN's algorithm
 search, the allocator's first allocations) is kept apart as
 ``TrainReport.first_step_time`` and out of ``steady_examples_per_s``.
-Dropout draws from a generator seeded from (seed, step, rank).
+Dropout draws from a generator seeded from (seed, step, rank), and the
+engine gets the global step index (an async plan's tau phase).
 
 Checkpoints (``checkpoint/ckpt.py``): with ``ckpt_path`` the state is
 saved every ``ckpt_every`` steps (0: only at the end) and at the last
@@ -28,8 +30,9 @@ step, keeping ``ckpt_keep`` steps, each rank into its
 ``ckpt.rank_dir``. ``resume_from`` restores the engine-initialised state
 from such a directory and continues to ``num_steps``; it first draws and
 drops the batches the checkpointed run consumed, so a run saved at step
-s and resumed to n takes the same batches, dropout draws and learning
-rates as an unbroken run of n steps.
+s and resumed to n takes the same batches, dropout draws, learning
+rates and (async plans) local and sync steps as an unbroken run of n
+steps. An async state's ``center`` is saved and restored with the rest.
 """
 from __future__ import annotations
 
@@ -62,10 +65,17 @@ class TrainReport:
     # mean seconds per steady step of each phase (fwd_bwd/exchange/update)
     phase_s: dict = field(default_factory=dict)
     # per steady step: the transport's host staging of gloo collectives on
-    # CUDA tensors (bytes copied, copy time) and its collectives' host time
+    # CUDA tensors (bytes copied, copy time), its collectives' host time
+    # (both levels), the host's wait for an overlapped all-to-all, and
+    # the cross-pod leg's collectives alone (two-level transports)
     staged_bytes: float = 0.0
     stage_s: float = 0.0
     wire_s: float = 0.0
+    exposed_s: float = 0.0
+    lead_wire_s: float = 0.0
+    # async plans, per kind of steady step ("local", "sync"): "steps", the
+    # mean seconds of each phase, and the mean transport counters a step
+    by_kind: dict = field(default_factory=dict)
     metrics: Registry | None = None
 
 
@@ -95,15 +105,17 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
           seed: int = 0, log_every: int = 10, state=None,
           ckpt_path: str | None = None, ckpt_every: int = 0,
           ckpt_keep: int = 3, resume_from: str | None = None,
-          print_fn=print) -> tuple[dict, TrainReport]:
+          pods: int = 1, print_fn=print) -> tuple[dict, TrainReport]:
     """``batches``: iterable of this rank's batches (dicts of tensors on
     the model's device, e.g. a ``ParallelLoader``); ``plan`` picks the
     algorithm and its knobs; ``group`` is the process group (None: the
-    default one, or a single rank when none is initialised).
+    default one, or a single rank when none is initialised) or a
+    ``Transport``; ``pods`` splits the ranks for a two-level plan.
     ``ckpt_path``/``ckpt_every``/``ckpt_keep`` save checkpoints and
     ``resume_from`` continues from one (see the module docstring)."""
-    engine = build_engine(plan, model, optimizer, lr_fn, group)
+    engine = build_engine(plan, model, optimizer, lr_fn, group, pods=pods)
     tr = engine.transport
+    rank, k = tr.world_rank, tr.world_k
     dev = model.device
     if state is None:
         state = engine.init_state(torch.Generator(device=dev).manual_seed(
@@ -111,8 +123,7 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
     start_step = 0
     if resume_from:
         state, start_step = restore_for_resume(
-            rank_dir(resume_from, tr.rank, tr.k), state,
-            expect_algo=plan.algo)
+            rank_dir(resume_from, rank, k), state, expect_algo=plan.algo)
     reg = Registry("train")
     c_steps, c_examples = reg.counter("train/steps"), reg.counter(
         "train/examples")
@@ -132,10 +143,12 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
     flush_every = min(log_every, _FLUSH_CAP) if log_every else _FLUSH_CAP
     device_losses, timers = [], []
     phase_sum = {p: 0.0 for p in PHASES}
+    kind_sum: dict = {}
     n_examples = n_tokens = 0
     steady_base_ex = steady_base_tok = 0
     saved_at = None
-    tr_base = (0, 0.0, 0.0)
+    tr_base = (0, 0.0, 0.0, 0.0)
+    lead_base = 0.0
     t0 = t_steady0 = time.perf_counter()
     it = iter(batches)
     for _ in range(start_step):        # the batches the saved run consumed
@@ -148,10 +161,18 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
         h_flush.observe(time.perf_counter() - t_f)
         report.losses.extend(losses)
         device_losses.clear()
-        for tm in timers:
-            for p, s in tm.split_s().items():
+        for tm, kind, moved in timers:
+            split = tm.split_s()
+            for p, s in split.items():
                 h_phase[p].observe(s)
                 phase_sum[p] += s
+            if kind is not None:
+                acc = kind_sum.setdefault(kind, {"steps": 0})
+                acc["steps"] += 1
+                for name, v in list(split.items()) + list(zip(
+                        ("staged_bytes", "stage_s", "wire_s", "exposed_s"),
+                        moved)):
+                    acc[name] = acc.get(name, 0.0) + v
         timers.clear()
         return losses[-1] if losses else None
 
@@ -162,10 +183,13 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
             break
         t_step0 = time.perf_counter()
         timer = PhaseTimer(dev)
+        before = tr.counters()
         state, metrics = engine.step(
-            state, batch, step_generator(seed, i, tr.rank, dev), timer)
+            state, batch, step_generator(seed, i, rank, dev), timer,
+            step_idx=i)
+        moved = [a - b for a, b in zip(tr.counters(), before)]
         device_losses.append(metrics["loss"])
-        b_ex, b_tok = _batch_counts(batch, tr.k)
+        b_ex, b_tok = _batch_counts(batch, k)
         n_examples += b_ex
         n_tokens += b_tok
         c_steps.inc()
@@ -182,10 +206,12 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
             flush()
             t_steady0 = time.perf_counter()
             steady_base_ex, steady_base_tok = n_examples, n_tokens
-            tr_base = (tr.staged_bytes, tr.stage_s, tr.wire_s)
+            tr_base = tr.counters()
+            lead_base = tr.lead.wire_s if tr.lead else 0.0
         else:
             h_step.observe(time.perf_counter() - t_iter0)
-            timers.append(timer)
+            timers.append((timer, (("sync" if engine.is_sync(i) else "local")
+                                   if plan.is_async else None), moved))
         last = i == num_steps - 1
         if log_every and (i % log_every == 0 or last):
             loss = flush() if device_losses else report.losses[-1]
@@ -198,14 +224,14 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
         elif len(device_losses) >= flush_every:
             flush()
         if ckpt_path and ckpt_every and (i + 1) % ckpt_every == 0:
-            save_checkpoint(rank_dir(ckpt_path, tr.rank, tr.k), state,
+            save_checkpoint(rank_dir(ckpt_path, rank, k), state,
                             step=i + 1, algo=plan.algo, keep=ckpt_keep)
             saved_at = i + 1
         report.steps = i + 1
     _sync(dev)
     flush()
     if ckpt_path and report.steps != saved_at:
-        save_checkpoint(rank_dir(ckpt_path, tr.rank, tr.k), state,
+        save_checkpoint(rank_dir(ckpt_path, rank, k), state,
                         step=report.steps, algo=plan.algo, keep=ckpt_keep)
     now = time.perf_counter()
     report.wall_time = now - t0
@@ -217,7 +243,13 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
         report.steady_tokens_per_s = ((n_tokens - steady_base_tok)
                                       / (now - t_steady0))
         report.phase_s = {p: phase_sum[p] / steady_steps for p in PHASES}
-        report.staged_bytes, report.stage_s, report.wire_s = (
-            (now_v - base) / steady_steps for now_v, base in zip(
-                (tr.staged_bytes, tr.stage_s, tr.wire_s), tr_base))
+        (report.staged_bytes, report.stage_s, report.wire_s,
+         report.exposed_s) = ((now_v - base) / steady_steps for now_v, base
+                              in zip(tr.counters(), tr_base))
+        if tr.lead is not None:
+            report.lead_wire_s = (tr.lead.wire_s - lead_base) / steady_steps
+        report.by_kind = {
+            kind: {n: (v if n == "steps" else v / acc["steps"])
+                   for n, v in acc.items()}
+            for kind, acc in kind_sum.items()}
     return state, report

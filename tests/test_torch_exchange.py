@@ -237,9 +237,13 @@ def test_wire_summary_equals_jax(name, param_ag):
 
 def test_strategy_names_cover_the_reference():
     assert set(tex.EXCHANGERS) | set(tex.NOT_PORTED) == set(jex.EXCHANGERS)
-    for name in tex.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tex.get_exchanger(name)
+    assert tex.NOT_PORTED == ()
+    for name in jex.EXCHANGERS:      # every strategy runs: kind and wire
+        got, want = tex.get_exchanger(name), jex.get_exchanger(name)
+        assert got.kind == want.kind
+        assert tex._dtype_name(got.transfer_dtype) == str(
+            jnp.dtype(want.transfer_dtype or jnp.float32))
+    tex.get_exchanger("hier16").exchange(value_tree(0))  # one rank: runs
     assert tex.param_wire_dtype(tex.get_exchanger("asa8")) == torch.float16
     assert tex.param_wire_dtype(tex.get_exchanger("asa")) is None
 

@@ -739,3 +739,18 @@ def test_ring16_exchange_on_the_card(dev, tmp_path):
             np.testing.assert_allclose(got, want, rtol=0, atol=5e-3 * scale)
         assert r["launches"]["quant_fp16"] > 0
         assert r["launches"]["quant_fp16"] == r["launches"]["dequant_fp16"]
+
+
+def test_async_reduce_scatter_on_the_card(dev, tmp_path):
+    """The overlap's staged all-to-all (pinned buffers, the helper
+    thread, ``async_op`` gloo collectives) equals the synchronous
+    reduce-scatter bit for bit on 2 ranks sharing the card."""
+    from repro_torch.launch.train import run_ranks
+    from test_torch_ranks import async_a2a_gpu_worker
+    run_ranks(async_a2a_gpu_worker, 2, (str(tmp_path),))
+    for r in range(2):
+        res = torch.load(tmp_path / f"a2a{r}.pt", weights_only=False)
+        counters = res.pop("counters")
+        assert res and all(res.values()), res
+        staged, _, wire, exposed = counters
+        assert staged > 0 and wire > 0 and exposed >= 0

@@ -131,22 +131,26 @@ def port_model(params, arch="alexnet"):
         loss_fn=lambda p, b, gen=None: tvision.conv_loss(p, b, cfg, None))
 
 
-def bsp_worker(rank, k, out_dir, arch="alexnet", cases=CASES):
+def bsp_worker(rank, k, out_dir, arch="alexnet", cases=CASES, pods=1):
+    """Each case's steps on this rank's 1/k of every saved batch; with
+    ``pods`` > 1 over the two-level transport of that many pods."""
     params = torch.load(os.path.join(out_dir, "init.pt"))
     batches = torch.load(os.path.join(out_dir, "batches.pt"))
     model = port_model(params, arch)
     opt = topt.sgd_momentum(momentum=0.9, weight_decay=5e-4)
+    tr = tex.make_transport(("pod", "data") if pods > 1 else ("data",),
+                            pods)
     res = {}
     for name, exname, kw, _ in cases:
-        sharded = kw.get("sharded_update", False)
-        state = (tbsp.init_sharded_train_state(model, opt, None)
+        sharded = kw.get("sharded_update", False) or bool(kw.get("overlap"))
+        state = (tbsp.init_sharded_train_state(model, opt, None, tr)
                  if sharded else tbsp.init_train_state(model, opt, None))
         step = tbsp.make_bsp_step(model, opt, tex.get_exchanger(exname),
-                                  tsched.constant(LR), **kw)
+                                  tsched.constant(LR), tr, **kw)
         losses = []
         for b in batches:
-            half = b["images"].shape[0] // k
-            mine = {n: v[rank * half:(rank + 1) * half] for n, v in b.items()}
+            part = b["images"].shape[0] // k
+            mine = {n: v[rank * part:(rank + 1) * part] for n, v in b.items()}
             state, metrics = step(state, mine)
             losses.append(float(metrics["loss"]))
         res[name] = {"params": state["params"], "losses": losses,
@@ -199,3 +203,199 @@ def ring_gpu_worker(rank, k, out_dir, name="ring16"):
     torch.save({"leaves": [t.cpu().numpy() for t in leaves(out)],
                 "launches": dict(K.LAUNCHES)},
                os.path.join(out_dir, f"ring{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# overlap="buckets" on k ranks (test_torch_overlap.py)
+# ---------------------------------------------------------------------------
+
+_OVL = {"overlap": "buckets", "microbatches": 2}
+OVERLAP_CASES = [
+    ("asa-overlap", "asa", dict(_OVL, fuse_rs_update=False), "fp32"),
+    ("asa-overlap-fused", "asa", dict(_OVL, fuse_rs_update=True), "fp32"),
+    ("asa16-overlap", "asa16", dict(_OVL, fuse_rs_update=False), "fp16"),
+    ("asa16-overlap-fused", "asa16", dict(_OVL, fuse_rs_update=True),
+     "fp16"),
+    ("asa-mb2-sharded", "asa", {"sharded_update": True, "microbatches": 2,
+                                "fuse_rs_update": False}, "fp32"),
+]
+
+
+# ---------------------------------------------------------------------------
+# the two-level (hier) exchange on 2 pods of 2 (test_torch_hier.py)
+# ---------------------------------------------------------------------------
+
+PODS = 2
+HIER_STRATEGIES = ("ar", "asa", "asa16", "asa8", "ring", "ring16", "hier",
+                   "hier16")
+HIER_CASES = [
+    ("hier", "hier", {}, "fp32"),
+    ("hier16-sharded", "hier16", {"sharded_update": True}, "fp16"),
+]
+
+
+def hier_worker(rank, k, out_dir):
+    """Every strategy over 2 pods of k / 2 (exchange, and the halves), the
+    raw reduce-scatter's refusal, then the BSP cases of ``HIER_CASES``."""
+    tr = tex.make_transport(("pod", "data"), PODS)
+    tree = value_tree(100 + rank)
+    res = {"k": tr.k, "rank": tr.rank, "world": (tr.world_rank, tr.world_k)}
+    for name in HIER_STRATEGIES:
+        ex = tex.get_exchanger(name)
+        for bb in BUCKET_BYTES:
+            res[(name, bb, "exchange")] = _np(ex.exchange(tree, tr, bb))
+            halves, plan = ex.reduce_scatter(tree, tr, bucket_bytes=bb)
+            flats = ex.all_gather(halves["shards"], plan, tr)
+            res[(name, bb, "halves")] = _np(tex.Exchanger.unpack(
+                flats, halves["full"], plan))
+    try:
+        tex.get_exchanger("hier16").reduce_scatter(tree, tr, raw=True)
+        res["raw"] = "ran"
+    except ValueError as e:
+        res["raw"] = str(e)
+    torch.save(res, os.path.join(out_dir, f"hier{rank}.pt"))
+    bsp_worker(rank, k, out_dir, cases=HIER_CASES, pods=PODS)
+
+
+# ---------------------------------------------------------------------------
+# async EASGD/ASGD on k ranks (test_torch_easgd.py): a small classifier
+# whose JAX twin lives in that test's JAX script
+# ---------------------------------------------------------------------------
+
+TINY_SHAPES = {"b1": (96,), "b3": (10,), "w1": (24, 96), "w2": (96, 40),
+               "w3": (40, 10)}
+ASYNC_LR, ASYNC_STEPS, ASYNC_BATCH = 0.05, 5, 8
+# (name, TrainPlan keywords); each runs ASYNC_STEPS steps
+ASYNC_CASES = [(f"{algo}-tau{tau}-{ex}", dict(algo=algo, tau=tau,
+                                              exchanger=ex))
+               for ex in ("asa", "asa16")
+               for algo, tau in (("easgd", 1), ("easgd", 2), ("easgd", 3),
+                                 ("asgd", 2))]
+
+
+def tiny_params(seed=0):
+    rng = np.random.default_rng(seed)
+    return {n: (rng.standard_normal(s) * 0.3).astype(np.float32)
+            for n, s in TINY_SHAPES.items()}
+
+
+def tiny_batches(n=ASYNC_STEPS, size=ASYNC_BATCH, seed=1):
+    rng = np.random.default_rng(seed)
+    return [{"x": rng.standard_normal((size, 24)).astype(np.float32),
+             "y": rng.integers(0, 10, size).astype(np.int32)}
+            for _ in range(n)]
+
+
+def tiny_loss(p, batch, gen=None):
+    h = torch.relu(batch["x"] @ p["w1"] + p["b1"])
+    logits = torch.tanh(h @ p["w2"]) @ p["w3"] + p["b3"]
+    loss = torch.nn.functional.cross_entropy(logits, batch["y"].long())
+    return loss, {"loss": loss, "aux": torch.zeros(())}
+
+
+def tiny_model(params=None):
+    """The classifier on the CPU, its ``init`` returning ``params``."""
+    import types
+    params = tiny_params() if params is None else params
+    return types.SimpleNamespace(
+        init=lambda gen: {n: torch.from_numpy(v.copy())
+                          for n, v in params.items()},
+        loss_fn=tiny_loss, device=torch.device("cpu"))
+
+
+def _rank_batches(batches, rank, k):
+    part = batches[0]["x"].shape[0] // k
+    return [{n: torch.from_numpy(v[rank * part:(rank + 1) * part])
+             for n, v in b.items()} for b in batches]
+
+
+def _state_np(state):
+    return {key: [t.numpy().copy() for t in leaves(state[key])]
+            for key in ("params", "opt", "center") if key in state}
+
+
+def easgd_worker(rank, k, out_dir):
+    from repro_torch.core import easgd
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+    model = tiny_model()
+    opt = topt.sgd_momentum(momentum=0.9, weight_decay=5e-4)
+    mine = _rank_batches(tiny_batches(), rank, k)
+    quiet = dict(log_every=0, print_fn=lambda *a: None)
+    res = {}
+
+    def run(plan, lr=ASYNC_LR, **kw):
+        kw.setdefault("num_steps", ASYNC_STEPS)
+        return train(model, opt, tsched.constant(lr), mine, plan, **quiet,
+                     **kw)
+
+    for name, kw in ASYNC_CASES + [("easgd-alpha1-tau2-asa",
+                                    dict(algo="easgd", alpha=1.0, tau=2))]:
+        state, rep = run(TrainPlan(**kw))
+        res[name] = dict(_state_np(state), step=state["step"],
+                         losses=rep.losses, by_kind=rep.by_kind)
+    # asgd at tau 1 against BSP with the learning rate times k
+    for name, plan, lr in (
+            ("asgd-tau1", TrainPlan(algo="asgd", exchanger="asa"), ASYNC_LR),
+            ("bsp-lr-k", TrainPlan(exchanger="asa"), ASYNC_LR * k)):
+        state, rep = run(plan, lr)
+        res[name] = dict(_state_np(state), losses=rep.losses)
+    # resume: tau 2, saved inside a window (3) and at its end (4)
+    plan = TrainPlan(algo="easgd", tau=2, exchanger="asa16")
+    full, rep = run(plan)
+    res["resume"] = {"full": _state_np(full), "full_losses": rep.losses}
+    for at in (3, 4):
+        ck = os.path.join(out_dir, f"ck{at}")
+        run(plan, num_steps=at, ckpt_path=ck, ckpt_every=at)
+        st, rrep = run(plan, resume_from=ck)
+        res["resume"][at] = (_state_np(st), st["step"], rrep.losses)
+    # the quorum sync: this rank's absorb/attract weights from the vectors
+    local, sync = easgd.make_async_step(
+        model, opt, tex.get_exchanger("asa"), tsched.constant(ASYNC_LR),
+        quorum=True)
+    state = easgd.init_async_state(model, opt, None)
+    rounds = []
+    for absorb, attract in (((0.5, 0.25), (0.0, 1.0)),
+                            ((0.3, 0.6), (0.4, 0.0)),
+                            ((0.5, 0.5), (1.0, 0.7))):
+        w_local, _ = local(state, mine[0])
+        new, _ = sync(state, mine[0], absorb=absorb, attract=attract)
+        rounds.append({"before": _state_np(state), "local": _state_np(
+            w_local), "after": _state_np(new)})
+        state = new
+    res["quorum"] = rounds
+    torch.save(res, os.path.join(out_dir, f"easgd{rank}.pt"))
+
+
+def async_a2a_gpu_worker(rank, k, out_dir, device="cuda"):
+    """On cuda:0 (the ranks share the card over gloo): the staged
+    asynchronous reduce-scatter (``reduce_scatter_start``, twice in a row,
+    the second reusing the first's pinned buffers) against the
+    synchronous one, for every all-to-all wire, raw and summed; saves
+    whether each pair is equal bit for bit and the transport's
+    counters."""
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tree = tree_map(lambda t: t.to(dev), value_tree(100 + rank))
+    tr = tex.Transport()
+    res = {}
+    for name in ("asa", "asa16", "asa8"):
+        ex = tex.get_exchanger(name)
+        for bb in BUCKET_BYTES:
+            plan = tex.make_rs_plan(tree, k, bb)
+            for raw in (False, True):
+                want, _ = ex.reduce_scatter(tree, tr, plan=plan, raw=raw)
+                first = ex.reduce_scatter_start(tree, tr, plan=plan, raw=raw)
+                got = first.finish()
+                again = ex.reduce_scatter_start(tree, tr, plan=plan,
+                                                raw=raw).finish()
+                res[(name, bb, raw)] = all(
+                    a.dtype == b.dtype and torch.equal(a, b)
+                    for key in want for out in (got, again)
+                    for a, b in zip(out[key], want[key]))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res["counters"] = tr.counters()
+    torch.save(res, os.path.join(out_dir, f"a2a{rank}.pt"))

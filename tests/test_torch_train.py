@@ -214,12 +214,26 @@ def test_bsp_step_options_are_checked():
     with pytest.raises(ValueError, match="fuse_rs_update"):
         tbsp.make_bsp_step(model, opt, ex, tsched.constant(LR),
                            sharded_update=True, fuse_rs_update=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbsp.make_bsp_step(model, opt, ex, tsched.constant(LR),
-                           overlap="buckets")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.build_engine(tengine.TrainPlan(algo="easgd"), model, opt,
+    # the overlap and the async plans build and step (their parity is
+    # held in test_torch_overlap.py / test_torch_easgd.py); gspmd and
+    # quorum plans are refused by name
+    batch = {n: torch.from_numpy(v) for n, v in _batches(1, 2)[0].items()}
+    real = port_model(conv_params_from_jax(_init_params()))
+    for plan in (tengine.TrainPlan(overlap="buckets", microbatches=2),
+                 tengine.TrainPlan(algo="easgd", tau=2),
+                 tengine.TrainPlan(algo="asgd")):
+        eng = tengine.build_engine(plan, real, opt, tsched.constant(LR))
+        state = eng.init_state(None)
+        for i in range(2):
+            state, m = eng.step(state, batch, step_idx=i)
+        assert state["step"] == 2 and torch.isfinite(m["loss"])
+        assert ("center" in state) == plan.is_async
+    with pytest.raises(NotImplementedError, match="gspmd"):
+        tengine.build_engine(tengine.TrainPlan(algo="gspmd"), model, opt,
                              tsched.constant(LR))
+    with pytest.raises(ValueError, match="quorum"):
+        tengine.build_engine(tengine.TrainPlan(algo="easgd", quorum=1),
+                             model, opt, tsched.constant(LR))
 
 
 def test_shard_wd_mask_marks_matrix_elements_only():
@@ -349,6 +363,29 @@ def test_parallel_loader_streams_and_fails_loudly(tmp_path):
     assert time.perf_counter() - t0 < 1.5
     slow.stop()
     assert not slow._thread.is_alive()
+
+
+@pytest.mark.parametrize("argv,label", [
+    (["--algo", "easgd", "--tau", "2"], "easgd tau=2 alpha=0.5 on asa16"),
+    (["--overlap", "buckets", "--microbatches", "2"],
+     "asa16 overlap=buckets microbatches=2"),
+    (["--ranks", "4", "--pods", "2", "--exchanger", "hier16",
+      "--sharded-update"], "hier16 sharded on 2 pods"),
+], ids=["easgd", "overlap", "hier16"])
+def test_launcher_trains_the_other_plans_on_the_cpu(capfd, argv, label):
+    from repro_torch.launch import train as launch
+    launch.main(["--smoke", "--device", "cpu", "--ranks", "2", "--batch",
+                 "4", "--steps", "3", *argv])
+    out = capfd.readouterr().out
+    assert "done: 3 steps of alexnet" in out and label in out
+    assert "nan" not in out
+
+
+def test_launcher_refuses_pods_that_do_not_split_the_ranks(capsys):
+    from repro_torch.launch import train as launch
+    with pytest.raises(SystemExit):
+        launch.main(["--device", "cpu", "--ranks", "3", "--pods", "2"])
+    assert "pods" in capsys.readouterr().err
 
 
 def test_launcher_trains_on_the_cpu(capfd):
