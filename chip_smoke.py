@@ -133,6 +133,32 @@ and the CUDA toolkit. In order:
    microbatched one and k = 2 equals k = 1, and a ``hier`` step of 4
    ranks on quarters equals a group of one on the whole batch (1e-6).
 
+9. Elastic training (the paper's §4 lineage; it runs after phase 8):
+   ``repro_torch.fault.elastic.elastic_train`` on 4 gloo slot processes
+   sharing the card, full AlexNet (random weights from a seeded
+   generator, fp32, TF32 off), 32 images a worker, batch
+   (step + row) mod 4 of a pool of 4 that a slot draws once,
+   ``easgd`` alpha 0.5, tau 4, quorum 2, the centre on
+   ``asa16``, momentum 0.9 through ``fused_sgd``, the launcher's
+   ``recipe``, 40 steps of the reference smoke's chaos spec (kill,
+   straggle, corrupt, drop, rejoin). Prints images/s, the mean local step
+   and synced round (exchange, staging), each rebuild's parts (the new
+   group, the centre broadcast to the joiner, its optimizer.init), the
+   counts and the round log, and slot 0's peak memory. Fails unless the
+   counts are the reference's, the step-23 round weighs (0.5, 0, 1/6)
+   over (0, 2), every loss is finite, every live step of every slot
+   launches what the bucket plan predicts at that step's k (the exchange
+   kernels on synced rounds alone, weight 0 included), an idle slot
+   launches nothing, and a local step moves no transport counter. Then,
+   in the same processes, the fault smoke's properties at its config
+   (``repro_torch.fault.smoke``: clean, chaos in the clean band, bitwise
+   replay, preempt at 26 and resume into the band), and
+   ``python -m repro_torch.telemetry.validate`` on slot 0's metrics
+   JSONL and trace. After every path has run, the centre exchange's
+   kernels (``quant_fp16``, ``chunk_sum``, ``dequant_fp16``) are held
+   bit for bit to their plain versions at its buckets at k = 3 and
+   k = 4, the k of its synced rounds.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero; with no CUDA device, or outside a checkout, it
@@ -1268,27 +1294,34 @@ def int8_kernel_rows(torch, ref, qz, flush, row, dev="cuda"):
 
 
 def wire_check(torch, ref, shapes, label, weight_decay, dev="cuda",
-               overlap_m: int = 0):
-    """The wire and update kernels at every bucket shape of a training run,
-    bit for bit against their plain versions: per (padded, shard) bucket,
-    quant_fp16 of the (k, shard) chunks, of the first shard and of the last
-    (a row that starts shard values into the bucket, as a ring hop sends
-    it), dequant_fp16 of the gathered (padded,) bucket and of a received
-    (shard,) row at either end, and fused_rs_update of the (k, shard) fp16
-    receive (with the run's momentum and weight decay over a mixed 0/1
-    decay mask). The values reach past fp16's range, so overflow to inf is
-    exercised. With ``overlap_m`` > 0 also dequant_fp16 of the (k, shard)
-    receive and fused_rs_update of an fp32 (k, shard) receive at scale
-    1 / (k m): the overlap's accumulated chunks."""
+               overlap_m: int = 0, k: int = 2):
+    """The wire, sum and update kernels at every bucket shape of a training
+    run on ``k`` ranks, bit for bit against their plain versions: per
+    (padded, shard) bucket, quant_fp16 of the (k, shard) chunks, of the
+    first shard and of the last (a row that starts shard values into the
+    bucket, as a ring hop sends it), chunk_sum of the (k, shard) fp16
+    receive, dequant_fp16 of the gathered (padded,) bucket and of a
+    received (shard,) row at either end, and fused_rs_update of the
+    (k, shard) fp16 receive (with the run's momentum and weight decay over
+    a mixed 0/1 decay mask). The values reach past fp16's range, so
+    overflow to inf (and inf - inf = NaN in the sum, which must be NaN in
+    both) is exercised. With ``overlap_m`` > 0 also dequant_fp16 of the
+    (k, shard) receive and fused_rs_update of an fp32 (k, shard) receive at
+    scale 1 / (k m): the overlap's accumulated chunks."""
+    from repro_torch.kernels import chunk_sum as cs
     from repro_torch.kernels import fused_rs_update as fru
     from repro_torch.kernels import quantize as qz
-    k = 2
     g = torch.Generator(device=dev).manual_seed(4322)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
     lr = torch.tensor([0.01], device=dev)
     bits = lambda t: t.view({2: torch.int16, 4: torch.int32}[
         t.element_size()])
     same = lambda a, b: torch.equal(bits(a), bits(b))
+
+    def same_or_nan(a, b):
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(
+            bits(a)[~nan], bits(b)[~nan])
     for padded, s in shapes:
         if padded != k * s:
             _fail(f"{label} bucket {padded} is not {k} shards of {s}")
@@ -1302,7 +1335,9 @@ def wire_check(torch, ref, shapes, label, weight_decay, dev="cuda",
         want = ref.fused_rs_update_ref(recv, ps, ms_, mask, lr, 0.9, False,
                                        1 / k, weight_decay, None)
         ok = {"quant_fp16 (k, shard)": same(qz.quant_fp16(x),
-                                            ref.quant_fp16_ref(x))}
+                                            ref.quant_fp16_ref(x)),
+              "chunk_sum (k, shard)": same_or_nan(cs.chunk_sum(recv),
+                                                  ref.chunk_sum_ref(recv))}
         for r in (0, k - 1):
             ok[f"quant_fp16 shard {r}"] = same(qz.quant_fp16(x[r]),
                                                ref.quant_fp16_ref(x[r]))
@@ -1327,13 +1362,13 @@ def wire_check(torch, ref, shapes, label, weight_decay, dev="cuda",
                 same(a, b) for a, b in zip(got, want))
             del acc
         if not all(ok.values()):
-            _fail(f"{label} bucket {padded}: a wire or update kernel differs "
-                  f"from its plain version: {ok}")
+            _fail(f"{label} bucket {padded} (k={k}): a wire, sum or update "
+                  f"kernel differs from its plain version: {ok}")
         del x, recv, ps, ms_, mask, got, want
-    print(f"{label}: the fp16 wire kernels and fused_rs_update"
+    print(f"{label}: the fp16 wire kernels, chunk_sum and fused_rs_update"
           f"{' (fp16 and fp32 receives)' if overlap_m else ''} equal their "
-          f"plain versions bit for bit at all {len(shapes)} bucket shapes "
-          f"(padded, shard): {json.dumps(shapes)}")
+          f"plain versions bit for bit at k={k} at all {len(shapes)} bucket "
+          f"shapes (padded, shard): {json.dumps(shapes)}")
 
 
 def sgd_check(torch, ref, shapes, label, dev="cuda"):
@@ -2273,6 +2308,234 @@ def async_phase(device="cuda:0", smoke=False):
             "hier_train": _sum_launches(h0["runs"].values())}
 
 
+ELASTIC_SLOTS = 4
+ELASTIC_BATCH = 32      # images a worker and step (phase 8's hier run's)
+ELASTIC_STEPS = 40
+ELASTIC_POOL = 4        # batches a slot draws once and indexes by step
+ELASTIC_SPEC = "kill:3@9,straggle:2@13x2,corrupt:1@21,drop:0@29,join:3@33"
+# the reference's figures for this spec (its tests/test_fault.py)
+ELASTIC_COUNTS = dict(kills=1, joins=1, rebuilds=2, payloads_corrupt=1,
+                      payloads_dropped=1, rounds_skipped_quorum=0)
+
+
+def _elastic_step_launches(rsplan_of, n_leaves: int, k: int, sync: bool):
+    """One elastic asa16 step of a live slot: fused_sgd on every leaf; on a
+    synced round the centre exchange at that round's k (fp16 RS out, the
+    sum, fp16 AG out and in), whatever the slot's weight."""
+    if not sync:
+        return {"fused_sgd": n_leaves}
+    return _async_launches(rsplan_of(k), n_leaves, 1, 1)
+
+
+def _phase9_rank(rank, k, out_dir, device, smoke):
+    """One of the 4 slots of phase 9: elastic EASGD of full AlexNet through
+    the chaos spec, then the fault smoke's properties at its config."""
+    import os
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch import telemetry
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.fault import smoke as fsmoke
+    from repro_torch.fault.elastic import elastic_train
+    from repro_torch.launch.train import (elastic_batch_fn, recipe,
+                                          set_fp32_math)
+    from repro_torch.models import build_model
+    from repro_torch.train.engine import TrainPlan
+
+    set_fp32_math()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    telemetry.configure(metrics_out=os.path.join(
+        out_dir, f"metrics_slot{rank}.jsonl"))
+    cfg = (get_smoke_config if smoke else get_config)("alexnet")
+    model = build_model(cfg, dev)
+    # a pool of this slot's batches, drawn once on the host and indexed by
+    # (step + row): deterministic in both, and no global batch is drawn
+    own = elastic_batch_fn(cfg, 8 if smoke else ELASTIC_BATCH, 0,
+                           ELASTIC_SLOTS, dev, pool=ELASTIC_POOL)
+    marks = []          # (step, k, launches so far) at each live step
+
+    def batch_fn(step, kk, row):
+        marks.append((step, kk, dict(K.LAUNCHES)))
+        return own(step, kk, row)
+
+    plan = TrainPlan(algo="easgd", tau=4, alpha=0.5, exchanger="asa16",
+                     quorum=2)
+    opt, lr = recipe(cfg, ELASTIC_STEPS)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    state, rep = elastic_train(model, opt, lr, batch_fn, plan=plan,
+                               num_steps=ELASTIC_STEPS, seed=0,
+                               fault_plan=ELASTIC_SPEC, log_every=0,
+                               print_fn=None)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    out = {"rank": rank, "worker": rep.worker, "steps": rep.steps,
+           "losses": rep.losses, "wall_s": rep.wall_time,
+           "round_log": rep.round_log, "final_workers": rep.final_workers,
+           "counts": {f: getattr(rep, f) for f in (
+               "kills", "joins", "rebuilds", "payloads_corrupt",
+               "payloads_dropped", "rounds_skipped_quorum", "rounds_synced",
+               "straggles")},
+           "rebuild_log": rep.rebuild_log, "by_kind": rep.by_kind,
+           "marks": [(s, kk) for s, kk, _ in marks],
+           "step_launches": [
+               {n: c - a.get(n, 0) for n, c in (
+                   marks[j + 1][2] if j + 1 < len(marks) else launches
+               ).items() if c - a.get(n, 0)}
+               for j, (_, _, a) in enumerate(marks)],
+           "launches": launches,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if cuda else None)}
+    del state, model, own
+    if cuda:
+        torch.cuda.empty_cache()
+    # the fault smoke's properties at its own config, on this device
+    res_dir = os.path.join(out_dir, "smoke")
+    os.makedirs(res_dir, exist_ok=True)
+    opts = dict(device=str(dev), out=None, steps=48,
+                workers=ELASTIC_SLOTS, tau=4, quorum=2,
+                fault_plan=fsmoke.CHAOS, res_dir=res_dir)
+    t0 = time.perf_counter()
+    fsmoke._rank(rank, k, opts, os.path.join(out_dir, "smoke_ck"))
+    out["smoke_s"] = time.perf_counter() - t0
+    telemetry.flush(force=True)
+    telemetry.trace.export(os.path.join(out_dir, f"trace_slot{rank}.json"))
+    with open(os.path.join(out_dir, f"p9_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def elastic_phase(device="cuda:0", smoke=False):
+    """Phase 9: spawns the 4 slots of the elastic run and checks what they
+    report; returns the elastic path's launches (slot 0's) and, for each k
+    of its synced rounds, the centre exchange's (padded, shard) buckets."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import exchanger
+    from repro_torch.fault import smoke as fsmoke
+    from repro_torch.launch.train import run_ranks
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    cfg = (get_smoke_config if smoke else get_config)("alexnet")
+    shapes = build_model(cfg, "meta").init(None)
+    n_leaves = len(leaves(shapes))
+    plans = {}
+
+    def rsplan_of(kk):
+        if kk not in plans:
+            plans[kk] = exchanger.make_rs_plan(shapes, kk)
+        return plans[kk]
+
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        run_ranks(_phase9_rank, ELASTIC_SLOTS, (td, device, smoke),
+                  backend="gloo")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(Path(td, f"p9_rank{r}.json").read_text())
+                 for r in range(ELASTIC_SLOTS)]
+        smoke_ranks = [json.loads(Path(td, "smoke", f"smoke{r}.json")
+                                  .read_text())
+                       for r in range(ELASTIC_SLOTS)]
+        val = subprocess.run(
+            [sys.executable, "-m", "repro_torch.telemetry.validate",
+             os.path.join(td, "metrics_slot0.jsonl"), "--trace",
+             os.path.join(td, "trace_slot0.json")], capture_output=True,
+            text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    r0 = ranks[0]
+    print(f"elastic phase: {ELASTIC_SLOTS} gloo slots on {device}, "
+          f"{wall:.1f}s (the fault smoke's four runs at its config "
+          f"{r0['smoke_s']:.1f}s of it)")
+    for rk in ranks:
+        counts = {n: rk["counts"][n] for n in ELASTIC_COUNTS}
+        if counts != ELASTIC_COUNTS or rk["final_workers"] != [0, 1, 2, 3]:
+            _fail(f"elastic slot {rk['rank']}: counts {rk['counts']}, "
+                  f"final workers {rk['final_workers']}")
+        (w23,) = [(rep, w) for s, rep, w in rk["round_log"] if s == 23]
+        if not (w23[0] == [0, 2] and w23[1][:2] == [0.5, 0.0]
+                and abs(w23[1][2] - 0.5 / 3) < 1e-7):
+            _fail(f"elastic slot {rk['rank']}: the step-23 round {w23}")
+        bad = [x for x in rk["losses"] if not math.isfinite(x)]
+        if len(rk["losses"]) != ELASTIC_STEPS or bad:
+            _fail(f"elastic slot {rk['rank']}: losses {rk['losses']}")
+        # every live step's launches, against the step's prediction at its
+        # k; a slot's idle steps fall between two marks and must add none
+        synced = {s for s, _, _ in rk["round_log"]}
+        for (s, kk), got in zip(rk["marks"], rk["step_launches"]):
+            want = _elastic_step_launches(rsplan_of, n_leaves, kk,
+                                          s in synced)
+            if got != want:
+                _fail(f"elastic slot {rk['rank']} step {s} (k={kk}): "
+                      f"launches {got} != predicted {want}")
+        local = rk["by_kind"].get("local", {})
+        if any(local.get(c, 0.0) != 0.0 for c in ("staged_bytes", "stage_s",
+                                                    "wire_s")):
+            _fail(f"elastic slot {rk['rank']}: a local step moved the "
+                  f"transport's counters: {rk['by_kind']}")
+    for rk in ranks:
+        ran = {s for s, _ in rk["marks"]}
+        idle = [s for s in range(ELASTIC_STEPS) if s not in ran]
+        print(f"elastic slot {rk['rank']}: {len(ran)} live steps, idle at "
+              f"steps {idle or 'none'} (launches there: none, checked); "
+              f"worker at the end {rk['worker']}")
+    images = sum(len(rk["marks"]) for rk in ranks) * (
+        8 if smoke else ELASTIC_BATCH)
+    wall_run = max(rk["wall_s"] for rk in ranks)
+    bk = r0["by_kind"]
+    print(f"elastic run (full AlexNet, easgd tau 4 alpha 0.5 quorum 2, "
+          f"asa16 centre, {ELASTIC_BATCH} images a worker, "
+          f"{ELASTIC_STEPS} steps, spec {ELASTIC_SPEC}): "
+          + json.dumps({
+              "images_per_s": images / wall_run, "wall_s": wall_run,
+              "local_step_ms": _kind_ms({"local": bk["local"]})["local"],
+              "sync_round_ms": _kind_ms({"sync": bk["sync"]})["sync"],
+              "peak_mem_gb_slot0": r0["peak_mem_gb"],
+              "counts": r0["counts"], "final_workers": r0["final_workers"],
+              "losses": r0["losses"]}))
+    # a slot that was idle waits in new_group for the live ones: slot 0
+    # (live throughout) times the group and sends the centre; the
+    # joiner's optimizer.init is its own
+    for j, rb in enumerate(r0["rebuild_log"]):
+        init_ms = max(rk["rebuild_log"][j]["opt_init_s"] for rk in ranks)
+        print(f"elastic rebuild at step {rb['step']}: {rb['old']} -> "
+              f"{rb['new']}, new_group {rb['new_group_s'] * 1e3:.1f} ms, "
+              f"centre broadcast {rb['broadcast_s'] * 1e3:.1f} ms, the "
+              f"joiner's optimizer.init {init_ms * 1e3:.1f} ms (slot 0's "
+              f"view; a synced round takes "
+              f"{_kind_ms({'s': bk['sync']})['s']['step_ms']:.1f} ms)")
+    per_k = {}
+    for s, rep, _ in r0["round_log"]:
+        kk = dict(r0["marks"])[s]
+        per_k.setdefault(kk, []).append(s)
+    print("elastic synced rounds by k, each round's predicted launches: "
+          + json.dumps({kk: {"rounds": steps, "launches":
+                             _elastic_step_launches(rsplan_of, n_leaves, kk,
+                                                    True)}
+                        for kk, steps in per_k.items()}))
+    print("elastic round_log: " + json.dumps(r0["round_log"]))
+    failures = fsmoke.check(smoke_ranks, 48, print_fn=lambda s: print(
+        f"elastic smoke config on {device}: {s}"))
+    if failures:
+        _fail(f"the fault smoke's properties failed on {device}: "
+              f"{failures}")
+    print(f"telemetry validate (slot 0's metrics JSONL and trace): "
+          f"{val.stdout.strip()} {val.stderr.strip()}")
+    if val.returncode != 0:
+        _fail("slot 0's telemetry does not validate")
+    return {"elastic": r0["launches"]}, {
+        kk: [(b.padded, b.shard_len) for b in rsplan_of(kk).buckets]
+        for kk in sorted(per_k)}
+
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -2344,6 +2607,8 @@ def main() -> int:
     by_path["int8_roundtrip"] = int8_launches
     by_path["lm_train"], lm_buckets = lm_train_phase()
     by_path.update(async_phase())
+    elastic_launches, elastic_buckets = elastic_phase()
+    by_path.update(elastic_launches)
     # the kernels of every training path, held to their plain versions at
     # the shapes that path gave them (the overlap's fp32 accumulated
     # receives into fused_rs_update at the LM's and AlexNet's buckets)
@@ -2352,6 +2617,10 @@ def main() -> int:
         wire_check(torch, ref, buckets, arch, 5e-4,
                    overlap_m=OVERLAP_MB if arch == "alexnet" else 0)
         sgd_check(torch, ref, sgd_shapes, arch)
+        torch.cuda.empty_cache()
+    # the elastic centre exchange's buckets at each k of its synced rounds
+    for kk, buckets in elastic_buckets.items():
+        wire_check(torch, ref, buckets, "alexnet elastic", 5e-4, k=kk)
         torch.cuda.empty_cache()
 
     out = []

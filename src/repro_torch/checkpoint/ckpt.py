@@ -9,9 +9,12 @@ contract, so either package reads what the other wrote):
 - every file is written to a temp file, fsynced and ``os.replace``d into
   place, so a kill at any instant leaves the old file or the new one;
   ``meta.json`` (the latest pointer) is written last;
-- restore verifies the checksum and falls back, with a warning, to the
-  newest step that passes it when the latest is torn or missing;
-- the newest ``keep`` steps are retained.
+- restore verifies the checksum and falls back, with a warning and a
+  ``fault/ckpt_fallbacks`` count, to the newest step that passes it when
+  the latest is torn or missing (or restores one named ``step``);
+- the newest ``keep`` steps are retained;
+- ``workers``, when given, records an elastic run's membership (the row
+  order of its workers) in the meta, and :func:`load_meta` returns it.
 
 Restore rebuilds the structure, dtypes and devices of a ``state_like``
 tree; a non-tensor leaf (the ``step`` counter) comes back as an int.
@@ -94,10 +97,12 @@ def _meta_name(step: int) -> str:
 
 
 def save_checkpoint(path: str, state, step: int | None = None,
-                    algo: str | None = None, keep: int = 3) -> None:
+                    algo: str | None = None, workers=None,
+                    keep: int = 3) -> None:
     """Crash-safe save of ``state`` at ``step`` into directory ``path``:
     the state file and its per-step meta, then the ``meta.json`` latest
-    pointer; keeps the newest ``keep`` steps."""
+    pointer; keeps the newest ``keep`` steps. ``workers`` (an elastic
+    run's membership) goes into the meta."""
     os.makedirs(path, exist_ok=True)
     arrays = {k: _to_numpy(v) for k, v in _flatten(state).items()}
     buf = io.BytesIO()
@@ -108,6 +113,8 @@ def save_checkpoint(path: str, state, step: int | None = None,
             "checksum": zlib.crc32(data), "nbytes": len(data)}
     if algo is not None:
         meta["algo"] = algo
+    if workers is not None:
+        meta["workers"] = [int(w) for w in workers]
     meta_bytes = json.dumps(meta).encode()
     _atomic_write(os.path.join(path, _state_name(step_i)), data)
     _atomic_write(os.path.join(path, _meta_name(step_i)), meta_bytes)
@@ -157,9 +164,35 @@ def _verify(path: str, meta: dict) -> bytes | None:
     return data
 
 
-def _load_valid(path: str):
+def _read_meta(path: str, step: int) -> dict | None:
+    try:
+        with open(os.path.join(path, _meta_name(step))) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+def valid_steps(path: str) -> list[int]:
+    """The saved steps whose state file passes its integrity check,
+    ascending."""
+    out = []
+    for s in _saved_steps(path):
+        meta = _read_meta(path, s)
+        if meta is not None and _verify(path, meta) is not None:
+            out.append(s)
+    return out
+
+
+def _load_valid(path: str, step: int | None = None):
     """(npz, meta) of the newest checkpoint that passes its integrity
-    check, falling back step by step."""
+    check, falling back step by step; or of ``step`` alone."""
+    if step is not None:
+        meta = _read_meta(path, step)
+        data = None if meta is None else _verify(path, meta)
+        if data is None:
+            raise FileNotFoundError(
+                f"no valid checkpoint of step {step} under {path!r}")
+        return np.load(io.BytesIO(data), allow_pickle=False), meta
     tried = []
     for s in reversed(_saved_steps(path)):
         try:
@@ -177,6 +210,8 @@ def _load_valid(path: str):
                 f"checkpoint {path!r}: step(s) {tried} truncated or "
                 f"corrupt; falling back to newest valid step {s}",
                 RuntimeWarning, stacklevel=3)
+            from repro_torch.telemetry import metrics
+            metrics.counter("fault/ckpt_fallbacks").inc(len(tried))
         return np.load(io.BytesIO(data), allow_pickle=False), meta
     raise FileNotFoundError(
         f"no valid checkpoint under {path!r}"
@@ -220,22 +255,25 @@ def restore_checkpoint(path: str, state_like):
     return _restore_tree(data, state_like)
 
 
-def load_meta(path: str) -> dict:
-    """Meta of the newest valid checkpoint (falls back as restore does)."""
-    return _load_valid(path)[1]
+def load_meta(path: str, step: int | None = None) -> dict:
+    """Meta of the newest valid checkpoint (falls back as restore does),
+    or of ``step``; an elastic run's holds its ``workers``."""
+    return _load_valid(path, step)[1]
 
 
 def latest_step(path: str) -> int:
     return load_meta(path)["step"]
 
 
-def restore_for_resume(path: str, state_like, expect_algo: str | None = None):
+def restore_for_resume(path: str, state_like, expect_algo: str | None = None,
+                       step: int | None = None):
     """Restore ``state_like``'s layout from ``path`` and return ``(state,
     start_step)``. ``expect_algo`` refuses a checkpoint written by another
     algorithm; the meta's step is cross-checked against ``state["step"]``
     (the loop keys data and dropout to the global step). The state and the
-    step come from the same verified checkpoint, after any fallback."""
-    data, meta = _load_valid(path)
+    step come from the same verified checkpoint, after any fallback, or
+    from ``step`` when given (ranks that must agree on one step)."""
+    data, meta = _load_valid(path, step)
     recorded = meta.get("algo")
     if (expect_algo is not None and recorded is not None
             and recorded != expect_algo):

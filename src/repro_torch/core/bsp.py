@@ -87,6 +87,30 @@ class PhaseTimer:
         return out
 
 
+class KindStats:
+    """Per kind of step (``"sync"``, ``"local"``, ...): the count, the mean
+    seconds of each phase and the mean transport counters (staged bytes,
+    staging, collectives, exposed wait) a step."""
+
+    COUNTERS = ("staged_bytes", "stage_s", "wire_s", "exposed_s")
+
+    def __init__(self):
+        self._sum: dict = {}
+
+    def add(self, kind: str, split: dict, moved) -> None:
+        """One step: its ``PhaseTimer.split_s()`` and its transport
+        counters' deltas, in ``COUNTERS`` order."""
+        acc = self._sum.setdefault(kind, {"steps": 0})
+        acc["steps"] += 1
+        for name, v in list(split.items()) + list(zip(self.COUNTERS, moved)):
+            acc[name] = acc.get(name, 0.0) + v
+
+    def means(self) -> dict:
+        return {kind: {n: (v if n == "steps" else v / acc["steps"])
+                       for n, v in acc.items()}
+                for kind, acc in self._sum.items()}
+
+
 def _device_of(params) -> torch.device:
     return leaves(params)[0].device
 

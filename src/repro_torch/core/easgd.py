@@ -76,7 +76,10 @@ def make_async_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
         x_i' = x_i - attract_i * (x_i - c')
 
     A worker with ``attract == 0`` keeps its parameters bit for bit, one
-    with ``attract == 1`` snaps to the center."""
+    with ``attract == 1`` snaps to the center. ``row=`` names this rank's
+    entry of the vectors (default: its rank in the group); the elastic
+    loop passes the worker's row in the membership's order, which is not
+    the group's rank order once a worker joins."""
     if algo not in ("easgd", "asgd"):
         raise ValueError(f"unknown async algo {algo!r}")
     if exchanger.kind == "none":
@@ -139,11 +142,12 @@ def make_async_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
 
     def sync_step_quorum(state, batch, gen=None,
                          timer: PhaseTimer | None = None, *, absorb,
-                         attract):
+                         attract, row: int | None = None):
         mark = _marker(timer)
         w, opt, metrics = local_update(state, batch, gen, mark)
-        wa = float(absorb[tr.world_rank])
-        at = float(attract[tr.world_rank])
+        row = tr.world_rank if row is None else int(row)
+        wa = float(absorb[row])
+        at = float(attract[row])
         c_new = _center_round(w, state["center"], mark, weight=wa)
         if at == 1.0:
             w_new = tree_map(lambda wi, c: c.to(wi.dtype), w, c_new)

@@ -194,6 +194,14 @@ class Transport:
         out = self._run(op, x, x.shape)
         return out if self.lead is None else self.lead.all_reduce(out)
 
+    def broadcast(self, x, src: int):
+        """``x`` of group rank ``src`` on every rank (a new tensor; the
+        other ranks pass a tensor of the same shape and dtype)."""
+        def op(o, i):
+            o.copy_(i)
+            dist.broadcast(o, self._global(src), group=self.group)
+        return self._run(op, x, x.shape)
+
     def all_to_all_start(self, xs) -> PendingAllToAll:
         """:meth:`all_to_all` of each (k, ...) tensor that the iterable
         ``xs`` yields, started and not waited for: ``.wait()`` on the

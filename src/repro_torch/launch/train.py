@@ -29,6 +29,13 @@ ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --smoke --device cpu --ranks 2 --batch 4 --seq 64 --steps 4
 
+    # elastic chaos run: 4 slots, quorum-gated EASGD rounds, injected
+    # faults (see repro_torch.fault), each slot's telemetry written apart:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --smoke --device cpu --ranks 4 --algo easgd --tau 4 --quorum 2 \\
+        --fault-plan 'kill:3@9,corrupt:1@13,join:3@17' --steps 20 \\
+        --metrics-out /tmp/m.jsonl --trace-out /tmp/t.json
+
 Starts k rank processes (``torch.multiprocessing``, spawn), each joining
 one process group through a file rendezvous in a temporary directory.
 The backend is NCCL when every rank has a card of its own, else gloo; on
@@ -64,6 +71,15 @@ ranks for the two-level exchange (``data_axes=("pod", "data")``; the
 package's ``examples/easgd_async.py``: the smoke llama3.2-1b at vocab
 256, 8 sequences of 64 tokens a rank, SGD 0.9 without weight decay at
 lr 0.02 (asgd 0.02 / k), its four plans one after the other.
+
+``--quorum`` and ``--fault-plan`` (async plans only) route through
+``repro_torch.fault.elastic.elastic_train``: the ``--ranks`` processes
+are the slots, ``--workers`` of them (default: all) start live,
+membership follows the fault plan, and averaging rounds need ``--quorum``
+reporters. A worker draws its own ``--batch`` examples of each step from
+the source (batch ``step * ranks + row``, images at ``image_size``).
+``--metrics-out`` and ``--trace-out`` write the telemetry JSONL and the
+Perfetto trace, one file a rank (``<stem>_slot<r><ext>``) when k > 1.
 """
 from __future__ import annotations
 
@@ -76,7 +92,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from repro_torch import default_device
+from repro_torch import default_device, telemetry
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.configs.registry import ASSIGNED_ARCHS, PAPER_ARCHS
@@ -215,6 +231,18 @@ def rank_loader(cfg, files, device, steps: int, seed: int):
                           epochs=-(-steps // len(files)), **crop)
 
 
+def is_elastic(opts) -> bool:
+    return opts.get("quorum") is not None or bool(opts.get("fault_plan"))
+
+
+def slot_path(path: str | None, rank: int, k: int) -> str | None:
+    """A per-rank telemetry file: ``<stem>_slot<r><ext>`` when k > 1."""
+    if not path or k <= 1:
+        return path
+    stem, ext = os.path.splitext(path)
+    return f"{stem}_slot{rank}{ext}"
+
+
 def plan_from_opts(opts) -> TrainPlan:
     """The TrainPlan of the launcher's flags."""
     return TrainPlan(algo=opts["algo"], exchanger=opts["exchanger"],
@@ -223,7 +251,7 @@ def plan_from_opts(opts) -> TrainPlan:
                      overlap=opts["overlap"],
                      microbatches=opts["microbatches"],
                      bucket_bytes=opts["bucket_bytes"], tau=opts["tau"],
-                     alpha=opts["alpha"],
+                     alpha=opts["alpha"], quorum=opts.get("quorum"),
                      data_axes=(("pod", "data") if opts["pods"] > 1
                                 else ("data",)))
 
@@ -250,13 +278,70 @@ def set_fp32_math() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def elastic_batch_fn(cfg, batch: int, seq: int, slots: int, device,
+                     pool: int = 0):
+    """``batch_fn(step, k, row)``: the worker's own ``batch`` examples of
+    the step, deterministic in the step and row; a rank draws only its own
+    share. With ``pool`` = 0 that is the source's batch
+    ``step * slots + row``, drawn on each call; else one of ``pool``
+    batches drawn once, batch ``(step + row) % pool`` (host image
+    preparation off the step)."""
+    src = (ImageSource(cfg.image_size, cfg.num_classes)
+           if cfg.family == "conv" else LMTokenSource(cfg.vocab_size, seq))
+
+    def draw(i):
+        return {n: torch.from_numpy(v).to(device)
+                for n, v in src.batch(batch, i).items()}
+    if pool:
+        drawn = [draw(j) for j in range(pool)]
+        return lambda step, k, row: drawn[(step + row) % pool]
+    return lambda step, k, row: draw(step * slots + row)
+
+
+def _elastic_rank(rank, k, opts, cfg, model, dev):
+    from repro_torch.fault.elastic import elastic_train
+    plan = plan_from_opts(opts)
+    opt, lr = recipe(cfg, opts["steps"])
+    say = print if rank == 0 else None
+    _, rep = elastic_train(
+        model, opt, lr, elastic_batch_fn(cfg, opts["batch"], opts["seq"], k,
+                                         dev),
+        plan=plan, num_workers=opts["workers"], num_steps=opts["steps"],
+        fault_plan=opts["fault_plan"], log_every=5, ckpt_path=opts["ckpt"],
+        ckpt_every=opts["ckpt_every"], resume_from=opts["resume"],
+        print_fn=say)
+    if say:
+        say(f"done: {rep.steps} steps of {cfg.name} ({plan.algo} elastic, "
+            f"{k} slots, {dev}), fleet {rep.final_workers}, rounds "
+            f"{rep.rounds_synced} synced / {rep.rounds_skipped_quorum} "
+            f"below-quorum, kills {rep.kills}, joins {rep.joins}, rebuilds "
+            f"{rep.rebuilds}, payloads dropped {rep.payloads_dropped} / "
+            f"corrupt {rep.payloads_corrupt}, loss {rep.losses[0]:.4f} -> "
+            f"{rep.losses[-1]:.4f}")
+
+
 def _train_rank(rank, k, opts, backend, data_dir):
     set_fp32_math()
     dev = rank_device(torch.device(opts["device"]), rank, backend)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    if opts.get("metrics_out"):
+        telemetry.configure(metrics_out=slot_path(opts["metrics_out"], rank,
+                                                  k))
     cfg = launch_config(opts)
     model = build_model(cfg, dev)
+    try:
+        if is_elastic(opts):
+            _elastic_rank(rank, k, opts, cfg, model, dev)
+        else:
+            _train_runs(rank, k, opts, backend, data_dir, cfg, model, dev)
+    finally:
+        telemetry.flush(force=True)
+        if opts.get("trace_out"):
+            telemetry.trace.export(slot_path(opts["trace_out"], rank, k))
+
+
+def _train_runs(rank, k, opts, backend, data_dir, cfg, model, dev):
     batch, seq = opts["batch"], opts["seq"]
     files = write_rank_batches(cfg, rank, k, batch, min(opts["steps"], 8),
                                os.path.join(data_dir, f"rank{rank}"),
@@ -360,6 +445,23 @@ def main(argv=None):
                     help="save every N steps (0: at the end only)")
     ap.add_argument("--resume", default=None,
                     help="checkpoint directory to continue from")
+    ap.add_argument("--quorum", type=int, default=None,
+                    help="min reporting workers for an averaging round "
+                         "(easgd/asgd); enables the elastic loop")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="deterministic fault injection, e.g. "
+                         "'kill:1@9,straggle:2@5x3,corrupt:0@13' "
+                         "(kind:worker@step[xrounds]); enables the "
+                         "elastic loop")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="elastic: workers live at the start (default: "
+                         "--ranks, the slots)")
+    ap.add_argument("--metrics-out", default=None, metavar="JSONL",
+                    help="write telemetry metrics (schema'd JSONL; one "
+                         "file a rank when k > 1)")
+    ap.add_argument("--trace-out", default=None, metavar="JSON",
+                    help="write host-side spans as Chrome-trace/Perfetto "
+                         "JSON (one file a rank when k > 1)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
@@ -368,6 +470,17 @@ def main(argv=None):
         plan_from_opts(vars(args))
     except ValueError as e:
         ap.error(str(e))
+    if is_elastic(vars(args)):
+        if args.algo not in ("easgd", "asgd"):
+            ap.error("--quorum/--fault-plan need an async plan (--algo "
+                     "easgd|asgd); bsp fault tolerance is checkpoint "
+                     "restart via --ckpt/--resume")
+        if args.preset or args.pods > 1:
+            ap.error("--quorum/--fault-plan train one plan over one level "
+                     "of slots (no --preset, no --pods)")
+        if (args.workers or args.ranks) > args.ranks:
+            ap.error(f"--workers {args.workers} > --ranks {args.ranks} "
+                     f"slots")
     if args.pods < 1 or args.ranks % args.pods:
         ap.error(f"--ranks {args.ranks} do not split into --pods "
                  f"{args.pods}")
@@ -377,6 +490,9 @@ def main(argv=None):
     if args.batch is None:
         args.batch = (LM_BATCH if args.preset else
                       CONV_BATCH.get(args.arch, LM_BATCH))
+    for out in (args.metrics_out, args.trace_out):
+        if out:
+            os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     dev = default_device(args.device)
     backend = pick_backend(dev, args.ranks)
     opts = dict(vars(args), device=str(dev))

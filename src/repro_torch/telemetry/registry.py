@@ -1,28 +1,32 @@
-"""Process-local metrics registry: counters, gauges, histograms.
+"""Process-local metrics registry: counters, gauges, histograms, sinks.
 
 A copy of ``repro/telemetry/registry.py`` (pure Python; pinned to the
-original by ``tests/test_torch_host.py``) with the three metric kinds the
-serve engine records. The sinks, ``Info`` labels and the disabled-path
-``NOOP`` come with the telemetry slice (their export needs the schema
-module).
+original by ``tests/test_torch_host.py`` and
+``tests/test_torch_telemetry.py``). Design rules:
 
 - **Bounded memory.** A histogram is a fixed vector of bucket counts plus
-  count/sum/min/max — never a list of observations.
-- **Host-side only.** Metrics take plain Python numbers; device values
-  are converted by the caller.
-- A :class:`Registry` instance is always live
-  (``repro_torch.serve.EngineStats`` owns one regardless of the global
-  switch, because its public stats must work with telemetry off).
+  count/sum/min/max — never a list of observations. Long-running servers
+  and training loops record into O(1) state per metric.
+- **Host-side only.** Nothing here touches the device; metrics take plain Python
+  numbers. Instrumentation sites convert device values explicitly (and
+  only at flush boundaries, never per hot-path call).
+- **Cheap when off.** The module-level accessors in
+  :mod:`repro_torch.telemetry.metrics` return the shared :data:`NOOP` object
+  when telemetry is disabled — recording into it is one attribute lookup
+  and a ``pass``. A :class:`Registry` instance itself is always live
+  (``repro_torch.serve.EngineStats`` owns one regardless of the global switch,
+  because its public stats must work with telemetry off).
 
-Metric names are ``area/quantity[_unit]`` (``serve/ttft_s``).
+Metric names are ``area/quantity[_unit]`` (``train/step_time_s``,
+``exchange/bytes_wire``, ``serve/ttft_s``) — the flat namespace the JSONL
+schema and the Perfetto traces share.
 """
 from __future__ import annotations
 
+import json
 import math
 import time
 from bisect import bisect_right
-
-SCHEMA_VERSION = 1       # the record schema of repro.telemetry.schema
 
 
 def exp_buckets(lo: float, hi: float, per_decade: int = 8) -> tuple:
@@ -70,6 +74,22 @@ class Gauge:
 
     def snapshot(self) -> dict:
         return {"kind": "gauge", "name": self.name, "value": self.value}
+
+
+class Info:
+    """Static string labels (strategy names, dtypes, versions)."""
+    __slots__ = ("name", "labels")
+    kind = "info"
+
+    def __init__(self, name: str):
+        self.name = name
+        self.labels = {}
+
+    def set(self, **labels) -> None:
+        self.labels.update({k: str(v) for k, v in labels.items()})
+
+    def snapshot(self) -> dict:
+        return {"kind": "info", "name": self.name, "labels": dict(self.labels)}
 
 
 class Histogram:
@@ -135,20 +155,53 @@ class Histogram:
                 "bounds": list(self.bounds), "counts": list(self.counts)}
 
 
-_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+class _Noop:
+    """The disabled-path metric: every recording call is a no-op and every
+    accessor is a constant. One shared instance (:data:`NOOP`) is returned
+    for *all* metric kinds so the off path allocates nothing per call."""
+    __slots__ = ()
+    kind = "noop"
+    name = "noop"
+    value = 0
+    count = 0
+    sum = 0.0
+    mean = 0.0
+
+    def inc(self, n=1):
+        pass
+
+    def set(self, *a, **kw):
+        pass
+
+    def observe(self, v):
+        pass
+
+    def percentile(self, q):
+        return 0.0
+
+    def percentiles(self, qs=(50, 99)):
+        return {q: 0.0 for q in qs}
+
+
+NOOP = _Noop()
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram,
+          "info": Info}
 
 
 class Registry:
-    """A named collection of metrics.
+    """A named collection of metrics with attachable sinks.
 
     Accessors are get-or-create and type-checked: asking for an existing
-    name with a different kind is a bug, not a silent new metric.
-    Standalone instances (e.g. per serve engine) are cheap.
+    name with a different kind is a bug, not a silent new metric. The
+    default process-wide registry lives in :mod:`repro_torch.telemetry._runtime`;
+    standalone instances (e.g. per serve engine) are cheap.
     """
 
     def __init__(self, label: str = ""):
         self.label = label
         self._metrics: dict = {}
+        self._sinks: list = []
 
     def _get(self, name: str, kind: str, **kw):
         m = self._metrics.get(name)
@@ -171,6 +224,12 @@ class Registry:
             return h
         return self._get(name, "histogram", buckets=buckets)
 
+    def info(self, name: str, **labels) -> Info:
+        m = self._get(name, "info")
+        if labels:
+            m.set(**labels)
+        return m
+
     def __contains__(self, name: str) -> bool:
         return name in self._metrics
 
@@ -181,7 +240,8 @@ class Registry:
         return sorted(self._metrics)
 
     def snapshot(self, ts: float | None = None) -> list:
-        """One record per metric, as the JAX package's registry writes."""
+        """One schema record per metric (see ``repro_torch.telemetry.schema``)."""
+        from repro_torch.telemetry.schema import SCHEMA_VERSION
         ts = time.time() if ts is None else ts
         out = []
         for name in sorted(self._metrics):
@@ -192,3 +252,99 @@ class Registry:
                 rec["reg"] = self.label
             out.append(rec)
         return out
+
+    # -- sinks --------------------------------------------------------------
+
+    def add_sink(self, sink) -> None:
+        self._sinks.append(sink)
+
+    def flush(self, force: bool = True) -> None:
+        """Push a full snapshot to every sink (periodic sinks may skip when
+        not ``force`` and their interval has not elapsed)."""
+        if not self._sinks:
+            return
+        records = self.snapshot()
+        now = time.time()
+        for s in self._sinks:
+            s.emit(records, now, force)
+
+    def close(self) -> None:
+        self.flush(force=True)
+        for s in self._sinks:
+            s.close()
+        self._sinks = []
+
+
+class MemorySink:
+    """Keeps every flushed snapshot — the test sink."""
+
+    def __init__(self):
+        self.snapshots: list = []
+
+    def emit(self, records, now, force) -> None:
+        self.snapshots.append(records)
+
+    def close(self) -> None:
+        pass
+
+
+class JsonlSink:
+    """Appends one JSON line per metric per flush. The file opens lazily
+    and starts with a ``run`` header record (host/device/backend context)
+    so any JSONL is self-describing."""
+
+    def __init__(self, path: str, every_s: float = 0.0):
+        self.path = path
+        self.every_s = every_s
+        self._f = None
+        self._last = 0.0
+
+    def _open(self):
+        if self._f is None:
+            from repro_torch.telemetry.schema import run_record
+            self._f = open(self.path, "w")
+            self._f.write(json.dumps(run_record()) + "\n")
+        return self._f
+
+    def emit(self, records, now, force) -> None:
+        if not force and self.every_s and now - self._last < self.every_s:
+            return
+        self._last = now
+        f = self._open()
+        for rec in records:
+            f.write(json.dumps(rec) + "\n")
+        f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+
+class ConsoleSink:
+    """Periodic one-line summaries of scalar metrics (counters/gauges and
+    histogram count/mean) — the human tail -f."""
+
+    def __init__(self, print_fn=print, every_s: float = 30.0):
+        self.print_fn = print_fn
+        self.every_s = every_s
+        self._last = 0.0
+
+    def emit(self, records, now, force) -> None:
+        if not force and self.every_s and now - self._last < self.every_s:
+            return
+        self._last = now
+        parts = []
+        for r in records:
+            if r["kind"] == "counter":
+                parts.append(f"{r['name']}={r['value']}")
+            elif r["kind"] == "gauge":
+                parts.append(f"{r['name']}={r['value']:.4g}")
+            elif r["kind"] == "histogram" and r["count"]:
+                parts.append(f"{r['name']}: n={r['count']} "
+                             f"mean={r['sum'] / r['count']:.3g}")
+        if parts:
+            self.print_fn("[telemetry] " + "  ".join(parts))
+
+    def close(self) -> None:
+        pass

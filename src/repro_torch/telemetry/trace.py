@@ -1,13 +1,14 @@
-"""Low-overhead host-side span tracing.
+"""Low-overhead host-side span tracing with Chrome-trace/Perfetto export.
 
     from repro_torch.telemetry import trace
-    with trace.span("serve/decode_step", active=n):
+    with trace.span("exchange/rs", bytes=n):
         ...
+    trace.export("trace.json")      # load in ui.perfetto.dev / about:tracing
 
 A copy of ``repro/telemetry/trace.py`` (pure Python; pinned to the
 original by ``tests/test_torch_host.py``). Spans record host wall-clock
-(``time.perf_counter``) begin/duration: they time dispatch and host work,
-never device internals. Nested ``span``s on one thread
+(``time.perf_counter``) begin/duration: they time *dispatch and host
+work*, never device internals, so no span adds a device sync. Nested ``span``s on one thread
 render as a flame stack (Perfetto nests complete events by time
 containment per track); request-scoped lifecycles that overlap arbitrarily
 use the async pair :func:`async_begin`/:func:`async_end` keyed by an id
@@ -15,15 +16,19 @@ use the async pair :func:`async_begin`/:func:`async_end` keyed by an id
 
 The event buffer is bounded (:data:`MAX_EVENTS`); overflow increments a
 drop counter rather than growing — a long-serving process can leave
-tracing on. The Chrome-trace/Perfetto export comes with the telemetry
-slice.
+tracing on.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 
 MAX_EVENTS = 1 << 18     # ~262k events; each is a small tuple
+
+_T0 = time.perf_counter()          # trace epoch (exported ts are µs from here)
+_T0_UNIX = time.time()
 
 _lock = threading.Lock()
 _events: list = []
@@ -81,8 +86,8 @@ _NOOP_SPAN = _NoopSpan()
 
 
 def _enabled() -> bool:
-    from repro_torch import telemetry
-    return telemetry.enabled()
+    from repro_torch.telemetry._runtime import _state
+    return _state.enabled
 
 
 def span(name: str, **attrs):
@@ -128,3 +133,39 @@ def reset() -> None:
     with _lock:
         _events.clear()
         _dropped = 0
+
+
+def to_chrome(extra_metadata: dict | None = None) -> dict:
+    """Render the buffer as a Chrome-trace object (Perfetto-loadable)."""
+    from repro_torch.telemetry.schema import SCHEMA_VERSION, run_context
+    pid = os.getpid()
+    out = []
+    for ph, name, t0, dur, tid_or_id, attrs in _events:
+        ev = {"name": name, "ph": ph, "pid": pid,
+              "ts": (t0 - _T0) * 1e6}
+        if ph == "X":
+            ev["tid"] = tid_or_id
+            ev["dur"] = dur * 1e6
+        elif ph in ("b", "e"):
+            # async events share one "requests" track, separated by id
+            ev["tid"] = 0
+            ev["cat"] = "request"
+            ev["id"] = tid_or_id
+        else:
+            ev["tid"] = tid_or_id
+            ev["s"] = "t"
+        if attrs:
+            ev["args"] = {k: v for k, v in attrs.items()}
+        out.append(ev)
+    meta = {"schema_version": SCHEMA_VERSION, "run": run_context(),
+            "trace_epoch_unix": _T0_UNIX, "dropped_events": _dropped}
+    if extra_metadata:
+        meta.update(extra_metadata)
+    return {"traceEvents": out, "displayTimeUnit": "ms", "otherData": meta}
+
+
+def export(path: str, **extra_metadata) -> str:
+    """Write the Chrome-trace JSON; returns ``path``."""
+    with open(path, "w") as f:
+        json.dump(to_chrome(extra_metadata or None), f)
+    return path

@@ -7,7 +7,8 @@ knobs, and ``build_engine`` resolves it (counterpart of
 ``bsp`` arm (with ``overlap`` and ``sharded_update``) and the async
 ``easgd``/``asgd`` arm; ``gspmd`` raises until its slice (ROADMAP queue
 1: sharded training), and quorum plans go through
-:func:`build_elastic_programs`. The canonical state is
+:func:`build_elastic_programs`, which ``fault.elastic.elastic_train``
+rebuilds on every membership change. The canonical state is
 
     {"params": ..., "opt": ..., "step": int}     (+ "center" when async)
 
@@ -202,8 +203,9 @@ def build_engine(plan: TrainPlan, model: Model, optimizer: Optimizer,
     if plan.quorum is not None:
         raise ValueError(
             "quorum plans are elastic: drive them through "
-            "build_elastic_programs (build_engine builds fixed-membership "
-            "engines and would silently ignore quorum)")
+            "repro_torch.fault.elastic.elastic_train (on "
+            "build_elastic_programs); build_engine builds fixed-membership "
+            "engines and would silently ignore quorum")
     if plan.algo == "gspmd":
         raise NotImplementedError(
             "algo 'gspmd' is not ported yet (ROADMAP queue 1: sharded "

@@ -6,7 +6,9 @@ Every rank of the process group runs ``train`` on its own share of each
 global batch; the engine's exchanger keeps the replicas in step.
 
 Telemetry goes into a :class:`~repro_torch.telemetry.registry.Registry`
-returned on the report, under the JAX loop's names:
+returned on the report (always live, and attached to the process's
+telemetry for the run, so a ``--metrics-out`` sink receives it), under
+the JAX loop's names:
 
 - counters ``train/steps``, ``train/examples``, ``train/tokens`` (global,
   all ranks) and ``exchange/bytes_wire`` (this rank's analytic egress);
@@ -15,7 +17,12 @@ returned on the report, under the JAX loop's names:
   ``train/fwd_bwd_time_s``, ``train/exchange_time_s`` and
   ``train/update_time_s`` (CUDA events on the card, read at flushes);
 - gauges ``train/loss``, ``train/lr``, ``train/examples_per_s`` at flush
-  boundaries and ``exchange/bytes_per_step``.
+  boundaries and ``exchange/bytes_per_step``;
+- infos ``train/plan`` and ``exchange/config``;
+- the ``anomaly/train_step_time/{spikes,regressions}`` counters of a
+  ``StreamDetector`` over the steady steps' host times;
+- spans ``train/data``, ``train/step`` and ``train/checkpoint`` in the
+  process's trace.
 
 Losses stay on the device between flushes: one host sync every
 ``log_every`` steps. The first step's wall time (cuDNN's algorithm
@@ -43,9 +50,11 @@ import torch
 
 from repro_torch.checkpoint.ckpt import (rank_dir, restore_for_resume,
                                         save_checkpoint)
-from repro_torch.core.bsp import PHASES, PhaseTimer
+from repro_torch.core.bsp import PHASES, KindStats, PhaseTimer
+from repro_torch import telemetry
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.telemetry import anomaly, trace
 from repro_torch.telemetry.registry import Registry
 from repro_torch.train.engine import TrainPlan, build_engine
 
@@ -135,15 +144,23 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
     h_phase = {p: reg.histogram(f"train/{p}_time_s") for p in PHASES}
     g_loss, g_lr = reg.gauge("train/loss"), reg.gauge("train/lr")
     g_exps = reg.gauge("train/examples_per_s")
+    reg.info("train/plan", algo=plan.algo, exchanger=plan.exchanger,
+             scheme=plan.scheme,
+             arch=getattr(getattr(model, "cfg", None), "name", ""))
     wire = engine.wire(state["params"])
     if wire:
+        reg.info("exchange/config",
+                 **{n: wire[n] for n in ("strategy", "wire_dtype",
+                                         "ag_dtype", "k", "num_buckets",
+                                         "sync_every")})
         reg.gauge("exchange/bytes_per_step").set(wire["bytes_per_step"])
+    det_step = anomaly.StreamDetector("train/step_time", registry=reg)
 
     report = TrainReport(steps=start_step, metrics=reg)
     flush_every = min(log_every, _FLUSH_CAP) if log_every else _FLUSH_CAP
     device_losses, timers = [], []
     phase_sum = {p: 0.0 for p in PHASES}
-    kind_sum: dict = {}
+    kinds = KindStats()
     n_examples = n_tokens = 0
     steady_base_ex = steady_base_tok = 0
     saved_at = None
@@ -154,6 +171,7 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
     for _ in range(start_step):        # the batches the saved run consumed
         if next(it, None) is None:
             return state, report
+    telemetry.attach_registry(reg)
 
     def flush():
         t_f = time.perf_counter()
@@ -167,26 +185,23 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
                 h_phase[p].observe(s)
                 phase_sum[p] += s
             if kind is not None:
-                acc = kind_sum.setdefault(kind, {"steps": 0})
-                acc["steps"] += 1
-                for name, v in list(split.items()) + list(zip(
-                        ("staged_bytes", "stage_s", "wire_s", "exposed_s"),
-                        moved)):
-                    acc[name] = acc.get(name, 0.0) + v
+                kinds.add(kind, split, moved)
         timers.clear()
         return losses[-1] if losses else None
 
     for i in range(start_step, num_steps):
         t_iter0 = time.perf_counter()
-        batch = next(it, None)
+        with trace.span("train/data"):
+            batch = next(it, None)
         if batch is None:
             break
         t_step0 = time.perf_counter()
         timer = PhaseTimer(dev)
         before = tr.counters()
-        state, metrics = engine.step(
-            state, batch, step_generator(seed, i, rank, dev), timer,
-            step_idx=i)
+        with trace.span("train/step", step=i):
+            state, metrics = engine.step(
+                state, batch, step_generator(seed, i, rank, dev), timer,
+                step_idx=i)
         moved = [a - b for a, b in zip(tr.counters(), before)]
         device_losses.append(metrics["loss"])
         b_ex, b_tok = _batch_counts(batch, k)
@@ -209,7 +224,9 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
             tr_base = tr.counters()
             lead_base = tr.lead.wire_s if tr.lead else 0.0
         else:
-            h_step.observe(time.perf_counter() - t_iter0)
+            t_now = time.perf_counter()
+            h_step.observe(t_now - t_iter0)
+            det_step.observe(t_now - t_step0)
             timers.append((timer, (("sync" if engine.is_sync(i) else "local")
                                    if plan.is_async else None), moved))
         last = i == num_steps - 1
@@ -221,18 +238,22 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
             steady_t = time.perf_counter() - t_steady0
             if steady_t > 0 and n_examples > steady_base_ex:
                 g_exps.set((n_examples - steady_base_ex) / steady_t)
+            telemetry.flush(force=False)
         elif len(device_losses) >= flush_every:
             flush()
         if ckpt_path and ckpt_every and (i + 1) % ckpt_every == 0:
-            save_checkpoint(rank_dir(ckpt_path, rank, k), state,
-                            step=i + 1, algo=plan.algo, keep=ckpt_keep)
+            with trace.span("train/checkpoint", step=i + 1):
+                save_checkpoint(rank_dir(ckpt_path, rank, k), state,
+                                step=i + 1, algo=plan.algo, keep=ckpt_keep)
             saved_at = i + 1
         report.steps = i + 1
     _sync(dev)
     flush()
     if ckpt_path and report.steps != saved_at:
-        save_checkpoint(rank_dir(ckpt_path, rank, k), state,
-                        step=report.steps, algo=plan.algo, keep=ckpt_keep)
+        with trace.span("train/checkpoint", step=report.steps):
+            save_checkpoint(rank_dir(ckpt_path, rank, k), state,
+                            step=report.steps, algo=plan.algo,
+                            keep=ckpt_keep)
     now = time.perf_counter()
     report.wall_time = now - t0
     report.examples_per_s = n_examples / max(report.wall_time, 1e-9)
@@ -248,8 +269,7 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
                               in zip(tr.counters(), tr_base))
         if tr.lead is not None:
             report.lead_wire_s = (tr.lead.wire_s - lead_base) / steady_steps
-        report.by_kind = {
-            kind: {n: (v if n == "steps" else v / acc["steps"])
-                   for n, v in acc.items()}
-            for kind, acc in kind_sum.items()}
+        report.by_kind = kinds.means()
+    telemetry.flush(force=True)
+    telemetry.detach_registry(reg)
     return state, report

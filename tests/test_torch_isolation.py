@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.launch.train, repro_torch.kernels.chunk_sum, "
             "repro_torch.kernels.quantize, repro_torch.kernels.fused_sgd, "
             "repro_torch.kernels.fused_rs_update, repro_torch.checkpoint, "
-            "repro_torch.train.serve; "
+            "repro_torch.train.serve, repro_torch.fault, "
+            "repro_torch.fault.smoke, repro_torch.telemetry.report, "
+            "repro_torch.telemetry.validate; "
             "from repro_torch import kernels; "
             "assert not any(m.split('.')[0] in ('jax', 'repro') "
             "for m in sys.modules), sorted(sys.modules); "
@@ -103,3 +105,10 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
     for r in runs[int(torch.cuda.is_available()):]:
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+def test_fault_smoke_without_device_raises_on_cpu_host():
+    _no_gpu()
+    from repro_torch.fault import smoke
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        smoke.main(["--steps", "1"])

@@ -399,3 +399,117 @@ def async_a2a_gpu_worker(rank, k, out_dir, device="cuda"):
         torch.cuda.synchronize()
     res["counters"] = tr.counters()
     torch.save(res, os.path.join(out_dir, f"a2a{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# elastic training on 4 slots (test_torch_elastic.py)
+# ---------------------------------------------------------------------------
+
+ELASTIC_SPECS = {
+    # the reference smoke's chaos schedule, 4 workers on 4 slots
+    "chaos": ("kill:3@9,straggle:2@13x2,corrupt:1@21,drop:0@29,join:3@33",
+              4, 40),
+    # 3 workers on 4 slots: worker 0's slot frees at step 3 and worker 3
+    # joins into it at step 7, below the survivors' slots 1 and 2 (row
+    # order (1, 2, 3), group order (3, 1, 2)); then a detected slowdown
+    "lowslot": ("kill:0@2,join:3@6,slow:1@9x2", 3, 20),
+}
+# the fault harness's lr (fault/smoke.py): at the reference's 0.05 this
+# run is chaotic, and fp32 rounding alone moves it past any fixed tolerance
+ELASTIC_LR = 0.02
+PARITY_STEPS = 8             # full participation vs the fixed easgd plan
+RESUME = dict(spec="kill:3@9", steps=32, every=8, stop=18,
+              lr={"easgd": 0.05, "asgd": 0.02})
+_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                "reduce_scatter_tensor", "all_to_all_single", "barrier",
+                "broadcast_object_list", "batch_isend_irecv")
+
+
+def _count_collectives(counts):
+    """Wrap the process group's collectives (and the exchanger's bound
+    all-gather) so that each call adds one to ``counts``."""
+    import torch.distributed as dist
+
+    def wrap(name, fn):
+        def counted(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **kw)
+        return counted
+
+    for name in _COLLECTIVES:
+        setattr(dist, name, wrap(name, getattr(dist, name)))
+    tex._all_gather = wrap("all_gather", tex._all_gather)
+
+
+def elastic_worker(rank, k, out_dir):
+    """One slot of the elastic runs: the smoke llama3.2-1b of the
+    reference's fault smoke, its initial parameters from JAX
+    (``init.pkl``), through both specs, their replay, full participation
+    against the fixed easgd plan, and preempt -> resume."""
+    import pickle
+
+    from repro_torch.bridge import decoder_params_from_jax
+    from repro_torch.fault.elastic import Preempted, elastic_train
+    from repro_torch.fault.smoke import smoke_setup
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+
+    dev = torch.device("cpu")
+    model, opt, _, batch_fn = smoke_setup(dev)
+    with open(os.path.join(out_dir, "init.pkl"), "rb") as f:
+        p0 = decoder_params_from_jax(pickle.load(f))
+    model = dataclasses.replace(model,
+                                init=lambda *a: tree_map(torch.clone, p0))
+    counts: dict = {}
+    _count_collectives(counts)
+    plan = TrainPlan(algo="easgd", tau=4, alpha=0.5, exchanger="ar",
+                     quorum=2)
+
+    def run(p=plan, lr=ELASTIC_LR, **kw):
+        counts.clear()
+        state, rep = elastic_train(model, opt, tsched.constant(lr),
+                                   batch_fn, plan=p, seed=0, print_fn=None,
+                                   **kw)
+        return state, rep, dict(counts)
+
+    res = {}
+    for name, (spec, workers, steps) in ELASTIC_SPECS.items():
+        state, rep, coll = run(num_workers=workers, num_steps=steps,
+                               fault_plan=spec)
+        res[name] = dict(report=dataclasses.asdict(rep), collectives=coll,
+                         center=(_np(state["center"]) if state else None))
+    s2, r2, _ = run(num_workers=4, num_steps=40,
+                    fault_plan=ELASTIC_SPECS["chaos"][0])
+    res["replay"] = dict(round_log=r2.round_log,
+                         center=_np(s2["center"]) if s2 else None)
+    # full participation, quorum 4 and tau 2: the fixed easgd plan's step
+    sq, _, _ = run(TrainPlan(algo="easgd", tau=2, alpha=0.5,
+                             exchanger="ar", quorum=4),
+                   num_workers=4, num_steps=PARITY_STEPS)
+    mine = [batch_fn(i, k, rank) for i in range(PARITY_STEPS)]
+    sf, _ = train(model, opt, tsched.constant(ELASTIC_LR), mine,
+                  TrainPlan(algo="easgd", tau=2, alpha=0.5, exchanger="ar"),
+                  num_steps=PARITY_STEPS, log_every=0, seed=0,
+                  print_fn=lambda *a: None)
+    res["parity"] = {part: all(torch.equal(a, b) for a, b in zip(
+        leaves(sq[part]), leaves(sf[part]))) for part in ("params", "center")}
+    # preempt -> resume, per algo
+    res["resume"] = {}
+    for algo, lr in RESUME["lr"].items():
+        p = TrainPlan(algo=algo, tau=4, exchanger="ar", quorum=2,
+                      alpha=0.5 if algo == "easgd" else None)
+        kw = dict(num_workers=4, num_steps=RESUME["steps"],
+                  fault_plan=RESUME["spec"])
+        _, ref_rep, _ = run(p, lr, **kw)
+        ck = os.path.join(out_dir, f"ck_{algo}")
+        try:
+            run(p, lr, ckpt_path=ck, ckpt_every=RESUME["every"],
+                stop_at_step=RESUME["stop"], **kw)
+            preempted = None
+        except Preempted as e:
+            preempted = e.step
+        _, rr, _ = run(p, lr, resume_from=ck, **kw)
+        res["resume"][algo] = dict(preempted=preempted, steps=rr.steps,
+                                   ref=ref_rep.losses[-1],
+                                   resumed=rr.losses[-1])
+    torch.save(res, os.path.join(out_dir, f"elastic{rank}.pt"))
