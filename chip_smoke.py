@@ -159,6 +159,28 @@ and the CUDA toolkit. In order:
    bit for bit to their plain versions at its buckets at k = 3 and
    k = 4, the k of its synced rounds.
 
+10. Serve chaos (it runs after phase 4's engine runs): first the split-KV
+   decode, contiguous and paged, at the chaos shape alone (4 slots over
+   64-key lanes, pages of 8, 32 heads over 8, D 64, bf16) against its
+   plain version. Then ``repro_torch.serve.chaos`` drives the port's
+   ``Engine`` over full llama3.2-1b (random weights from a seeded
+   generator, bf16) at the reference CLI's engine shape (4 slots,
+   ``max_seq`` 64, prefill chunk 8, pages of 8, queue 16,
+   ``reject-no-deadline``), with fused sampling, under the CLI's plan
+   ``qflood:6@3,stall:8@6x4,cancel:1@9,pagepress:12@10x8`` at seed 0 and
+   8 base requests, on the virtual clock: ``verify_replay`` (two runs,
+   one digest; the allocator passes ``check_consistency`` after each),
+   then ``verify_drain_restore`` (greedy tokens after drain -> restore
+   equal to an uninterrupted run's). Prints the counts, the step log's
+   length, the brownout levels reached, wall time, the host ms of a
+   decode step and the path's launches (counted from zero around it).
+   Fails unless the counts are the reference CLI's (they depend on
+   neither the tokens nor the vocabulary), the decode saw one argument
+   signature, goodput is at least the CLI's floor of 20 tokens, every accepted request reached a
+   terminal state, and every kernel of the path launched. Then each
+   kernel wrapper is held to its plain version on the arguments of its
+   first call at each shape on the path.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero; with no CUDA device, or outside a checkout, it
@@ -482,11 +504,11 @@ LONG_POSITIONS = (0, 511, 1024, 2047, 4095, 5000, 7777, 8191)  # 8 K lanes
 
 
 def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
-                  dev="cuda"):
+                  dev="cuda", ps=16):
     """The one-token decode of len(positions) slots over lanes of S keys,
-    contiguous and paged (pages of 16, a random page table, the null page
-    past each position), held to the plain version; paged equal to
-    contiguous at block_k = 16 bit for bit, and two calls equal bit for
+    contiguous and paged (pages of ``ps``, a random page table, the null
+    page past each position), held to the plain version; paged equal to
+    contiguous at block_k = ``ps`` bit for bit, and two calls equal bit for
     bit. The combine kernel held to its plain version on the plain
     version's chunk partials, its dead chunks poisoned with NaN. With
     ``flush``, each kernel's time beside its plain version's, SDPA's
@@ -498,8 +520,8 @@ def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
     scale = 1 / math.sqrt(D)
     src = "src/repro_torch/csrc/flash_attention.cu"
     label = f"{len(positions)} slots over {S} keys, {H}/{KV} heads, D {D}, " \
-        f"{str(dtype)[6:]}"
-    B, ps = len(positions), 16
+        f"{str(dtype)[6:]}, pages of {ps}"
+    B = len(positions)
     NP = S // ps
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     qd = rn(B, 1, H, D)
@@ -519,8 +541,8 @@ def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
     if not (err_c <= tol and err_p <= tol):
         _fail(f"flash decode ({label}) vs plain: max err {err_c} / {err_p}")
     if not torch.equal(got_p, fa.flash_decode(qd, lk, lv, pos, block_k=ps)):
-        _fail(f"flash_decode_paged != flash_decode(gathered, block_k=16) "
-              f"({label})")
+        _fail(f"flash_decode_paged != flash_decode(gathered, "
+              f"block_k={ps}) ({label})")
     if not (torch.equal(got_c, fa.flash_decode(qd, lk, lv, pos)) and
             torch.equal(got_p, fa.flash_decode_paged(qd, kp, vp, tables, pos,
                                                      page_size=ps))):
@@ -2537,6 +2559,194 @@ def elastic_phase(device="cuda:0", smoke=False):
         for kk in sorted(per_k)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serve guardrails under the chaos loop
+# ---------------------------------------------------------------------------
+
+CHAOS_PLAN = "qflood:6@3,stall:8@6x4,cancel:1@9,pagepress:12@10x8"
+CHAOS_FLOOR = 20        # the reference CLI's --goodput-floor (its docstring)
+CHAOS_SHAPE = dict(max_slots=4, max_seq=64, prefill_chunk=8, page_size=8,
+                   max_queue=16, shed_policy="reject-no-deadline",
+                   fused_sampling=True)
+CHAOS_POSITIONS = (5, 17, 40, 63)   # 4 slots over 64-key lanes, pages of 8
+# what the reference CLI prints for the plan (its counts do not depend on
+# token values, nor the workload on the vocabulary's size)
+CHAOS_COUNTS = dict(submitted=14, rejected_at_submit=0, finished_total=14,
+                    shed=3, cancelled=1, deadline_misses=6,
+                    rejected_queue_full=0, watchdog_stalls=1,
+                    brownout_clamped=0, goodput_tokens=38,
+                    decoded_tokens=48, steps=18)
+
+
+class _FirstCalls:
+    """Patches ``module.name`` for each (module, name) with a pass-through
+    that keeps clones of the arguments of its first call at each argument
+    shape (the shapes the path gives the kernel); restores on exit."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.calls = torch, targets, {}
+
+    def _clone(self, x):
+        return x.clone() if isinstance(x, self.torch.Tensor) else x
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name in self.targets:
+            real = getattr(mod, name)
+            self.saved.append((mod, name, real))
+
+            def spy(*a, _real=real, _name=name, **kw):
+                key = (_name,) + tuple(tuple(x.shape) for x in a
+                                       if isinstance(x, self.torch.Tensor))
+                if key not in self.calls:
+                    self.calls[key] = ([self._clone(x) for x in a],
+                                       {k: self._clone(v)
+                                        for k, v in kw.items()})
+                return _real(*a, **kw)
+            setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def _hold_path_calls(torch, ref, fa, sg, calls) -> dict:
+    """Each kernel wrapper against its plain version on the arguments the
+    chaos path gave it (first call at each shape). Returns {call: max
+    abs err}."""
+    errs = {}
+    for key, (a, kw) in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        name = key[0]
+        if name == "flash_attention":
+            q, k, v = a
+            off = fa._positions(kw.get("q_off"), q.shape[0], q.device)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, off, kw.get("window", 0),
+                                           1 / math.sqrt(q.shape[-1]))
+            tol = FWD_TOL
+        elif name == "flash_decode_paged":
+            q, kp, vp, tables, pos = a
+            got = fa.flash_decode_paged(q, kp, vp, tables, pos, **kw)
+            want = ref.flash_decode_paged_ref(
+                q, kp, vp, tables, fa._positions(pos, q.shape[0], q.device),
+                kw.get("window", 0), 1 / math.sqrt(q.shape[-1]),
+                kw["page_size"])
+            tol = DECODE_TOL
+        else:                                   # slot_gather_sample
+            got = torch.stack(sg.slot_gather_sample(*a))
+            want = torch.stack(ref.slot_gather_sample_ref(*a))
+            tol = 0
+        err = (got.float() - want.float()).abs().max().item()
+        label = f"{name}{list(key[1:])}"
+        errs[label] = err
+        if not err <= tol:
+            _fail(f"chaos path: {label} vs plain: max err {err} > {tol}")
+    return errs
+
+
+def chaos_phase(torch, K, cfg, models, serve, dev):
+    """Phase 10: ``serve.chaos`` on ``cfg`` (random weights from a seeded
+    generator, bf16) at the reference CLI's engine shape and plan, seed 0,
+    8 base requests: ``verify_replay`` (two runs, one digest), then
+    ``verify_drain_restore``. Returns the launches of the phase's run."""
+    import numpy as np
+    from repro_torch.fault.inject import FaultPlan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slot_gather as sg
+    from repro_torch.models import attention
+    from repro_torch.serve import chaos
+    from repro_torch.serve import engine as engine_mod
+
+    # the split-KV decode at this shape alone first: B 4, 64-key lanes
+    g = torch.Generator(device=dev).manual_seed(10)
+    a = cfg.attention
+    rows = _serve_decode(torch, ref, fa, g, a.num_heads, a.num_kv_heads,
+                         a.head_dim, torch.bfloat16, None, CHAOS_POSITIONS,
+                         64, dev=str(dev), ps=8)
+    print("chaos shape decode vs plain (4 slots over 64 keys, pages of 8): "
+          + json.dumps({n: r["err"] for n, r in rows.items()}))
+
+    model = models.build_model(cfg, dev)
+    master = model.init(torch.Generator(device=dev).manual_seed(0))
+    params = models.cast_params(master, torch.bfloat16)
+    del master
+    host_s = []
+
+    def make_engine(**over):
+        eng = serve.Engine(model, params, device=dev, **CHAOS_SHAPE, **over)
+        dispatch, first = eng._decode, [True]
+
+        def timed(*args):          # host time of a decode step, to its sync
+            t = time.perf_counter()
+            out = dispatch(*args)
+            if not first[0]:       # an engine's first step sets up
+                host_s.append(time.perf_counter() - t)
+            first[0] = False
+            return out
+        eng._decode = timed        # (no reference back to eng: no cycle)
+        return eng
+
+    plan = FaultPlan.from_spec(CHAOS_PLAN, seed=0)
+    run_kw = dict(n_base=8, max_steps=300, vocab=cfg.vocab_size, max_seq=64)
+    targets = [(attention, "flash_attention"),
+               (attention, "flash_decode_paged"),
+               (engine_mod, "slot_gather_sample")]
+    _sync(torch, dev)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with _FirstCalls(torch, targets) as spy:
+        res, _ = chaos.verify_replay(make_engine, plan, **run_kw)
+        t1 = time.perf_counter()
+        drain = chaos.verify_drain_restore(make_engine, seed=0,
+                                           vocab=cfg.vocab_size, max_seq=64)
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    launches = dict(K.LAUNCHES)
+    # what trace_counts costs a decode step: the signature of its arguments
+    eng = make_engine()
+    sig_us = 1e3 * _host_ms(lambda: engine_mod._signature(
+        (eng.params, eng.pool)), iters=200)
+    del eng
+    for name in ("flash_attention", "flash_decode_paged",
+                 "flash_decode_combine", "slot_gather_sample"):
+        if launches.get(name, 0) <= 0:
+            _fail(f"{name} was not launched by the chaos path")
+    s = res["stats"]
+    levels = sorted({e["brownout"] for e in res["log"]})
+    out = dict(
+        plan=CHAOS_PLAN, seed=0, digest=res["digest"],
+        counts={k: s[k] for k in CHAOS_COUNTS},
+        log_len=len(res["log"]), brownout_levels=levels,
+        decode_compiles=res["decode_compiles"],
+        replay_wall_s=t1 - t0, drain_restore_wall_s=t2 - t1,
+        decode_steps_timed=len(host_s),
+        decode_host_ms_mean=1e3 * float(np.mean(host_s)),
+        decode_host_ms_p50=1e3 * float(np.median(host_s)),
+        signature_host_us=sig_us,
+        requeued=drain["requeued"], launches=launches)
+    print(f"chaos phase ({cfg.name}, bf16, paged, fused sampling): "
+          + json.dumps(out))
+    if res["decode_compiles"] != 1:
+        _fail(f"chaos: the decode saw {res['decode_compiles']} argument "
+              f"signatures, not 1")
+    if out["counts"] != CHAOS_COUNTS:
+        _fail(f"chaos: counts {out['counts']} are not the reference "
+              f"CLI's {CHAOS_COUNTS}")
+    if s["goodput_tokens"] < CHAOS_FLOOR:
+        _fail(f"chaos: goodput {s['goodput_tokens']} < {CHAOS_FLOOR}")
+    if s["finished_total"] != s["submitted"] - s["rejected_at_submit"]:
+        _fail(f"chaos: {s['finished_total']} terminal of "
+              f"{s['submitted']} - {s['rejected_at_submit']} accepted")
+    if not drain["requeued"]:
+        _fail("chaos: the drain left nothing to restore")
+    errs = _hold_path_calls(torch, ref, fa, sg, spy.calls)
+    print("chaos path kernels vs plain, at the path's first call of each "
+          "shape: " + json.dumps(errs))
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2592,15 +2802,19 @@ def main() -> int:
     qwen_launches, _ = engine_phase(torch, K, qwen, models, serve,
                                     torch.device("cuda"), QWEN_LOGIT_TOL)
     torch.cuda.empty_cache()
+    chaos_launches = chaos_phase(torch, K, llama, models, serve,
+                                 torch.device("cuda"))
+    torch.cuda.empty_cache()
     lm_grad_check(torch, llama, models, torch.device("cuda"))
     torch.cuda.empty_cache()
     lm_grad_check(torch, qwen.with_overrides(num_layers=QWEN_GRAD_LAYERS),
                   models, torch.device("cuda"))
     torch.cuda.empty_cache()
     # launches per kernel and main path (serving llama3.2-1b and
-    # qwen1.5-4b, the convnets' training, LM training, the int8 round
+    # qwen1.5-4b, serve chaos, the convnets' training, LM training, the int8 round
     # trip), each path counted from zero around its run
-    by_path = {"serve": launches, "serve_qwen1.5-4b": qwen_launches}
+    by_path = {"serve": launches, "serve_qwen1.5-4b": qwen_launches,
+               "serve_chaos": chaos_launches}
     conv_shapes = {}
     for arch in TRAIN_ARCHS:
         by_path[f"{arch}_train"], conv_shapes[arch] = train_phase(arch=arch)

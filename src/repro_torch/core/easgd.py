@@ -14,9 +14,11 @@ so the loop's checkpoints save and resume it like any other.
 
 ``make_async_step`` returns ``(local_step, sync_step)``. The local step
 is this worker's optimizer step and issues no collective at all: its
-metrics are this worker's own (the reference's local program
-``pmean``s them; on gloo that scalar all-reduce would be a round trip on
-every step the plan means to keep off the wire). The sync step adds the
+metrics are this worker's own (on gloo the reference's per-step
+``pmean`` would be a round trip on every step the plan means to keep off
+the wire). The training loop averages them over the workers at each
+flush with one all-reduce (``train/loop.py``), so what it reports equals
+the reference's ``pmean`` on every step. The sync step adds the
 elastic exchange through :meth:`Exchanger.exchange`, so the ASA
 decomposition, bucketing and the fp16/int8 wires apply to the center
 traffic as to BSP gradients, and reports the metrics' mean over the

@@ -5,6 +5,9 @@
 - ``scheduler`` — FIFO admission + slot lifecycle (host copy)
 - ``cache``     — contiguous and paged KV pools, :class:`PageAllocator`
 - ``sampling``  — greedy/temperature/top-k/top-p with per-slot noise
+- ``chaos``     — the deterministic serve fault-injection loop (virtual
+                  clock, seeded ``FaultPlan``), bit-identical replay and
+                  drain -> restore checks
 """
 from repro_torch.serve.engine import Engine, EngineStats
 from repro_torch.serve.scheduler import (ACCEPTED, AdmissionResult,

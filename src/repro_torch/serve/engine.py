@@ -21,27 +21,30 @@
 - **Sampling.** Greedy/temperature/top-k/top-p per request;
   ``fused_sampling=True`` routes greedy/temperature through the
   ``slot_gather_sample`` kernel.
-- **Deadlines and queue bounds** as the scheduler carries them: a bounded
-  queue with a shed policy, queued requests shed when their budget is
-  blown or their deadline unmeetable, in-flight requests past deadline
-  cancelled at step boundaries, and ``cancel(rid)``.
-
-Not ported yet (ROADMAP queue 1): the brownout ladder, the stuck-step
-watchdog and anomaly detection, per-program cost attribution,
-drain/snapshot/restore and the chaos harness.
+- **SLO guardrails are host-side only.** Deadline shedding, in-flight
+  cancellation, the bounded queue, brownout degradation, the stuck-step
+  watchdog and drain/restore all live between dispatches: the decode and
+  prefill dispatches run the same operations with guardrails on or off,
+  and each sees one argument signature (shapes, dtypes, devices) for the
+  engine's lifetime (``trace_counts``, the counterpart of the reference's
+  compile-once count; tested). ``serve.chaos`` drives them on a virtual
+  clock.
 
 The engine is synchronous: admission and prefill happen between decode
 steps, which keeps the loop deterministic and testable.
 """
 from __future__ import annotations
 
+import json
 import time
+import zlib
 from collections import deque
 
 import numpy as np
 import torch
 
-from repro_torch import default_device
+from repro_torch import default_device, telemetry
+from repro_torch.checkpoint.ckpt import _atomic_write
 from repro_torch.configs.base import with_attn_impl
 from repro_torch.kernels.slot_gather import slot_gather_sample
 from repro_torch.models import build_model, cast_params
@@ -49,17 +52,36 @@ from repro_torch.models.common import dtype_of
 from repro_torch.serve import cache as cache_mod
 from repro_torch.serve import sampling as sampling_mod
 from repro_torch.serve.scheduler import (AdmissionResult, FINISH_SHED,
-                                         Request, SamplingParams,
-                                         SlotScheduler)
-from repro_torch.telemetry import trace
+                                         REJECTED_QUEUE_FULL, Request,
+                                         SamplingParams, SlotScheduler,
+                                         SlotState)
+from repro_torch.telemetry import anomaly, profile, trace
 from repro_torch.telemetry.registry import Registry
 
 STATS_WINDOW = 4096   # decode steps of latency history kept for percentiles
-EWMA_ALPHA = 0.2      # step-time EWMA (the deadline-estimate base)
+EWMA_ALPHA = 0.2      # step-time EWMA (the watchdog/deadline-estimate base)
+
+# brownout ladder thresholds on page-pool occupancy: sustained occupancy
+# >= HI1 enters level 1 (prefix-cache registration off), >= HI2 level 2
+# (+ max_new clamp); dropping below LO for the same patience leaves it
+BROWNOUT_HI1 = 0.85
+BROWNOUT_HI2 = 0.95
+BROWNOUT_LO = 0.60
+BROWNOUT_PATIENCE = 3
+
+SNAPSHOT_SCHEMA = 1
 
 
 class EngineStats:
-    """Serve statistics on a private, always-live :class:`Registry`."""
+    """Serve statistics on a private, always-live :class:`Registry`
+    (the stats work with ``REPRO_TELEMETRY=0``; with telemetry on, the
+    engine attaches the registry to the process-wide export stream).
+
+    Beside throughput and latency: shed/cancel/deadline-miss/queue-
+    rejection counters, the watchdog's stalls and brownout's clamps, the
+    queue-depth and brownout gauges, a goodput counter (tokens of requests
+    that finished inside their deadline) and ``step_ewma``, the step-time
+    EWMA that the admission estimate and the stuck-step watchdog read."""
 
     def __init__(self):
         r = self.registry = Registry(label="serve")
@@ -77,8 +99,11 @@ class EngineStats:
         self._cancelled = r.counter("serve/cancelled")
         self._deadline_miss = r.counter("serve/deadline_miss")
         self._rejected_queue_full = r.counter("serve/rejected_queue_full")
+        self._watchdog_stalls = r.counter("serve/watchdog_stalls")
+        self._brownout_clamped = r.counter("serve/brownout_clamped")
         self._goodput_tokens = r.counter("serve/goodput_tokens")
         self._queue_depth = r.gauge("serve/queue_depth")
+        self._brownout_level = r.gauge("serve/brownout_level")
         self._h_step = r.histogram("serve/step_time_s")
         self._h_ttft = r.histogram("serve/ttft_s")
         self._h_queue = r.histogram("serve/queue_wait_s")
@@ -135,8 +160,17 @@ class EngineStats:
     def record_rejection(self) -> None:
         self._rejected_queue_full.inc()
 
+    def record_watchdog(self) -> None:
+        self._watchdog_stalls.inc()
+
+    def record_brownout_clamp(self) -> None:
+        self._brownout_clamped.inc()
+
     def set_queue_depth(self, n: int) -> None:
         self._queue_depth.set(n)
+
+    def set_brownout_level(self, level: int) -> None:
+        self._brownout_level.set(level)
 
     def set_page_stats(self, occupancy: float, hit_rate: float,
                        cow: int) -> None:
@@ -160,7 +194,10 @@ class EngineStats:
     cancelled = property(lambda s: s._cancelled.value)
     deadline_misses = property(lambda s: s._deadline_miss.value)
     rejected_queue_full = property(lambda s: s._rejected_queue_full.value)
+    watchdog_stalls = property(lambda s: s._watchdog_stalls.value)
+    brownout_clamped = property(lambda s: s._brownout_clamped.value)
     goodput_tokens = property(lambda s: s._goodput_tokens.value)
+    brownout_level = property(lambda s: int(s._brownout_level.value))
 
     def prefill_tok_s(self) -> float:
         return self.prefill_tokens / max(self.prefill_time, 1e-9)
@@ -193,26 +230,63 @@ class EngineStats:
         return {q: float(np.percentile(arr, q)) for q in qs}
 
 
+def _signature(args) -> tuple:
+    """(shape, dtype, device) of every tensor in ``args`` (nested dicts,
+    lists and tuples), in order: what a dispatch's operations depend on
+    besides tensor values."""
+    sig = []
+
+    def rec(x):
+        if isinstance(x, torch.Tensor):
+            sig.append((tuple(x.shape), x.dtype, x.device))
+        elif isinstance(x, dict):
+            for v in x.values():
+                rec(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                rec(v)
+
+    rec(args)
+    del rec                      # break the closure's cycle
+    return tuple(sig)
+
+
 class Engine:
     """Continuous-batching inference engine over a fixed slot pool."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_seq: int = 256, prefill_chunk: int = 32,
                  fused_sampling: bool = False, attn_impl: str | None = None,
-                 page_size: int = 16, prefix_cache: bool = True,
-                 max_queue: int = 0, shed_policy: str = "reject-newest",
+                 page_size: int = 16, num_pages: int = 0,
+                 prefix_cache: bool = True, max_queue: int = 0,
+                 shed_policy: str = "reject-newest",
+                 watchdog_k: float = 6.0, brownout: bool = True,
+                 brownout_max_new: int = 16, finished_keep: int = 4096,
+                 guardrails: bool = True, clock=None, cost_model=None,
                  device=None):
         """``device`` defaults to ``cuda`` (raising when no GPU is
         visible); ``device="cpu"`` runs the kernels' plain versions.
         ``params`` are the model's master parameters: the engine keeps a
         copy cast to the compute dtype on ``device``.
 
-        ``page_size`` > 0 runs the paged KV cache, sized so every slot can
-        reach ``max_seq``; ``page_size=0`` keeps the contiguous pool.
+        ``page_size`` > 0 runs the paged KV cache over ``num_pages``
+        physical pages (0: the worst case, every slot can reach
+        ``max_seq``); ``page_size=0`` keeps the contiguous pool.
         ``prefix_cache`` hands shared page-aligned prompt prefixes to new
-        requests by refcount. ``max_queue`` bounds the submit queue (0 =
-        unbounded) with ``shed_policy`` deciding who loses; requests may
-        carry ``deadline_ms``/``max_queue_ms`` budgets."""
+        requests by refcount.
+
+        SLO guardrails (all host-side): ``max_queue`` bounds the submit
+        queue (0 = unbounded) with ``shed_policy`` deciding who loses;
+        requests may carry ``deadline_ms``/``max_queue_ms`` budgets
+        (hopeless queued requests are shed, in-flight ones past deadline
+        cancelled at step boundaries); ``watchdog_k`` flags a decode
+        dispatch slower than k x the step-time EWMA; ``brownout``
+        degrades service under sustained page-pool pressure (prefix-cache
+        registration off, then queued ``max_new`` clamped to
+        ``brownout_max_new``). ``guardrails=False`` enforces none of it
+        (budgets are still recorded, so goodput is measured).
+        ``clock``/``cost_model`` are the seams ``serve.chaos`` drives
+        virtual time through (None: the wall clock)."""
         cfg = model.cfg
         if cfg.family != "decoder":
             raise ValueError(f"serve engine supports decoder models, "
@@ -234,19 +308,33 @@ class Engine:
         self.max_seq = max_seq
         self.prefill_chunk = prefill_chunk
         self.fused_sampling = fused_sampling
-        self._clock = time.perf_counter
+        self.guardrails = guardrails
+        self.watchdog_k = watchdog_k
+        self.brownout = brownout and guardrails
+        self.brownout_max_new = brownout_max_new
+        self._brownout_level = 0
+        self._hot = [0, 0]       # consecutive steps above HI1 / HI2
+        self._cool = 0           # consecutive steps below LO
+        self.draining = False
+        self._clock = clock or time.perf_counter
+        self._cost_model = cost_model
+        # distinct argument signatures each dispatch has seen
+        self._sigs = {"prefill": set(), "decode": set(), "sample": set()}
         self.params = cast_params(_to(params, self.device),
                                   dtype_of(cfg.dtype))
 
         self.paged = page_size > 0
         self.page_size = page_size if self.paged else 0
         self.allocator = None
-        sched_kw = dict(max_queue=max_queue, shed_policy=shed_policy,
-                        clock=self._clock)
+        sched_kw = dict(max_queue=max_queue if guardrails else 0,
+                        shed_policy=shed_policy,
+                        finished_keep=finished_keep, clock=self._clock)
         if self.paged:
             pps = max_seq // page_size
-            # worst case + the null page + one spare for a full-hit COW
-            num_pages = self.num_pages = max_slots * pps + 2
+            if num_pages <= 0:
+                # worst case + the null page + one spare for a full-hit COW
+                num_pages = max_slots * pps + 2
+            self.num_pages = num_pages
             self.pool = cache_mod.make_paged_pool(model, max_slots, page_size,
                                                   num_pages)
             self.allocator = cache_mod.PageAllocator(
@@ -259,6 +347,8 @@ class Engine:
             self.pool = cache_mod.make_pool(model, max_slots, max_seq)
             self.sched = SlotScheduler(max_slots, max_seq, **sched_kw)
         self.stats = EngineStats()
+        if telemetry.enabled():
+            telemetry.attach_registry(self.stats.registry)
 
         # per-slot sampling state (host mirrors, uploaded per dispatch)
         self._temps = np.zeros((max_slots,), np.float32)
@@ -271,6 +361,30 @@ class Engine:
                                        device=self.device)
         self._ones = torch.ones((max_slots, 1), dtype=torch.float32,
                                 device=self.device)
+
+        # the first call of each is timed as its compile/* gauge (kernel
+        # builds, first allocations); later calls feed profile.observe.
+        # They wrap the class's functions, not bound methods: a wrapper
+        # held by the engine that held the engine would keep its pool and
+        # parameters on the card until the cycle collector ran
+        self._prefill = profile.instrument("serve/prefill_chunk",
+                                           Engine._prefill_chunk)
+        self._decode = profile.instrument("serve/decode_step",
+                                          Engine._decode_step)
+        self._prefill_warm = False
+        self._det_step = anomaly.StreamDetector(
+            "serve/step_time", registry=self.stats.registry)
+
+    @property
+    def trace_counts(self) -> dict:
+        """Distinct argument signatures (every tensor's shape, dtype and
+        device) that ``prefill``, ``decode`` and ``sample`` have been
+        dispatched with: the counterpart of the reference's jit trace
+        counts. Requests joining or leaving must leave ``decode`` at 1."""
+        return {k: len(v) for k, v in self._sigs.items()}
+
+    def _seen(self, program: str, *args) -> None:
+        self._sigs[program].add(_signature(args))
 
     # -- device steps -------------------------------------------------------
 
@@ -288,13 +402,15 @@ class Engine:
         table's pages (paged). Returns the chunk's logits (1, C, V)."""
         if self.paged:
             view = cache_mod.paged_view(self.pool, slot)
+            tables = self._tables()[slot:slot + 1]
+            self._seen("prefill", self.params, view, tokens, tables)
             logits, view = self.model.chunk_prefill(
                 self.params, view, tokens, pos0, valid, seq_len=self.max_seq,
-                block_tables=self._tables()[slot:slot + 1],
-                page_size=self.page_size)
+                block_tables=tables, page_size=self.page_size)
             self.pool = cache_mod.paged_write(self.pool, slot, view)
         else:
             view = cache_mod.slot_view(self.pool, slot)
+            self._seen("prefill", self.params, view, tokens)
             logits, view = self.model.chunk_prefill(
                 self.params, view, tokens, pos0, valid, seq_len=self.max_seq)
             self.pool = cache_mod.slot_write(self.pool, slot, view)
@@ -311,35 +427,43 @@ class Engine:
         if self.fused_sampling:
             onehot = (torch.arange(logits.shape[1], device=self.device)
                       == valid - 1).float()[None]
+            self._seen("sample", logits, onehot, t, noise)
             greedy, sampled = slot_gather_sample(logits, onehot, t, noise)
             return int((greedy if temp <= 0.0 else sampled)[0])
         row = logits[0, valid - 1][None]
-        tok = sampling_mod.sample_tokens(
-            row, t, self._tensor(self._top_ks[slot:slot + 1], torch.int32),
-            self._tensor(self._top_ps[slot:slot + 1], torch.float32), noise)
+        top_k = self._tensor(self._top_ks[slot:slot + 1], torch.int32)
+        top_p = self._tensor(self._top_ps[slot:slot + 1], torch.float32)
+        self._seen("sample", row, t, top_k, top_p, noise)
+        tok = sampling_mod.sample_tokens(row, t, top_k, top_p, noise)
         return int(tok[0])
 
-    def _decode(self, tokens, pos):
+    def _decode_step(self, tokens, pos):
         """One decode step for the whole slot pool + sampling. Returns the
         sampled token per slot as a host array (the sync point)."""
-        logits, self.pool = self.model.decode_step(
-            self.params, self.pool, {"tokens": tokens}, pos,
-            seq_len=self.max_seq, block_tables=self._tables(),
-            page_size=self.page_size)
+        tables = self._tables()
         temps = self._tensor(self._temps, torch.float32)
         # all-greedy steps (the default) skip the (S, V) Gumbel draw
-        noise = (sampling_mod.gumbel_noise(self._gens, logits.shape[-1],
+        noise = (sampling_mod.gumbel_noise(self._gens, self.cfg.vocab_size,
                                            self.device)
                  if (self._temps > 0.0).any() else self._zero_noise)
+        if self.fused_sampling:
+            extra = (self._ones,)
+        else:
+            extra = (self._tensor(self._top_ks, torch.int32),
+                     self._tensor(self._top_ps, torch.float32))
+        self._seen("decode", self.params, self.pool, tokens, pos, tables,
+                   temps, noise, *extra)
+        logits, self.pool = self.model.decode_step(
+            self.params, self.pool, {"tokens": tokens}, pos,
+            seq_len=self.max_seq, block_tables=tables,
+            page_size=self.page_size)
         if self.fused_sampling:
             greedy, sampled = slot_gather_sample(logits, self._ones, temps,
                                                  noise)
             tok = torch.where(temps <= 0.0, greedy, sampled)
         else:
-            tok = sampling_mod.sample_tokens(
-                logits[:, 0], temps,
-                self._tensor(self._top_ks, torch.int32),
-                self._tensor(self._top_ps, torch.float32), noise)
+            tok = sampling_mod.sample_tokens(logits[:, 0], temps, *extra,
+                                             noise)
         return tok.cpu().numpy()
 
     # -- host loop ----------------------------------------------------------
@@ -350,14 +474,17 @@ class Engine:
                deadline_ms: float | None = None,
                max_queue_ms: float | None = None) -> AdmissionResult:
         """Queue a request. Returns an :class:`AdmissionResult` that
-        coerces to the request id when accepted; a full bounded queue
-        rejects with no state changed. Malformed or never-fits requests
-        raise ``ValueError``."""
+        coerces to the request id when accepted; a full bounded queue (or
+        a draining engine) rejects with no state changed. Malformed or
+        never-fits requests raise ``ValueError``."""
         sampling = sampling or SamplingParams()
         if self.fused_sampling and sampling_mod.needs_full_path(sampling):
             raise ValueError("fused_sampling engine handles greedy/"
                              "temperature only; top-k/top-p need the full "
                              "path (fused_sampling=False)")
+        if self.draining:
+            self.stats.record_rejection()
+            return AdmissionResult(-1, REJECTED_QUEUE_FULL, "engine draining")
         req = Request(tokens=list(map(int, tokens)), max_new=max_new,
                       sampling=sampling, eos=eos, deadline_ms=deadline_ms,
                       max_queue_ms=max_queue_ms)
@@ -413,9 +540,20 @@ class Engine:
                     sl = np.pad(sl, (0, C - valid))
                 if self.paged:
                     self._make_writable(slot, c, c + valid)
-                logits = self._prefill_chunk(
-                    self._tensor(sl[None], torch.int64), slot, c, valid)
-            if self.allocator is not None:
+                t_c = self._clock()
+                logits = self._prefill(
+                    self, self._tensor(sl[None], torch.int64), slot, c,
+                    valid)
+                if self._cost_model is not None:
+                    self._clock.advance(self._cost_model("prefill_chunk", C))
+                if self._prefill_warm:
+                    profile.observe("serve/prefill_chunk",
+                                    self._clock() - t_c)
+                else:
+                    self._prefill_warm = True
+            if self.allocator is not None and self._brownout_level < 1:
+                # brownout level >= 1 stops publishing new prefixes: cache
+                # holds are the pressure being shed
                 self.allocator.register_prefix(slot, toks)
             tok = self._sample_prefill(logits, valid, slot)
         self.stats.record_prefill(S0 - start, self._clock() - t0)
@@ -425,6 +563,8 @@ class Engine:
     def _account_finished(self) -> None:
         while self.sched.finish_log:
             self.stats.record_finish(self.sched.finish_log.popleft())
+
+    # -- SLO guardrails (all host-side, between dispatches) -----------------
 
     def _estimate_service_s(self, req: Request) -> float:
         """Admission-time completion estimate from measured rates (prompt
@@ -453,24 +593,62 @@ class Engine:
                               why="queue_budget" if over_queue
                               else "deadline_unmeetable")
 
+    def _update_brownout(self, occupancy: float) -> None:
+        """Walk the brownout ladder on sustained page-pool pressure:
+        level 1 stops prefix-cache registration, level 2 also clamps
+        queued requests' ``max_new``. Hysteresis: entering needs
+        ``BROWNOUT_PATIENCE`` consecutive hot steps, leaving needs as many
+        below the low watermark."""
+        if occupancy >= BROWNOUT_HI1:
+            self._hot[0] += 1
+            self._hot[1] = (self._hot[1] + 1 if occupancy >= BROWNOUT_HI2
+                            else 0)
+            self._cool = 0
+        else:
+            self._hot = [0, 0]
+            self._cool = self._cool + 1 if occupancy < BROWNOUT_LO else 0
+        if self._hot[1] >= BROWNOUT_PATIENCE:
+            level = 2
+        elif self._hot[0] >= BROWNOUT_PATIENCE:
+            level = max(self._brownout_level, 1)
+        elif self._cool >= BROWNOUT_PATIENCE:
+            level = 0
+        else:
+            level = self._brownout_level
+        if level != self._brownout_level:
+            trace.instant("serve/brownout", level=level,
+                          occupancy=round(occupancy, 3))
+        self._brownout_level = level
+        self.stats.set_brownout_level(level)
+        if level >= 2:
+            for req in self.sched.pending:
+                if req.max_new > self.brownout_max_new:
+                    req.max_new = self.brownout_max_new
+                    self.stats.record_brownout_clamp()
+
     def step(self) -> int:
         """Admit + prefill new requests, run one decode step over the pool.
         Returns the number of live tokens produced."""
         now = self._clock()
-        self._shed_hopeless(now)
-        for rid in self.sched.cancel_past_deadline(now):
-            trace.instant("serve/deadline_cancel", rid=rid)
+        if self.guardrails:
+            if not self.draining:
+                self._shed_hopeless(now)
+            for rid in self.sched.cancel_past_deadline(now):
+                trace.instant("serve/deadline_cancel", rid=rid)
         self._account_finished()
-        for slot, req in self.sched.admit():
-            self.stats.record_admission(req.queue_wait)
-            self._prefill_request(slot, req)
+        if not self.draining:
+            for slot, req in self.sched.admit():
+                self.stats.record_admission(req.queue_wait)
+                self._prefill_request(slot, req)
         self._account_finished()       # max_new=1/eos at the first token
         n_active = self.sched.num_active
         self.stats.set_queue_depth(self.sched.queue_depth)
         if self.allocator is not None:
-            self.stats.set_page_stats(self.allocator.occupancy(),
-                                      self.allocator.hit_rate(),
+            occ = self.allocator.occupancy()
+            self.stats.set_page_stats(occ, self.allocator.hit_rate(),
                                       self.allocator.cow_copies)
+            if self.brownout:
+                self._update_brownout(occ)
         else:
             self.stats.set_page_stats(n_active / self.max_slots, 0.0, 0)
         if n_active == 0:
@@ -483,10 +661,23 @@ class Engine:
                     self._make_writable(slot, st.pos, st.pos + 1)
         tokens = self._tensor(self.sched.feed_tokens(), torch.int64)[:, None]
         pos = self._tensor(self.sched.positions(), torch.int64)
+        ewma_prior = self.stats.step_ewma
         t0 = self._clock()
         with trace.span("serve/decode_step", active=n_active):
-            tok = self._decode(tokens, pos)
+            tok = self._decode(self, tokens, pos)
+        if self._cost_model is not None:
+            self._clock.advance(self._cost_model("decode", n_active))
         dt = self._clock() - t0
+        if self.stats.steps > 0:     # step 0 carries first-call set-up
+            profile.observe("serve/decode_step", dt)
+            self._det_step.observe(dt)
+            if (self.guardrails and ewma_prior is not None
+                    and dt > self.watchdog_k * ewma_prior):
+                # the stuck-step watchdog: this dispatch blew far past the
+                # EWMA (a wedged device shows up here before anything else)
+                self.stats.record_watchdog()
+                trace.instant("serve/watchdog_stall", dt=round(dt, 6),
+                              ewma=round(ewma_prior, 6), k=self.watchdog_k)
         self.sched.record_step(tok)
         self._account_finished()
         self.stats.record_decode(n_active, dt)
@@ -497,6 +688,97 @@ class Engine:
         while self.sched.has_work():
             self.step()
         return self.sched.results()
+
+    # -- graceful drain + crash-safe restore --------------------------------
+
+    def drain(self, path: str | None = None, *,
+              max_steps: int | None = None) -> dict:
+        """Graceful drain: stop admitting, finish what is in flight (up to
+        ``max_steps`` dispatches), snapshot the host-side request state.
+        Queued (and still unfinished in-flight) requests are recorded by
+        prompt; a restored engine re-runs them from scratch, which is
+        bit-identical for greedy and seeded sampling. ``path`` writes the
+        snapshot crash-safely (temp file, fsync, rename) with a crc32, in
+        the reference's layout: either package loads the other's."""
+        self.draining = True
+        steps = 0
+        while (self.sched.num_active > 0
+               and (max_steps is None or steps < max_steps)):
+            self.step()
+            steps += 1
+        self._account_finished()
+        snap = self._snapshot()
+        if path is not None:
+            payload = json.dumps(snap, sort_keys=True).encode()
+            _atomic_write(path, json.dumps(
+                {"schema": SNAPSHOT_SCHEMA, "crc": zlib.crc32(payload),
+                 "payload": snap}, sort_keys=True).encode())
+        trace.instant("serve/drain", steps=steps,
+                      queued=len(snap["queued"]),
+                      inflight=len(snap["inflight"]))
+        return snap
+
+    def _snapshot(self) -> dict:
+        sched = self.sched
+        return {
+            "rid_next": sched._next_rid,
+            "queued": [r.to_state() for r in sched.pending],
+            "inflight": [st.req.to_state() for st in sched.slots
+                         if st is not None],
+            "finished": [{"req": st.req.to_state(),
+                          "generated": list(st.generated),
+                          "reason": st.req.finish_reason}
+                         for st in sched.finished.values()],
+            "finished_total": sched.finished_total,
+            "finished_dropped": sched.finished_dropped,
+        }
+
+    def load_snapshot(self, path_or_snap) -> list:
+        """Restore a drained engine's unfinished work into this fresh
+        engine: finished results come back verbatim, queued and
+        interrupted in-flight requests are re-queued under their original
+        rids (deadlines restart from now). Returns the re-queued rids. A
+        corrupt snapshot file fails its crc32 check and raises."""
+        if isinstance(path_or_snap, str):
+            with open(path_or_snap, "rb") as f:
+                wrapper = json.load(f)
+            payload = json.dumps(wrapper["payload"], sort_keys=True).encode()
+            if zlib.crc32(payload) != wrapper["crc"]:
+                raise ValueError(f"serve snapshot {path_or_snap!r} failed its "
+                                 f"crc32 integrity check")
+            snap = wrapper["payload"]
+        else:
+            snap = path_or_snap
+        sched = self.sched
+        if sched.finished or sched.has_work():
+            raise ValueError("load_snapshot needs a fresh engine")
+        for ent in snap["finished"]:
+            req = Request.from_state(ent["req"])
+            req.finish_reason = ent["reason"]
+            sched.finished[req.rid] = SlotState(
+                req=req, generated=list(ent["generated"]), done=True)
+        sched.finished_total = int(snap["finished_total"])
+        sched.finished_dropped = int(snap["finished_dropped"])
+        sched._next_rid = int(snap["rid_next"])
+        requeued = []
+        # interrupted in-flight requests re-run from their prompts, ahead
+        # of the still-queued tail: the original FIFO order survives
+        for ent in snap["inflight"] + snap["queued"]:
+            req = Request.from_state(ent)
+            sched.resubmit(req)
+            requeued.append(req.rid)
+        self.stats.set_queue_depth(sched.queue_depth)
+        return requeued
+
+    def reset_stats(self) -> None:
+        """Zero the timing stats (after a warm-up). ``trace_counts`` is not
+        reset: one signature a dispatch holds for the engine's lifetime."""
+        telemetry.detach_registry(self.stats.registry)
+        self.stats = EngineStats()
+        self._det_step = anomaly.StreamDetector(
+            "serve/step_time", registry=self.stats.registry)
+        if telemetry.enabled():
+            telemetry.attach_registry(self.stats.registry)
 
 
 def _to(tree, device):

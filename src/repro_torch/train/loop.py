@@ -25,7 +25,11 @@ the JAX loop's names:
   process's trace.
 
 Losses stay on the device between flushes: one host sync every
-``log_every`` steps. The first step's wall time (cuDNN's algorithm
+``log_every`` steps. An async plan's local step reports this worker's own
+loss (it issues no collective); each flush averages the window's local
+losses over the workers with one all-reduce, so ``TrainReport.losses``,
+the ``train/loss`` gauge and the printed loss are the fleet's mean on
+every step, as the reference's ``pmean`` gives them. The first step's wall time (cuDNN's algorithm
 search, the allocator's first allocations) is kept apart as
 ``TrainReport.first_step_time`` and out of ``steady_examples_per_s``.
 Dropout draws from a generator seeded from (seed, step, rank), and the
@@ -47,6 +51,7 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import (rank_dir, restore_for_resume,
                                         save_checkpoint)
@@ -109,6 +114,26 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _fleet_losses(tr, losses: list, local: list) -> list:
+    """``losses`` with each local step's entry (``local[j]`` true) averaged
+    over the workers by one all-reduce (and one across pods on a
+    two-level transport); a sync step's loss is already the mean. Every
+    rank flushes the same steps, so the collective is matched."""
+    idx = [j for j, is_local in enumerate(local) if is_local]
+    if not idx or tr.world_k == 1:
+        return losses
+    acc = torch.tensor([losses[j] for j in idx], dtype=torch.float64)
+    if tr.backend == "nccl":              # NCCL reduces card tensors
+        acc = acc.cuda()
+    dist.all_reduce(acc, group=tr.group)
+    if tr.lead is not None:
+        dist.all_reduce(acc, group=tr.lead.group)
+    out = list(losses)
+    for j, v in zip(idx, (acc / tr.world_k).tolist()):
+        out[j] = v
+    return out
+
+
 def train(model: Model, optimizer: Optimizer, lr_fn, batches,
           plan: TrainPlan = TrainPlan(), *, group=None, num_steps: int = 100,
           seed: int = 0, log_every: int = 10, state=None,
@@ -158,7 +183,7 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
 
     report = TrainReport(steps=start_step, metrics=reg)
     flush_every = min(log_every, _FLUSH_CAP) if log_every else _FLUSH_CAP
-    device_losses, timers = [], []
+    device_losses, local_steps, timers = [], [], []
     phase_sum = {p: 0.0 for p in PHASES}
     kinds = KindStats()
     n_examples = n_tokens = 0
@@ -175,10 +200,12 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
 
     def flush():
         t_f = time.perf_counter()
-        losses = [float(v) for v in device_losses]    # one device sync
+        losses = _fleet_losses(tr, [float(v) for v in device_losses],
+                               local_steps)           # one device sync
         h_flush.observe(time.perf_counter() - t_f)
         report.losses.extend(losses)
         device_losses.clear()
+        local_steps.clear()
         for tm, kind, moved in timers:
             split = tm.split_s()
             for p, s in split.items():
@@ -204,6 +231,7 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
                 step_idx=i)
         moved = [a - b for a, b in zip(tr.counters(), before)]
         device_losses.append(metrics["loss"])
+        local_steps.append(plan.is_async and not engine.is_sync(i))
         b_ex, b_tok = _batch_counts(batch, k)
         n_examples += b_ex
         n_tokens += b_tok

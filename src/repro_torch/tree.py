@@ -34,7 +34,12 @@ def flatten(tree) -> tuple[list, Any]:
         leaves.append(t)
         return LEAF
 
-    return leaves, rec(tree)
+    treedef = rec(tree)
+    # rec refers to itself through its closure cell: a cycle that would
+    # keep ``leaves`` (tensors, or an engine passed as a leaf) alive until
+    # the cycle collector runs. Emptying the cell breaks it.
+    del rec
+    return leaves, treedef
 
 
 def unflatten(treedef, leaves) -> Any:
@@ -48,6 +53,7 @@ def unflatten(treedef, leaves) -> Any:
         return next(it)
 
     out = rec(treedef)
+    del rec                      # break the closure's cycle (see flatten)
     if next(it, LEAF) is not LEAF:
         raise ValueError("more leaves than the treedef holds")
     return out

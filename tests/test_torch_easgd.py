@@ -11,8 +11,11 @@ sync against local by ``(step + 1) % tau``. Held to it: each worker's
 parameters and momentum and the center, at rtol 1e-4 with an atol of
 1e-6 of each leaf's scale on ``asa``, and on ``asa16`` (both sides round
 the same deltas to fp16) at the fp16 rule of ``test_torch_train.py``;
-the loss of every step (a local step's loss is the worker's own in the
-port, so the two workers' mean is compared) at rtol 1e-4.
+the loss of every step at rtol 1e-4, the two workers' mean and each
+rank's own report alike (the loop averages local steps' losses over the
+workers at each flush, as the reference's ``pmean`` does on every step);
+the launcher's printed first and last loss of a 2-rank easgd run, which
+are the fleet's.
 
 Port only: ``asgd`` is ``easgd`` at alpha 1 bit for bit; ``asgd`` at tau
 1 equals BSP with the learning rate times k to the reference's
@@ -138,6 +141,26 @@ def test_async_workers_equal_the_jax_plan(ranks, jax_async, name):
                 _close(got, jax_async[f"{name}:{part}:{i}"][r], tol)
         for i, got in enumerate(res[name]["center"]):
             _close(got, jax_async[f"{name}:center:{i}"], tol)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in ASYNC_CASES])
+def test_each_rank_reports_the_jax_plans_loss(ranks, jax_async, name):
+    """Rank 0's own ``report.losses`` (and rank 1's) is the fleet mean on
+    local steps too: JAX's ``pmean`` at every step."""
+    for res in ranks:
+        np.testing.assert_allclose(res[name]["losses"],
+                                   jax_async[f"{name}:losses"], rtol=1e-4)
+    assert ranks[0][name]["losses"] == ranks[1][name]["losses"]
+
+
+def test_launcher_prints_the_fleet_loss(capfd):
+    """At tau 3, steps 0, 1, 3 and 4 are local: the printed first loss is
+    the two workers' mean (7.9451 and 7.1996 on their own), not rank 0's."""
+    from repro_torch.launch import train as launch
+    launch.main(["--smoke", "--device", "cpu", "--ranks", "2", "--batch",
+                 "4", "--steps", "6", "--algo", "easgd", "--tau", "3"])
+    out = capfd.readouterr().out
+    assert "easgd tau=3" in out and "loss 7.5724 -> 8.8255" in out
 
 
 def test_asgd_is_easgd_at_alpha_one_bit_for_bit(ranks):

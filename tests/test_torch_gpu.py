@@ -20,7 +20,8 @@ are the blockwise int8 quantizers. VGG-16 and GoogLeNet on the card
 against the CPU in fp32 (TF32 off): logits and loss within 1e-4 of their
 scale (the libraries sum in another order). One ``ring16`` exchange of
 two ranks sharing the card: the mean within 5e-3 of the values' scale,
-the reference's bound.
+the reference's bound. The serve chaos loop on the card: the reference
+CLI's counts, bitwise replay and drain -> restore.
 """
 import math
 
@@ -539,6 +540,56 @@ def test_engine_on_the_card_launches_every_kernel(dev, arch, head_dim):
         assert all(len(t) == 4 for t in res.values())
         for name in ("flash_attention", kernel, "slot_gather_sample"):
             assert K.LAUNCHES.get(name, 0) > 0, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_chaos_shape(dev, dtype):
+    """The serve chaos loop's decode: 4 slots over 64-key lanes in pages of
+    8 (one chunk a lane, longer than the lane), 32 heads over 8, D 64."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, NP, ps, H, KV, D = 4, 8, 8, 32, 8, 64
+    P = B * NP + 1
+    q = _rn(g, dev, dtype, B, 1, H, D)
+    kp, vp = _rn(g, dev, dtype, P, ps, KV, D), _rn(g, dev, dtype, P, ps, KV, D)
+    tables = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
+        B, NP).to(torch.int32)
+    pos = torch.tensor([5, 17, 40, 63], dtype=torch.int32, device=dev)
+    lk, lv = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+    paged = fa.flash_decode_paged(q, kp, vp, tables, pos, page_size=ps)
+    want = ref.flash_decode_paged_ref(q, kp, vp, tables, pos, 0,
+                                      1 / math.sqrt(D), ps)
+    assert (paged.float() - want.float()).abs().max() <= TOL[dtype]
+    assert torch.equal(paged, fa.flash_decode(q, lk, lv, pos, block_k=ps))
+
+
+def test_chaos_on_the_card_replays_and_restores(dev):
+    """The serve chaos loop at the reference CLI's plan and engine shape,
+    smoke llama3.2-1b with fused sampling: the CLI's counts, one decode
+    signature, bitwise replay, drain -> restore bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.fault.inject import FaultPlan
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, chaos
+    cfg = get_smoke_config("llama3.2-1b")
+    model = build_model(cfg, dev)
+    params = model.init(0)
+
+    def make(**over):
+        return Engine(model, params, max_slots=4, max_seq=64,
+                      prefill_chunk=8, page_size=8, max_queue=16,
+                      shed_policy="reject-no-deadline", fused_sampling=True,
+                      device=dev, **over)
+    plan = FaultPlan.from_spec(
+        "qflood:6@3,stall:8@6x4,cancel:1@9,pagepress:12@10x8", seed=0)
+    res, _ = chaos.verify_replay(make, plan, n_base=8, max_steps=300,
+                                 vocab=cfg.vocab_size, max_seq=64)
+    s = res["stats"]
+    assert (s["submitted"], s["shed"], s["cancelled"], s["deadline_misses"],
+            s["goodput_tokens"], s["decoded_tokens"], s["steps"],
+            s["watchdog_stalls"]) == (14, 3, 1, 6, 38, 48, 18, 1)
+    assert res["decode_compiles"] == 1
+    assert chaos.verify_drain_restore(make, seed=0, vocab=cfg.vocab_size,
+                                      max_seq=64)["requeued"]
 
 
 # ---------------------------------------------------------------------------

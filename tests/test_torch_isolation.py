@@ -39,6 +39,7 @@ def test_no_jax_or_repro_import(path):
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.serve.chaos, "
             "repro_torch.bridge, repro_torch.core, repro_torch.optim, "
             "repro_torch.train.loop, repro_torch.data.prefetch, "
             "repro_torch.launch.train, repro_torch.kernels.chunk_sum, "
@@ -112,3 +113,13 @@ def test_fault_smoke_without_device_raises_on_cpu_host():
     from repro_torch.fault import smoke
     with pytest.raises(RuntimeError, match="device='cpu'"):
         smoke.main(["--steps", "1"])
+
+
+def test_serve_chaos_without_device_raises_on_cpu_host():
+    _no_gpu()
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import chaos
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chaos.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--arch", "llama3.2-1b", "--fault-plan", "stall:2@1"])
