@@ -44,7 +44,8 @@ and the CUDA toolkit. In order:
    of 151,936 as at llama3.2-1b's 128,256, at the decode's (8, 1, V) and
    the prefill tail's (1, 32, V), each shown by ``torch.profiler`` to be
    one operation on the card and timed beside an argmax of its selected
-   rows, with its plan (CL blocks a slot, the slice of each).
+   rows, with its plan (CL blocks a slot, the slice of each); and the
+   same at DeepSeek-V2-Lite's vocab of 102,400.
 4. Engine: serves 16 requests through the port's ``Engine`` on full
    llama3.2-1b (16 layers, random weights from a seeded generator, bf16):
    paged KV cache, fused sampling, chunked prefill, a shared-prompt
@@ -180,6 +181,37 @@ and the CUDA toolkit. In order:
    terminal state, and every kernel of the path launched. Then each
    kernel wrapper is held to its plain version on the arguments of its
    first call at each shape on the path.
+
+11. DeepSeek-V2-Lite (MLA + fine-grained MoE; it runs after phase 10,
+   before the gradient checks and the training phases, and frees the
+   card back to the memory it started from; its wall time is printed):
+   (a) the flash forward, dq and dk/dv on the MLA route (the absorbed
+   layout: 16 heads over one KV head, Dk 576, Dv 512) held to their
+   plain versions at B 2, S 1024 in bf16, at a smaller shape in fp32
+   and at a ragged S = 1000 with a window of 300, two backward calls
+   bitwise equal (no atomics), each timed from a CUDA graph with the L2
+   flushed beside its bound (bf16 tensor-core peak; the CUDA cores' fp32
+   peak, which these kernels run on, printed beside it), its plain
+   version and SDPA on the same q/k/v (the kernels SDPA ran are printed),
+   and the registers and spills of the 27 CUDA-core kernels (``ptxas
+   -v``) (phase 3 holds the sampler at the model's vocab of 102,400);
+   (b) ``decoder_loss`` of the full-width model cut to 2 layers
+   (the dense first and one MoE layer) on 2 x 512 tokens through the
+   kernels and through the einsum attention: loss within GRAD_LOSS_TOL,
+   each leaf's gradient within GRAD_TOL, the routed experts' and the
+   router's within MOE_GRAD_TOL; (c) BSP training of that cut on k = 2
+   gloo ranks sharing the card, bf16 over fp32 masters with remat, 2 x
+   1024 tokens a rank, ``asa16`` sharded, 4 steps: launches equal to the
+   prediction (the MLA forward twice a layer and step, dq and dk/dv once,
+   the wire and update kernels as the bucket plan says), losses and the
+   MoE aux finite, the aux above 0; tokens/s, the step split and peak
+   memory a rank printed; (d) the full model (27 layers, 16,156,309,504
+   parameters, random bf16 weights from a seeded generator on the card)
+   through the ``Engine`` with phase 4's traffic, the decode's MoE drop-
+   free: decode tok/s, p50/p99, one decode step's host ms and device
+   operations, peak memory; ``slot_gather_sample`` must launch, request 0
+   (greedy) served alone must get the tokens it got beside 7 others, and
+   a short ``page_size=0`` pass must finish.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -672,7 +704,8 @@ def kernel_phase(torch, ref, fa, sg, flush):
     """Each serve kernel against its plain version at the serve path's
     shapes: llama3.2-1b's (32 heads over 8, D 64, vocab 128,256; the
     rows) and qwen1.5-4b's (20 over 20, D 128, vocab 151,936), the flash
-    kernels there in every dtype they take."""
+    kernels there in every dtype they take; the sampler also at
+    DeepSeek-V2-Lite's vocab of 102,400."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1234)
     flash = _serve_flash(torch, ref, fa, g, 32, 8, 64, torch.bfloat16, flush)
@@ -685,7 +718,7 @@ def kernel_phase(torch, ref, fa, sg, flush):
     zeros = torch.zeros(8, dtype=torch.int32, device=dev)
     print("timer floor: one trivial kernel (8 int32 set to 0) timed as the "
           f"kernels are, ms: {_median_ms(zeros.zero_, flush=flush)}")
-    for V in (128256, 151936):
+    for V in (128256, 151936, 102400):   # llama3.2-1b, qwen1.5-4b, deepseek
         for S_, C in ((8, 1), (1, 32)):
             r = _sampler_check(torch, ref, sg, g, S_, C, V, flush)
             if (V, C) == (128256, 1):
@@ -963,8 +996,9 @@ def lm_grad_check(torch, cfg, models, dev):
         out[impl] = (loss.item(), grads, dict(K.LAUNCHES))
         del ps, loss
     L = cfg.num_layers
-    want_launches = {"flash_attention": (2 if cfg.remat else 1) * L,
-                     "flash_attention_dq": L, "flash_attention_dkv": L}
+    fwd, dq, dkv = (MLA_KERNELS if cfg.attention.kv_lora_rank else (
+        "flash_attention", "flash_attention_dq", "flash_attention_dkv"))
+    want_launches = {fwd: (2 if cfg.remat else 1) * L, dq: L, dkv: L}
     if dev.type == "cuda" and out["flash"][2] != want_launches:
         _fail(f"grad check launches {out['flash'][2]} != {want_launches}")
     def rel(a_impl, b_impl):
@@ -987,9 +1021,12 @@ def lm_grad_check(torch, cfg, models, dev):
               f"{max(e32):.4g}, median {float(np.median(e32)):.4g}")
     if not (math.isfinite(d_loss) and d_loss <= GRAD_LOSS_TOL):
         _fail(f"grad check: losses differ by {d_loss} > {GRAD_LOSS_TOL}")
-    if not all(math.isfinite(e) and e <= GRAD_TOL for e in errs):
-        _fail(f"grad check: a leaf gradient differs by {max(errs)} > "
-              f"{GRAD_TOL}")
+    tols = [MOE_GRAD_TOL if re.search(r"\.moe\.(router|w[iud])$", n) else
+            GRAD_TOL for n in names]
+    bad = [(n, e, t) for n, e, t in zip(names, errs, tols)
+           if not (math.isfinite(e) and e <= t)]
+    if bad:
+        _fail(f"grad check: leaf gradients past their bound: {bad}")
 
 
 def _sync(torch, dev):
@@ -2747,6 +2784,457 @@ def chaos_phase(torch, K, cfg, models, serve, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: DeepSeek-V2-Lite (MLA + fine-grained MoE)
+# ---------------------------------------------------------------------------
+
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_PARAMS = 16_156_309_504     # the tree the JAX package's init builds: its
+                               # shared expert is num_shared_experts x
+                               # shared_expert_dim = 5632 wide, where
+                               # ArchConfig.param_count() (15,706,470,400)
+                               # and the paper take 2816
+DS_TRAIN_LAYERS = 2            # the dense first layer and one MoE layer
+DS_TRAIN_PARAMS = 1_102_587_904
+DS_STEPS = 4
+DS_BATCH, DS_SEQ = 2, 1024     # sequences of tokens a rank and step
+MLA_SHAPE = (2, 1024, 16, 1, 576, 512)     # B, S, H, KV, Dk, Dv
+MLA_KERNELS = ("flash_attention_mla", "flash_attention_mla_dq",
+               "flash_attention_mla_dkv")
+PHASE11_LEFT = 2 ** 26     # bytes phase 11 may leave allocated: a cuBLAS
+                           # workspace of a stream it made, where torch
+                           # cannot clear those
+MOE_GRAD_TOL = 0.25   # the routed experts' and the router's gradients,
+                      # kernels vs einsum attention: bf16 differences in the
+                      # attention output move tokens across the top-6 and
+                      # capacity edges, so a few tokens reach other experts
+                      # on the two paths (each expert sees ~96 tokens of
+                      # the 1024); every other leaf keeps GRAD_TOL
+
+
+def mla_build_report(K):
+    """Registers and spills (``ptxas -v``) of the CUDA-core forward, dq and
+    dk/dv (fp32 at D 32, 64, 128; the MLA route's (96, 64) and (576, 512)
+    in fp32, bf16 and fp16). Fails unless the nine (576, 512) kernels are
+    in the log."""
+    out = {}
+    pat = r"(?:fwd|bwd_dq|bwd_dkv)_kernel"
+    for name, r in _ptxas(K.build_log("flash_attention"), pat):
+        kind = re.search(pat, name).group(0)
+        ints = re.findall(r"Li(\d+)E", name)
+        out[f"{kind}<{', '.join([_dtype_label(name)] + ints)}>"] = r
+    print(f"flash CUDA-core kernels, ptxas ({len(out)} kernels): "
+          + json.dumps(out))
+    wide = [n for n in out if n.endswith("576, 512>")]
+    if len(wide) != 9:
+        _fail(f"expected 9 (576, 512) MLA-route kernels in the build log, "
+              f"found {wide}")
+    return out
+
+
+def _mla_inputs(torch, dtype, shape, seed, dev):
+    B, S, H, KV, Dk, Dv = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(dtype)
+    return rn(B, S, H, Dk), rn(B, S, KV, Dk), rn(B, S, KV, Dv), \
+        rn(B, S, H, Dv)
+
+
+def _check_mla(torch, ref, fa, dtype, shape, window=0, seed=0, dev="cuda"):
+    """The MLA-route forward (out, lse) and backward (dq, dk/dv) against
+    their plain versions at one (B, S, H, KV, Dk, Dv) shape; returns the
+    inputs, outputs and errors."""
+    q, k, v, do = _mla_inputs(torch, dtype, shape, seed, dev)
+    B, Dk = q.shape[0], q.shape[-1]
+    qo = torch.zeros(B, dtype=torch.int32, device=dev)
+    scale = 1 / math.sqrt(Dk)
+    out, lse = fa.flash_attention(q, k, v, window=window, sm_scale=scale,
+                                  return_lse=True)
+    want, want_lse = ref.flash_attention_ref(q, k, v, qo, window, scale, True)
+    fp32 = dtype == torch.float32
+    fwd_tol, bwd_tol = (1e-5, BWD_TOL_FP32) if fp32 else (FWD_TOL, BWD_TOL)
+    err = (out.float() - want.float()).abs().max().item()
+    err_l = (lse - want_lse).abs().max().item()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=qo,
+                                 window=window, sm_scale=scale)
+    wantb = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, qo, window,
+                                        scale)
+    names = ("dq", "dk", "dv")
+    errs = {n: _rel_err(a, b) for n, a, b in zip(names, got, wantb)}
+    abs_errs = {n: (a.float() - b.float()).abs().max().item()
+                for n, a, b in zip(names, got, wantb)}
+    print(f"MLA flash {shape} window {window} {str(dtype)[6:]}: out max |d| "
+          f"{err}, lse {err_l}; backward max |d| / max |plain| "
+          + json.dumps(errs))
+    if not (err <= fwd_tol and err_l <= 1e-3):
+        _fail(f"MLA flash forward {shape} {dtype}: {err}, lse {err_l}")
+    if not all(e <= bwd_tol for e in errs.values()):
+        _fail(f"MLA flash backward {shape} {dtype}: {errs} > {bwd_tol}")
+    return dict(q=q, k=k, v=v, do=do, out=out, lse=lse, qo=qo, scale=scale,
+                got=got, err=err, errs=errs, abs_errs=abs_errs)
+
+
+def _sdpa_mla(torch, q, k, v, do, flush):
+    """SDPA on the same q/k/v (causal, one KV head under all H): its
+    forward time, the backward of its autograd graph (dq, dk, dv in one
+    call) and the kernels it ran, by name. A yardstick; the port never
+    calls it. Returns (fwd_ms, bwd_ms, kernels) with None where SDPA
+    refused the shapes."""
+    from torch.profiler import ProfilerActivity, profile
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    call = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True,
+        scale=1 / math.sqrt(q.shape[-1]))
+    try:
+        call()
+    except RuntimeError as e:
+        print(f"SDPA at the MLA shape refused: {str(e)[:200]}")
+        return None, None, None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = sorted({ev.name[:60] for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA})
+    joined = " ".join(names).lower()
+    backend = next((b for b, keys in (("flash", ("flash",)),
+                                      ("efficient", ("fmha", "efficient")),
+                                      ("cudnn", ("cudnn",)))
+                    if any(k_ in joined for k_ in keys)), "math")
+    names = [f"backend {backend}"] + names
+    fwd_ms = _event_ms(call, flush=flush)
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    o = F.scaled_dot_product_attention(
+        *leaves, is_causal=True, enable_gqa=True,
+        scale=1 / math.sqrt(q.shape[-1]))
+    dot = do.transpose(1, 2)
+    bwd_ms = _event_ms(lambda: torch.autograd.grad(o, leaves, dot,
+                                                   retain_graph=True),
+                       flush=flush)
+    return fwd_ms, bwd_ms, names
+
+
+def mla_kernel_phase(torch, ref, fa, flush, dev="cuda"):
+    """(a) The three MLA-route kernels against their plain versions at the
+    MLA shape in bf16 (two backward calls bitwise equal: no atomics), in
+    fp32 at a smaller shape, and at a ragged S with a window; each timed
+    from a CUDA graph with the L2 flushed, beside its bound, its plain
+    version and SDPA. Returns the three kernel rows."""
+    B, S, H, KV, Dk, Dv = MLA_SHAPE
+    c = _check_mla(torch, ref, fa, torch.bfloat16, MLA_SHAPE, seed=31,
+                   dev=dev)
+    _check_mla(torch, ref, fa, torch.float32, (1, 256, H, KV, Dk, Dv),
+               seed=32, dev=dev)
+    _check_mla(torch, ref, fa, torch.bfloat16, (2, 1000, H, KV, Dk, Dv),
+               window=300, seed=33, dev=dev)
+    q, k, v, do, out, lse, qo, scale = (c[n] for n in (
+        "q", "k", "v", "do", "out", "lse", "qo", "scale"))
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=qo,
+                                   sm_scale=scale)
+    same = all(torch.equal(a, b) for a, b in zip(c["got"], again))
+    print(f"MLA backward {MLA_SHAPE}, two calls bitwise equal: {same}")
+    if not same:
+        _fail("two MLA backward calls differ")
+    di = ref.flash_attention_di(out, do)
+    kw = dict(q_off=qo, window=0, sm_scale=scale)
+    sdpa_fwd, sdpa_bwd, sdpa_kernels = _sdpa_mla(torch, q, k, v, do, flush)
+    print(f"SDPA at the MLA shape ran: {sdpa_kernels}")
+    pairs = B * H * S * (S + 1) // 2           # live (row, key) pairs
+    q_b, k_b, v_b, o_b = (B * S * H * Dk * 2, B * S * KV * Dk * 2,
+                          B * S * KV * Dv * 2, B * S * H * Dv * 2)
+    st_b = B * S * H * 4
+    rows = []
+    for name, line, fn, plain, nbytes, flops, outs, lib in (
+            ("flash_attention_mla", 97,
+             lambda: fa.flash_attention(q, k, v, q_off=qo, sm_scale=scale,
+                                        return_lse=True),
+             lambda: ref.flash_attention_ref(q, k, v, qo, 0, scale, True),
+             q_b + k_b + v_b + o_b + st_b, 2 * (Dk + Dv) * pairs, None,
+             sdpa_fwd),
+            ("flash_attention_mla_dq", 179,
+             lambda: fa.flash_attention_dq(q, k, v, lse, do, di, **kw),
+             lambda: ref.flash_attention_dq_ref(q, k, v, lse, do, di, qo, 0,
+                                                scale),
+             2 * q_b + k_b + v_b + o_b + 2 * st_b, 2 * (2 * Dk + Dv) * pairs,
+             ("dq",), sdpa_bwd),
+            ("flash_attention_mla_dkv", 214,
+             lambda: fa.flash_attention_dkv(q, k, v, lse, do, di, **kw),
+             lambda: ref.flash_attention_dkv_ref(q, k, v, lse, do, di, qo, 0,
+                                                 scale),
+             q_b + 2 * k_b + 2 * v_b + o_b + 2 * st_b,
+             4 * (Dk + Dv) * pairs, ("dk", "dv"), sdpa_bwd)):
+        row = dict(
+            name=name, src="src/repro_torch/csrc/flash_attention.cu",
+            replaces=f"src/repro/kernels/flash_attention.py:{line}",
+            err=c["err"] if outs is None else max(c["abs_errs"][o]
+                                                  for o in outs),
+            ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
+            plain_ms=_median_ms(plain, flush=flush), library_ms=lib,
+            bound=_bound(nbytes, flops),
+            bound_fp32_ms=_bound(nbytes, flops, FP32_FLOP_S)[0])
+        if outs is not None:
+            row["rel_err"] = max(c["errs"][o] for o in outs)
+        rows.append(row)
+    print(f"MLA kernels at {MLA_SHAPE} bf16 (bound: bf16 tensor-core peak; "
+          f"bound_fp32_ms: the CUDA cores' fp32 peak these kernels run "
+          f"on): " + json.dumps({r["name"]: {k_: r[k_] for k_ in (
+              "err", "ms", "plain_ms", "library_ms", "bound",
+              "bound_fp32_ms")} for r in rows}))
+    return rows
+
+
+def _ds_rank(rank, k, out_dir, device, smoke):
+    """One rank of phase 11's DeepSeek-V2-Lite training run (spawned on
+    ``device``: cuda:0, or the CPU with the smoke config to rehearse)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import exchanger
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.launch.train import rank_loader, write_rank_batches
+    from repro_torch.models import build_model, count_params
+    from repro_torch.optim import sgd_momentum, warmup_cosine
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+    from repro_torch.tree import leaves
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    cfg = ((get_smoke_config if smoke else get_config)(DS_ARCH)
+           .with_overrides(num_layers=DS_TRAIN_LAYERS))
+    base = build_model(cfg, dev)
+    aux_seen = []          # each step's MoE aux loss, as the loss saw it
+
+    def loss_fn(params, batch, gen=None):
+        loss, metrics = base.loss_fn(params, batch, gen)
+        aux_seen.append(metrics["aux"].detach())
+        return loss, metrics
+    model = dataclasses.replace(base, loss_fn=loss_fn)
+    batch, seq = (2, 64) if smoke else (DS_BATCH, DS_SEQ)
+    files = write_rank_batches(cfg, rank, k, batch, DS_STEPS,
+                               os.path.join(out_dir, f"ds{rank}"), seq=seq)
+    loader = rank_loader(cfg, files, dev, DS_STEPS, seed=rank)
+    opt = sgd_momentum(momentum=0.9, weight_decay=1e-4,
+                       fused_kernel=fs.fused_sgd)
+    plan = TrainPlan(exchanger="asa16", sharded_update=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    state, rep = train(model, opt, warmup_cosine(0.01, 2, DS_STEPS), loader,
+                       plan=plan, num_steps=DS_STEPS, log_every=1, seed=0,
+                       print_fn=lambda *a: None)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    loader.stop()
+    n_params = count_params(state["params"])
+    rsplan = exchanger.make_rs_plan(state["params"], k)
+    predicted = _predicted_launches(rsplan, len(leaves(state["params"])),
+                                    "asa16", True, DS_STEPS, cuda, k)
+    L = cfg.num_layers
+    predicted.update({MLA_KERNELS[0]: (2 if cfg.remat else 1) * L * DS_STEPS,
+                      MLA_KERNELS[1]: L * DS_STEPS,
+                      MLA_KERNELS[2]: L * DS_STEPS})
+    out = dict(rank=rank, params=n_params, steps=rep.steps,
+               losses=rep.losses, aux=[float(a) for a in aux_seen],
+               tokens_per_s=rep.steady_tokens_per_s,
+               first_step_s=rep.first_step_time,
+               phase_ms={p: v * 1e3 for p, v in rep.phase_s.items()},
+               staged_mb_per_step=rep.staged_bytes / 1e6,
+               peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                            if cuda else None),
+               buckets=rsplan.num_buckets, launches=launches,
+               predicted={n: c for n, c in predicted.items() if c})
+    with open(os.path.join(out_dir, f"ds_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def ds_train_phase(device="cuda:0", smoke=False):
+    """(c) BSP training of DeepSeek-V2-Lite at full width, depth cut to
+    DS_TRAIN_LAYERS, on k = 2 gloo ranks sharing the card: bf16 over fp32
+    masters with remat, DS_BATCH x DS_SEQ tokens a rank, asa16 sharded,
+    DS_STEPS steps. Returns the launches of rank 0."""
+    import tempfile
+
+    from repro_torch.launch.train import run_ranks
+    k = 2
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        run_ranks(_ds_rank, k, (td, device, smoke), backend="gloo")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(Path(td, f"ds_rank{r}.json").read_text())
+                 for r in range(k)]
+    for rk in ranks:
+        if not smoke and rk["params"] != DS_TRAIN_PARAMS:
+            _fail(f"{DS_ARCH} at {DS_TRAIN_LAYERS} layers has {rk['params']} "
+                  f"parameters, not {DS_TRAIN_PARAMS:,}")
+        vals = rk["losses"] + rk["aux"]
+        if len(rk["losses"]) != DS_STEPS or not all(
+                x is not None and math.isfinite(x) for x in vals) \
+                or not all(a > 0 for a in rk["aux"]):
+            _fail(f"{DS_ARCH} train rank {rk['rank']}: losses "
+                  f"{rk['losses']}, aux {rk['aux']}")
+        if rk["launches"] != rk["predicted"]:
+            _fail(f"{DS_ARCH} train rank {rk['rank']}: launches "
+                  f"{rk['launches']} != predicted {rk['predicted']}")
+    m = ranks[0]
+    print(f"{DS_ARCH} train ({DS_TRAIN_LAYERS} layers, k=2 gloo ranks on "
+          f"{device}, asa16 sharded, {wall:.1f}s): " + json.dumps(
+              {key: m[key] for key in (
+                  "params", "tokens_per_s", "first_step_s", "phase_ms",
+                  "staged_mb_per_step", "buckets", "launches", "predicted",
+                  "losses", "aux")}))
+    print(f"{DS_ARCH} train peak memory per rank, GB: "
+          + json.dumps([rk["peak_mem_gb"] for rk in ranks]))
+    return dict(m["launches"])
+
+
+def _decode_step_cost(torch, model, params, dev):
+    """One decode step of ``model`` (8 slots at SERVE_POSITIONS, pages of
+    16): host ms to return and wall ms to its synchronize (medians of 20),
+    and the operations it runs on the card (torch.profiler)."""
+    B, ps, NP = 8, 16, 64
+    pool = model.init_paged_cache(B, ps, B * NP + 1)
+    tables = (torch.arange(B * NP, dtype=torch.int32, device=dev) + 1
+              ).reshape(B, NP)
+    pos = torch.tensor(SERVE_POSITIONS, device=dev)
+    tok = {"tokens": torch.zeros(B, 1, dtype=torch.int64, device=dev)}
+    step = lambda: model.decode_step(params, pool, tok, pos, seq_len=1024,
+                                     block_tables=tables, page_size=ps)
+    host, wall = [], []
+    for i in range(23):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        _sync(torch, dev)
+        if i >= 3:
+            host.append((t1 - t0) * 1e3)
+            wall.append((time.perf_counter() - t0) * 1e3)
+    ops = _device_ops(torch, step) if dev.type == "cuda" else None
+    del pool
+    return dict(host_ms=sorted(host)[len(host) // 2],
+                wall_ms=sorted(wall)[len(wall) // 2], device_ops=ops)
+
+
+def ds_engine_phase(torch, K, cfg, models, serve, dev):
+    """(d) The full model (every layer; random weights in the compute
+    dtype from a seeded generator on ``dev``) through the Engine with
+    phase 4's traffic; then a short contiguous pass, one decode step's
+    cost, and the drop-free check: a greedy request served alone gives
+    the tokens it got beside 7 others. Returns the paged run's
+    launches."""
+    cfg = cfg.with_overrides(param_dtype=cfg.dtype)
+    model = models.build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    _sync(torch, dev)
+    n = models.count_params(params)
+    print(f"{cfg.name}: init {n:,} params ({cfg.dtype}) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    if dev.type == "cuda" and n != DS_PARAMS:
+        _fail(f"{cfg.name} has {n} parameters, not {DS_PARAMS:,}")
+    rng = __import__("numpy").random.RandomState(0)
+    lens = rng.randint(32, 513, size=16)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n_)).tolist()
+               for n_ in lens]
+    shared = rng.randint(0, cfg.vocab_size, size=256).tolist()
+    prompts[1] = shared + prompts[1][:64]
+    prompts[9] = shared + prompts[9][:96]
+    SP = serve.SamplingParams
+    sps = [SP(temperature=0.0) if i % 2 == 0 else SP(temperature=0.8, seed=i)
+           for i in range(16)]
+    shape = dict(max_slots=8, max_seq=1024, prefill_chunk=32, page_size=16,
+                 fused_sampling=True, device=dev)
+    eng = serve.Engine(model, params, **shape)
+    rids = [eng.submit(p, 32, sp) for p, sp in zip(prompts, sps)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run()
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if dev.type == "cuda" and launches.get("slot_gather_sample", 0) <= 0:
+        _fail(f"slot_gather_sample was not launched serving {cfg.name}")
+    for r in rids:
+        out = results[int(r)]
+        if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+            _fail(f"{cfg.name} request {int(r)} returned {len(out)} tokens")
+    st, al = eng.stats, eng.allocator
+    if al.hits <= 0:
+        _fail(f"{cfg.name}: the shared-prefix request took no prefix hit")
+    stats = dict(
+        params=n, requests=len(rids), wall_s=wall,
+        prefill_tokens=st.prefill_tokens, prefill_tok_s=st.prefill_tok_s(),
+        decode_steps=st.steps, decoded_tokens=st.decoded_tokens,
+        decode_tok_s=st.decode_tok_s(), prefix_hit_pages=al.hits,
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if dev.type == "cuda" else None),
+        token_latency_ms={str(q): v * 1e3 for q, v in
+                          st.token_latency_percentiles().items()},
+        launches=launches)
+    print(f"engine {cfg.name} " + json.dumps(stats))
+    print(f"decode step ({cfg.name}, 8 slots, pages of 16): "
+          + json.dumps(_decode_step_cost(torch, model, eng.params, dev)))
+    # drop-free routing: request 0 (greedy, no shared prefix) alone
+    solo = serve.Engine(model, eng.params, **shape)
+    rid = solo.submit(prompts[0], 32, SP(temperature=0.0))
+    alone = solo.run()[int(rid)]
+    print(f"{cfg.name} request 0 alone equals its tokens beside 7 others: "
+          f"{alone == results[int(rids[0])]}")
+    if alone != results[int(rids[0])]:
+        _fail(f"{cfg.name}: request 0 alone gave {alone[:8]}..., beside "
+              f"others {results[int(rids[0])][:8]}...")
+    del solo
+    # the contiguous pool
+    eng0 = serve.Engine(model, eng.params, **dict(shape, max_slots=4,
+                                                  max_seq=256, page_size=0))
+    rids0 = [eng0.submit(p[:96], 8) for p in prompts[:4]]
+    res0 = eng0.run()
+    if any(len(res0[int(r)]) != 8 for r in rids0):
+        _fail(f"{cfg.name}: the contiguous engine run did not finish")
+    print(f"{cfg.name} contiguous pass: 4 requests x 8 tokens done")
+    return launches
+
+
+def ds_phase(torch, ref, fa, K, models, serve, cfg_mod):
+    """Phase 11: (a) the MLA kernels, (b) the gradient check, (c) k = 2
+    training, (d) serving the full model. Frees the card back to the
+    memory it started from. Returns (kernel rows, {path: launches})."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    start_mem = torch.cuda.memory_allocated()
+    l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = mla_kernel_phase(torch, ref, fa, l2.zero_)
+    del l2
+    torch.cuda.empty_cache()
+    cfg = cfg_mod.get_config(DS_ARCH)
+    lm_grad_check(torch, cfg.with_overrides(num_layers=DS_TRAIN_LAYERS),
+                  models, dev)
+    torch.cuda.empty_cache()
+    by_path = {"deepseek_train": ds_train_phase()}
+    by_path["serve_deepseek"] = ds_engine_phase(torch, K, cfg, models, serve,
+                                                dev)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - start_mem
+    print(f"phase 11 ({DS_ARCH}): {time.perf_counter() - t0:.1f}s, "
+          f"{left} bytes left allocated")
+    if left > PHASE11_LEFT:
+        _fail(f"phase 11 left {left} bytes allocated")
+    return rows, by_path
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2781,6 +3269,7 @@ def main() -> int:
     hopper_build_report(K)
     decode_build_report(K)
     sampler_build_report(K)
+    mla_build_report(K)
 
     l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, ref, fa, sg, flush=l2.zero_)
@@ -2805,16 +3294,20 @@ def main() -> int:
     chaos_launches = chaos_phase(torch, K, llama, models, serve,
                                  torch.device("cuda"))
     torch.cuda.empty_cache()
+    ds_rows, ds_launches = ds_phase(torch, ref, fa, K, models, serve,
+                                    cfg_mod)
+    rows += ds_rows
     lm_grad_check(torch, llama, models, torch.device("cuda"))
     torch.cuda.empty_cache()
     lm_grad_check(torch, qwen.with_overrides(num_layers=QWEN_GRAD_LAYERS),
                   models, torch.device("cuda"))
     torch.cuda.empty_cache()
     # launches per kernel and main path (serving llama3.2-1b and
-    # qwen1.5-4b, serve chaos, the convnets' training, LM training, the int8 round
-    # trip), each path counted from zero around its run
+    # qwen1.5-4b, serve chaos, DeepSeek-V2-Lite's training and serving,
+    # the convnets' training, LM training, the int8 round trip), each path
+    # counted from zero around its run
     by_path = {"serve": launches, "serve_qwen1.5-4b": qwen_launches,
-               "serve_chaos": chaos_launches}
+               "serve_chaos": chaos_launches, **ds_launches}
     conv_shapes = {}
     for arch in TRAIN_ARCHS:
         by_path[f"{arch}_train"], conv_shapes[arch] = train_phase(arch=arch)

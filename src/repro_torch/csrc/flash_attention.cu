@@ -13,6 +13,10 @@
 //                         and :_decode_paged_kernel (tables != NULL)
 //   flash_decode_combine <- the same file's _combine_kv_splits (plain jnp
 //                         outside the pallas_call there)
+//   flash_mla_fwd, flash_mla_bwd_dq, flash_mla_bwd_dkv <- _fwd_kernel,
+//                         _dq_kernel and _dkv_kernel in the MLA absorbed
+//                         layout (Dk 576, Dv 512, one KV head) that
+//                         src/repro/models/attention.py:mla_forward calls
 //
 // What bounds them on an H100: the forward and the backward at the
 // training shapes (B 4, S 1024, 32 heads over 8, D 64) are bound by
@@ -30,12 +34,15 @@
 // matrix to device memory; its products are fp32 FMAs in registers on
 // 16-byte loads (see decode_kernel).
 //
-// Head dims: 32, 64 and 128 everywhere (the CUDA-core kernels hold D / 32
-// columns a lane; the tensor-core kernels take a D-128 row as two 64-value
-// panels, see Tile); the Python wrappers zero-pad any other head dim up to
-// 128 to the next of them. GQA group size G = H / KV: up to 64 on the tensor-core
-// kernels (a 64-row tile holds 64 / G queries), up to 16 on the fp32
-// kernels and the decode.
+// Head dims: 32, 64 and 128 everywhere at Dk == Dv (the CUDA-core kernels
+// hold D / 32 columns a lane; the tensor-core kernels take a D-128 row as
+// two 64-value panels, see Tile); the Python wrappers zero-pad any other
+// head dim up to 128 to the next of them. The MLA absorbed layout (Dk !=
+// Dv, KV = 1) and head dims above 128 take the CUDA-core forward, dq and
+// dk/dv in every dtype (flash_mla_*; built at (Dk, Dv) = (96, 64) and
+// (576, 512), others zero-padded up to one of them). GQA group size G =
+// H / KV: up to 64 on the tensor-core kernels (a 64-row tile holds 64 / G
+// queries), up to 16 on the CUDA-core kernels and the decode.
 //
 // Numerics follow the TPU kernels: fp32 online softmax, NEG_INF = -1e30,
 // masked p zeroed explicitly, l clamped at 1e-30, and p rounded to the
@@ -86,170 +93,56 @@ __device__ __forceinline__ bool window_keep(int qpos, int kpos, int win) {
 }
 
 // ---------------------------------------------------------------------------
-// forward in fp32 on the CUDA cores: one block per (q tile, kv head, batch
-// row). bf16/fp16 take fwd_hopper below.
+// The CUDA-core kernels: the forward, dq and dk/dv on fp32 FMAs, for any
+// input type T (fp32, bf16, fp16; fp32 arithmetic) and any pair of head
+// dims DK (q, k) and DV (v, do, out) that are multiples of 32. They take
+// two routes:
+//
+// - fp32 at DK = DV in {32, 64, 128}: the bf16/fp16 inputs of those dims
+//   take the tensor-core kernels below (fwd_hopper, bwd_*_hopper);
+// - the MLA absorbed layout and every head dim above 128 (cc_entry): DK !=
+//   DV or DK > 128, in all three types. DeepSeek-V2's absorbed attention
+//   is one KV head (the 512-value latent plus the 64-value rope key, DK
+//   576) whose values are the latent alone (DV 512), under G = 16 query
+//   heads (src/repro/kernels/flash_attention.py:10-15, the _fwd_kernel,
+//   _dq_kernel and _dkv_kernel at Dk != Dv). Built at (576, 512) and (96,
+//   64); the wrapper zero-pads any other pair up to (576, 512) to the
+//   smallest built pair that holds it (exact, as pad_head_dim).
+//
+// What bounds them at the MLA shape (B 2, S 1024, 16 heads over 1, DK 576,
+// DV 512): operations -- 2 (DK + DV) FLOPs a live (row, key) pair in the
+// forward, 2 (2 DK + DV) in dq, 4 (DK + DV) in dk/dv, against a few bytes
+// of input a row and key; on the CUDA cores that is 67 TFLOP/s of fp32
+// at best, 15x under the tensor cores' bf16 rate. These kernels are the
+// simple, right version: shared memory holds fp32 copies of the q rows and
+// the K/V tile (the whole DK and DV width, so one block computes complete
+// scores), each lane owns one key of the 32-key tile for the scores and
+// DV / 32 (or DK / 32) output columns for the products, and the score
+// loops read q and k as float4 (k rows padded to DK + 4 floats: a
+// quarter-warp's 16-byte loads hit distinct banks) while summing in the
+// order d = 0, 1, ..., as a scalar loop would. At (576, 512) a block's
+// shared memory is 175 KB (forward), 207 KB (dq) and 209 KB (dk/dv), so
+// one block an SM; dk/dv there runs 8 warps of 4 keys each (4 x (18 + 16)
+// fp32 accumulators a lane) over q tiles of 16 rows, where the fp32 head
+// dims keep 4 warps of 8 keys over 32 rows. No atomics: dk/dv are summed
+// over the G heads and all q tiles in one block's registers, so two calls
+// agree bit for bit. Making them fast (wgmma on 64-row tiles of the
+// 576-wide scores, the latent K tile shared by K and V) is later work.
 // ---------------------------------------------------------------------------
 
 constexpr int FWD_THREADS = 128;           // 4 warps
 constexpr int FWD_WARPS = FWD_THREADS / 32;
 // Row capacity of a block: block_q = FWD_ROWS / G queries of G heads each,
 // block_q * G rows; where G does not divide FWD_ROWS (G = 3: 15 rows) the
-// spare rows stay idle. Small on purpose: the fp32 forward runs one FMA
-// chain a lane per row, so more blocks keep more of the SMs busy.
+// spare rows stay idle. Small on purpose: the forward runs one FMA chain a
+// lane per row, so more blocks keep more of the SMs busy.
 constexpr int FWD_ROWS = 16;
 constexpr int FWD_RPW = FWD_ROWS / FWD_WARPS;
 constexpr int FWD_BK = 32;                 // keys per tile: one per lane
+constexpr int KPAD = 4;                    // k/v row padding (floats)
 
-template <int D>
-__global__ void __launch_bounds__(FWD_THREADS)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           float* __restrict__ out, float* __restrict__ lse, const int* __restrict__ q_off,
-           int Sq, int Sk, int H, int KV, int block_q, int win, float sm_scale) {
-  constexpr int DPL = D / 32;  // output columns per lane
-  const int G = H / KV;
-  const int rows = block_q * G;
-  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qoff = q_off[b];
-
-  extern __shared__ float smem[];
-  float* qs = smem;                      // [FWD_ROWS][D]
-  float* ks = qs + FWD_ROWS * D;         // [FWD_BK][D + 1] (padded: no bank conflicts)
-  float* vs = ks + FWD_BK * (D + 1);     // [FWD_BK][D]
-  float* ps = vs + FWD_BK * D;           // [FWD_ROWS][FWD_BK]
-
-  // row r of the tile is (query i*block_q + r/G, head h*G + r%G): the G
-  // heads of a query are adjacent in the (B, Sq, H, D) layout
-  for (int e = threadIdx.x; e < FWD_ROWS * D; e += FWD_THREADS) {
-    const int r = e / D, d = e % D;
-    const int qi = i * block_q + r / G;
-    float x = 0.f;
-    if (r < rows && qi < Sq)
-      x = q[(((size_t)b * Sq + qi) * H + h * G + r % G) * D + d];
-    qs[e] = x;
-  }
-
-  float m[FWD_RPW], l[FWD_RPW], acc[FWD_RPW][DPL];
-#pragma unroll
-  for (int t = 0; t < FWD_RPW; ++t) {
-    m[t] = NEG_INF;
-    l[t] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) acc[t][dd] = 0.f;
-  }
-
-  const int nk = (Sk + FWD_BK - 1) / FWD_BK;
-  const int last_q = qoff + (i + 1) * block_q - 1;  // newest query of the tile
-  const int j_hi = min(nk - 1, last_q / FWD_BK);    // causal tile skip
-  const int first_q = qoff + i * block_q;
-  for (int j = 0; j <= j_hi; ++j) {
-    // window tile skip (_tile_live); uniform over the block
-    if (win > 0 && (j + 1) * FWD_BK <= first_q - win + 1) continue;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int e = threadIdx.x; e < FWD_BK * D; e += FWD_THREADS) {
-      const int c = e / D, d = e % D;
-      const int kpos = j * FWD_BK + c;
-      float kx = 0.f, vx = 0.f;
-      if (kpos < Sk) {
-        const size_t off = (((size_t)b * Sk + kpos) * KV + h) * D + d;
-        kx = k[off];
-        vx = v[off];
-      }
-      ks[c * (D + 1) + d] = kx;
-      vs[c * D + d] = vx;
-    }
-    __syncthreads();
-
-    float s[FWD_RPW];
-#pragma unroll
-    for (int t = 0; t < FWD_RPW; ++t) s[t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[lane * (D + 1) + d];
-#pragma unroll
-      for (int t = 0; t < FWD_RPW; ++t) s[t] += qs[(warp + FWD_WARPS * t) * D + d] * kd;
-    }
-    const int kpos = j * FWD_BK + lane;
-#pragma unroll
-    for (int t = 0; t < FWD_RPW; ++t) {
-      const int r = warp + FWD_WARPS * t;
-      const int qpos = qoff + i * block_q + r / G;
-      const bool keep = kpos <= qpos && kpos < Sk && window_keep(qpos, kpos, win);
-      const float sv = keep ? s[t] * sm_scale : NEG_INF;
-      const float m_next = fmaxf(m[t], warp_max(sv));
-      // explicit zeroing: while every key so far is masked m_next is still
-      // NEG_INF and exp(sv - m_next) would be 1, not 0
-      const float p = keep ? expf(sv - m_next) : 0.f;
-      const float alpha = expf(m[t] - m_next);
-      l[t] = alpha * l[t] + warp_sum(p);
-      m[t] = m_next;
-      ps[r * FWD_BK + lane] = p;
-#pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) acc[t][dd] *= alpha;
-    }
-    __syncwarp();
-    for (int c = 0; c < FWD_BK; ++c) {
-      float vv[DPL];
-#pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) vv[dd] = vs[c * D + lane + 32 * dd];
-#pragma unroll
-      for (int t = 0; t < FWD_RPW; ++t) {
-        const float pc = ps[(warp + FWD_WARPS * t) * FWD_BK + c];
-#pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) acc[t][dd] += pc * vv[dd];
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int t = 0; t < FWD_RPW; ++t) {
-    const int r = warp + FWD_WARPS * t;
-    const int qi = i * block_q + r / G;
-    if (r >= rows || qi >= Sq) continue;
-    const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
-    const float lc = fmaxf(l[t], 1e-30f);
-#pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) out[row * D + lane + 32 * dd] = acc[t][dd] / lc;
-    if (lse != nullptr && lane == 0) lse[row] = m[t] + logf(lc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: dq, and dk/dv summed over the G heads of a group
-// ---------------------------------------------------------------------------
-//
-// Both recompute p = exp(s * sm_scale - lse) per tile from the saved fp32
-// lse (never stored), with ds = p * (dp - di) * sm_scale, dp = do . v and
-// di = rowsum(out * do) computed by the caller. Casts follow the TPU
-// kernels: ds to k's dtype before ds @ k (dq), p to do's dtype and ds to
-// q's dtype before the dv / dk contractions.
-//
-// What bounds them: at the training shapes (B 4, S 1024, 32 heads over 8,
-// D 64) both are bound by operations -- 6D (dq) and 8D (dk/dv) FLOPs per
-// live (row, key) pair against ~4 bytes of input per row and key column,
-// far above the ~295 FLOP/byte where bf16 tensor cores become the limit.
-// So bf16/fp16 run on the tensor cores (the "Hopper" kernels below):
-// wgmma products with fp32 accumulators in registers, operand tiles
-// brought into shared memory by TMA, swizzled as wgmma reads them.
-//
-// fp32 stays on the CUDA cores (bwd_dq_kernel / bwd_dkv_kernel<float>):
-// its check is 1e-5 of the output's scale, which TF32 products (10-bit
-// mantissa) cannot meet, and fp32 is the path of the finite-difference
-// and equivalence checks, not of training. bwd_by_dtype dispatches on the
-// dtype explicitly; nothing falls back from one path to the other.
-
-constexpr int BWD_THREADS = 128;           // 4 warps
-constexpr int BWD_WARPS = BWD_THREADS / 32;
-constexpr int BWD_BK = 32;                 // keys per tile: one per lane
-// dq: one block per (q tile, kv head, batch row), rows = (DQ_ROWS / G) * G
-constexpr int DQ_ROWS = 16;
-constexpr int DQ_RPW = DQ_ROWS / BWD_WARPS;
-// dk/dv: one block per (key tile, kv head, batch row) walking q tiles of
-// (DKV_ROWS / G) * G rows; each warp owns BWD_BK / BWD_WARPS keys of the
-// tile, so dk/dv are summed over the whole group in registers, no atomics
-constexpr int DKV_ROWS = 32;
-constexpr int DKV_RPW = DKV_ROWS / BWD_WARPS;
-constexpr int DKV_KPW = BWD_BK / BWD_WARPS;
+// The largest G = H / KV of the CUDA-core kernels (and of the MLA route).
+constexpr int CC_MAX_G = 16;
 
 // the rows of one q tile of a (B, Sq, H, D) tensor, G heads per query,
 // into shared memory as fp32 (zeros past Sq and in the spare rows)
@@ -276,52 +169,220 @@ __device__ __forceinline__ void load_row_stats(float* dst, const float* __restri
   }
 }
 
-// keys [j*BWD_BK, (j+1)*BWD_BK) of kv head h of a (B, Sk, KV, D) tensor,
-// padded rows of D + 1 (no bank conflicts when lane = key)
+// keys [j*32, (j+1)*32) of kv head h of a (B, Sk, KV, D) tensor as fp32
+// rows of D + KPAD floats (zeros past Sk)
 template <typename T, int D>
 __device__ __forceinline__ void load_keys(float* dst, const T* __restrict__ src, int b, int j,
                                           int Sk, int KV, int h) {
-  for (int e = threadIdx.x; e < BWD_BK * D; e += blockDim.x) {
+  for (int e = threadIdx.x; e < FWD_BK * D; e += blockDim.x) {
     const int c = e / D, d = e % D;
-    const int kpos = j * BWD_BK + c;
-    dst[c * (D + 1) + d] =
+    const int kpos = j * FWD_BK + c;
+    dst[c * (D + KPAD) + d] =
         kpos < Sk ? to_f<T>(src[(((size_t)b * Sk + kpos) * KV + h) * D + d]) : 0.f;
   }
 }
 
-// fp32 only (see above): the CUDA-core backward
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
+// s[t] += q[r_t] . k[lane] over D columns, in the order d = 0, 1, ...:
+// q rows of D floats (broadcast reads), the lane's k row of D + KPAD
+template <int D, int N>
+__device__ __forceinline__ void row_dots(float (&s)[N], const float* __restrict__ qs,
+                                         const int (&r)[N], const float* __restrict__ krow) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    const float4 kd = *reinterpret_cast<const float4*>(krow + d);
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      const float4 qd = *reinterpret_cast<const float4*>(qs + r[t] * D + d);
+      s[t] += qd.x * kd.x;
+      s[t] += qd.y * kd.y;
+      s[t] += qd.z * kd.z;
+      s[t] += qd.w * kd.w;
+    }
+  }
+}
+
+// one block per (q tile, kv head, batch row)
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(FWD_THREADS)
+fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           T* __restrict__ out, float* __restrict__ lse, const int* __restrict__ q_off,
+           int Sq, int Sk, int H, int KV, int block_q, int win, float sm_scale) {
+  constexpr int DPL = DV / 32;  // output columns per lane
+  const int G = H / KV;
+  const int rows = block_q * G;
+  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qoff = q_off[b];
+
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                        // [FWD_ROWS][DK]
+  float* ks = qs + FWD_ROWS * DK;          // [FWD_BK][DK + KPAD]
+  float* vs = ks + FWD_BK * (DK + KPAD);   // [FWD_BK][DV]
+  float* ps = vs + FWD_BK * DV;            // [FWD_ROWS][FWD_BK]
+
+  // row r of the tile is (query i*block_q + r/G, head h*G + r%G): the G
+  // heads of a query are adjacent in the (B, Sq, H, D) layout
+  load_rows<T, DK, FWD_ROWS>(qs, q, b, i, Sq, H, h, G, block_q);
+
+  int rr[FWD_RPW];
+  float m[FWD_RPW], l[FWD_RPW], acc[FWD_RPW][DPL];
+#pragma unroll
+  for (int t = 0; t < FWD_RPW; ++t) {
+    rr[t] = warp + FWD_WARPS * t;
+    m[t] = NEG_INF;
+    l[t] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) acc[t][dd] = 0.f;
+  }
+
+  const int nk = (Sk + FWD_BK - 1) / FWD_BK;
+  const int last_q = qoff + (i + 1) * block_q - 1;  // newest query of the tile
+  const int j_hi = min(nk - 1, last_q / FWD_BK);    // causal tile skip
+  const int first_q = qoff + i * block_q;
+  for (int j = 0; j <= j_hi; ++j) {
+    // window tile skip (_tile_live); uniform over the block
+    if (win > 0 && (j + 1) * FWD_BK <= first_q - win + 1) continue;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_keys<T, DK>(ks, k, b, j, Sk, KV, h);
+    for (int e = threadIdx.x; e < FWD_BK * DV; e += FWD_THREADS) {
+      const int c = e / DV, d = e % DV;
+      const int kpos = j * FWD_BK + c;
+      vs[e] = kpos < Sk ? to_f<T>(v[(((size_t)b * Sk + kpos) * KV + h) * DV + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[FWD_RPW];
+#pragma unroll
+    for (int t = 0; t < FWD_RPW; ++t) s[t] = 0.f;
+    row_dots<DK>(s, qs, rr, ks + lane * (DK + KPAD));
+    const int kpos = j * FWD_BK + lane;
+#pragma unroll
+    for (int t = 0; t < FWD_RPW; ++t) {
+      const int r = rr[t];
+      const int qpos = qoff + i * block_q + r / G;
+      const bool keep = kpos <= qpos && kpos < Sk && window_keep(qpos, kpos, win);
+      const float sv = keep ? s[t] * sm_scale : NEG_INF;
+      const float m_next = fmaxf(m[t], warp_max(sv));
+      // explicit zeroing: while every key so far is masked m_next is still
+      // NEG_INF and exp(sv - m_next) would be 1, not 0
+      const float p = keep ? expf(sv - m_next) : 0.f;
+      const float alpha = expf(m[t] - m_next);
+      l[t] = alpha * l[t] + warp_sum(p);
+      m[t] = m_next;
+      ps[r * FWD_BK + lane] = round_to<T>(p);   // p.astype(v.dtype)
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) acc[t][dd] *= alpha;
+    }
+    __syncwarp();
+    for (int c = 0; c < FWD_BK; ++c) {
+      float vv[DPL];
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) vv[dd] = vs[c * DV + lane + 32 * dd];
+#pragma unroll
+      for (int t = 0; t < FWD_RPW; ++t) {
+        const float pc = ps[rr[t] * FWD_BK + c];
+#pragma unroll
+        for (int dd = 0; dd < DPL; ++dd) acc[t][dd] += pc * vv[dd];
+      }
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int t = 0; t < FWD_RPW; ++t) {
+    const int r = rr[t];
+    const int qi = i * block_q + r / G;
+    if (r >= rows || qi >= Sq) continue;
+    const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
+    const float lc = fmaxf(l[t], 1e-30f);
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) out[row * DV + lane + 32 * dd] = from_f<T>(acc[t][dd] / lc);
+    if (lse != nullptr && lane == 0) lse[row] = m[t] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: dq, and dk/dv summed over the G heads of a group
+// ---------------------------------------------------------------------------
+//
+// Both recompute p = exp(s * sm_scale - lse) per tile from the saved fp32
+// lse (never stored), with ds = p * (dp - di) * sm_scale, dp = do . v and
+// di = rowsum(out * do) (over DV) computed by the caller. Casts follow the
+// TPU kernels: ds to k's dtype before ds @ k (dq), p to do's dtype and ds
+// to q's dtype before the dv / dk contractions.
+//
+// What bounds them at the LM training shapes (B 4, S 1024, 32 heads over
+// 8, D 64): operations -- 6D (dq) and 8D (dk/dv) FLOPs per live (row, key)
+// pair against ~4 bytes of input per row and key column, far above the
+// ~295 FLOP/byte where bf16 tensor cores become the limit. So bf16/fp16 at
+// D <= 128 run on the tensor cores (the "Hopper" kernels below): wgmma
+// products with fp32 accumulators in registers, operand tiles brought into
+// shared memory by TMA, swizzled as wgmma reads them.
+//
+// fp32 stays on the CUDA cores (bwd_dq_kernel / bwd_dkv_kernel<float>):
+// its check is 1e-5 of the output's scale, which TF32 products (10-bit
+// mantissa) cannot meet, and fp32 is the path of the finite-difference
+// and equivalence checks, not of training. So does the MLA layout in
+// every type (see the note above fwd_kernel). bwd_by_dtype and cc_entry
+// dispatch explicitly; nothing falls back from one path to the other.
+
+constexpr int BWD_BK = FWD_BK;             // keys per tile: one per lane
+// dq: 4 warps, one block per (q tile, kv head, batch row), rows =
+// (DQ_ROWS / G) * G
+constexpr int DQ_THREADS = 128;
+constexpr int DQ_WARPS = DQ_THREADS / 32;
+constexpr int DQ_ROWS = 16;
+constexpr int DQ_RPW = DQ_ROWS / DQ_WARPS;
+
+// dk/dv: one block per (key tile, kv head, batch row) walking q tiles of
+// (ROWS / G) * G rows; each of the WARPS warps owns 32 / WARPS keys of the
+// tile, so dk/dv are summed over the whole group in registers, no atomics.
+// (ROWS, WARPS) = (32, 4) up to DK + DV = 256, (16, 8) above: 4 keys a
+// warp keep (DK + DV) / 8 accumulators a lane (136 at (576, 512)).
+template <int DK, int DV> struct DkvShape {
+  static constexpr bool WIDE = DK + DV > 256;
+  static constexpr int ROWS = WIDE ? 16 : 32;
+  static constexpr int WARPS = WIDE ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int RPW = ROWS / WARPS;
+  static constexpr int KPW = BWD_BK / WARPS;
+};
+
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(DQ_THREADS)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ di, T* __restrict__ dq, const int* __restrict__ q_off,
               int Sq, int Sk, int H, int KV, int block_q, int win, float sm_scale) {
-  constexpr int DPL = D / 32;
+  constexpr int DPL = DK / 32;
   const int G = H / KV;
   const int rows = block_q * G;
   const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int first_q = q_off[b] + i * block_q;   // oldest query of the tile
 
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [DQ_ROWS][D]
-  float* dos = qs + DQ_ROWS * D;           // [DQ_ROWS][D]
-  float* ks = dos + DQ_ROWS * D;           // [BWD_BK][D + 1]
-  float* vs = ks + BWD_BK * (D + 1);       // [BWD_BK][D + 1]
-  float* dss = vs + BWD_BK * (D + 1);      // [DQ_ROWS][BWD_BK]
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                        // [DQ_ROWS][DK]
+  float* dos = qs + DQ_ROWS * DK;          // [DQ_ROWS][DV]
+  float* ks = dos + DQ_ROWS * DV;          // [BWD_BK][DK + KPAD]
+  float* vs = ks + BWD_BK * (DK + KPAD);   // [BWD_BK][DV + KPAD]
+  float* dss = vs + BWD_BK * (DV + KPAD);  // [DQ_ROWS][BWD_BK]
   float* lses = dss + DQ_ROWS * BWD_BK;    // [DQ_ROWS]
   float* dis = lses + DQ_ROWS;             // [DQ_ROWS]
 
-  load_rows<T, D, DQ_ROWS>(qs, q, b, i, Sq, H, h, G, block_q);
-  load_rows<T, D, DQ_ROWS>(dos, dout, b, i, Sq, H, h, G, block_q);
+  load_rows<T, DK, DQ_ROWS>(qs, q, b, i, Sq, H, h, G, block_q);
+  load_rows<T, DV, DQ_ROWS>(dos, dout, b, i, Sq, H, h, G, block_q);
   load_row_stats<DQ_ROWS>(lses, lse, b, i, Sq, H, h, G, block_q);
   load_row_stats<DQ_ROWS>(dis, di, b, i, Sq, H, h, G, block_q);
 
+  int rr[DQ_RPW];
   float acc[DQ_RPW][DPL];
 #pragma unroll
-  for (int t = 0; t < DQ_RPW; ++t)
+  for (int t = 0; t < DQ_RPW; ++t) {
+    rr[t] = warp + DQ_WARPS * t;
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd) acc[t][dd] = 0.f;
+  }
 
   const int nk = (Sk + BWD_BK - 1) / BWD_BK;
   const int j_hi = min(nk - 1, (first_q + block_q - 1) / BWD_BK);  // causal tile skip
@@ -329,27 +390,20 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     // window tile skip (_tile_live); uniform over the block
     if (win > 0 && (j + 1) * BWD_BK <= first_q - win + 1) continue;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_keys<T, D>(ks, k, b, j, Sk, KV, h);
-    load_keys<T, D>(vs, v, b, j, Sk, KV, h);
+    load_keys<T, DK>(ks, k, b, j, Sk, KV, h);
+    load_keys<T, DV>(vs, v, b, j, Sk, KV, h);
     __syncthreads();
 
     // s = q . k and dp = do . v: lane = key, warp = rows warp + 4t
     float s[DQ_RPW], dp[DQ_RPW];
 #pragma unroll
     for (int t = 0; t < DQ_RPW; ++t) s[t] = dp[t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[lane * (D + 1) + d], vd = vs[lane * (D + 1) + d];
-#pragma unroll
-      for (int t = 0; t < DQ_RPW; ++t) {
-        const int r = warp + BWD_WARPS * t;
-        s[t] += qs[r * D + d] * kd;
-        dp[t] += dos[r * D + d] * vd;
-      }
-    }
+    row_dots<DK>(s, qs, rr, ks + lane * (DK + KPAD));
+    row_dots<DV>(dp, dos, rr, vs + lane * (DV + KPAD));
     const int kpos = j * BWD_BK + lane;
 #pragma unroll
     for (int t = 0; t < DQ_RPW; ++t) {
-      const int r = warp + BWD_WARPS * t;
+      const int r = rr[t];
       const int qpos = first_q + r / G;
       const bool keep = r < rows && i * block_q + r / G < Sq && kpos <= qpos && kpos < Sk &&
                         window_keep(qpos, kpos, win);
@@ -361,10 +415,10 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int c = 0; c < BWD_BK; ++c) {
       float kk[DPL];
 #pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) kk[dd] = ks[c * (D + 1) + lane + 32 * dd];
+      for (int dd = 0; dd < DPL; ++dd) kk[dd] = ks[c * (DK + KPAD) + lane + 32 * dd];
 #pragma unroll
       for (int t = 0; t < DQ_RPW; ++t) {
-        const float dsc = dss[(warp + BWD_WARPS * t) * BWD_BK + c];
+        const float dsc = dss[rr[t] * BWD_BK + c];
 #pragma unroll
         for (int dd = 0; dd < DPL; ++dd) acc[t][dd] += dsc * kk[dd];
       }
@@ -374,47 +428,55 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
 #pragma unroll
   for (int t = 0; t < DQ_RPW; ++t) {
-    const int r = warp + BWD_WARPS * t;
+    const int r = rr[t];
     const int qi = i * block_q + r / G;
     if (r >= rows || qi >= Sq) continue;
     const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) dq[row * D + lane + 32 * dd] = from_f<T>(acc[t][dd]);
+    for (int dd = 0; dd < DPL; ++dd) dq[row * DK + lane + 32 * dd] = from_f<T>(acc[t][dd]);
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(DkvShape<DK, DV>::THREADS)
 bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
                const int* __restrict__ q_off, int Sq, int Sk, int H, int KV, int block_q,
                int win, float sm_scale) {
-  constexpr int DPL = D / 32;
+  using Sh = DkvShape<DK, DV>;
+  constexpr int ROWS = Sh::ROWS, WARPS = Sh::WARPS, RPW = Sh::RPW, KPW = Sh::KPW;
+  constexpr int KPL = DK / 32, VPL = DV / 32;   // dk / dv columns per lane
   const int G = H / KV;
   const int rows = block_q * G;
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qoff = q_off[b];
 
-  extern __shared__ float smem[];
-  float* ks = smem;                        // [BWD_BK][D + 1]
-  float* vs = ks + BWD_BK * (D + 1);       // [BWD_BK][D + 1]
-  float* qs = vs + BWD_BK * (D + 1);       // [DKV_ROWS][D]
-  float* dos = qs + DKV_ROWS * D;          // [DKV_ROWS][D]
-  float* ps = dos + DKV_ROWS * D;          // [DKV_ROWS][BWD_BK]
-  float* dss = ps + DKV_ROWS * BWD_BK;     // [DKV_ROWS][BWD_BK]
-  float* lses = dss + DKV_ROWS * BWD_BK;   // [DKV_ROWS]
-  float* dis = lses + DKV_ROWS;            // [DKV_ROWS]
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                        // [BWD_BK][DK + KPAD]
+  float* vs = ks + BWD_BK * (DK + KPAD);   // [BWD_BK][DV + KPAD]
+  float* qs = vs + BWD_BK * (DV + KPAD);   // [ROWS][DK]
+  float* dos = qs + ROWS * DK;             // [ROWS][DV]
+  float* ps = dos + ROWS * DV;             // [ROWS][BWD_BK]
+  float* dss = ps + ROWS * BWD_BK;         // [ROWS][BWD_BK]
+  float* lses = dss + ROWS * BWD_BK;       // [ROWS]
+  float* dis = lses + ROWS;                // [ROWS]
 
-  load_keys<T, D>(ks, k, b, j, Sk, KV, h);
-  load_keys<T, D>(vs, v, b, j, Sk, KV, h);
+  load_keys<T, DK>(ks, k, b, j, Sk, KV, h);
+  load_keys<T, DV>(vs, v, b, j, Sk, KV, h);
 
-  float acc_k[DKV_KPW][DPL], acc_v[DKV_KPW][DPL];
+  int rr[RPW];
 #pragma unroll
-  for (int u = 0; u < DKV_KPW; ++u)
+  for (int t = 0; t < RPW; ++t) rr[t] = warp + WARPS * t;
+  float acc_k[KPW][KPL], acc_v[KPW][VPL];
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) acc_k[u][dd] = acc_v[u][dd] = 0.f;
+  for (int u = 0; u < KPW; ++u) {
+#pragma unroll
+    for (int dd = 0; dd < KPL; ++dd) acc_k[u][dd] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < VPL; ++dd) acc_v[u][dd] = 0.f;
+  }
 
   const int nq = (Sq + block_q - 1) / block_q;
   const int kpos = j * BWD_BK + lane;
@@ -424,28 +486,21 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     if (j * BWD_BK > first_q + block_q - 1) continue;
     if (win > 0 && (j + 1) * BWD_BK <= first_q - win + 1) continue;
     __syncthreads();  // every warp is done with the previous q tile
-    load_rows<T, D, DKV_ROWS>(qs, q, b, i, Sq, H, h, G, block_q);
-    load_rows<T, D, DKV_ROWS>(dos, dout, b, i, Sq, H, h, G, block_q);
-    load_row_stats<DKV_ROWS>(lses, lse, b, i, Sq, H, h, G, block_q);
-    load_row_stats<DKV_ROWS>(dis, di, b, i, Sq, H, h, G, block_q);
+    load_rows<T, DK, ROWS>(qs, q, b, i, Sq, H, h, G, block_q);
+    load_rows<T, DV, ROWS>(dos, dout, b, i, Sq, H, h, G, block_q);
+    load_row_stats<ROWS>(lses, lse, b, i, Sq, H, h, G, block_q);
+    load_row_stats<ROWS>(dis, di, b, i, Sq, H, h, G, block_q);
     __syncthreads();
 
-    // s = q . k and dp = do . v: lane = key, warp = rows warp + 4t
-    float s[DKV_RPW], dp[DKV_RPW];
+    // s = q . k and dp = do . v: lane = key, warp = rows warp + WARPS t
+    float s[RPW], dp[RPW];
 #pragma unroll
-    for (int t = 0; t < DKV_RPW; ++t) s[t] = dp[t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[lane * (D + 1) + d], vd = vs[lane * (D + 1) + d];
+    for (int t = 0; t < RPW; ++t) s[t] = dp[t] = 0.f;
+    row_dots<DK>(s, qs, rr, ks + lane * (DK + KPAD));
+    row_dots<DV>(dp, dos, rr, vs + lane * (DV + KPAD));
 #pragma unroll
-      for (int t = 0; t < DKV_RPW; ++t) {
-        const int r = warp + BWD_WARPS * t;
-        s[t] += qs[r * D + d] * kd;
-        dp[t] += dos[r * D + d] * vd;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < DKV_RPW; ++t) {
-      const int r = warp + BWD_WARPS * t;
+    for (int t = 0; t < RPW; ++t) {
+      const int r = rr[t];
       const int qpos = first_q + r / G;
       const bool keep = r < rows && i * block_q + r / G < Sq && kpos <= qpos && kpos < Sk &&
                         window_keep(qpos, kpos, win);
@@ -455,38 +510,41 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     }
     __syncthreads();  // the contractions read every warp's rows
 
-    // dv[c][d] += sum_r p[r][c] do[r][d], dk[c][d] += sum_r ds[r][c] q[r][d]:
-    // warp = keys c = warp * DKV_KPW + u, lane = column d
+    // dv[c][d] += sum_r p[r][c] do[r][d], then dk[c][d] += sum_r ds[r][c]
+    // q[r][d]: warp = keys c = warp * KPW + u, lane = column d
     for (int r = 0; r < rows; ++r) {
-      float dov[DPL], qv[DPL];
+      float dov[VPL];
 #pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) {
-        dov[dd] = dos[r * D + lane + 32 * dd];
-        qv[dd] = qs[r * D + lane + 32 * dd];
+      for (int dd = 0; dd < VPL; ++dd) dov[dd] = dos[r * DV + lane + 32 * dd];
+#pragma unroll
+      for (int u = 0; u < KPW; ++u) {
+        const float pc = ps[r * BWD_BK + warp * KPW + u];
+#pragma unroll
+        for (int dd = 0; dd < VPL; ++dd) acc_v[u][dd] += pc * dov[dd];
       }
+    }
+    for (int r = 0; r < rows; ++r) {
+      float qv[KPL];
 #pragma unroll
-      for (int u = 0; u < DKV_KPW; ++u) {
-        const int c = warp * DKV_KPW + u;
-        const float pc = ps[r * BWD_BK + c], dsc = dss[r * BWD_BK + c];
+      for (int dd = 0; dd < KPL; ++dd) qv[dd] = qs[r * DK + lane + 32 * dd];
 #pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) {
-          acc_v[u][dd] += pc * dov[dd];
-          acc_k[u][dd] += dsc * qv[dd];
-        }
+      for (int u = 0; u < KPW; ++u) {
+        const float dsc = dss[r * BWD_BK + warp * KPW + u];
+#pragma unroll
+        for (int dd = 0; dd < KPL; ++dd) acc_k[u][dd] += dsc * qv[dd];
       }
     }
   }
 
 #pragma unroll
-  for (int u = 0; u < DKV_KPW; ++u) {
-    const int kp = j * BWD_BK + warp * DKV_KPW + u;
+  for (int u = 0; u < KPW; ++u) {
+    const int kp = j * BWD_BK + warp * KPW + u;
     if (kp >= Sk) continue;
     const size_t row = ((size_t)b * Sk + kp) * KV + h;
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) {
-      dk[row * D + lane + 32 * dd] = from_f<T>(acc_k[u][dd]);
-      dv[row * D + lane + 32 * dd] = from_f<T>(acc_v[u][dd]);
-    }
+    for (int dd = 0; dd < KPL; ++dd) dk[row * DK + lane + 32 * dd] = from_f<T>(acc_k[u][dd]);
+#pragma unroll
+    for (int dd = 0; dd < VPL; ++dd) dv[row * DV + lane + 32 * dd] = from_f<T>(acc_v[u][dd]);
   }
 }
 
@@ -1615,23 +1673,28 @@ decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
   }
 }
 
-template <int D>
+// dynamic shared memory above 48 KB needs the kernel's opt-in
+template <typename F>
+cudaError_t allow_smem(F kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int DK, int DV>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                        const void* q_off, int B, int Sq, int Sk, int H, int KV, int win,
                        float sm_scale, cudaStream_t stream) {
   const int G = H / KV;
   const int block_q = FWD_ROWS / G;
-  const size_t smem = sizeof(float) * (FWD_ROWS * D + FWD_BK * (D + 1) + FWD_BK * D +
+  const size_t smem = sizeof(float) * (FWD_ROWS * DK + FWD_BK * (DK + KPAD) + FWD_BK * DV +
                                        FWD_ROWS * FWD_BK);
-  auto kern = fwd_kernel<D>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  auto kern = fwd_kernel<T, DK, DV>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid((Sq + block_q - 1) / block_q, KV, B);
   kern<<<grid, FWD_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), static_cast<float*>(lse), static_cast<const int*>(q_off), Sq, Sk, H,
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<const int*>(q_off), Sq, Sk, H,
       KV, block_q, win, sm_scale);
   return cudaGetLastError();
 }
@@ -1690,42 +1753,39 @@ cudaError_t launch_combine(const void* m, const void* l, const void* acc, const 
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* di, void* dq, const void* q_off, int B,
                           int Sq, int Sk, int H, int KV, int win, float sm_scale,
                           cudaStream_t stream) {
   const int block_q = DQ_ROWS / (H / KV);
-  const size_t smem = sizeof(float) * (2 * DQ_ROWS * D + 2 * BWD_BK * (D + 1) +
+  const size_t smem = sizeof(float) * (DQ_ROWS * (DK + DV) + BWD_BK * (DK + DV + 2 * KPAD) +
                                        DQ_ROWS * BWD_BK + 2 * DQ_ROWS);
-  auto kern = bwd_dq_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  auto kern = bwd_dq_kernel<T, DK, DV>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid((Sq + block_q - 1) / block_q, KV, B);
-  kern<<<grid, BWD_THREADS, smem, stream>>>(
+  kern<<<grid, DQ_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<T*>(dq), static_cast<const int*>(q_off), Sq, Sk, H, KV, block_q, win, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* di, void* dk, void* dv, const void* q_off,
                            int B, int Sq, int Sk, int H, int KV, int win, float sm_scale,
                            cudaStream_t stream) {
-  const int block_q = DKV_ROWS / (H / KV);
-  const size_t smem = sizeof(float) * (2 * BWD_BK * (D + 1) + 2 * DKV_ROWS * D +
-                                       2 * DKV_ROWS * BWD_BK + 2 * DKV_ROWS);
-  auto kern = bwd_dkv_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  using Sh = DkvShape<DK, DV>;
+  const int block_q = Sh::ROWS / (H / KV);
+  const size_t smem = sizeof(float) * (BWD_BK * (DK + DV + 2 * KPAD) + Sh::ROWS * (DK + DV) +
+                                       2 * Sh::ROWS * BWD_BK + 2 * Sh::ROWS);
+  auto kern = bwd_dkv_kernel<T, DK, DV>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid((Sk + BWD_BK - 1) / BWD_BK, KV, B);
-  kern<<<grid, BWD_THREADS, smem, stream>>>(
+  kern<<<grid, Sh::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<T*>(dk), static_cast<T*>(dv), static_cast<const int*>(q_off), Sq, Sk, H, KV,
@@ -1846,10 +1906,10 @@ cudaError_t bwd_by_dtype(int dtype, bool dq_pass, const void* q, const void* k, 
                          float sm_scale, cudaStream_t s) {
   switch (dtype) {
     case 0:
-      return dq_pass ? launch_bwd_dq<float, D>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV,
-                                               win, sm_scale, s)
-                     : launch_bwd_dkv<float, D>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk,
-                                                H, KV, win, sm_scale, s);
+      return dq_pass ? launch_bwd_dq<float, D, D>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H,
+                                                  KV, win, sm_scale, s)
+                     : launch_bwd_dkv<float, D, D>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq,
+                                                   Sk, H, KV, win, sm_scale, s);
     case 1:
       return launch_bwd_hopper<__nv_bfloat16, D>(dq_pass, q, k, v, dout, lse, di, o1, o2, q_off,
                                                  B, Sq, Sk, H, KV, win, sm_scale, s);
@@ -1881,7 +1941,7 @@ cudaError_t fwd_by_dtype(int dtype, const void* q, const void* k, const void* v,
                          void* lse, const void* q_off, int B, int Sq, int Sk, int H, int KV,
                          int win, float sm_scale, cudaStream_t s) {
   switch (dtype) {
-    case 0: return launch_fwd<D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 0: return launch_fwd<float, D, D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
     case 1: return launch_fwd_hopper<__nv_bfloat16, D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
     case 2: return launch_fwd_hopper<__half, D>(q, k, v, out, lse, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
   }
@@ -1898,6 +1958,49 @@ cudaError_t decode_by_dtype(int dtype, const void* q, const void* k, const void*
     case 1: return launch_decode<__nv_bfloat16, D>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
     case 2: return launch_decode<__half, D>(q, k, v, tables, pos, m, l, acc, B, H, KV, S, NP, page, chunk, ns, kv_len, win, sm_scale, s);
   }
+  return cudaErrorInvalidValue;
+}
+
+// The MLA route (see the note above fwd_kernel): the CUDA-core kernels at
+// a built (DK, DV) pair, in the input's type
+template <typename T, int DK, int DV>
+cudaError_t mla_launch(int which, const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* di, void* o1, void* o2, const void* q_off,
+                       int B, int Sq, int Sk, int H, int KV, int win, float sm_scale,
+                       cudaStream_t s) {
+  switch (which) {
+    case 0: return launch_fwd<T, DK, DV>(q, k, v, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 1: return launch_bwd_dq<T, DK, DV>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 2: return launch_bwd_dkv<T, DK, DV>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int DK, int DV>
+cudaError_t mla_by_dtype(int dtype, int which, const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* di, void* o1, void* o2,
+                         const void* q_off, int B, int Sq, int Sk, int H, int KV, int win,
+                         float sm_scale, cudaStream_t s) {
+  switch (dtype) {
+    case 0: return mla_launch<float, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 1: return mla_launch<__nv_bfloat16, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 2: return mla_launch<__half, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// which: 0 forward (o1 = out, o2 = lse), 1 dq (o1), 2 dk/dv (o1, o2)
+int mla_entry(int which, const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* di, void* o1, void* o2, const void* q_off, int B,
+              int Sq, int Sk, int H, int KV, int Dk, int Dv, int dtype, int window,
+              float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KV <= 0 || H % KV != 0 || H / KV > CC_MAX_G || B <= 0 || Sq <= 0 || Sk <= 0)
+    return cudaErrorInvalidValue;
+  if (Dk == 96 && Dv == 64)
+    return mla_by_dtype<96, 64>(dtype, which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
+  if (Dk == 576 && Dv == 512)
+    return mla_by_dtype<576, 512>(dtype, which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1977,6 +2080,34 @@ int flash_decode_combine(const void* m, const void* l, const void* acc, const vo
     case 2: return launch_combine<__half>(m, l, acc, pos, out, B, H, KV, D, chunk, ns, kv_len, window, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The MLA route: q (B, Sq, H, Dk), k (B, Sk, KV, Dk), v (B, Sk, KV, Dv),
+// (Dk, Dv) one of the built pairs, (96, 64) or (576, 512); G = H/KV <= 16;
+// any dtype. flash_mla_fwd: out (B, Sq, H, Dv), lse (B, Sq, H) fp32 or
+// NULL. The backward as flash_bwd_dq/dkv with dout (B, Sq, H, Dv): dq
+// (B, Sq, H, Dk), dk (B, Sk, KV, Dk), dv (B, Sk, KV, Dv).
+int flash_mla_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                  const void* q_off, int B, int Sq, int Sk, int H, int KV, int Dk, int Dv,
+                  int dtype, int window, float sm_scale, void* stream) {
+  return mla_entry(0, q, k, v, nullptr, nullptr, nullptr, out, lse, q_off, B, Sq, Sk, H, KV, Dk,
+                   Dv, dtype, window, sm_scale, stream);
+}
+
+int flash_mla_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* di, void* dq, const void* q_off, int B, int Sq,
+                     int Sk, int H, int KV, int Dk, int Dv, int dtype, int window, float sm_scale,
+                     void* stream) {
+  return mla_entry(1, q, k, v, dout, lse, di, dq, nullptr, q_off, B, Sq, Sk, H, KV, Dk, Dv,
+                   dtype, window, sm_scale, stream);
+}
+
+int flash_mla_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* di, void* dk, void* dv, const void* q_off,
+                      int B, int Sq, int Sk, int H, int KV, int Dk, int Dv, int dtype,
+                      int window, float sm_scale, void* stream) {
+  return mla_entry(2, q, k, v, dout, lse, di, dk, dv, q_off, B, Sq, Sk, H, KV, Dk, Dv, dtype,
+                   window, sm_scale, stream);
 }
 
 }  // extern "C"

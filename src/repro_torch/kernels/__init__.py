@@ -47,6 +47,9 @@ SIGNATURES = {
         "flash_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _P],
         "flash_decode_split": [_P] * 8 + [_I] * 12 + [_F, _P],
         "flash_decode_combine": [_P] * 5 + [_I] * 9 + [_P],
+        "flash_mla_fwd": [_P] * 6 + [_I] * 9 + [_F, _P],
+        "flash_mla_bwd_dq": [_P] * 8 + [_I] * 9 + [_F, _P],
+        "flash_mla_bwd_dkv": [_P] * 9 + [_I] * 9 + [_F, _P],
     },
     "slot_gather": {
         "slot_gather_sample": [_P] * 6 + [_I] * 6 + [_P],

@@ -35,15 +35,25 @@ Kernels (design notes in the CUDA source):
   nor the kernels read ``pos`` on the host, so a decode step can be
   captured in a CUDA graph.
 
-On the card every kernel takes head dims up to 128 (Dk == Dv): 32, 64
-and 128 natively, any other zero-padded to the next of them by
-:func:`pad_head_dim` (exact: zero columns add nothing to q.k, and the
-padded output columns are sliced off). Above 128 raises
-``NotImplementedError`` naming the MLA slice. A block holds the G = H /
-KV heads of ``rows // G`` queries, the spare rows idle where G does not
-divide the row count: the forward and backward in bf16 and fp16 run on
-the tensor cores with 64-row tiles, so G <= 64; in fp32 (forward 16
-rows, dq 16, dk/dv 32, on the CUDA cores) and in the decode G <= 16.
+On the card the forward, dq and dk/dv take two routes. At Dk == Dv <=
+128 they run the kernels built for head dims 32, 64 and 128, any other
+D zero-padded to the next of them by :func:`pad_head_dim` (exact: zero
+columns add nothing to q.k, and the padded output columns are sliced
+off); a block holds the G = H / KV heads of ``rows // G`` queries, the
+spare rows idle where G does not divide the row count: in bf16 and fp16
+on the tensor cores with 64-row tiles, so G <= 64; in fp32 (forward 16
+rows, dq 16, dk/dv 32) on the CUDA cores, G <= 16. The MLA absorbed
+layout (Dk != Dv: DeepSeek-V2's latent 512 + rope 64 keys over the
+512-value latent) and any head dim above 128 take the CUDA-core
+``flash_mla_fwd`` / ``flash_mla_bwd_dq`` / ``flash_mla_bwd_dkv`` in every
+dtype (:func:`mla_route`), built at the (Dk, Dv) pairs of
+:data:`MLA_PAIRS`; any other pair up to (576, 512) zero-pads to the
+smallest that holds it (:func:`mla_pair`), G <= 16; they count their
+launches as ``flash_attention_mla``, ``flash_attention_mla_dq`` and
+``flash_attention_mla_dkv``. Above Dk 576 or Dv 512 raises
+``NotImplementedError`` naming the dims. The decode takes Dk == Dv <=
+128 and G <= 16 (above 128 raises, naming ROADMAP queue 2: the MLA
+decode is an einsum over the latent, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -71,6 +81,11 @@ DECODE_CHUNKS_PER_SM = 2
 MAX_GROUP_TENSOR_CORES = 64
 MAX_GROUP_FP32 = 16
 MAX_GROUP_DECODE = 16
+# (Dk, Dv) pairs the MLA-route kernels are built for (csrc mla_entry): the
+# smoke config's (80, 64) pads to the first, DeepSeek-V2-Lite's (576, 512)
+# is the second; their blocks hold 16 rows, so G <= 16
+MLA_PAIRS = ((96, 64), (576, 512))
+MAX_GROUP_MLA = 16
 
 
 def _round_up(n: int, m: int) -> int:
@@ -78,15 +93,40 @@ def _round_up(n: int, m: int) -> int:
 
 
 def kernel_head_dim(name: str, D: int) -> int:
-    """The head dim the kernels compute ``D`` at: the next of
-    :data:`HEAD_DIMS`. Above the largest raises, naming the MLA slice."""
+    """The head dim the Dk == Dv kernels compute ``D`` at: the next of
+    :data:`HEAD_DIMS`. Above the largest raises; only the decode has no
+    other route there (ROADMAP queue 2)."""
     for d in HEAD_DIMS:
         if D <= d:
             return d
     raise NotImplementedError(
-        f"{name}: head_dim {D} is more than the CUDA kernels take "
-        f"({HEAD_DIMS[-1]}); head dims above it (MLA's 192, the absorbed "
-        f"576/512) come with the MLA slice")
+        f"{name}: head_dim {D} is more than the split-KV decode kernels take "
+        f"({HEAD_DIMS[-1]}); a decode above it is ROADMAP queue 2 (the "
+        f"forward and backward take up to Dk 576 / Dv 512 on the MLA route)")
+
+
+def mla_route(Dk: int, Dv: int) -> bool:
+    """True where the forward and backward take the CUDA-core MLA-route
+    kernels: Dk != Dv (the MLA absorbed layout) or a head dim above 128."""
+    return Dk != Dv or Dk > HEAD_DIMS[-1]
+
+
+def mla_pair(name: str, Dk: int, Dv: int) -> tuple[int, int]:
+    """The smallest built (Dk, Dv) pair of :data:`MLA_PAIRS` that holds
+    ``(Dk, Dv)``; beyond the largest raises, naming the dims."""
+    for pk, pv in MLA_PAIRS:
+        if Dk <= pk and Dv <= pv:
+            return pk, pv
+    raise NotImplementedError(
+        f"{name}: head dims Dk={Dk}, Dv={Dv} are more than the CUDA kernels "
+        f"take (Dk <= {MLA_PAIRS[-1][0]}, Dv <= {MLA_PAIRS[-1][1]})")
+
+
+def _pad_to(width: int, *ts):
+    """Each tensor's last dim zero-padded to ``width`` columns."""
+    return tuple(t if t.shape[-1] == width else
+                 torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+                 for t in ts)
 
 
 def pad_head_dim(D: int, *ts):
@@ -96,10 +136,7 @@ def pad_head_dim(D: int, *ts):
     zero v/do columns give zero output, dv and dq/dk columns, and
     rowsum(do o) is unchanged; the caller passes ``sm_scale`` of the true
     D and slices the outputs back to D."""
-    pad = kernel_head_dim("pad_head_dim", D) - D
-    if pad == 0:
-        return ts
-    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
+    return _pad_to(kernel_head_dim("pad_head_dim", D), *ts)
 
 
 def _check_cuda(name: str, q, k, v, decode: bool = False):
@@ -108,15 +145,17 @@ def _check_cuda(name: str, q, k, v, decode: bool = False):
                         f"{k.dtype}, {v.dtype}")
     K.dtype_code(q)
     Dk, Dv = q.shape[-1], v.shape[-1]
-    if Dk != Dv:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels take Dk == Dv (got Dk={Dk}, "
-            f"Dv={Dv}); the MLA absorbed layout (KV=1, Dk != Dv) comes with "
-            f"the MLA slice")
-    kernel_head_dim(name, Dk)
     G = q.shape[2] // k.shape[2]
     if decode:
+        if Dk != Dv:
+            raise NotImplementedError(
+                f"{name}: the decode kernels take Dk == Dv (got Dk={Dk}, "
+                f"Dv={Dv}); the MLA decode is an einsum over the latent")
+        kernel_head_dim(name, Dk)
         limit, path = MAX_GROUP_DECODE, "the decode"
+    elif mla_route(Dk, Dv):
+        mla_pair(name, Dk, Dv)
+        limit, path = MAX_GROUP_MLA, "the MLA route (Dk != Dv or D > 128)"
     elif q.dtype == torch.float32:
         limit, path = MAX_GROUP_FP32, "fp32"
     else:
@@ -157,6 +196,8 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
         return ref.flash_attention_ref(q, k, v, q_off, window, sm_scale,
                                        return_lse)
     _check_cuda("flash_attention", q, k, v)
+    if mla_route(q.shape[-1], v.shape[-1]):
+        return _mla_forward(q, k, v, q_off, window, sm_scale, return_lse)
     D = q.shape[-1]
     q, k, v = pad_head_dim(D, q, k, v)
     B, Sq, H, Dk = q.shape
@@ -175,6 +216,63 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
     return (out, lse) if return_lse else out
 
 
+def _mla_forward(q, k, v, q_off, window: int, sm_scale: float,
+                 return_lse: bool):
+    """The forward on the MLA route: q/k padded to the pair's Dk, v to its
+    Dv, then ``flash_mla_fwd``."""
+    Dv = v.shape[-1]
+    pk, pv = mla_pair("flash_attention", q.shape[-1], Dv)
+    (q, k), (v,) = _pad_to(pk, q, k), _pad_to(pv, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, Sq, H, _ = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, pv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    err = K.load("flash_attention").flash_mla_fwd(
+        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out), K.ptr(lse), K.ptr(q_off),
+        B, Sq, Sk, H, KV, pk, pv, K.dtype_code(q), window,
+        ctypes.c_float(sm_scale), K.stream_ptr(q))
+    K.check(err, "flash_mla_fwd")
+    K.count("flash_attention_mla")
+    out = _unpad(out, Dv)
+    return (out, lse) if return_lse else out
+
+
+def _mla_bwd(which: str, q, k, v, lse, do, di, q_off, window: int,
+             sm_scale: float):
+    """dq (``which`` "dq") or (dk, dv) ("dkv") on the MLA route."""
+    name = f"flash_attention_{which}"
+    _check_cuda(name, q, k, v)
+    if do.dtype != q.dtype or do.shape[:3] != q.shape[:3] \
+            or do.shape[-1] != v.shape[-1]:
+        raise TypeError(f"{name}: do {tuple(do.shape)} {do.dtype} does not "
+                        f"match q {tuple(q.shape)} / v {tuple(v.shape)}")
+    Dk, Dv = q.shape[-1], v.shape[-1]
+    pk, pv = mla_pair(name, Dk, Dv)
+    (q, k), (v, do) = _pad_to(pk, q, k), _pad_to(pv, v, do)
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse, di = lse.float().contiguous(), di.float().contiguous()
+    B, Sq, H, _ = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    lib = K.load("flash_attention")
+    args = (B, Sq, Sk, H, KV, pk, pv, K.dtype_code(q), int(window),
+            ctypes.c_float(sm_scale), K.stream_ptr(q))
+    ins = (K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di))
+    if which == "dq":
+        dq = torch.empty_like(q)
+        err = lib.flash_mla_bwd_dq(*ins, K.ptr(dq), K.ptr(q_off), *args)
+        K.check(err, "flash_mla_bwd_dq")
+        K.count("flash_attention_mla_dq")
+        return _unpad(dq, Dk)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = lib.flash_mla_bwd_dkv(*ins, K.ptr(dk), K.ptr(dv), K.ptr(q_off),
+                                *args)
+    K.check(err, "flash_mla_bwd_dkv")
+    K.count("flash_attention_mla_dkv")
+    return _unpad(dk, Dk), _unpad(dv, Dv)
+
+
 def _bwd_inputs(name, q, k, v, lse, do, di):
     """The kernels' inputs: q, k, v and do padded to the kernel head dim
     and TMA-ready, lse and di contiguous fp32."""
@@ -190,11 +288,13 @@ def _bwd_inputs(name, q, k, v, lse, do, di):
 def flash_attention_dq(q, k, v, lse, do, di, *, q_off, window: int = 0,
                        sm_scale: float):
     """dq (B, Sq, H, Dk) of the flash forward from its saved lse (B, Sq,
-    H) and ``di = rowsum(out do)`` (B, Sq, H), both fp32; ``do`` in q's
-    dtype; ``q_off`` a (B,) int32 tensor."""
+    H) and ``di = rowsum(out do)`` (B, Sq, H), both fp32; ``do`` (B, Sq,
+    H, Dv) in q's dtype; ``q_off`` a (B,) int32 tensor."""
     if K.on_cpu(q, k, v, lse, do, di):
         return ref.flash_attention_dq_ref(q, k, v, lse, do, di, q_off,
                                           window, sm_scale)
+    if mla_route(q.shape[-1], v.shape[-1]):
+        return _mla_bwd("dq", q, k, v, lse, do, di, q_off, window, sm_scale)
     D_true = q.shape[-1]
     q, k, v, do, lse, di = _bwd_inputs("flash_attention_dq", q, k, v, lse,
                                        do, di)
@@ -212,11 +312,14 @@ def flash_attention_dq(q, k, v, lse, do, di, *, q_off, window: int = 0,
 
 def flash_attention_dkv(q, k, v, lse, do, di, *, q_off, window: int = 0,
                         sm_scale: float):
-    """(dk, dv) (B, Sk, KV, D) of the flash forward, each summed over the
-    G query heads of its group; inputs as :func:`flash_attention_dq`."""
+    """(dk (B, Sk, KV, Dk), dv (B, Sk, KV, Dv)) of the flash forward,
+    each summed over the G query heads of its group; inputs as
+    :func:`flash_attention_dq`."""
     if K.on_cpu(q, k, v, lse, do, di):
         return ref.flash_attention_dkv_ref(q, k, v, lse, do, di, q_off,
                                            window, sm_scale)
+    if mla_route(q.shape[-1], v.shape[-1]):
+        return _mla_bwd("dkv", q, k, v, lse, do, di, q_off, window, sm_scale)
     D_true = q.shape[-1]
     q, k, v, do, lse, di = _bwd_inputs("flash_attention_dkv", q, k, v, lse,
                                        do, di)

@@ -1,0 +1,101 @@
+"""A short first call for the flash kernels' MLA route on the card: build
+``csrc/flash_attention.cu``, print the registers and spills (``ptxas -v``)
+of the CUDA-core forward, dq and dk/dv, hold each MLA-route entry to its
+plain version at a few shapes (fp32 and bf16; Dk != Dv; a padded pair;
+G up to 16), then time the three at DeepSeek-V2-Lite's training shape
+(B 2, S 1024, 16 heads over 1, Dk 576, Dv 512, bf16) with CUDA events
+over 5 calls, the L2 cache left warm (``chip_smoke.py`` phase 11 times
+them from a CUDA graph with the L2 flushed).
+
+    PYTHONPATH=src python -m repro_torch.kernels.mla_probe
+
+Run from the root of a checkout on a machine with the card and the CUDA
+toolkit (about a minute, most of it the build).
+"""
+import math
+import re
+import time
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+
+
+def build_report():
+    t0 = time.time()
+    K.build_all(("flash_attention",))
+    print(f"build {time.time() - t0:.1f}s")
+    entry = None
+    for line in K.build_log("flash_attention").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        if entry and re.search(r"(fwd|bwd_dq|bwd_dkv)_kernel", entry) and (
+                "registers" in line or "spill" in line):
+            print(entry[:60], line.strip())
+
+
+def check(dtype, B, S, H, KV, Dk, Dv, win=0, off=0, seed=0):
+    """The forward (out, lse), dq and dk/dv against plain; returns the
+    inputs the timing reuses."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    q, k, v, do = rn(B, S, H, Dk), rn(B, S, KV, Dk), rn(B, S, KV, Dv), \
+        rn(B, S, H, Dv)
+    qo = fa._positions(off, B, q.device)
+    sc = 1 / math.sqrt(Dk)
+    kw = dict(q_off=qo, window=win, sm_scale=sc)
+    K.reset_launches()
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    want, want_lse = ref.flash_attention_ref(q, k, v, qo, win, sc, True)
+    di = ref.flash_attention_di(out, do)
+    dq = fa.flash_attention_dq(q, k, v, lse, do, di, **kw)
+    dk, dv = fa.flash_attention_dkv(q, k, v, lse, do, di, **kw)
+    wq = ref.flash_attention_dq_ref(q, k, v, lse, do, di, qo, win, sc)
+    wk, wv = ref.flash_attention_dkv_ref(q, k, v, lse, do, di, qo, win, sc)
+    torch.cuda.synchronize()
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()  # noqa: E731
+                        / b.float().abs().max()).item()
+    print(str(dtype)[6:], (B, S, H, KV, Dk, Dv, win), "out",
+          (out.float() - want.float()).abs().max().item(), "lse",
+          (lse - want_lse).abs().max().item(), "dq", rel(dq, wq), "dk",
+          rel(dk, wk), "dv", rel(dv, wv), dict(K.LAUNCHES))
+    return q, k, v, do, qo, sc, lse, di
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("mla_probe: no CUDA device visible")
+    build_report()
+    check(torch.float32, 1, 100, 8, 2, 64, 64, 33, [7])     # the fp32 path
+    check(torch.float32, 1, 128, 8, 2, 128, 128)
+    check(torch.float32, 2, 100, 4, 1, 80, 64, 7, [0, 5])   # the MLA route
+    check(torch.bfloat16, 2, 100, 4, 1, 80, 64, 0, [0, 5])
+    check(torch.bfloat16, 2, 100, 8, 2, 80, 64, 7)
+    check(torch.bfloat16, 1, 100, 8, 2, 192, 192)
+    check(torch.float32, 1, 200, 16, 1, 576, 512)
+    q, k, v, do, qo, sc, lse, di = check(torch.bfloat16, 2, 1024, 16, 1,
+                                         576, 512)
+    kw = dict(q_off=qo, sm_scale=sc)
+    for name, fn in (
+            ("fwd", lambda: fa.flash_attention(q, k, v, return_lse=True,
+                                               **kw)),
+            ("dq", lambda: fa.flash_attention_dq(q, k, v, lse, do, di, **kw)),
+            ("dkv", lambda: fa.flash_attention_dkv(q, k, v, lse, do, di,
+                                                   **kw))):
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(5):
+            fn()
+        e.record()
+        e.synchronize()
+        print(name, "ms", s.elapsed_time(e) / 5)
+
+
+if __name__ == "__main__":
+    main()

@@ -25,6 +25,12 @@ ranks.
     # alpha 0.5, then asgd at tau 2, on asa16):
     PYTHONPATH=src python -m repro_torch.launch.train --preset easgd_async
 
+    # DeepSeek-V2-Lite (MLA + MoE) at full width, its depth cut to the
+    # dense first layer and one MoE layer (the loss adds the MoE aux):
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-lite-16b --layers 2 --ranks 2 --batch 2 \
+        --seq 1024 --steps 4 --exchanger asa16 --sharded-update
+
     # on the CPU, with the kernels' plain versions (a smoke-sized model):
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --smoke --device cpu --ranks 2 --batch 4 --seq 64 --steps 4
@@ -109,16 +115,17 @@ from repro_torch.train.loop import train
 CROP_MARGIN = 8
 
 
-def _dense_decoder(cfg) -> bool:
+def _ported_decoder(cfg) -> bool:
+    """A decoder of dense and MoE layers (GQA or MLA attention), no meta
+    tokens: what ``models/transformer.py`` runs (VLMs on text alone)."""
     return (cfg.family == "decoder" and cfg.num_meta_tokens == 0
-            and set(layer_kinds(cfg)) == {"dense"}
-            and not cfg.attention.kv_lora_rank)
+            and set(layer_kinds(cfg)) <= {"dense", "moe"})
 
 
 # the archs this launcher trains: the paper's convnets and the ported
-# (dense) decoders
+# decoders
 TRAIN_ARCHS = tuple(PAPER_ARCHS) + tuple(a for a in ASSIGNED_ARCHS
-                                         if _dense_decoder(get_config(a)))
+                                         if _ported_decoder(get_config(a)))
 # examples per rank and step when --batch is not given
 CONV_BATCH = {"alexnet": 128, "googlenet": 32, "vggnet": 16}
 LM_BATCH = 8
@@ -156,7 +163,12 @@ PRESET_BATCH = {"easgd_async": (8, 64)}     # (sequences a rank, tokens)
 def launch_config(opts):
     if opts.get("preset"):
         return PRESETS[opts["preset"]]()
-    return (get_smoke_config if opts["smoke"] else get_config)(opts["arch"])
+    cfg = (get_smoke_config if opts["smoke"] else get_config)(opts["arch"])
+    if opts.get("layers"):
+        # depth cut at full width (DeepSeek-V2-Lite: 2 = the dense first
+        # layer and one MoE layer)
+        cfg = cfg.with_overrides(num_layers=opts["layers"])
+    return cfg
 
 
 def pick_backend(device: torch.device, k: int) -> str:
@@ -432,6 +444,8 @@ def main(argv=None):
     ap.add_argument("--pods", type=int, default=1,
                     help="split the ranks into this many pods for the "
                          "two-level exchange (hier, hier16)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut a decoder's depth to this many layers")
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--batch", type=int, default=None,
                     help="examples per rank and step (AlexNet 128, "

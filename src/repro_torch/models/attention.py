@@ -1,5 +1,5 @@
-"""Attention: the GQA half of ``repro/models/attention.py`` (+QKV bias,
-qk-norm, sliding window).
+"""Attention: ``repro/models/attention.py`` — GQA (+QKV bias, qk-norm,
+sliding window) and DeepSeek-V2's MLA (multi-head latent attention).
 
 Two interchangeable implementations back every path
 (:func:`resolve_attn_impl`):
@@ -11,12 +11,20 @@ Two interchangeable implementations back every path
   version. The default (``auto``).
 - ``ref``: the einsum paths below — the oracles ``flash`` is held to.
 
-The JAX package's ``blockwise`` scan is not ported. MLA (DeepSeek-V2's
-latent attention) comes with the MLA serving slice; its entry points
-raise ``NotImplementedError`` here.
+The JAX package's ``blockwise`` scan is not ported.
+
+MLA caches the 512-value latent ``ckv`` and the shared 64-value rope key
+``kr`` of each token (576 values a token). Its training forward with
+``flash`` attends in the absorbed layout: W_uk folded into the query, so
+the keys are (latent | rope key), the values the latent itself, one KV
+head under all H query heads (Dk 576, Dv 512 at full width) — the
+kernels' MLA route. ``ref`` keeps the naive per-head expansion as the
+oracle. Decode and prefill are absorbed einsums over the latent for
+either implementation, as in the JAX package (no flash variant there).
 
 Caches update in place: the decode and prefill functions write the new
-K/V rows into the cache tensors they are given and return the same dict.
+K/V (or latent / rope-key) rows into the cache tensors they are given
+and return the same dict.
 """
 from __future__ import annotations
 
@@ -36,8 +44,6 @@ from repro_torch.models.common import apply_rope, dense_init, head_rms_norm
 NEG_INF = -1e30
 
 _IMPLS = ("flash", "ref")
-MLA_SLICE = ("MLA attention (deepseek-v2) is not ported yet: it comes with "
-             "the MLA/SSM/MoE serving slice (ROADMAP queue 1)")
 
 
 def resolve_attn_impl(a: AttentionConfig | None) -> str:
@@ -71,10 +77,26 @@ def init_gqa(gen, cfg: ArchConfig, a: AttentionConfig, dtype, device=None):
     return p
 
 
+def init_mla(gen, cfg: ArchConfig, a: AttentionConfig, dtype, device=None):
+    d = cfg.d_model
+    qd = a.qk_nope_dim + a.qk_rope_dim
+    return {
+        "wq": dense_init(gen, d, (a.num_heads, qd), dtype, device),
+        "wdkv": dense_init(gen, d, (a.kv_lora_rank,), dtype, device),
+        "wkr": dense_init(gen, d, (a.qk_rope_dim,), dtype, device),
+        # up-projections from the latent
+        "wuk": dense_init(gen, a.kv_lora_rank, (a.num_heads, a.qk_nope_dim),
+                          dtype, device),
+        "wuv": dense_init(gen, a.kv_lora_rank, (a.num_heads, a.v_head_dim),
+                          dtype, device),
+        "wo": dense_init(gen, a.num_heads * a.v_head_dim, (d,), dtype, device),
+    }
+
+
 def init_attention(gen, cfg: ArchConfig, dtype, device=None):
     a = cfg.attention
     if a.kv_lora_rank:
-        raise NotImplementedError(MLA_SLICE)
+        return init_mla(gen, cfg, a, dtype, device)
     return init_gqa(gen, cfg, a, dtype, device)
 
 
@@ -296,34 +318,180 @@ def gqa_prefill(p, cache, x, positions, pos0: int, a: AttentionConfig,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_scale(a: AttentionConfig, dtype):
+    """1 / sqrt(nope + rope) as the JAX package's einsum paths take it:
+    the root rounded to the compute dtype first."""
+    root = torch.tensor(math.sqrt(a.qk_nope_dim + a.qk_rope_dim),
+                        dtype=torch.float32).to(dtype)
+    return 1.0 / root
+
+
+def _mla_q(p, x, positions, a: AttentionConfig):
+    """(q_nope (B, S, H, nope), roped q_rope (B, S, H, rope))."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q.split([a.qk_nope_dim, a.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, a.rope_theta)
+
+
+def _mla_kv(p, x, positions, a: AttentionConfig):
+    """(latent c_kv (B, S, R), roped shared key k_rope (B, S, rope))."""
+    c_kv = torch.einsum("bsd,dr->bsr", x, p["wdkv"])
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["wkr"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        a.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_forward(p, x, positions, a: AttentionConfig, window: int,
+                impl: str | None = None):
+    """Training/prefill MLA over x (B, S, d). ``flash`` attends in the
+    absorbed layout through the kernels (q_cat = (q_nope W_uk | q_rope)
+    against k_cat = (c_kv | k_rope), values c_kv: KV = 1, Dk = R + rope,
+    Dv = R); ``ref`` expands k_nope and v per head (the oracle)."""
+    impl = impl or resolve_attn_impl(a)
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, positions, a)
+    c_kv, k_rope = _mla_kv(p, x, positions, a)
+    if impl == "flash":
+        lat_scale = 1.0 / math.sqrt(a.qk_nope_dim + a.qk_rope_dim)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"])
+        q_cat = torch.cat([q_lat, q_rope], dim=-1)           # (B,S,H,R+rope)
+        k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None]
+        v_lat = c_kv[:, :, None]                             # (B,S,1,R)
+        o_lat = flash_attention(q_cat, k_cat, v_lat, window=window,
+                                sm_scale=lat_scale)
+        out = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), p["wuv"])
+        return _out_proj(p, out, B, S)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wuk"])   # (B,S,H,nope)
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wuv"])        # (B,S,H,vd)
+    s_nope = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+    keep = causal_window_mask(positions[0], positions[0], window)
+    w = _masked_softmax((s_nope + s_rope) * _mla_scale(a, x.dtype),
+                        keep[None, None]).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", w, v)
+    return _out_proj(p, out, B, S)
+
+
+def mla_init_cache(batch: int, max_len: int, a: AttentionConfig, dtype,
+                   device=None):
+    return {"ckv": torch.zeros((batch, max_len, a.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((batch, max_len, a.qk_rope_dim), dtype=dtype,
+                              device=device)}
+
+
+def _mla_attend(p, q_nope, q_rope, lat, ropek, keep, a: AttentionConfig,
+                dtype):
+    """Absorbed-matmul attention of (B, C, H, ...) queries over the
+    (B, S, R) latent and (B, S, rope) key lanes, keep broadcastable to
+    (B, H, C, S). Returns (B, C, d)."""
+    B, C = q_nope.shape[:2]
+    # absorb W_uk into the query: (B,C,H,nope) x (R,H,nope) -> (B,C,H,R)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"])
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat, lat)
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope, ropek)
+    w = _masked_softmax((s_lat + s_rope) * _mla_scale(a, dtype),
+                        keep).to(dtype)
+    o_lat = torch.einsum("bhst,btr->bshr", w, lat)           # (B,C,H,R)
+    out = torch.einsum("bshr,rhk->bshk", o_lat, p["wuv"])
+    return _out_proj(p, out, B, C)
+
+
+def mla_decode(p, cache, x, pos, a: AttentionConfig, window: int,
+               tables=None, page_size: int = 0):
+    """Absorbed-matmul MLA decode in the latent space. x (B, 1, d); pos
+    an int or a (B,) vector; ``tables`` switches to paged latent / rope-key
+    caches ((P, page_size, R) / (P, page_size, rope)): the new rows
+    scatter through the block table and attention reads the gathered
+    lanes. Writes the cache in place. Returns (out (B, 1, d), cache)."""
+    B = x.shape[0]
+    posv, pos_vec = _decode_pos(pos, B, x.device)
+    q_nope, q_rope = _mla_q(p, x, posv, a)
+    c_new, kr_new = _mla_kv(p, x, posv, a)
+    ckv, kr = cache["ckv"], cache["kr"]
+    if tables is not None:
+        pv = posv[:, 0]
+        _scatter_page_rows(ckv, c_new, tables, pv, page_size)
+        _scatter_page_rows(kr, kr_new, tables, pv, page_size)
+        lat, ropek = _gather_lane(ckv, tables), _gather_lane(kr, tables)
+    else:
+        _update_cache_rows(ckv, c_new, pos, pos_vec)
+        _update_cache_rows(kr, kr_new, pos, pos_vec)
+        lat, ropek = ckv, kr
+    kpos = torch.arange(lat.shape[1], device=x.device)
+    keep = decode_keep_batched(kpos, posv[:, 0], window)[:, None, None, :]
+    return _mla_attend(p, q_nope, q_rope, lat, ropek, keep, a,
+                       x.dtype), cache
+
+
+def mla_prefill(p, cache, x, positions, pos0: int, a: AttentionConfig,
+                window: int, tables=None, page_size: int = 0):
+    """Chunked MLA prefill: the decode's absorbed attention for C query
+    rows, writing the latent and rope-key rows at [pos0, pos0+C) in place
+    (through the block tables when ``tables`` is given — any alignment).
+    Returns (out (B, C, d), cache)."""
+    B, C = x.shape[:2]
+    q_nope, q_rope = _mla_q(p, x, positions, a)
+    c_new, kr_new = _mla_kv(p, x, positions, a)
+    ckv, kr = cache["ckv"], cache["kr"]
+    if tables is not None:
+        _scatter_chunk_rows(ckv, c_new, tables, positions, page_size)
+        _scatter_chunk_rows(kr, kr_new, tables, positions, page_size)
+        lat, ropek = _gather_lane(ckv, tables), _gather_lane(kr, tables)
+    else:
+        S = ckv.shape[1]
+        start = min(max(int(pos0), 0), S - C)   # dynamic_update_slice clamp
+        ckv[:, start:start + C] = c_new.to(ckv.dtype)
+        kr[:, start:start + C] = kr_new.to(kr.dtype)
+        lat, ropek = ckv, kr
+    kpos = torch.arange(lat.shape[1], device=x.device)
+    keep = causal_window_mask(positions[0], kpos, window)[None, None]
+    return _mla_attend(p, q_nope, q_rope, lat, ropek, keep, a,
+                       x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
-def _gqa_only(cfg: ArchConfig) -> AttentionConfig:
-    a = cfg.attention
-    if a.kv_lora_rank:
-        raise NotImplementedError(MLA_SLICE)
-    return a
-
-
 def attn_forward(p, x, positions, cfg: ArchConfig, window: int,
                  impl: str | None = None):
-    return gqa_forward(p, x, positions, _gqa_only(cfg), window, impl=impl)
+    a = cfg.attention
+    if a.kv_lora_rank:
+        return mla_forward(p, x, positions, a, window, impl=impl)
+    return gqa_forward(p, x, positions, a, window, impl=impl)
 
 
 def attn_init_cache(batch: int, max_len: int, cfg: ArchConfig, dtype,
                     device=None):
-    return gqa_init_cache(batch, max_len, _gqa_only(cfg), dtype, device)
+    a = cfg.attention
+    if a.kv_lora_rank:
+        return mla_init_cache(batch, max_len, a, dtype, device)
+    return gqa_init_cache(batch, max_len, a, dtype, device)
 
 
 def attn_decode(p, cache, x, pos, cfg: ArchConfig, window: int,
                 impl: str | None = None, tables=None, page_size: int = 0):
-    return gqa_decode(p, cache, x, pos, _gqa_only(cfg), window, impl=impl,
+    a = cfg.attention
+    if a.kv_lora_rank:
+        # the absorbed einsum over the 576-value latent rows is the MLA
+        # decode for either implementation, as in the JAX package
+        return mla_decode(p, cache, x, pos, a, window, tables=tables,
+                          page_size=page_size)
+    return gqa_decode(p, cache, x, pos, a, window, impl=impl,
                       tables=tables, page_size=page_size)
 
 
 def attn_prefill(p, cache, x, positions, pos0: int, cfg: ArchConfig,
                  window: int, impl: str | None = None, tables=None,
                  page_size: int = 0):
-    return gqa_prefill(p, cache, x, positions, pos0, _gqa_only(cfg), window,
-                       impl=impl, tables=tables, page_size=page_size)
+    a = cfg.attention
+    if a.kv_lora_rank:
+        return mla_prefill(p, cache, x, positions, pos0, a, window,
+                           tables=tables, page_size=page_size)
+    return gqa_prefill(p, cache, x, positions, pos0, a, window, impl=impl,
+                       tables=tables, page_size=page_size)

@@ -11,8 +11,14 @@
 - ``chunk_prefill(params, cache, tokens, pos0, valid, *, seq_len,
   block_tables=None, page_size=0) -> (logits, cache)``
 - ``loss_fn(params, batch, gen=None) -> (loss, metrics)``  next-token
-  cross-entropy on ``batch`` {tokens, labels}; differentiable, so
+  cross-entropy on ``batch`` {tokens, labels} plus the MoE layers'
+  load-balance loss (metrics {"loss", "aux"}); differentiable, so
   gradients flow through the cast to the fp32 masters
+
+Decoders of dense and MoE layers, with GQA or MLA attention (DeepSeek-V2:
+MLA with the MoE of ``models/moe.py`` after ``first_k_dense`` dense
+layers); ``init`` draws every leaf from one ``torch.Generator`` on
+``device`` (the MoE router in fp32 whatever ``param_dtype`` says).
 
 Every call casts fp32 matrices to the compute dtype (``cast_params``);
 a caller that keeps params already cast (the serving engine) pays
@@ -103,13 +109,13 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
             return transformer.init_decoder(gen, cfg, dev)
 
     def loss_fn(params, batch, gen=None):
-        del gen                 # dense decoders draw no randomness
+        del gen                 # decoders draw no randomness
         return transformer.decoder_loss(cast_params(params, cdt), batch, cfg)
 
     @torch.no_grad()
     def forward(params, batch):
         return transformer.decoder_forward(cast_params(params, cdt), batch,
-                                           cfg)
+                                           cfg)[0]
 
     def init_cache(batch, max_len):
         return transformer.init_decoder_cache(cfg, batch, max_len, dev)

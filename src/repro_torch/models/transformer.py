@@ -1,4 +1,4 @@
-"""Decoder-only LM executor, dense layers (counterpart of
+"""Decoder-only LM executor, dense and MoE layers (counterpart of
 ``repro/models/transformer.py``).
 
 Parameters are a dict: ``embed`` (V, d), ``ln_f`` (d,), ``head`` (d, V)
@@ -6,9 +6,11 @@ unless embeddings are tied, and ``layers`` — one dict per layer (the JAX
 package's ``blocks[seg]`` stacks unstacked; ``repro_torch.bridge``
 converts). The JAX ``lax.scan`` over stacked layers is a Python loop over
 layers here. Caches keep the JAX structure: one entry per segment of
-consecutive same-kind layers, ``{"attn": {"k", "v"}}`` with a leading
-layer axis, so a paged pool is ``(layers, P, page_size, KV, hd)``. Decode
-and prefill write the caches in place and return them.
+consecutive same-kind layers, ``{"attn": {"k", "v"}}`` (MLA: ``{"ckv",
+"kr"}``, the latent and the rope key) with a leading layer axis, so a
+paged pool is ``(layers, P, page_size, KV, hd)`` (MLA: ``(layers, P,
+page_size, R)``). Decode and prefill write the caches in place and
+return them.
 
 Training runs ``decoder_loss`` under autograd. With ``cfg.remat`` each
 layer runs under ``torch.utils.checkpoint`` (non-reentrant), the
@@ -16,8 +18,14 @@ counterpart of the JAX package's ``jax.checkpoint(body)``: only the
 layer inputs are kept, and the backward recomputes each layer's forward
 (the flash forward kernel launches twice per layer and step).
 
-Only the ``dense`` layer kind is ported; MoE, SSM and hybrid layers come
-with a later slice and raise ``NotImplementedError``.
+Layer kinds: ``dense`` (attention + MLP) and ``moe`` (attention + the
+MoE layer of ``models/moe.py``; DeepSeek-V2's first ``first_k_dense``
+layers are dense). Training routes with the capped capacity and adds the
+layers' load-balance loss to the loss; decode and prefill route with
+full capacity (no drops, so a slot's tokens never depend on what the
+other slots hold), and prefill keeps the pad tail out of the routing.
+SSM and hybrid layers and meta tokens come with a later slice and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,10 +37,11 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (dtype_of, embed_init, dense_init,
                                        rms_norm, softmax_xent)
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import init_moe, moe_forward
 
-LATER_SLICE = ("only dense decoder layers are ported; MoE, SSM and hybrid "
-               "layers come with the MLA/SSM/MoE serving slice (ROADMAP "
-               "queue 1)")
+LATER_SLICE = ("only dense and MoE decoder layers are ported; SSM and "
+               "hybrid layers and meta tokens come with a later slice "
+               "(ROADMAP queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -84,9 +93,9 @@ def segments(cfg: ArchConfig) -> list[tuple[str, int]]:
     return segs
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "decoder" or any(k != "dense" for k in layer_kinds(cfg)) \
-            or cfg.num_meta_tokens:
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family != "decoder" or cfg.num_meta_tokens or any(
+            k not in ("dense", "moe") for k in layer_kinds(cfg)):
         raise NotImplementedError(f"{cfg.name}: {LATER_SLICE}")
 
 
@@ -98,50 +107,68 @@ def _embed(params, tokens, dtype):
 # single layer
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen, cfg: ArchConfig, dtype, device):
+def _init_layer(gen, cfg: ArchConfig, kind: str, dtype, device):
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
-    return {"ln1": zeros(),
-            "attn": attn_mod.init_attention(gen, cfg, dtype, device),
-            "ln2": zeros(),
-            "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device)}
+    p = {"ln1": zeros(),
+         "attn": attn_mod.init_attention(gen, cfg, dtype, device),
+         "ln2": zeros()}
+    if kind == "moe":
+        p["moe"] = init_moe(gen, d, cfg.moe, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
+    return p
+
+
+def _ffn(p, x, cfg: ArchConfig, **moe_kw):
+    """The layer's MLP or MoE on the normed residual: (y, aux)."""
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return moe_forward(p["moe"], h, cfg.moe, **moe_kw)
+    return mlp_forward(p["mlp"], h), None
 
 
 def _apply_layer(p, x, positions, cfg: ArchConfig, window, attn_impl):
-    eps = cfg.norm_eps
-    x = x + attn_mod.attn_forward(p["attn"], rms_norm(x, p["ln1"], eps),
+    """Full-sequence layer: (x, aux or None)."""
+    x = x + attn_mod.attn_forward(p["attn"], rms_norm(x, p["ln1"],
+                                                      cfg.norm_eps),
                                   positions, cfg, window, impl=attn_impl)
-    return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], eps))
+    y, aux = _ffn(p, x, cfg)
+    return x + y, aux
 
 
 def _decode_layer(p, cache, x, pos, cfg: ArchConfig, window, attn_impl,
                   tables, page_size):
-    eps = cfg.norm_eps
-    y, _ = attn_mod.attn_decode(p["attn"], cache, rms_norm(x, p["ln1"], eps),
-                                pos, cfg, window, impl=attn_impl,
-                                tables=tables, page_size=page_size)
+    y, _ = attn_mod.attn_decode(p["attn"], cache,
+                                rms_norm(x, p["ln1"], cfg.norm_eps), pos, cfg,
+                                window, impl=attn_impl, tables=tables,
+                                page_size=page_size)
     x = x + y
-    return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], eps))
+    # full capacity: decode routing is drop-free, so each slot's output is
+    # independent of what the other slots are decoding
+    y, _ = _ffn(p, x, cfg, full_capacity=True)
+    return x + y
 
 
-def _prefill_layer(p, cache, x, positions, pos0, cfg: ArchConfig, window,
-                   attn_impl, tables, page_size):
-    eps = cfg.norm_eps
-    y, _ = attn_mod.attn_prefill(p["attn"], cache, rms_norm(x, p["ln1"], eps),
+def _prefill_layer(p, cache, x, positions, pos0, valid_flat, cfg: ArchConfig,
+                   window, attn_impl, tables, page_size):
+    y, _ = attn_mod.attn_prefill(p["attn"], cache,
+                                 rms_norm(x, p["ln1"], cfg.norm_eps),
                                  positions, pos0, cfg, window,
                                  impl=attn_impl, tables=tables,
                                  page_size=page_size)
     x = x + y
-    return x + mlp_forward(p["mlp"], rms_norm(x, p["ln2"], eps))
+    y, _ = _ffn(p, x, cfg, full_capacity=True, valid=valid_flat)
+    return x + y
 
 
 def _layer_caches(caches, cfg: ArchConfig):
-    """Per-layer views {"k", "v"} into the stacked segment caches (writes
-    through them land in the pool)."""
+    """Per-layer views ({"k", "v"} or MLA's {"ckv", "kr"}) into the stacked
+    segment caches (writes through them land in the pool)."""
     out = []
     for seg_idx, (_, count) in enumerate(segments(cfg)):
         c = caches[seg_idx]["attn"]
-        out += [{"k": c["k"][j], "v": c["v"][j]} for j in range(count)]
+        out += [{n: t[j] for n, t in c.items()} for j in range(count)]
     return out
 
 
@@ -158,7 +185,7 @@ def _head(params, h, cfg: ArchConfig, dtype):
 
 def init_decoder(gen: torch.Generator, cfg: ArchConfig, device=None):
     """Master parameters (``param_dtype``) from ``gen``, on ``device``."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
@@ -167,15 +194,16 @@ def init_decoder(gen: torch.Generator, cfg: ArchConfig, device=None):
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, (cfg.vocab_size,),
                                     dtype, device)
-    params["layers"] = [_init_layer(gen, cfg, dtype, device)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_layer(gen, cfg, kind, dtype, device)
+                        for kind in layer_kinds(cfg)]
     return params
 
 
 def decoder_forward(params, batch, cfg: ArchConfig):
-    """batch {tokens (B, S)} -> logits (B, S, V). Image-embedding inputs
-    (the VLM stub frontend) are not ported."""
-    _check_dense(cfg)
+    """batch {tokens (B, S)} -> (logits (B, S, V), aux): aux is the MoE
+    layers' summed load-balance loss (fp32; 0 without MoE).
+    Image-embedding inputs (the VLM stub frontend) are not ported."""
+    _check_ported(cfg)
     if "image_embeds" in batch:
         raise NotImplementedError("image_embeds inputs are not ported")
     dtype = dtype_of(cfg.dtype)
@@ -185,23 +213,25 @@ def decoder_forward(params, batch, cfg: ArchConfig):
     wins = layer_windows(cfg, "train", S)
     attn_impl = attn_mod.resolve_attn_impl(cfg.attention)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp, win in zip(params["layers"], wins):
         if remat:
-            h = checkpoint(_apply_layer, lp, h, positions, cfg, win,
-                           attn_impl, use_reentrant=False)
+            h, aux = checkpoint(_apply_layer, lp, h, positions, cfg, win,
+                                attn_impl, use_reentrant=False)
         else:
-            h = _apply_layer(lp, h, positions, cfg, win, attn_impl)
-    return _head(params, h, cfg, dtype)
+            h, aux = _apply_layer(lp, h, positions, cfg, win, attn_impl)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _head(params, h, cfg, dtype), aux_total
 
 
 def decoder_loss(params, batch, cfg: ArchConfig):
     """Mean next-token cross-entropy over the positions with ``labels >=
-    0``, plus the aux loss (0 for dense layers). Returns (loss, {"loss",
-    "aux"})."""
-    logits = decoder_forward(params, batch, cfg)
+    0``, plus the MoE layers' load-balance loss (0 without MoE). Returns
+    (loss + aux, {"loss", "aux"})."""
+    logits, aux = decoder_forward(params, batch, cfg)
     labels = batch["labels"]
     loss = softmax_xent(logits, labels.clamp_min(0), labels >= 0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"loss": loss, "aux": aux}
 
 
@@ -211,8 +241,9 @@ def decoder_loss(params, batch, cfg: ArchConfig):
 
 def init_decoder_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     """Contiguous cache: per segment {"attn": {"k", "v"}} of (count, batch,
-    max_len, KV, hd)."""
-    _check_dense(cfg)
+    max_len, KV, hd) (MLA: {"ckv", "kr"} of (count, batch, max_len, R /
+    rope))."""
+    _check_ported(cfg)
     dtype = dtype_of(cfg.dtype)
     return [{"attn": _stacked_cache(count, batch, max_len, cfg, dtype, device)}
             for _, count in segments(cfg)]
@@ -220,7 +251,7 @@ def init_decoder_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
 
 def _stacked_cache(count: int, rows: int, length: int, cfg: ArchConfig,
                    dtype, device):
-    """{"k", "v"} of (count, rows, length, KV, hd) zeros."""
+    """The attention cache leaves of (count, rows, length, ...) zeros."""
     one = attn_mod.attn_init_cache(count * rows, length, cfg, dtype, device)
     return {n: t.reshape(count, rows, *t.shape[1:]) for n, t in one.items()}
 
@@ -228,9 +259,10 @@ def _stacked_cache(count: int, rows: int, length: int, cfg: ArchConfig,
 def init_paged_decoder_cache(cfg: ArchConfig, max_slots: int, page_size: int,
                              num_pages: int, device=None):
     """Paged pool: per segment {"attn": {"k", "v"}} of (count, num_pages,
-    page_size, KV, hd) physical pages shared through block tables."""
+    page_size, KV, hd) (MLA: {"ckv", "kr"} of (count, num_pages,
+    page_size, R / rope)) physical pages shared through block tables."""
     del max_slots           # attention leaves are page-granular, not slotted
-    _check_dense(cfg)
+    _check_ported(cfg)
     dtype = dtype_of(cfg.dtype)
     return [{"attn": _stacked_cache(count, num_pages, page_size, cfg, dtype,
                                     device)}
@@ -243,7 +275,7 @@ def decoder_decode_step(params, caches, tokens, pos, cfg: ArchConfig, *,
     indices; ``block_tables`` (B, NP) int32 routes the attention caches
     through the paged layout. Writes the caches in place. Returns (logits
     (B, 1, V), caches)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dtype = dtype_of(cfg.dtype)
     h = _embed(params, tokens, dtype)
     wins = layer_windows(cfg, "decode", seq_len)
@@ -260,18 +292,20 @@ def decoder_prefill(params, caches, tokens, pos0: int, valid: int,
     """Chunked prompt prefill: one pass over a (B, C) token chunk starting
     at cache position ``pos0`` that computes logits for every chunk
     position and writes every layer's cache in place. ``valid`` (<= C)
-    counts the real leading tokens; dense layers need no masking of the
-    pad tail (its rows sit past the live sequence, hidden by causality).
-    Returns (logits (B, C, V), caches)."""
-    _check_dense(cfg)
-    del valid       # only SSM state and MoE routing exclude the pad tail
+    counts the real leading tokens: the pad tail is kept out of MoE
+    routing (dense layers need no masking of it: its rows sit past the
+    live sequence, hidden by causality). Returns (logits (B, C, V),
+    caches)."""
+    _check_ported(cfg)
     dtype = dtype_of(cfg.dtype)
     B, C = tokens.shape
     h = _embed(params, tokens, dtype)
     positions = (int(pos0) + torch.arange(C, device=h.device)).expand(B, C)
+    valid_flat = (torch.arange(C, device=h.device) < int(valid)).expand(
+        B, C).reshape(-1)
     wins = layer_windows(cfg, "decode", seq_len)
     attn_impl = attn_mod.resolve_attn_impl(cfg.attention)
     for lp, lc, win in zip(params["layers"], _layer_caches(caches, cfg), wins):
-        h = _prefill_layer(lp, lc, h, positions, pos0, cfg, win, attn_impl,
-                           block_tables, page_size)
+        h = _prefill_layer(lp, lc, h, positions, pos0, valid_flat, cfg, win,
+                           attn_impl, block_tables, page_size)
     return _head(params, h, cfg, dtype), caches

@@ -76,7 +76,8 @@ def slot_write(pool, slot: int, view):
 def paged_view(pool, slot: int):
     """Prefill view of a paged pool: page-granular leaves pass through
     whole (chunk writes scatter through the block table). Every leaf of a
-    dense decoder's pool is page-granular, so this is the pool itself;
+    dense or MoE decoder's pool (GQA's k/v, MLA's latent and rope key) is
+    page-granular, so this is the pool itself;
     slot-granular SSM lanes would be sliced here."""
     del slot
     return pool

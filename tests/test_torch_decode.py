@@ -85,9 +85,11 @@ def test_kernel_head_dim_pads_up_and_refuses_above_128(D):
     assert xp.shape == (2, 3, 4, Dp) and torch.equal(xp[..., :D], x)
     assert not xp[..., D:].any()
     for big in (192, 256, 576):
+        # above 128 only the decode has no kernel (the forward and backward
+        # take the MLA route): the refusal names ROADMAP queue 2
         with pytest.raises(NotImplementedError,
-                           match=f"head_dim {big} .*MLA slice"):
-            tfa.kernel_head_dim("flash_attention", big)
+                           match=f"head_dim {big} .*queue 2"):
+            tfa.kernel_head_dim("flash_decode", big)
 
 
 @pytest.mark.parametrize("D", ODD_DIMS)

@@ -428,34 +428,42 @@ def test_slot_gather_kernel_exact(dev, dtype, S, C, V, case):
 @pytest.mark.parametrize("D", [16, 24, 48, 96, 192, 256])
 def test_unsupported_head_dim_is_refused_by_name(dev, D):
     """A head dim the kernels are not built for: up to 128 every flash
-    entry computes it (padded to the next of 32, 64, 128) within its
-    tolerance of the plain version, in bf16 and fp32; above 128 every
-    entry raises NotImplementedError naming it and the MLA slice. The MLA
-    layout (Dk != Dv) keeps its own message."""
+    entry computes it (padded to the next of 32, 64, 128), and 192 and
+    256 the forward and backward compute on the MLA route (padded to
+    (576, 512)), each within its tolerance of the plain version, in bf16
+    and fp32. The decode above 128 raises NotImplementedError naming the
+    dim and ROADMAP queue 2; so does every entry past Dk 576 / Dv 512 or
+    G 16 on the MLA route, naming what it exceeds."""
     g = torch.Generator(device=dev).manual_seed(D)
     if D > 128:
         x = torch.zeros(1, 4, 2, D, device=dev, dtype=torch.bfloat16)
         pos = torch.zeros(1, dtype=torch.int32, device=dev)
-        lse, di = torch.zeros(1, 4, 2, device=dev), torch.zeros(1, 4, 2,
-                                                                device=dev)
-        refused = f"head_dim {D} .*MLA slice"
-        with pytest.raises(NotImplementedError, match=refused):
-            fa.flash_attention(x, x, x)
-        with pytest.raises(NotImplementedError, match=refused):
-            fa.flash_attention_dq(x, x, x, lse, x, di, q_off=pos, sm_scale=1.)
-        with pytest.raises(NotImplementedError, match=refused):
-            fa.flash_attention_dkv(x, x, x, lse, x, di, q_off=pos,
-                                   sm_scale=1.)
+        refused = f"head_dim {D} .*queue 2"
         with pytest.raises(NotImplementedError, match=refused):
             fa.flash_decode(x[:, :1], x, x, pos)
         with pytest.raises(NotImplementedError, match=refused):
             fa.flash_decode_paged(x[:, :1], x, x,
                                   torch.zeros(1, 1, dtype=torch.int32,
                                               device=dev), pos, page_size=4)
-        mla_v = torch.zeros(1, 4, 2, 64, device=dev, dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="MLA"):
-            fa.flash_attention(x, x, mla_v)
-        return
+        lse, di = torch.zeros(1, 4, 2, device=dev), torch.zeros(1, 4, 2,
+                                                                device=dev)
+        for dk, dv in ((577, 512), (576, 513)):
+            q, k = (torch.zeros(1, 4, 2, dk, device=dev, dtype=torch.bfloat16)
+                    for _ in range(2))
+            v = torch.zeros(1, 4, 2, dv, device=dev, dtype=torch.bfloat16)
+            do = torch.zeros(1, 4, 2, dv, device=dev, dtype=torch.bfloat16)
+            big = f"Dk={dk}, Dv={dv} are more than"
+            with pytest.raises(NotImplementedError, match=big):
+                fa.flash_attention(q, k, v)
+            with pytest.raises(NotImplementedError, match=big):
+                fa.flash_attention_dq(q, k, v, lse, do, di, q_off=pos,
+                                      sm_scale=1.)
+            with pytest.raises(NotImplementedError, match=big):
+                fa.flash_attention_dkv(q, k, v, lse, do, di, q_off=pos,
+                                       sm_scale=1.)
+        q17 = torch.zeros(1, 4, 17, D, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="G = 17 > 16.*MLA"):
+            fa.flash_attention(q17, x[:, :, :1], x[:, :, :1])
     for dtype in (torch.bfloat16, torch.float32):
         B, S, H, KV, win = 2, 100, 8, 2, 33
         q, k, v = (_rn(g, dev, dtype, B, S, H, D), _rn(g, dev, dtype, B, S, KV, D),
@@ -479,6 +487,12 @@ def test_unsupported_head_dim_is_refused_by_name(dev, D):
             assert a.shape == b.shape and a.dtype == dtype, name
             err = (a.float() - b.float()).abs().max().item()
             assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
+        if D > 128:
+            torch.cuda.synchronize()
+            assert K.LAUNCHES == {"flash_attention_mla": 1,
+                                  "flash_attention_mla_dq": 1,
+                                  "flash_attention_mla_dkv": 1}
+            continue
         ps, NP = 16, 8
         pos = torch.tensor([5, 127], dtype=torch.int32, device=dev)
         kp, vp = (_rn(g, dev, dtype, B * NP + 1, ps, KV, D) for _ in range(2))
@@ -498,6 +512,85 @@ def test_unsupported_head_dim_is_refused_by_name(dev, D):
         assert K.LAUNCHES["flash_attention_dkv"] == 1
         assert K.LAUNCHES["flash_decode_paged"] == 1
         assert K.LAUNCHES["flash_decode"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [
+    # B, S, H, KV, Dk, Dv, window, q_off
+    (2, 100, 4, 1, 80, 64, 0, (0, 5)),     # the smoke config's layout
+    (1, 77, 8, 2, 80, 64, 7, (3, 0)),      # KV 2, window, ragged
+    (1, 64, 16, 1, 96, 64, 0, (0, 0)),     # a built pair unpadded
+    (1, 200, 16, 1, 576, 512, 0, (0, 0)),  # DeepSeek-V2-Lite, G 16
+    (2, 129, 16, 1, 576, 512, 50, (0, 9)),
+    (1, 70, 4, 1, 300, 200, 0, (0, 0)),    # padded up to (576, 512)
+])
+def test_mla_route_kernels(dev, dtype, shape):
+    """The MLA-route forward (out, lse), dq and dk/dv against their plain
+    versions, each launched once; two backward calls bitwise equal (no
+    atomics)."""
+    B, S, H, KV, Dk, Dv, win, off = shape
+    g = torch.Generator(device=dev).manual_seed(S + Dk)
+    q, k = _rn(g, dev, dtype, B, S, H, Dk), _rn(g, dev, dtype, B, S, KV, Dk)
+    v, do = _rn(g, dev, dtype, B, S, KV, Dv), _rn(g, dev, dtype, B, S, H, Dv)
+    q_off = fa._positions(list(off[:B]), B, dev)
+    scale = 1 / math.sqrt(Dk)
+    K.reset_launches()
+    out, lse = fa.flash_attention(q, k, v, q_off=q_off, window=win,
+                                  sm_scale=scale, return_lse=True)
+    want, want_lse = ref.flash_attention_ref(q, k, v, q_off, win, scale, True)
+    assert out.shape == (B, S, H, Dv) and out.dtype == dtype
+    assert (out.float() - want.float()).abs().max() <= TOL[dtype]
+    assert (lse - want_lse).abs().max() <= 1e-3
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=q_off,
+                                   window=win, sm_scale=scale)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, q_off, win,
+                                        scale)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, wants):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_attention_mla": 1,
+                          "flash_attention_mla_dq": 1,
+                          "flash_attention_mla_dkv": 1}
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=q_off,
+                                   window=win, sm_scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_mla_forward_and_decoder_on_the_card(dev):
+    """The smoke DeepSeek-V2-Lite (MLA + MoE) on the card in fp32: the
+    loss and every leaf gradient through the kernels equal the einsum
+    attention's within 1e-4 of each leaf's scale, and the three MLA
+    kernels launch as remat predicts."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import with_attn_impl
+    from repro_torch.models import build_model
+    from repro_torch.tree import flatten, unflatten
+    cfg = get_smoke_config("deepseek-v2-lite-16b").with_overrides(
+        dtype="float32", remat=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), device=dev,
+                           generator=g)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    master = build_model(cfg, dev).init(1)
+    leaves, treedef = flatten(master)
+    out = {}
+    for impl in ("flash", "ref"):
+        ps = [t.detach().requires_grad_(True) for t in leaves]
+        K.reset_launches()
+        loss, _ = build_model(with_attn_impl(cfg, impl), dev).loss_fn(
+            unflatten(treedef, ps), batch)
+        out[impl] = (loss, torch.autograd.grad(loss, ps), dict(K.LAUNCHES))
+    L = cfg.num_layers
+    assert out["flash"][2] == {"flash_attention_mla": 2 * L,
+                               "flash_attention_mla_dq": L,
+                               "flash_attention_mla_dkv": L}
+    assert out["ref"][2] == {}
+    assert abs(out["flash"][0].item() - out["ref"][0].item()) <= 1e-4
+    for a, b in zip(out["flash"][1], out["ref"][1]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1e-6)
 
 
 def test_group_size_limits_name_the_path(dev):

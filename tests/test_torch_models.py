@@ -164,10 +164,44 @@ def test_gqa_decode(impl, layout):
         np.testing.assert_allclose(_np(tnew[n]), _np(jnew[n]), **LAYER)
 
 
-def test_mla_raises_with_slice_name():
-    cfg = t_smoke("deepseek-v2-lite-16b").with_overrides(dtype="float32")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        t_build(cfg, "cpu").init(0)
+def _paths(tree, prefix=""):
+    """{dotted path: (shape, dtype name)} of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {n: v for k in tree for n, v in
+                _paths(tree[k], f"{prefix}{k}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {n: v for i, t in enumerate(tree) for n, v in
+                _paths(t, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
+
+
+def test_mla_moe_tree_and_count_match_jax():
+    """DeepSeek-V2-Lite (MLA + MoE): the port's init builds the tree the
+    bridge makes of the JAX package's (every leaf path, shape and dtype;
+    the router in fp32), at the smoke config; at full width both count
+    the same parameters (16,156,309,504; 1,102,587,904 at 2 layers)."""
+    from repro.configs import get_config as j_get
+    from repro_torch.configs import get_config as t_get
+    from repro_torch.models import count_params, transformer
+    jcfg = j_smoke("deepseek-v2-lite-16b").with_overrides(dtype="float32")
+    tcfg = t_smoke("deepseek-v2-lite-16b").with_overrides(dtype="float32")
+    jshapes = jax.eval_shape(j_build(jcfg).init, jax.random.key(0))
+    bridged = decoder_params_from_jax(jax.tree.map(
+        lambda s: np.zeros(s.shape, s.dtype), jshapes), "cpu")
+    mine = t_build(tcfg, "cpu").init(0)
+    assert _paths(mine) == _paths(bridged)
+    assert mine["layers"][1]["moe"]["router"].dtype == torch.float32
+    assert "mlp" in mine["layers"][0] and "moe" in mine["layers"][1]
+    assert set(mine["layers"][0]["attn"]) == {"wq", "wdkv", "wkr", "wuk",
+                                              "wuv", "wo"}
+    for layers, want in ((None, 16_156_309_504), (2, 1_102_587_904)):
+        jc, tc = j_get("deepseek-v2-lite-16b"), t_get("deepseek-v2-lite-16b")
+        if layers:
+            jc, tc = (c.with_overrides(num_layers=layers) for c in (jc, tc))
+        shapes = jax.eval_shape(j_build(jc).init, jax.random.key(0))
+        n_jax = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+        n_port = count_params(transformer.init_decoder(None, tc, "meta"))
+        assert n_jax == n_port == want
 
 
 # ---------------------------------------------------------------------------
