@@ -15,7 +15,12 @@ and the CUDA toolkit. In order:
    loads (UTMALDG) and no atomics, and unless the forward's six spill
    nothing; then those of the 36 split-KV decode kernels (dtype x D x
    rows a block) and the 3 combine kernels, and of the sampler's 6
-   (dtype x 16-byte or scalar loads).
+   (dtype x 16-byte or scalar loads); then those of the CUDA-core flash
+   kernels (fp32, and the MLA route's forward; fails unless the five
+   (576, 512) ones are built), and of the MLA route's bf16/fp16 backward
+   on the tensor cores (dq, dk/dv and the reduction, at (576, 512)):
+   fails unless the six are built, dq and dk/dv hold HGMMA, none holds
+   an atomic and none spills.
 3. Kernels: calls each kernel's wrapper at the serve path's full-width
    llama3.2-1b shapes in bf16, holds it to its plain PyTorch version on
    the same inputs, and times the kernel, the plain version and one
@@ -187,14 +192,18 @@ and the CUDA toolkit. In order:
    card back to the memory it started from; its wall time is printed):
    (a) the flash forward, dq and dk/dv on the MLA route (the absorbed
    layout: 16 heads over one KV head, Dk 576, Dv 512) held to their
-   plain versions at B 2, S 1024 in bf16, at a smaller shape in fp32
-   and at a ragged S = 1000 with a window of 300, two backward calls
-   bitwise equal (no atomics), each timed from a CUDA graph with the L2
-   flushed beside its bound (bf16 tensor-core peak; the CUDA cores' fp32
-   peak, which these kernels run on, printed beside it), its plain
-   version and SDPA on the same q/k/v (the kernels SDPA ran are printed),
-   and the registers and spills of the 27 CUDA-core kernels (``ptxas
-   -v``) (phase 3 holds the sampler at the model's vocab of 102,400);
+   plain versions at B 2, S 1024 in bf16 and fp16, at a smaller shape in
+   fp32 (the CUDA-core backward) and at a ragged S = 1000 with a window
+   of 300 in bf16 and fp16, two backward calls bitwise equal in bf16 and
+   fp16 (no atomics); the dk/dv plan printed (chunks, live blocks and
+   their q tiles in launch order); the tensor-core dk/dv's reduction
+   alone equal to its plain version bit for bit on partials whose dead
+   chunks hold NaN; each of the four timed from a CUDA graph with the L2
+   flushed beside its bound (bf16 tensor-core peak, the reduction's
+   bytes; the CUDA cores' fp32 peak, the forward's route, printed beside
+   it), its plain version and SDPA on the same q/k/v (the kernels SDPA
+   ran are printed), and dq + dk/dv beside SDPA's backward (phase 3
+   holds the sampler at the model's vocab of 102,400);
    (b) ``decoder_loss`` of the full-width model cut to 2 layers
    (the dense first and one MoE layer) on 2 x 512 tokens through the
    kernels and through the einsum attention: loss within GRAD_LOSS_TOL,
@@ -202,8 +211,9 @@ and the CUDA toolkit. In order:
    router's within MOE_GRAD_TOL; (c) BSP training of that cut on k = 2
    gloo ranks sharing the card, bf16 over fp32 masters with remat, 2 x
    1024 tokens a rank, ``asa16`` sharded, 4 steps: launches equal to the
-   prediction (the MLA forward twice a layer and step, dq and dk/dv once,
-   the wire and update kernels as the bucket plan says), losses and the
+   prediction (the MLA forward twice a layer and step, dq, dk/dv and
+   its reduction once, the wire and update kernels as the bucket plan
+   says), losses and the
    MoE aux finite, the aux above 0; tokens/s, the step split and peak
    memory a rank printed; (d) the full model (27 layers, 16,156,309,504
    parameters, random bf16 weights from a seeded generator on the card)
@@ -400,26 +410,8 @@ def hopper_build_report(K):
     regs = {_kernel_label(name): r for name, r in _ptxas(
         K.build_log("flash_attention"), HOPPER.pattern)}
     print("flash tensor-core kernels, ptxas: " + json.dumps(regs))
-    sass = subprocess.run(
-        [str(Path(K._nvcc()).parent / "cuobjdump"), "-sass",
-         str(K._target("flash_attention"))],
-        capture_output=True, text=True, timeout=300).stdout
-    ops, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split(":", 1)[1].strip()
-            fn = _kernel_label(fn) if HOPPER.search(fn) else None
-            if fn:
-                ops[fn] = dict(HGMMA=0, UTMALDG=0, atomics=0)
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
-                      line)
-        if fn and m:
-            op = m.group(1)
-            if op in ("HGMMA", "UTMALDG"):
-                ops[fn][op] += 1
-            elif op.startswith("ATOM") or op == "RED":
-                ops[fn]["atomics"] += 1
+    ops = {_kernel_label(n): c for n, c in K.sass_ops(
+        "flash_attention", HOPPER.pattern).items()}
     print("flash tensor-core kernels, SASS instructions: " + json.dumps(ops))
     if len(regs) != HOPPER_KERNELS or sorted(ops) != sorted(regs) or not all(
             o["HGMMA"] > 0 and o["UTMALDG"] > 0 and o["atomics"] == 0
@@ -996,9 +988,11 @@ def lm_grad_check(torch, cfg, models, dev):
         out[impl] = (loss.item(), grads, dict(K.LAUNCHES))
         del ps, loss
     L = cfg.num_layers
-    fwd, dq, dkv = (MLA_KERNELS if cfg.attention.kv_lora_rank else (
+    fwd, dq, dkv = (MLA_KERNELS[:3] if cfg.attention.kv_lora_rank else (
         "flash_attention", "flash_attention_dq", "flash_attention_dkv"))
     want_launches = {fwd: (2 if cfg.remat else 1) * L, dq: L, dkv: L}
+    if cfg.attention.kv_lora_rank and cfg.dtype != "float32":
+        want_launches[MLA_KERNELS[3]] = L   # the tensor-core dk/dv's sum
     if dev.type == "cuda" and out["flash"][2] != want_launches:
         _fail(f"grad check launches {out['flash'][2]} != {want_launches}")
     def rel(a_impl, b_impl):
@@ -2800,7 +2794,7 @@ DS_STEPS = 4
 DS_BATCH, DS_SEQ = 2, 1024     # sequences of tokens a rank and step
 MLA_SHAPE = (2, 1024, 16, 1, 576, 512)     # B, S, H, KV, Dk, Dv
 MLA_KERNELS = ("flash_attention_mla", "flash_attention_mla_dq",
-               "flash_attention_mla_dkv")
+               "flash_attention_mla_dkv", "flash_attention_mla_dkv_reduce")
 PHASE11_LEFT = 2 ** 26     # bytes phase 11 may leave allocated: a cuBLAS
                            # workspace of a stream it made, where torch
                            # cannot clear those
@@ -2814,9 +2808,10 @@ MOE_GRAD_TOL = 0.25   # the routed experts' and the router's gradients,
 
 def mla_build_report(K):
     """Registers and spills (``ptxas -v``) of the CUDA-core forward, dq and
-    dk/dv (fp32 at D 32, 64, 128; the MLA route's (96, 64) and (576, 512)
-    in fp32, bf16 and fp16). Fails unless the nine (576, 512) kernels are
-    in the log."""
+    dk/dv (fp32 at D 32, 64, 128 and on the MLA route's (96, 64) and (576,
+    512); the MLA forward also in bf16 and fp16). Fails unless the five
+    (576, 512) ones (the forward in three types, fp32 dq and dk/dv) are in
+    the log."""
     out = {}
     pat = r"(?:fwd|bwd_dq|bwd_dkv)_kernel"
     for name, r in _ptxas(K.build_log("flash_attention"), pat):
@@ -2826,10 +2821,47 @@ def mla_build_report(K):
     print(f"flash CUDA-core kernels, ptxas ({len(out)} kernels): "
           + json.dumps(out))
     wide = [n for n in out if n.endswith("576, 512>")]
-    if len(wide) != 9:
-        _fail(f"expected 9 (576, 512) MLA-route kernels in the build log, "
-              f"found {wide}")
+    if len(wide) != 5:
+        _fail(f"expected 5 (576, 512) CUDA-core MLA-route kernels in the "
+              f"build log, found {wide}")
     return out
+
+
+MLA_TC = re.compile(r"bwd_dq_mla_hopper|bwd_dkv_mla_hopper|mla_dkv_reduce")
+MLA_TC_KERNELS = 6   # dq, dk/dv and the reduction x bf16, fp16 at (576, 512)
+
+
+def _mla_label(mangled: str) -> str:
+    """``bwd_dq_mla_hopper<bf16, 576, 512>`` from a mangled kernel name."""
+    ints = re.findall(r"Li(\d+)E", mangled)
+    return (f"{MLA_TC.search(mangled).group(0)}<"
+            f"{', '.join([_dtype_label(mangled)] + ints)}>")
+
+
+def mla_tc_build_report(K):
+    """The MLA route's bf16/fp16 backward as built: registers and spills
+    (``ptxas -v``) of dq, dk/dv and the reduction, and in their SASS the
+    wgmma products (HGMMA), TMA loads (UTMALDG) and atomics. Fails unless
+    the six are built, dq and dk/dv hold HGMMA, none holds an atomic and
+    none spills."""
+    regs = {_mla_label(n): r for n, r in _ptxas(
+        K.build_log("flash_attention"), MLA_TC.pattern)}
+    ops = {_mla_label(n): c for n, c in K.sass_ops(
+        "flash_attention", MLA_TC.pattern).items()}
+    print("MLA tensor-core backward, ptxas: " + json.dumps(regs))
+    print("MLA tensor-core backward, SASS instructions: " + json.dumps(ops))
+    products = [n for n in ops if "hopper" in n]
+    if len(regs) != MLA_TC_KERNELS or sorted(ops) != sorted(regs) \
+            or len(products) != 4 \
+            or not all(ops[n]["HGMMA"] > 0 for n in products) \
+            or any(o["atomics"] for o in ops.values()):
+        _fail(f"the {MLA_TC_KERNELS} MLA tensor-core backward kernels must be "
+              f"built, dq and dk/dv with wgmma, none with atomics")
+    spills = {n: r for n, r in regs.items()
+              if r["spill_stores"] + r["spill_loads"] > 0}
+    if spills:
+        _fail(f"the MLA tensor-core backward spills: {spills}")
+    return regs, ops
 
 
 def _mla_inputs(torch, dtype, shape, seed, dev):
@@ -2914,27 +2946,79 @@ def _sdpa_mla(torch, q, k, v, do, flush):
     return fwd_ms, bwd_ms, names
 
 
+def _mla_reduce_inputs(torch, fa, chunk, n_chunks, dev):
+    """Random fp32 partials of the tensor-core dk/dv at MLA_SHAPE (causal,
+    q_off 0) with every dead chunk NaN, their dk and dv views, and the
+    live chunks of each key (B, S)."""
+    B, S, H, KV, Dk, Dv = MLA_SHAPE
+    rows = B * S * KV
+    bq = fa.MLA_DKV_ROWS // (H // KV)
+    nq = -(-S // bq)
+    n_live = torch.tensor(
+        [[-(-fa.mla_dkv_live(key // fa.MLA_DKV_KEYS, 0, 0, nq, bq)[1] // chunk)
+          for key in range(S)] for _ in range(B)], device=dev)
+    live = torch.arange(n_chunks, device=dev)[:, None, None] < n_live[None]
+    g = torch.Generator(device=dev).manual_seed(36)
+    part = torch.randn(n_chunks, rows * (Dk + Dv), generator=g, device=dev)
+    part_k = part[:, :rows * Dk].view(n_chunks, B, S, KV, Dk)
+    part_v = part[:, rows * Dk:].view(n_chunks, B, S, KV, Dv)
+    for t in (part_k, part_v):
+        t.masked_fill_(~live[..., None, None], float("nan"))
+    return part.reshape(-1), part_k, part_v, n_live
+
+
 def mla_kernel_phase(torch, ref, fa, flush, dev="cuda"):
-    """(a) The three MLA-route kernels against their plain versions at the
-    MLA shape in bf16 (two backward calls bitwise equal: no atomics), in
-    fp32 at a smaller shape, and at a ragged S with a window; each timed
-    from a CUDA graph with the L2 flushed, beside its bound, its plain
-    version and SDPA. Returns the three kernel rows."""
+    """(a) The MLA-route kernels against their plain versions at the MLA
+    shape in bf16 and fp16 (two backward calls bitwise equal: no atomics),
+    in fp32 at a smaller shape (the CUDA-core backward), and at a ragged S
+    with a window in bf16 and fp16; the tensor-core dk/dv's reduction
+    alone, bit for bit, on partials whose dead chunks hold NaN; each
+    timed from a CUDA graph with the L2 flushed, beside its bound, its
+    plain version and SDPA. Returns the four kernel rows."""
     B, S, H, KV, Dk, Dv = MLA_SHAPE
     c = _check_mla(torch, ref, fa, torch.bfloat16, MLA_SHAPE, seed=31,
                    dev=dev)
+    c16 = _check_mla(torch, ref, fa, torch.float16, MLA_SHAPE, seed=34,
+                     dev=dev)
     _check_mla(torch, ref, fa, torch.float32, (1, 256, H, KV, Dk, Dv),
                seed=32, dev=dev)
-    _check_mla(torch, ref, fa, torch.bfloat16, (2, 1000, H, KV, Dk, Dv),
-               window=300, seed=33, dev=dev)
+    for dtype, seed in ((torch.bfloat16, 33), (torch.float16, 35)):
+        _check_mla(torch, ref, fa, dtype, (2, 1000, H, KV, Dk, Dv),
+                   window=300, seed=seed, dev=dev)
+    for cc in (c, c16):
+        again = fa.flash_attention_bwd(cc["q"], cc["k"], cc["v"], cc["out"],
+                                       cc["lse"], cc["do"], q_off=cc["qo"],
+                                       sm_scale=cc["scale"])
+        same = all(torch.equal(a, b) for a, b in zip(cc["got"], again))
+        print(f"MLA backward {MLA_SHAPE} {str(cc['q'].dtype)[6:]}, two calls "
+              f"bitwise equal: {same}")
+        if not same:
+            _fail("two MLA backward calls differ")
+    del c16, again
     q, k, v, do, out, lse, qo, scale = (c[n] for n in (
         "q", "k", "v", "do", "out", "lse", "qo", "scale"))
-    again = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=qo,
-                                   sm_scale=scale)
-    same = all(torch.equal(a, b) for a, b in zip(c["got"], again))
-    print(f"MLA backward {MLA_SHAPE}, two calls bitwise equal: {same}")
-    if not same:
-        _fail("two MLA backward calls differ")
+    chunk, n_chunks = fa.mla_dkv_plan(B, S, S, H, KV, _sms(torch, dev))
+    blocks = fa.mla_dkv_blocks(B, S, S, H, KV, [0] * B, 0, chunk)
+    grid = n_chunks * 2 * -(-S // fa.MLA_DKV_KEYS) * KV * B
+    print(f"MLA dk/dv plan at {MLA_SHAPE}: chunks of {chunk} q tiles of "
+          f"{fa.MLA_DKV_ROWS // (H // KV)} queries, {n_chunks} a key tile; "
+          f"{len(blocks)} of the {grid} blocks live; q tiles of the first "
+          f"live blocks in launch order {[b_[-1] for b_ in blocks[:24]]}, "
+          f"of the last {[b_[-1] for b_ in blocks[-8:]]}")
+    part, part_k, part_v, n_live = _mla_reduce_inputs(torch, fa, chunk,
+                                                      n_chunks, dev)
+    red_kw = dict(B=B, Sq=S, Sk=S, H=H, KV=KV, Dk=Dk, Dv=Dv, window=0,
+                  chunk=chunk, dtype=torch.bfloat16)
+    red = fa.mla_dkv_reduce(part, qo, **red_kw)
+    red_want = ref.mla_dkv_reduce_ref(part_k, part_v, n_live, torch.bfloat16)
+    red_err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(red, red_want))
+    exact = all(torch.equal(a, b) for a, b in zip(red, red_want))
+    print(f"MLA dk/dv reduction at {MLA_SHAPE} ({n_chunks} chunks, dead "
+          f"ones NaN): equal to plain bit for bit: {exact}")
+    if not exact:
+        _fail(f"the MLA dk/dv reduction differs from plain by {red_err}")
+    live_b = int(n_live.sum().item()) * KV * (Dk + Dv) * 4
     di = ref.flash_attention_di(out, do)
     kw = dict(q_off=qo, window=0, sm_scale=scale)
     sdpa_fwd, sdpa_bwd, sdpa_kernels = _sdpa_mla(torch, q, k, v, do, flush)
@@ -2943,43 +3027,55 @@ def mla_kernel_phase(torch, ref, fa, flush, dev="cuda"):
     q_b, k_b, v_b, o_b = (B * S * H * Dk * 2, B * S * KV * Dk * 2,
                           B * S * KV * Dv * 2, B * S * H * Dv * 2)
     st_b = B * S * H * 4
+    err = lambda outs: max(c["abs_errs"][o] for o in outs)  # noqa: E731
     rows = []
-    for name, line, fn, plain, nbytes, flops, outs, lib in (
+    for name, line, fn, plain, e, nbytes, flops, flop_s, outs, lib in (
             ("flash_attention_mla", 97,
              lambda: fa.flash_attention(q, k, v, q_off=qo, sm_scale=scale,
                                         return_lse=True),
              lambda: ref.flash_attention_ref(q, k, v, qo, 0, scale, True),
-             q_b + k_b + v_b + o_b + st_b, 2 * (Dk + Dv) * pairs, None,
-             sdpa_fwd),
+             c["err"], q_b + k_b + v_b + o_b + st_b, 2 * (Dk + Dv) * pairs,
+             BF16_FLOP_S, None, sdpa_fwd),
             ("flash_attention_mla_dq", 179,
              lambda: fa.flash_attention_dq(q, k, v, lse, do, di, **kw),
              lambda: ref.flash_attention_dq_ref(q, k, v, lse, do, di, qo, 0,
                                                 scale),
-             2 * q_b + k_b + v_b + o_b + 2 * st_b, 2 * (2 * Dk + Dv) * pairs,
-             ("dq",), sdpa_bwd),
+             err(("dq",)), 2 * q_b + k_b + v_b + o_b + 2 * st_b,
+             2 * (2 * Dk + Dv) * pairs, BF16_FLOP_S, ("dq",), sdpa_bwd),
+            # both launches: the chunks' partials, then their sum
             ("flash_attention_mla_dkv", 214,
              lambda: fa.flash_attention_dkv(q, k, v, lse, do, di, **kw),
              lambda: ref.flash_attention_dkv_ref(q, k, v, lse, do, di, qo, 0,
                                                  scale),
-             q_b + 2 * k_b + 2 * v_b + o_b + 2 * st_b,
-             4 * (Dk + Dv) * pairs, ("dk", "dv"), sdpa_bwd)):
+             err(("dk", "dv")), q_b + 2 * k_b + 2 * v_b + o_b + 2 * st_b,
+             4 * (Dk + Dv) * pairs, BF16_FLOP_S, ("dk", "dv"), sdpa_bwd),
+            # the sum _dkv_kernel carries across q tiles in its scratch; no
+            # PyTorch call skips the dead chunks
+            ("flash_attention_mla_dkv_reduce", 214,
+             lambda: fa.mla_dkv_reduce(part, qo, **red_kw),
+             lambda: ref.mla_dkv_reduce_ref(part_k, part_v, n_live,
+                                            torch.bfloat16),
+             red_err, live_b + k_b + v_b, live_b // 4, FP32_FLOP_S, None,
+             None)):
         row = dict(
             name=name, src="src/repro_torch/csrc/flash_attention.cu",
-            replaces=f"src/repro/kernels/flash_attention.py:{line}",
-            err=c["err"] if outs is None else max(c["abs_errs"][o]
-                                                  for o in outs),
+            replaces=f"src/repro/kernels/flash_attention.py:{line}", err=e,
             ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
             plain_ms=_median_ms(plain, flush=flush), library_ms=lib,
-            bound=_bound(nbytes, flops),
+            bound=_bound(nbytes, flops, flop_s),
             bound_fp32_ms=_bound(nbytes, flops, FP32_FLOP_S)[0])
         if outs is not None:
             row["rel_err"] = max(c["errs"][o] for o in outs)
         rows.append(row)
-    print(f"MLA kernels at {MLA_SHAPE} bf16 (bound: bf16 tensor-core peak; "
-          f"bound_fp32_ms: the CUDA cores' fp32 peak these kernels run "
-          f"on): " + json.dumps({r["name"]: {k_: r[k_] for k_ in (
-              "err", "ms", "plain_ms", "library_ms", "bound",
-              "bound_fp32_ms")} for r in rows}))
+    keys = ("err", "ms", "plain_ms", "library_ms", "bound", "bound_fp32_ms")
+    print(f"MLA kernels at {MLA_SHAPE} bf16 (bound: bf16 tensor-core peak, "
+          f"the reduction's fp32; bound_fp32_ms: the CUDA cores' fp32 peak, "
+          f"the forward's route): " + json.dumps(
+              {r["name"]: {k_: r[k_] for k_ in keys} for r in rows}))
+    bwd_ms = rows[1]["ms"] + rows[2]["ms"]
+    print(f"MLA backward at {MLA_SHAPE} bf16: dq + dk/dv {bwd_ms} ms "
+          f"(of the bound {rows[1]['bound'][0] + rows[2]['bound'][0]} ms); "
+          f"SDPA's backward (dq, dk, dv) {sdpa_bwd} ms")
     return rows
 
 
@@ -3040,7 +3136,9 @@ def _ds_rank(rank, k, out_dir, device, smoke):
     L = cfg.num_layers
     predicted.update({MLA_KERNELS[0]: (2 if cfg.remat else 1) * L * DS_STEPS,
                       MLA_KERNELS[1]: L * DS_STEPS,
-                      MLA_KERNELS[2]: L * DS_STEPS})
+                      MLA_KERNELS[2]: L * DS_STEPS,
+                      # bf16 on the card: the tensor-core dk/dv's sum
+                      MLA_KERNELS[3]: L * DS_STEPS if cuda else 0})
     out = dict(rank=rank, params=n_params, steps=rep.steps,
                losses=rep.losses, aux=[float(a) for a in aux_seen],
                tokens_per_s=rep.steady_tokens_per_s,
@@ -3270,6 +3368,7 @@ def main() -> int:
     decode_build_report(K)
     sampler_build_report(K)
     mla_build_report(K)
+    mla_tc_build_report(K)
 
     l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, ref, fa, sg, flush=l2.zero_)

@@ -16,7 +16,9 @@
 //   flash_mla_fwd, flash_mla_bwd_dq, flash_mla_bwd_dkv <- _fwd_kernel,
 //                         _dq_kernel and _dkv_kernel in the MLA absorbed
 //                         layout (Dk 576, Dv 512, one KV head) that
-//                         src/repro/models/attention.py:mla_forward calls
+//                         src/repro/models/attention.py:mla_forward calls;
+//                         flash_mla_dkv_reduce the sum _dkv_kernel carries
+//                         across q tiles in its scratch (bf16/fp16 dk/dv)
 //
 // What bounds them on an H100: the forward and the backward at the
 // training shapes (B 4, S 1024, 32 heads over 8, D 64) are bound by
@@ -38,11 +40,15 @@
 // hold D / 32 columns a lane; the tensor-core kernels take a D-128 row as
 // two 64-value panels, see Tile); the Python wrappers zero-pad any other
 // head dim up to 128 to the next of them. The MLA absorbed layout (Dk !=
-// Dv, KV = 1) and head dims above 128 take the CUDA-core forward, dq and
-// dk/dv in every dtype (flash_mla_*; built at (Dk, Dv) = (96, 64) and
-// (576, 512), others zero-padded up to one of them). GQA group size G =
-// H / KV: up to 64 on the tensor-core kernels (a 64-row tile holds 64 / G
-// queries), up to 16 on the CUDA-core kernels and the decode.
+// Dv, KV = 1) and head dims above 128 take the MLA route (flash_mla_*):
+// the CUDA-core forward in every dtype and the CUDA-core dq and dk/dv in
+// fp32, built at (Dk, Dv) = (96, 64) and (576, 512), others zero-padded up
+// to one of them; the bf16/fp16 dq and dk/dv on the tensor cores
+// (bwd_dq_mla_hopper, bwd_dkv_mla_hopper + mla_dkv_reduce), built at (576,
+// 512) alone, every pair zero-padded up to it. GQA group size G = H / KV:
+// up to 64 on the D <= 128 tensor-core kernels (a 64-row tile holds 64 / G
+// queries), up to 16 on the CUDA-core kernels, the MLA route and the
+// decode.
 //
 // Numerics follow the TPU kernels: fp32 online softmax, NEG_INF = -1e30,
 // masked p zeroed explicitly, l clamped at 1e-30, and p rounded to the
@@ -100,11 +106,13 @@ __device__ __forceinline__ bool window_keep(int qpos, int kpos, int win) {
 //
 // - fp32 at DK = DV in {32, 64, 128}: the bf16/fp16 inputs of those dims
 //   take the tensor-core kernels below (fwd_hopper, bwd_*_hopper);
-// - the MLA absorbed layout and every head dim above 128 (cc_entry): DK !=
-//   DV or DK > 128, in all three types. DeepSeek-V2's absorbed attention
-//   is one KV head (the 512-value latent plus the 64-value rope key, DK
-//   576) whose values are the latent alone (DV 512), under G = 16 query
-//   heads (src/repro/kernels/flash_attention.py:10-15, the _fwd_kernel,
+// - the MLA absorbed layout and every head dim above 128 (mla_entry): DK
+//   != DV or DK > 128: the forward in all three types, dq and dk/dv in
+//   fp32 (bf16/fp16 take bwd_dq_mla_hopper / bwd_dkv_mla_hopper below).
+//   DeepSeek-V2's absorbed attention is one KV head (the 512-value latent
+//   plus the 64-value rope key, DK 576) whose values are the latent alone
+//   (DV 512), under G = 16 query heads
+//   (src/repro/kernels/flash_attention.py:10-15, the _fwd_kernel,
 //   _dq_kernel and _dkv_kernel at Dk != Dv). Built at (576, 512) and (96,
 //   64); the wrapper zero-pads any other pair up to (576, 512) to the
 //   smallest built pair that holds it (exact, as pad_head_dim).
@@ -126,8 +134,9 @@ __device__ __forceinline__ bool window_keep(int qpos, int kpos, int win) {
 // fp32 accumulators a lane) over q tiles of 16 rows, where the fp32 head
 // dims keep 4 warps of 8 keys over 32 rows. No atomics: dk/dv are summed
 // over the G heads and all q tiles in one block's registers, so two calls
-// agree bit for bit. Making them fast (wgmma on 64-row tiles of the
-// 576-wide scores, the latent K tile shared by K and V) is later work.
+// agree bit for bit. The MLA forward on the tensor cores (wgmma on 64-row
+// tiles of the 576-wide scores, the latent K tile shared by K and V) is
+// later work; its backward there is bwd_*_mla_hopper.
 // ---------------------------------------------------------------------------
 
 constexpr int FWD_THREADS = 128;           // 4 warps
@@ -319,12 +328,14 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 // products with fp32 accumulators in registers, operand tiles brought into
 // shared memory by TMA, swizzled as wgmma reads them.
 //
-// fp32 stays on the CUDA cores (bwd_dq_kernel / bwd_dkv_kernel<float>):
-// its check is 1e-5 of the output's scale, which TF32 products (10-bit
-// mantissa) cannot meet, and fp32 is the path of the finite-difference
-// and equivalence checks, not of training. So does the MLA layout in
-// every type (see the note above fwd_kernel). bwd_by_dtype and cc_entry
-// dispatch explicitly; nothing falls back from one path to the other.
+// fp32 stays on the CUDA cores (bwd_dq_kernel / bwd_dkv_kernel<float>),
+// at D <= 128 and on the MLA route alike: its check is 1e-5 of the
+// output's scale, which TF32 products (10-bit mantissa) cannot meet, and
+// fp32 is the path of the finite-difference and equivalence checks, not
+// of training. bf16/fp16 on the MLA route take the tensor-core
+// bwd_dq_mla_hopper / bwd_dkv_mla_hopper (see their note). bwd_by_dtype
+// and mla_launch dispatch explicitly by (dtype, head dims); nothing falls
+// back from one path to the other.
 
 constexpr int BWD_BK = FWD_BK;             // keys per tile: one per lane
 // dq: 4 warps, one block per (q tile, kv head, batch row), rows =
@@ -730,6 +741,9 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
 // into fp32 registers d (the last argument picks T):
 //   wgmma_ss_n64: m64n64k16, A and B from shared memory, both K-major:
 //                 d += A B^T
+//   wgmma_ss_n16: the same at m64n16k16
+//   wgmma_ss_tb:  m64n64k16, A K-major and B transposed (N contiguous),
+//                 both from shared memory: d += A B
 //   wgmma_rs_tb:  m64n{32,64,128}k16, A from registers, B from shared memory
 //                 transposed (N contiguous): d += A B
 #define WG_ACC16                                                                        \
@@ -767,6 +781,21 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
                                                CT) {                                    \
     asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_REGS32 \
                  ", %32, %33, 1, 1, 1, 0, 0;\n"                                         \
+                 : WG_ACC32                                                             \
+                 : "l"(da), "l"(db));                                                   \
+  }                                                                                     \
+  __device__ __forceinline__ void wgmma_ss_n16(float(&d)[8], uint64_t da, uint64_t db,  \
+                                               CT) {                                    \
+    asm volatile("wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY               \
+                 " {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, 1, 1, 1, 0, 0;\n"          \
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                      \
+                   "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                       \
+                 : "l"(da), "l"(db));                                                   \
+  }                                                                                     \
+  __device__ __forceinline__ void wgmma_ss_tb(float(&d)[32], uint64_t da, uint64_t db,  \
+                                              CT) {                                     \
+    asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_REGS32 \
+                 ", %32, %33, 1, 1, 1, 0, 1;\n"                                         \
                  : WG_ACC32                                                             \
                  : "l"(da), "l"(db));                                                   \
   }                                                                                     \
@@ -1308,6 +1337,431 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 }
 
 // ---------------------------------------------------------------------------
+// the MLA route's backward on the tensor cores (bf16 / fp16)
+// ---------------------------------------------------------------------------
+//
+// Replaces _dq_kernel and _dkv_kernel (src/repro/kernels/flash_attention.py)
+// in the MLA absorbed layout: q (B, S, H, 576), k = latent || rope key (B, S,
+// KV, 576), v = the latent (B, S, KV, 512), G = H / KV <= 16 query heads
+// folded into the rows of a q tile. Bound by operations at the MLA shape
+// (B 2, S 1024, 16 heads over 1): 2 (2 DK + DV) FLOPs a live (row, key) pair
+// in dq and 4 (DK + DV) in dk/dv, against a few bytes of input a row and key.
+//
+// What the widths force. wgmma takes 64 rows; a 64 x 576 fp32 accumulator
+// is 288 registers a thread of one warpgroup, and a 64-row q tile (73,728
+// bytes) with its dO (65,536) and a 64-key K and V tile (139,264) are 272 KB
+// of shared memory, over the 227 KB a block can have. So:
+// - Two warpgroups a block (mla_bwd_tiles), one resident 64-row tile (A)
+//   and a streamed tile of 32 rows (B) a step, every tile in panels of 64
+//   values (128-byte rows, TMA's 128-byte swizzle). Each warpgroup computes
+//   the scores of 16 of the step's 32 streamed rows (m64n16k16 from shared
+//   memory: S = A1 B1^T over DK, dP = A2 B2^T over DV), turns them into dS
+//   or P, and writes them, rounded to the input type, into one shared
+//   [64][32] tile X in the swizzled layout wgmma reads. After a barrier
+//   each warpgroup adds X times the streamed tile (read transposed) into
+//   its half of the output columns (m64n64k16 a panel: 5 panels and 4 of
+//   DK 576's 9, 4 and 4 of DV 512's 8), at most 160 fp32 registers a
+//   thread. Shared memory: A1 + A2 + B1 + B2 + X = 217,088 bytes at (576,
+//   512), one block an SM.
+// - dq (bwd_dq_mla_hopper): the resident tile is a q tile (Q and dO), the
+//   streamed one 32 keys (K and V), X = dS, dQ += dS K. One block a q tile,
+//   the last q tiles (most keys) first.
+// - dk/dv (bwd_dkv_mla_hopper): the resident tile is 64 keys (K, and V for
+//   dk), the streamed one 32 q rows (Q and dO) in transposed form (keys are
+//   the M side): dk blocks X = dS^T and dK += dS^T Q; dv blocks skip dP,
+//   X = P^T and dV += P^T dO. dK and dV are separate blocks (their
+//   accumulators would not fit one), and a key tile's live q tiles are cut
+//   into chunks of `chunk` tiles counted from its first live one
+//   (mla_dkv_live; mla_dkv_plan in kernels/flash_attention.py picks
+//   `chunk` so that the card holds about two live blocks an SM), each
+//   block writing its fp32 partial to a scratch buffer; mla_dkv_reduce then
+//   sums a key's live chunks in chunk order and casts. No atomics: two
+//   calls agree bit for bit. The flat grid runs chunk 0 of every key tile
+//   first (dk before dv, key tile 0 first), then chunk 1, ...; a block
+//   whose chunk holds no live q tile returns at once and writes nothing,
+//   and the reduction never reads it.
+// The tile's loads (TMA, completed on mbarriers) overlap the other
+// products: the tile only the scores read (V or dO for dq/dk, Q for dv) is
+// reloaded for the next step as soon as the scores are done, the other
+// once the product is. Numerics as the D <= 128 kernels: p = 2^(s sm_scale
+// log2 e - lse log2 e), the element mask only on tiles that cross the
+// diagonal, the window edge or a ragged end, dS rounded to k's dtype (dq)
+// and q's (dk), P to do's (dv), fp32 sums.
+
+constexpr int MB_THREADS = 256;                // two warpgroups
+constexpr int MB_N = 32;                       // streamed rows a step
+constexpr int MB_PANEL_A = HB_M * 128;         // a resident panel: 64 rows x 64 values
+constexpr int MB_PANEL_B = MB_N * 128;         // a streamed panel: 32 rows x 64 values
+constexpr int MLA_TC_DK = 576, MLA_TC_DV = 512;  // the one pair they are built for
+
+template <int DK, int DV> struct MlaBwd {
+  static_assert(DK % 64 == 0 && DV % 64 == 0, "head dims in panels of 64 values");
+  static constexpr int PK = DK / 64, PV = DV / 64;
+  static constexpr int A1 = 0, A2 = PK * MB_PANEL_A;   // resident tiles
+  static constexpr int B1 = A2 + PV * MB_PANEL_A;      // streamed tiles
+  static constexpr int B2 = B1 + PK * MB_PANEL_B;
+  static constexpr int X = B2 + PV * MB_PANEL_B;       // dS or P: [64][64], 32 used
+  static constexpr int BARS = X + HB_M * 128;          // 3 mbarriers
+  static constexpr int SMEM = BARS + 3 * 8 + 1024;     // + 1024-byte alignment
+};
+
+// the P panels of a tile by TMA: box (64, n, s, 1) at (64 p, c1, c2, c3)
+__device__ __forceinline__ void tma_panels(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                           int P, int panel, int c1, int c2, int c3) {
+  for (int p = 0; p < P; ++p) tma_load(dst + p * panel, map, bar, 64 * p, c1, c2, c3);
+}
+
+// k-step kk of a K-major operand in panels of `panel` bytes: panel kk / 4,
+// 32 bytes a step along the rows (the rows may start inside a panel)
+__device__ __forceinline__ uint64_t mla_desc_k(uint32_t tile, int panel, int kk) {
+  return gmma_desc<64>(tile + (kk >> 2) * panel + (kk & 3) * 32, 16);
+}
+
+// k-step kk (rows 16 kk ..) of one panel read transposed (N = its 64 values)
+__device__ __forceinline__ uint64_t mla_desc_t(uint32_t panel, int kk) {
+  return gmma_desc<64>(panel + kk * 16 * 128, 16);
+}
+
+// live q tiles [lo, lo + n) of dk/dv's key tile j (64 keys) for q tiles of
+// block_q queries: the tile's newest query at or past the oldest key, and
+// (window) its oldest query within reach of the newest key
+__device__ __forceinline__ void mla_dkv_live(int j, int qoff, int win, int nq, int block_q,
+                                             int& lo, int& n) {
+  const int k0 = j * HB_M, k_last = k0 + HB_M - 1;
+  lo = max(0, -floor_div(qoff + block_q - 1 - k0, block_q));
+  const int end = win > 0 ? min(nq, floor_div(k_last + win - 1 - qoff, block_q) + 1) : nq;
+  n = max(0, end - lo);
+}
+
+// MODE 0: dq. The resident tile is q tile `tile` (64 / G queries x G heads,
+// Q = A1, dO = A2), step t streams key tile s_lo + t (32 keys, K = B1, V =
+// B2); out = dq. MODE 1 (dk) / 2 (dv): the resident tile is key tile `tile`
+// (64 keys, K = A1, V = A2), step t streams q tile s_lo + t (32 / G queries,
+// Q = B1, dO = B2); out = this chunk's fp32 partial (B, Sk, KV, DK or DV).
+template <typename T, int DK, int DV, int MODE>
+__device__ __forceinline__ void mla_bwd_tiles(
+    uint8_t* sm, const CUtensorMap* tm_a1, const CUtensorMap* tm_a2, const CUtensorMap* tm_b1,
+    const CUtensorMap* tm_b2, const float* __restrict__ lse, const float* __restrict__ di,
+    void* out, int b, int h, int tile, int s_lo, int n_steps, int qoff, int Sq, int Sk, int H,
+    int KV, int win, float sm_scale) {
+  using L = MlaBwd<DK, DV>;
+  constexpr bool DQ = MODE == 0, DP = MODE != 2;   // dv needs no dP
+  constexpr int WX = MODE == 2 ? DV : DK;          // output columns
+  constexpr int NPX = WX / 64, NPW = (NPX + 1) / 2;  // panels: all, a warpgroup's most
+  const int G = H / KV;
+  const int bq = (DQ ? HB_M : MB_N) / G;  // queries of a q tile (resident or streamed)
+  const int rows = bq * G;                // its rows; the spare ones stay zero
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int m0 = 16 * (tid / 32 % 4) + lane / 4;   // this thread's rows m0, m0 + 8
+  const uint32_t a1 = smem_u32(sm + L::A1), a2 = smem_u32(sm + L::A2),
+                 b1 = smem_u32(sm + L::B1), b2 = smem_u32(sm + L::B2), x = smem_u32(sm + L::X),
+                 bar_a = smem_u32(sm + L::BARS), bar_b1 = bar_a + 8, bar_b2 = bar_a + 16;
+
+  // spare rows of the q tiles (G not dividing 64 or 32): TMA never writes them
+  if (rows < (DQ ? HB_M : MB_N)) {
+    const int lo = DQ ? L::A1 : L::B1, hi = DQ ? L::B1 : L::X;
+    for (int e = lo / 16 + tid; e < hi / 16; e += MB_THREADS)
+      reinterpret_cast<uint4*>(sm)[e] = make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  // step t's streamed tile: B1 (DK wide) or B2 (DV wide)
+  auto load_b = [&](bool first, int t) {
+    const int s = s_lo + t, P = first ? L::PK : L::PV;
+    const uint32_t dst = first ? b1 : b2, bar = first ? bar_b1 : bar_b2;
+    const CUtensorMap* map = first ? tm_b1 : tm_b2;
+    if (DQ) {
+      mbar_expect_tx(bar, MB_N * P * 128);
+      tma_panels(dst, map, bar, P, MB_PANEL_B, h, s * MB_N, b);
+    } else {
+      mbar_expect_tx(bar, rows * P * 128);
+      tma_panels(dst, map, bar, P, MB_PANEL_B, h * G, s * bq, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(bar_a);
+    mbar_init(bar_b1);
+    mbar_init(bar_b2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_steps > 0) {
+      if (DQ) {
+        mbar_expect_tx(bar_a, rows * (DK + DV) * 2);
+        tma_panels(a1, tm_a1, bar_a, L::PK, MB_PANEL_A, h * G, tile * bq, b);
+        tma_panels(a2, tm_a2, bar_a, L::PV, MB_PANEL_A, h * G, tile * bq, b);
+      } else {
+        mbar_expect_tx(bar_a, HB_M * (DK + (DP ? DV : 0)) * 2);
+        tma_panels(a1, tm_a1, bar_a, L::PK, MB_PANEL_A, h, tile * HB_M, b);
+        if (DP) tma_panels(a2, tm_a2, bar_a, L::PV, MB_PANEL_A, h, tile * HB_M, b);
+      }
+      load_b(true, 0);
+      load_b(false, 0);
+    }
+  }
+  __syncthreads();
+
+  // dq: lse and di of this thread's two resident rows, pre-scaled for exp2
+  float lse_r[2] = {0.f, 0.f}, di_r[2] = {0.f, 0.f};
+  int qpos_r[2] = {0, 0};
+  if (DQ) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int m = m0 + 8 * u, qi = tile * bq + m / G;
+      const bool valid = m < rows && qi < Sq;
+      const size_t row = ((size_t)b * Sq + qi) * H + h * G + m % G;
+      lse_r[u] = valid ? lse[row] * LOG2E : 0.f;
+      di_r[u] = valid ? di[row] : 0.f;
+      qpos_r[u] = qoff + qi;
+    }
+  }
+  const int first_q = qoff + tile * bq;                      // dq: the resident
+  const int last_q = qoff + min((tile + 1) * bq, Sq) - 1;    // tile's queries
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc[NPW][32];
+#pragma unroll
+  for (int pp = 0; pp < NPW; ++pp) zero(acc[pp]);
+  if (n_steps > 0) mbar_wait(bar_a, 0);
+  for (int t = 0; t < n_steps; ++t) {
+    const int s = s_lo + t;
+    // dk/dv: lse and di of this thread's four streamed q rows 16 wg + 2
+    // (lane & 3) + (e & 1) + 8 (e >> 1), read before the scores' wait
+    float st_l[4] = {0.f, 0.f, 0.f, 0.f}, st_d[4] = {0.f, 0.f, 0.f, 0.f};
+    int st_q[4] = {0, 0, 0, 0};
+    bool st_v[4] = {false, false, false, false};
+    if (!DQ) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * wg + 2 * (lane & 3) + (e & 1) + 8 * (e >> 1), qi = s * bq + r / G;
+        st_v[e] = r < rows && qi < Sq;
+        const size_t row = ((size_t)b * Sq + qi) * H + h * G + r % G;
+        st_l[e] = st_v[e] ? lse[row] * LOG2E : 0.f;
+        st_d[e] = st_v[e] ? di[row] : 0.f;
+        st_q[e] = qoff + qi;
+      }
+    }
+    // S and dP of this warpgroup's 16 streamed rows. dP first (dq, dk):
+    // its tile was reloaded before the last product, B1 only after it, so
+    // B1's load runs under dP's wgmmas
+    float sc[8], dp[8];
+    zero(sc);
+    zero(dp);
+    const uint32_t b1w = b1 + 16 * wg * 128, b2w = b2 + 16 * wg * 128;
+    wg_fence();
+    if (DP) {
+      mbar_wait(bar_b2, t & 1);
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss_n16(dp, mla_desc_k(a2, MB_PANEL_A, kk), mla_desc_k(b2w, MB_PANEL_B, kk), T());
+      wg_commit();
+    }
+    mbar_wait(bar_b1, t & 1);
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss_n16(sc, mla_desc_k(a1, MB_PANEL_A, kk), mla_desc_k(b1w, MB_PANEL_B, kk), T());
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // the element mask only where the tile crosses the diagonal, the
+    // window edge or a ragged end
+    bool edge;
+    if (DQ) {
+      const int k0 = s * MB_N;
+      edge = rows < HB_M || k0 + MB_N > Sk || k0 + MB_N - 1 > first_q ||
+             (win > 0 && last_q - k0 >= win);
+    } else {
+      const int k0 = tile * HB_M, fq = qoff + s * bq;
+      edge = rows < MB_N || k0 + HB_M > Sk || (s + 1) * bq > Sq || k0 + HB_M - 1 > fq ||
+             (win > 0 && fq + bq - 1 - k0 >= win);
+    }
+    // dS (dq, dk) or P (dv) into X[m][16 wg + n], rounded to T: element c
+    // of the m64n16 accumulator is row m0 + 8 ((c >> 1) & 1), column n = 8
+    // (c >> 2) + 2 (lane & 3) + (c & 1); X rows are 128 bytes, 16-byte
+    // chunk q of row m at chunk q ^ (m & 7) (TMA's 128-byte swizzle)
+#pragma unroll
+    for (int c = 0; c < 8; c += 2) {
+      const int u = (c >> 1) & 1, m = m0 + 8 * u, n = 8 * (c >> 2) + 2 * (lane & 3);
+      float x2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p, d_i;
+        if (DQ) {
+          p = ex2(fmaf(sc[c + e], scale2, -lse_r[u]));
+          if (edge) {
+            const int kpos = s * MB_N + 16 * wg + n + e, qi = tile * bq + m / G;
+            const bool keep = m < rows && qi < Sq && kpos <= qpos_r[u] && kpos < Sk &&
+                              window_keep(qpos_r[u], kpos, win);
+            p = keep ? p : 0.f;
+          }
+          d_i = di_r[u];
+        } else {
+          const int ei = e + 2 * (c >> 2);
+          p = ex2(fmaf(sc[c + e], scale2, -st_l[ei]));
+          if (edge) {
+            const int kpos = tile * HB_M + m;
+            const bool keep = st_v[ei] && kpos <= st_q[ei] && kpos < Sk &&
+                              window_keep(st_q[ei], kpos, win);
+            p = keep ? p : 0.f;
+          }
+          d_i = st_d[ei];
+        }
+        x2[e] = DP ? p * (dp[c + e] - d_i) * sm_scale : p;
+      }
+      const int byte = (16 * wg + n) * 2;
+      *reinterpret_cast<uint32_t*>(sm + L::X + m * 128 + (((byte >> 4) ^ (m & 7)) << 4) +
+                                   (byte & 15)) = pack2<T>(x2[0], x2[1]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // X whole; every warpgroup done with the scores' tiles
+    // the tile only the scores read: V / dO (dq, dk) or Q (dv)
+    if (tid == 0 && t + 1 < n_steps) load_b(!DP, t + 1);
+    if (!DP) mbar_wait(bar_b2, t & 1);
+    // out[:, this warpgroup's panels] += X (64 x 32) times the streamed
+    // tile read transposed: K (dq), Q (dk) or dO (dv). Where the panels
+    // split unevenly (DK 576: 5 and 4) the second warpgroup repeats its
+    // last panel into a slot it never stores: no branch around the wgmma
+    // (a divergent one makes ptxas serialize them)
+    const uint32_t bx = DP ? b1 : b2;
+    wg_fence();
+#pragma unroll
+    for (int pp = 0; pp < NPW; ++pp) {
+      const int p = min(wg * NPW + pp, NPX - 1);
+#pragma unroll
+      for (int kk = 0; kk < MB_N / 16; ++kk)
+        wgmma_ss_tb(acc[pp], gmma_desc<64>(x + kk * 32, 16),
+                    mla_desc_t(bx + p * MB_PANEL_B, kk), T());
+    }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int pp = 0; pp < NPW; ++pp) fence_regs(acc[pp]);
+    __syncthreads();  // every warpgroup done with X and the product's tile
+    if (tid == 0 && t + 1 < n_steps) load_b(DP, t + 1);
+  }
+
+  // accumulator element c of panel p: row m0 + 8 ((c >> 1) & 1), column
+  // 64 p + 8 (c >> 2) + 2 (lane & 3) + (c & 1)
+#pragma unroll
+  for (int pp = 0; pp < NPW; ++pp) {
+    const int p = wg * NPW + pp;
+    if (p >= NPX) continue;
+#pragma unroll
+    for (int c = 0; c < 32; c += 2) {
+      const int m = m0 + 8 * ((c >> 1) & 1), col = 64 * p + 8 * (c >> 2) + 2 * (lane & 3);
+      if (DQ) {
+        const int qi = tile * bq + m / G;
+        if (m >= rows || qi >= Sq) continue;
+        const size_t row = ((size_t)b * Sq + qi) * H + h * G + m % G;
+        *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + row * DK + col) =
+            pack2<T>(acc[pp][c], acc[pp][c + 1]);
+      } else {
+        const int kpos = tile * HB_M + m;
+        if (kpos >= Sk) continue;
+        *reinterpret_cast<float2*>(static_cast<float*>(out) +
+                                   (((size_t)b * Sk + kpos) * KV + h) * WX + col) =
+            make_float2(acc[pp][c], acc[pp][c + 1]);
+      }
+    }
+  }
+}
+
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(MB_THREADS, 1)
+bwd_dq_mla_hopper(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                  const float* __restrict__ di, T* __restrict__ dq,
+                  const int* __restrict__ q_off, int B, int Sq, int Sk, int H, int KV, int win,
+                  float sm_scale) {
+  const int G = H / KV, block_q = HB_M / G;
+  const int nq = (Sq + block_q - 1) / block_q, nk = (Sk + MB_N - 1) / MB_N;
+  // heaviest first: the last q tile sees the most key tiles
+  const int pairs = KV * B;
+  const int i = nq - 1 - (int)blockIdx.x / pairs;
+  const int h = (int)blockIdx.x % pairs % KV, b = (int)blockIdx.x % pairs / KV;
+  const int qoff = q_off[b];
+  const int first_q = qoff + i * block_q, last_q = qoff + min((i + 1) * block_q, Sq) - 1;
+  // live key tiles of 32 keys [j_lo, j_hi]: causal below, window above
+  const int j_lo = win > 0 ? max(0, floor_div(first_q - win + 1, MB_N)) : 0;
+  const int j_hi = last_q < 0 ? -1 : min(nk - 1, last_q / MB_N);
+  extern __shared__ uint8_t smem_raw[];
+  mla_bwd_tiles<T, DK, DV, 0>(align_1024(smem_raw), &tm_q, &tm_do, &tm_k, &tm_v, lse, di, dq,
+                              b, h, i, j_lo, max(0, j_hi - j_lo + 1), qoff, Sq, Sk, H, KV, win,
+                              sm_scale);
+}
+
+// part: n_chunks x (dk partials (B, Sk, KV, DK), then dv partials (B, Sk,
+// KV, DV)), fp32; block x takes chunk x / (2 nk KV B), then dk (0) or dv
+// (1), key tile, (batch, kv head)
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(MB_THREADS, 1)
+bwd_dkv_mla_hopper(const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                   const float* __restrict__ di, float* __restrict__ part,
+                   const int* __restrict__ q_off, int B, int Sq, int Sk, int H, int KV, int win,
+                   float sm_scale, int chunk) {
+  const int G = H / KV, block_q = MB_N / G;
+  const int nq = (Sq + block_q - 1) / block_q, nk = (Sk + HB_M - 1) / HB_M;
+  const int pairs = KV * B, per_part = nk * pairs;
+  const int c = (int)blockIdx.x / (2 * per_part), r = (int)blockIdx.x % (2 * per_part);
+  const int which = r / per_part, j = r % per_part / pairs;
+  const int h = r % pairs % KV, b = r % pairs / KV;
+  const int qoff = q_off[b];
+  int lo, n;
+  mla_dkv_live(j, qoff, win, nq, block_q, lo, n);
+  const int s_lo = lo + c * chunk, n_steps = min(chunk, lo + n - s_lo);
+  if (n_steps <= 0) return;  // a dead chunk: nothing written, never read
+  const size_t all_rows = (size_t)B * Sk * KV;
+  float* base = part + (size_t)c * all_rows * (DK + DV);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  if (which == 0)
+    mla_bwd_tiles<T, DK, DV, 1>(sm, &tm_k, &tm_v, &tm_q, &tm_do, lse, di, base, b, h, j, s_lo,
+                                n_steps, qoff, Sq, Sk, H, KV, win, sm_scale);
+  else
+    mla_bwd_tiles<T, DK, DV, 2>(sm, &tm_k, &tm_v, &tm_q, &tm_do, lse, di,
+                                base + all_rows * DK, b, h, j, s_lo, n_steps, qoff, Sq, Sk, H,
+                                KV, win, sm_scale);
+}
+
+// dk, dv (B, Sk, KV, D) in T: each key row's live chunks of `part` summed
+// in chunk order (0 + chunk 0 + chunk 1 + ...); one block a row
+constexpr int MR_THREADS = 256;
+
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(MR_THREADS)
+mla_dkv_reduce(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+               const int* __restrict__ q_off, int B, int Sq, int Sk, int H, int KV, int win,
+               int chunk) {
+  const int row = blockIdx.x;  // ((b * Sk + kpos) * KV + h)
+  const int kpos = row / KV % Sk, b = row / KV / Sk;
+  const int block_q = MB_N / (H / KV), nq = (Sq + block_q - 1) / block_q;
+  int lo, n;
+  mla_dkv_live(kpos / HB_M, q_off[b], win, nq, block_q, lo, n);
+  const int n_live = (n + chunk - 1) / chunk;
+  const size_t all_rows = (size_t)B * Sk * KV, per_chunk = all_rows * (DK + DV);
+  for (int e = threadIdx.x; e < (DK + DV) / 4; e += MR_THREADS) {
+    const bool is_k = e < DK / 4;
+    const size_t off = is_k ? (size_t)row * DK + 4 * e
+                            : all_rows * DK + (size_t)row * DV + 4 * (e - DK / 4);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < n_live; ++c) {
+      const float4 v4 = *reinterpret_cast<const float4*>(part + c * per_chunk + off);
+      sum.x += v4.x;
+      sum.y += v4.y;
+      sum.z += v4.z;
+      sum.w += v4.w;
+    }
+    T* dst = is_k ? dk + (size_t)row * DK + 4 * e : dv + (size_t)row * DV + 4 * (e - DK / 4);
+    *reinterpret_cast<uint2*>(dst) = make_uint2(pack2<T>(sum.x, sum.y), pack2<T>(sum.z, sum.w));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // split-KV decode: one block per (key chunk, kv head [x row group], slot),
 // then one combine block per (kv head, slot)
 // ---------------------------------------------------------------------------
@@ -1814,25 +2268,98 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A (B, S, N, D) tensor of 16-bit values as the 4-D map (D, N, S, B) with
-// boxes of (PCOLS, n_box, s_box, 1), one a panel of Tile<D>, swizzled as
-// the wgmma descriptors read them; elements past S are zero-filled
-template <typename T, int D>
-cudaError_t row_map(CUtensorMap* map, const void* base, int B, int S, int N, int n_box,
-                    int s_box) {
+// boxes of (pcols, n_box, s_box, 1), one a panel of pcols values (rows of
+// 128 bytes take TMA's 128-byte swizzle, of 64 the 64-byte one), swizzled
+// as the wgmma descriptors read them; elements past S are zero-filled
+template <typename T>
+cudaError_t panel_map(CUtensorMap* map, const void* base, int B, int S, int N, int D, int pcols,
+                      int n_box, int s_box) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
                                  (cuuint64_t)S * N * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)Tile<D>::PCOLS, (cuuint32_t)n_box, (cuuint32_t)s_box, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)pcols, (cuuint32_t)n_box, (cuuint32_t)s_box, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = enc(
       map, std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      Tile<D>::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      pcols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the panels of Tile<D>
+template <typename T, int D>
+cudaError_t row_map(CUtensorMap* map, const void* base, int B, int S, int N, int n_box,
+                    int s_box) {
+  return panel_map<T>(map, base, B, S, N, D, Tile<D>::PCOLS, n_box, s_box);
+}
+
+// the MLA route's backward on the tensor cores: dq straight into its
+// output; dk/dv as fp32 partials of `chunk` q tiles into `part`, summed by
+// launch_mla_dkv_reduce (a launch of its own)
+template <typename T, int DK, int DV>
+cudaError_t launch_bwd_dq_mla(const void* q, const void* k, const void* v, const void* dout,
+                              const void* lse, const void* di, void* dq, const void* q_off,
+                              int B, int Sq, int Sk, int H, int KV, int win, float sm_scale,
+                              cudaStream_t stream) {
+  const int G = H / KV, block_q = HB_M / G;
+  CUtensorMap mq, mdo, mk, mv;
+  cudaError_t e;
+  if ((e = panel_map<T>(&mq, q, B, Sq, H, DK, 64, G, block_q)) != cudaSuccess ||
+      (e = panel_map<T>(&mdo, dout, B, Sq, H, DV, 64, G, block_q)) != cudaSuccess ||
+      (e = panel_map<T>(&mk, k, B, Sk, KV, DK, 64, 1, MB_N)) != cudaSuccess ||
+      (e = panel_map<T>(&mv, v, B, Sk, KV, DV, 64, 1, MB_N)) != cudaSuccess)
+    return e;
+  constexpr int smem = MlaBwd<DK, DV>::SMEM;
+  auto kern = bwd_dq_mla_hopper<T, DK, DV>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int nq = (Sq + block_q - 1) / block_q;
+  kern<<<nq * KV * B, MB_THREADS, smem, stream>>>(
+      mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<T*>(dq), static_cast<const int*>(q_off), B, Sq, Sk, H, KV, win, sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int DK, int DV>
+cudaError_t launch_bwd_dkv_mla(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* di, void* part, const void* q_off,
+                               int B, int Sq, int Sk, int H, int KV, int win, float sm_scale,
+                               int chunk, cudaStream_t stream) {
+  const int G = H / KV, block_q = MB_N / G;
+  if (part == nullptr || chunk <= 0) return cudaErrorInvalidValue;
+  CUtensorMap mk, mv, mq, mdo;
+  cudaError_t e;
+  if ((e = panel_map<T>(&mk, k, B, Sk, KV, DK, 64, 1, HB_M)) != cudaSuccess ||
+      (e = panel_map<T>(&mv, v, B, Sk, KV, DV, 64, 1, HB_M)) != cudaSuccess ||
+      (e = panel_map<T>(&mq, q, B, Sq, H, DK, 64, G, block_q)) != cudaSuccess ||
+      (e = panel_map<T>(&mdo, dout, B, Sq, H, DV, 64, G, block_q)) != cudaSuccess)
+    return e;
+  constexpr int smem = MlaBwd<DK, DV>::SMEM;
+  auto kern = bwd_dkv_mla_hopper<T, DK, DV>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int nq = (Sq + block_q - 1) / block_q, nk = (Sk + HB_M - 1) / HB_M;
+  const int n_chunks = (nq + chunk - 1) / chunk;
+  kern<<<n_chunks * 2 * nk * KV * B, MB_THREADS, smem, stream>>>(
+      mk, mv, mq, mdo, static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<float*>(part), static_cast<const int*>(q_off), B, Sq, Sk, H, KV, win, sm_scale,
+      chunk);
+  return cudaGetLastError();
+}
+
+template <typename T, int DK, int DV>
+cudaError_t launch_mla_dkv_reduce(const void* part, void* dk, void* dv, const void* q_off, int B,
+                                  int Sq, int Sk, int H, int KV, int win, int chunk,
+                                  cudaStream_t stream) {
+  if (part == nullptr || chunk <= 0) return cudaErrorInvalidValue;
+  mla_dkv_reduce<T, DK, DV><<<B * Sk * KV, MR_THREADS, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<const int*>(q_off), B, Sq, Sk, H, KV, win, chunk);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -1961,17 +2488,33 @@ cudaError_t decode_by_dtype(int dtype, const void* q, const void* k, const void*
   return cudaErrorInvalidValue;
 }
 
-// The MLA route (see the note above fwd_kernel): the CUDA-core kernels at
-// a built (DK, DV) pair, in the input's type
+// The MLA route at a built (DK, DV) pair, in the input's type: the forward
+// on the CUDA cores in every type; the backward on the CUDA cores in fp32
+// (its 1e-5 checks are out of TF32's reach) and on the tensor cores in
+// bf16/fp16, built at (MLA_TC_DK, MLA_TC_DV) alone (the wrapper pads the
+// other pairs up to it). which: 0 forward (o1 = out, o2 = lse), 1 dq (o1),
+// 2 dk/dv (fp32: o1 = dk, o2 = dv; bf16/fp16: the partials into part), 3
+// the bf16/fp16 dk/dv reduction (part into o1 = dk, o2 = dv). Nothing falls
+// back from one route to the other.
 template <typename T, int DK, int DV>
 cudaError_t mla_launch(int which, const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* di, void* o1, void* o2, const void* q_off,
                        int B, int Sq, int Sk, int H, int KV, int win, float sm_scale,
-                       cudaStream_t s) {
-  switch (which) {
-    case 0: return launch_fwd<T, DK, DV>(q, k, v, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
-    case 1: return launch_bwd_dq<T, DK, DV>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
-    case 2: return launch_bwd_dkv<T, DK, DV>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+                       void* part, int chunk, cudaStream_t s) {
+  if (which == 0)
+    return launch_fwd<T, DK, DV>(q, k, v, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == 1)
+      return launch_bwd_dq<T, DK, DV>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    if (which == 2)
+      return launch_bwd_dkv<T, DK, DV>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+  } else if constexpr (DK == MLA_TC_DK && DV == MLA_TC_DV) {
+    if (which == 1)
+      return launch_bwd_dq_mla<T, DK, DV>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    if (which == 2)
+      return launch_bwd_dkv_mla<T, DK, DV>(q, k, v, dout, lse, di, part, q_off, B, Sq, Sk, H, KV, win, sm_scale, chunk, s);
+    if (which == 3)
+      return launch_mla_dkv_reduce<T, DK, DV>(part, o1, o2, q_off, B, Sq, Sk, H, KV, win, chunk, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1980,27 +2523,26 @@ template <int DK, int DV>
 cudaError_t mla_by_dtype(int dtype, int which, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* di, void* o1, void* o2,
                          const void* q_off, int B, int Sq, int Sk, int H, int KV, int win,
-                         float sm_scale, cudaStream_t s) {
+                         float sm_scale, void* part, int chunk, cudaStream_t s) {
   switch (dtype) {
-    case 0: return mla_launch<float, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
-    case 1: return mla_launch<__nv_bfloat16, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
-    case 2: return mla_launch<__half, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
+    case 0: return mla_launch<float, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, part, chunk, s);
+    case 1: return mla_launch<__nv_bfloat16, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, part, chunk, s);
+    case 2: return mla_launch<__half, DK, DV>(which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, part, chunk, s);
   }
   return cudaErrorInvalidValue;
 }
 
-// which: 0 forward (o1 = out, o2 = lse), 1 dq (o1), 2 dk/dv (o1, o2)
 int mla_entry(int which, const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* di, void* o1, void* o2, const void* q_off, int B,
               int Sq, int Sk, int H, int KV, int Dk, int Dv, int dtype, int window,
-              float sm_scale, void* stream) {
+              float sm_scale, void* part, int chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV != 0 || H / KV > CC_MAX_G || B <= 0 || Sq <= 0 || Sk <= 0)
     return cudaErrorInvalidValue;
   if (Dk == 96 && Dv == 64)
-    return mla_by_dtype<96, 64>(dtype, which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
+    return mla_by_dtype<96, 64>(dtype, which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, part, chunk, s);
   if (Dk == 576 && Dv == 512)
-    return mla_by_dtype<576, 512>(dtype, which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, s);
+    return mla_by_dtype<576, 512>(dtype, which, q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, window, sm_scale, part, chunk, s);
   return cudaErrorInvalidValue;
 }
 
@@ -2083,15 +2625,21 @@ int flash_decode_combine(const void* m, const void* l, const void* acc, const vo
 }
 
 // The MLA route: q (B, Sq, H, Dk), k (B, Sk, KV, Dk), v (B, Sk, KV, Dv),
-// (Dk, Dv) one of the built pairs, (96, 64) or (576, 512); G = H/KV <= 16;
-// any dtype. flash_mla_fwd: out (B, Sq, H, Dv), lse (B, Sq, H) fp32 or
+// (Dk, Dv) one of the built pairs, (96, 64) or (576, 512); G = H/KV <= 16.
+// flash_mla_fwd (any dtype): out (B, Sq, H, Dv), lse (B, Sq, H) fp32 or
 // NULL. The backward as flash_bwd_dq/dkv with dout (B, Sq, H, Dv): dq
-// (B, Sq, H, Dk), dk (B, Sk, KV, Dk), dv (B, Sk, KV, Dv).
+// (B, Sq, H, Dk), dk (B, Sk, KV, Dk), dv (B, Sk, KV, Dv); fp32 at either
+// pair on the CUDA cores (flash_mla_bwd_dkv writes dk and dv; part NULL,
+// chunk 0), bf16/fp16 at (576, 512) on the tensor cores (16-byte aligned
+// q, k, v, dout): flash_mla_bwd_dkv writes fp32 partials of `chunk` q
+// tiles of 32 rows into part (n_chunks x B x Sk x KV x (Dk + Dv) floats,
+// n_chunks = ceil(ceil(Sq / (32 / G)) / chunk)) and flash_mla_dkv_reduce
+// sums them into dk and dv.
 int flash_mla_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                   const void* q_off, int B, int Sq, int Sk, int H, int KV, int Dk, int Dv,
                   int dtype, int window, float sm_scale, void* stream) {
   return mla_entry(0, q, k, v, nullptr, nullptr, nullptr, out, lse, q_off, B, Sq, Sk, H, KV, Dk,
-                   Dv, dtype, window, sm_scale, stream);
+                   Dv, dtype, window, sm_scale, nullptr, 0, stream);
 }
 
 int flash_mla_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -2099,15 +2647,22 @@ int flash_mla_bwd_dq(const void* q, const void* k, const void* v, const void* do
                      int Sk, int H, int KV, int Dk, int Dv, int dtype, int window, float sm_scale,
                      void* stream) {
   return mla_entry(1, q, k, v, dout, lse, di, dq, nullptr, q_off, B, Sq, Sk, H, KV, Dk, Dv,
-                   dtype, window, sm_scale, stream);
+                   dtype, window, sm_scale, nullptr, 0, stream);
 }
 
 int flash_mla_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* di, void* dk, void* dv, const void* q_off,
                       int B, int Sq, int Sk, int H, int KV, int Dk, int Dv, int dtype,
-                      int window, float sm_scale, void* stream) {
+                      int window, float sm_scale, void* part, int chunk, void* stream) {
   return mla_entry(2, q, k, v, dout, lse, di, dk, dv, q_off, B, Sq, Sk, H, KV, Dk, Dv, dtype,
-                   window, sm_scale, stream);
+                   window, sm_scale, part, chunk, stream);
+}
+
+int flash_mla_dkv_reduce(const void* part, void* dk, void* dv, const void* q_off, int B, int Sq,
+                         int Sk, int H, int KV, int Dk, int Dv, int dtype, int window, int chunk,
+                         void* stream) {
+  return mla_entry(3, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dk, dv, q_off, B, Sq,
+                   Sk, H, KV, Dk, Dv, dtype, window, 0.f, const_cast<void*>(part), chunk, stream);
 }
 
 }  // extern "C"

@@ -24,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,7 +50,8 @@ SIGNATURES = {
         "flash_decode_combine": [_P] * 5 + [_I] * 9 + [_P],
         "flash_mla_fwd": [_P] * 6 + [_I] * 9 + [_F, _P],
         "flash_mla_bwd_dq": [_P] * 8 + [_I] * 9 + [_F, _P],
-        "flash_mla_bwd_dkv": [_P] * 9 + [_I] * 9 + [_F, _P],
+        "flash_mla_bwd_dkv": [_P] * 9 + [_I] * 9 + [_F, _P, _I, _P],
+        "flash_mla_dkv_reduce": [_P] * 4 + [_I] * 10 + [_P],
     },
     "slot_gather": {
         "slot_gather_sample": [_P] * 6 + [_I] * 6 + [_P],
@@ -139,6 +141,35 @@ def build_log(name: str) -> str:
     before the first build."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass_ops(name: str, pattern: str,
+             ops=("HGMMA", "UTMALDG")) -> dict[str, dict[str, int]]:
+    """{mangled kernel name: {op: count, ..., "atomics": count}} for each
+    kernel of the current build of ``csrc/<name>.cu`` whose mangled name
+    matches ``pattern``, counted in ``cuobjdump -sass`` (atomics: ATOM*
+    and RED). Needs the CUDA toolkit and a build."""
+    sass = subprocess.run(
+        [str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
+         str(_target(name))], capture_output=True, text=True,
+        timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            fn = fn if re.search(pattern, fn) else None
+            if fn:
+                out[fn] = dict.fromkeys((*ops, "atomics"), 0)
+            continue
+        m = re.search(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if fn and m:
+            op = m.group(1)
+            if op in ops:
+                out[fn][op] += 1
+            elif op.startswith("ATOM") or op == "RED":
+                out[fn]["atomics"] += 1
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -44,16 +44,23 @@ spare rows idle where G does not divide the row count: in bf16 and fp16
 on the tensor cores with 64-row tiles, so G <= 64; in fp32 (forward 16
 rows, dq 16, dk/dv 32) on the CUDA cores, G <= 16. The MLA absorbed
 layout (Dk != Dv: DeepSeek-V2's latent 512 + rope 64 keys over the
-512-value latent) and any head dim above 128 take the CUDA-core
-``flash_mla_fwd`` / ``flash_mla_bwd_dq`` / ``flash_mla_bwd_dkv`` in every
-dtype (:func:`mla_route`), built at the (Dk, Dv) pairs of
-:data:`MLA_PAIRS`; any other pair up to (576, 512) zero-pads to the
-smallest that holds it (:func:`mla_pair`), G <= 16; they count their
-launches as ``flash_attention_mla``, ``flash_attention_mla_dq`` and
-``flash_attention_mla_dkv``. Above Dk 576 or Dv 512 raises
-``NotImplementedError`` naming the dims. The decode takes Dk == Dv <=
-128 and G <= 16 (above 128 raises, naming ROADMAP queue 2: the MLA
-decode is an einsum over the latent, as in the JAX package).
+512-value latent) and any head dim above 128 take the MLA route
+(:func:`mla_route`; G <= 16): ``flash_mla_fwd``, the CUDA-core
+``fwd_kernel`` in every dtype, built at the (Dk, Dv) pairs of
+:data:`MLA_PAIRS`, any other pair up to (576, 512) zero-padded to the
+smallest that holds it (:func:`mla_pair`); ``flash_mla_bwd_dq`` /
+``flash_mla_bwd_dkv``, in fp32 the CUDA-core ``bwd_dq_kernel`` /
+``bwd_dkv_kernel`` at that pair, in bf16/fp16 the tensor-core
+``bwd_dq_mla_hopper`` / ``bwd_dkv_mla_hopper`` at :data:`MLA_TC_PAIR`,
+every pair zero-padded up to it (:func:`mla_bwd_pair`), dk/dv there as
+fp32 partials of chunks of q tiles (:func:`mla_dkv_plan`) that
+``flash_mla_dkv_reduce`` (:func:`mla_dkv_reduce`) sums. They count their
+launches as ``flash_attention_mla``, ``flash_attention_mla_dq``,
+``flash_attention_mla_dkv`` and ``flash_attention_mla_dkv_reduce``.
+Above Dk 576 or Dv 512 raises ``NotImplementedError`` naming the dims.
+The decode takes Dk == Dv <= 128 and G <= 16 (above 128 raises, naming
+ROADMAP queue 2: the MLA decode is an einsum over the latent, as in the
+JAX package).
 """
 from __future__ import annotations
 
@@ -83,9 +90,18 @@ MAX_GROUP_FP32 = 16
 MAX_GROUP_DECODE = 16
 # (Dk, Dv) pairs the MLA-route kernels are built for (csrc mla_entry): the
 # smoke config's (80, 64) pads to the first, DeepSeek-V2-Lite's (576, 512)
-# is the second; their blocks hold 16 rows, so G <= 16
+# is the second; the forward's and fp32's CUDA-core blocks hold 16 rows,
+# so G <= 16
 MLA_PAIRS = ((96, 64), (576, 512))
 MAX_GROUP_MLA = 16
+# the one pair of the MLA route's bf16/fp16 backward on the tensor cores
+# (csrc MLA_TC_DK / MLA_TC_DV); every bf16/fp16 pair pads up to it
+MLA_TC_PAIR = (576, 512)
+# its dk/dv blocks: 64 keys (csrc HB_M) over q tiles of 32 rows (MB_N),
+# cut into chunks of at least MLA_DKV_MIN_CHUNK q tiles (mla_dkv_plan)
+MLA_DKV_KEYS = 64
+MLA_DKV_ROWS = 32
+MLA_DKV_MIN_CHUNK = 16
 
 
 def _round_up(n: int, m: int) -> int:
@@ -106,8 +122,8 @@ def kernel_head_dim(name: str, D: int) -> int:
 
 
 def mla_route(Dk: int, Dv: int) -> bool:
-    """True where the forward and backward take the CUDA-core MLA-route
-    kernels: Dk != Dv (the MLA absorbed layout) or a head dim above 128."""
+    """True where the forward and backward take the MLA-route kernels: Dk
+    != Dv (the MLA absorbed layout) or a head dim above 128."""
     return Dk != Dv or Dk > HEAD_DIMS[-1]
 
 
@@ -120,6 +136,72 @@ def mla_pair(name: str, Dk: int, Dv: int) -> tuple[int, int]:
     raise NotImplementedError(
         f"{name}: head dims Dk={Dk}, Dv={Dv} are more than the CUDA kernels "
         f"take (Dk <= {MLA_PAIRS[-1][0]}, Dv <= {MLA_PAIRS[-1][1]})")
+
+
+def mla_bwd_pair(name: str, Dk: int, Dv: int, dtype) -> tuple[int, int]:
+    """The (Dk, Dv) the MLA-route backward computes ``(Dk, Dv)`` at: in
+    fp32 the CUDA-core ``bwd_dq_kernel`` / ``bwd_dkv_kernel`` at
+    :func:`mla_pair`'s pair; in bf16/fp16 the tensor-core
+    ``bwd_dq_mla_hopper`` / ``bwd_dkv_mla_hopper`` (+ ``mla_dkv_reduce``)
+    at :data:`MLA_TC_PAIR`, zero-padded up (exact, as :func:`pad_head_dim`).
+    Beyond (576, 512) raises, naming the dims."""
+    pair = mla_pair(name, Dk, Dv)
+    return pair if dtype == torch.float32 else MLA_TC_PAIR
+
+
+def mla_dkv_plan(B: int, Sq: int, Sk: int, H: int, KV: int,
+                 sm_count: int) -> tuple[int, int]:
+    """(chunk, n_chunks) of the tensor-core dk/dv: each key tile's live q
+    tiles (of ``MLA_DKV_ROWS // G`` queries) are cut into chunks of
+    ``chunk`` tiles, one block (and one fp32 partial) a chunk and part (dk
+    or dv). A function of the shapes and the SM count alone: under a
+    causal mask about half of the ``nq x key tiles`` (key tile, q tile)
+    pairs of each part are live, and ``chunk`` is chosen so that those
+    fill each SM about twice, but no shorter than MLA_DKV_MIN_CHUNK tiles
+    (each chunk adds a partial to write and read)."""
+    bq = MLA_DKV_ROWS // (H // KV)
+    nq = -(-Sq // bq)
+    tiles = B * KV * -(-Sk // MLA_DKV_KEYS)
+    chunk = min(nq, max(MLA_DKV_MIN_CHUNK, -(-nq * tiles // (2 * sm_count))))
+    return chunk, -(-nq // chunk)
+
+
+def mla_dkv_live(j: int, qoff: int, window: int, nq: int, bq: int):
+    """Live q tiles [lo, lo + n) of the dk/dv key tile j (csrc
+    mla_dkv_live): the tile's newest query at or past the key tile's
+    oldest key, and (window) its oldest query within reach of the newest."""
+    k0 = j * MLA_DKV_KEYS
+    lo = max(0, -((qoff + bq - 1 - k0) // bq))
+    end = (min(nq, (k0 + MLA_DKV_KEYS - 1 + window - 1 - qoff) // bq + 1)
+           if window > 0 else nq)
+    return lo, max(0, end - lo)
+
+
+def mla_dkv_blocks(B: int, Sq: int, Sk: int, H: int, KV: int, q_off,
+                   window: int, chunk: int):
+    """The tensor-core dk/dv grid in launch order, as
+    ``bwd_dkv_mla_hopper`` decodes its block index: chunk 0 of every key
+    tile first (dk before dv, key tile 0 first, then the (batch, kv head)
+    pairs), then chunk 1, ... Returns (chunk, part (0 dk, 1 dv), b, h, key
+    tile, first q tile, q tiles) of each block that has a live q tile; the
+    others return at once and write nothing. ``q_off`` a host sequence of
+    B positions."""
+    G = H // KV
+    bq = MLA_DKV_ROWS // G
+    nq, nk = -(-Sq // bq), -(-Sk // MLA_DKV_KEYS)
+    pairs = KV * B
+    per_part = nk * pairs
+    out = []
+    for x in range(-(-nq // chunk) * 2 * per_part):
+        c, r = divmod(x, 2 * per_part)
+        part, r2 = divmod(r, per_part)
+        j, h, b = r2 // pairs, r2 % pairs % KV, r2 % pairs // KV
+        lo, n = mla_dkv_live(j, int(q_off[b]), window, nq, bq)
+        s_lo = lo + c * chunk
+        steps = min(chunk, lo + n - s_lo)
+        if steps > 0:
+            out.append((c, part, b, h, j, s_lo, steps))
+    return out
 
 
 def _pad_to(width: int, *ts):
@@ -241,7 +323,10 @@ def _mla_forward(q, k, v, q_off, window: int, sm_scale: float,
 
 def _mla_bwd(which: str, q, k, v, lse, do, di, q_off, window: int,
              sm_scale: float):
-    """dq (``which`` "dq") or (dk, dv) ("dkv") on the MLA route."""
+    """dq (``which`` "dq") or (dk, dv) ("dkv") on the MLA route: in fp32
+    the CUDA-core kernels, in bf16/fp16 the tensor-core ones, dk/dv then
+    in two launches (the chunks' fp32 partials into one ``torch.empty``
+    scratch, then their sum); see :func:`mla_bwd_pair`."""
     name = f"flash_attention_{which}"
     _check_cuda(name, q, k, v)
     if do.dtype != q.dtype or do.shape[:3] != q.shape[:3] \
@@ -249,28 +334,76 @@ def _mla_bwd(which: str, q, k, v, lse, do, di, q_off, window: int,
         raise TypeError(f"{name}: do {tuple(do.shape)} {do.dtype} does not "
                         f"match q {tuple(q.shape)} / v {tuple(v.shape)}")
     Dk, Dv = q.shape[-1], v.shape[-1]
-    pk, pv = mla_pair(name, Dk, Dv)
+    pk, pv = mla_bwd_pair(name, Dk, Dv, q.dtype)
+    tc = q.dtype != torch.float32
     (q, k), (v, do) = _pad_to(pk, q, k), _pad_to(pv, v, do)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = (_tma_ready(t) if tc else t.contiguous()
+                   for t in (q, k, v, do))
     lse, di = lse.float().contiguous(), di.float().contiguous()
     B, Sq, H, _ = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     lib = K.load("flash_attention")
-    args = (B, Sq, Sk, H, KV, pk, pv, K.dtype_code(q), int(window),
-            ctypes.c_float(sm_scale), K.stream_ptr(q))
+    args = (B, Sq, Sk, H, KV, pk, pv, K.dtype_code(q), int(window))
     ins = (K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di))
     if which == "dq":
         dq = torch.empty_like(q)
-        err = lib.flash_mla_bwd_dq(*ins, K.ptr(dq), K.ptr(q_off), *args)
+        err = lib.flash_mla_bwd_dq(*ins, K.ptr(dq), K.ptr(q_off), *args,
+                                   ctypes.c_float(sm_scale), K.stream_ptr(q))
         K.check(err, "flash_mla_bwd_dq")
         K.count("flash_attention_mla_dq")
         return _unpad(dq, Dk)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part, chunk = None, 0
+    if tc:
+        chunk, n_chunks = mla_dkv_plan(B, Sq, Sk, H, KV,
+                                       K.sm_count(q.device.index or 0))
+        part = torch.empty(n_chunks * B * Sk * KV * (pk + pv),
+                           dtype=torch.float32, device=q.device)
+    dk, dv = (None, None) if tc else (torch.empty_like(k), torch.empty_like(v))
     err = lib.flash_mla_bwd_dkv(*ins, K.ptr(dk), K.ptr(dv), K.ptr(q_off),
-                                *args)
+                                *args, ctypes.c_float(sm_scale), K.ptr(part),
+                                chunk, K.stream_ptr(q))
     K.check(err, "flash_mla_bwd_dkv")
     K.count("flash_attention_mla_dkv")
+    if tc:
+        dk, dv = mla_dkv_reduce(part, q_off, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV,
+                                Dk=pk, Dv=pv, window=window, chunk=chunk,
+                                dtype=q.dtype)
     return _unpad(dk, Dk), _unpad(dv, Dv)
+
+
+def mla_dkv_reduce(part, q_off, *, B: int, Sq: int, Sk: int, H: int,
+                   KV: int, Dk: int, Dv: int, window: int, chunk: int,
+                   dtype):
+    """dk (B, Sk, KV, Dk) and dv (B, Sk, KV, Dv) in ``dtype`` from the
+    tensor-core dk/dv's fp32 partials ``part`` (n_chunks chunks, each dk's
+    (B, Sk, KV, Dk) then dv's (B, Sk, KV, Dv)): each key's live chunks
+    (:func:`mla_dkv_blocks`) summed in chunk order; the others are never
+    read. On the card the kernel ``mla_dkv_reduce`` (counted as
+    ``flash_attention_mla_dkv_reduce``), so two calls agree bit for bit;
+    ``q_off`` is read on the host only on the CPU."""
+    rows = B * Sk * KV
+    n_chunks = part.numel() // (rows * (Dk + Dv))
+    if K.on_cpu(part, q_off):
+        bq = MLA_DKV_ROWS // (H // KV)
+        nq = -(-Sq // bq)
+        n_live = torch.tensor(
+            [[-(-mla_dkv_live(key // MLA_DKV_KEYS, int(q_off[b]), window,
+                               nq, bq)[1] // chunk) for key in range(Sk)]
+             for b in range(B)])
+        chunks = part.reshape(n_chunks, rows * (Dk + Dv))
+        part_k = chunks[:, :rows * Dk].reshape(n_chunks, B, Sk, KV, Dk)
+        part_v = chunks[:, rows * Dk:].reshape(n_chunks, B, Sk, KV, Dv)
+        return ref.mla_dkv_reduce_ref(part_k, part_v, n_live, dtype)
+    if part.dtype != torch.float32 or not part.is_contiguous():
+        raise TypeError("mla_dkv_reduce takes contiguous fp32 partials")
+    dk = torch.empty((B, Sk, KV, Dk), dtype=dtype, device=part.device)
+    dv = torch.empty((B, Sk, KV, Dv), dtype=dtype, device=part.device)
+    err = K.load("flash_attention").flash_mla_dkv_reduce(
+        K.ptr(part), K.ptr(dk), K.ptr(dv), K.ptr(q_off), B, Sq, Sk, H, KV,
+        Dk, Dv, K.dtype_code(dk), int(window), chunk, K.stream_ptr(part))
+    K.check(err, "flash_mla_dkv_reduce")
+    K.count("flash_attention_mla_dkv_reduce")
+    return dk, dv
 
 
 def _bwd_inputs(name, q, k, v, lse, do, di):

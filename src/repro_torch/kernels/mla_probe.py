@@ -1,11 +1,14 @@
 """A short first call for the flash kernels' MLA route on the card: build
 ``csrc/flash_attention.cu``, print the registers and spills (``ptxas -v``)
-of the CUDA-core forward, dq and dk/dv, hold each MLA-route entry to its
-plain version at a few shapes (fp32 and bf16; Dk != Dv; a padded pair;
-G up to 16), then time the three at DeepSeek-V2-Lite's training shape
-(B 2, S 1024, 16 heads over 1, Dk 576, Dv 512, bf16) with CUDA events
-over 5 calls, the L2 cache left warm (``chip_smoke.py`` phase 11 times
-them from a CUDA graph with the L2 flushed).
+of the CUDA-core forward, dq and dk/dv and of the bf16/fp16 backward on
+the tensor cores (``bwd_dq_mla_hopper``, ``bwd_dkv_mla_hopper``,
+``mla_dkv_reduce``), hold each MLA-route entry to its plain version at a
+few shapes (fp32, bf16 and fp16; Dk != Dv; a padded pair; G up to 16; KV
+2; windows and ragged ends; two backward calls bitwise equal), then time
+the three at DeepSeek-V2-Lite's training shape (B 2, S 1024, 16 heads
+over 1, Dk 576, Dv 512, bf16) with CUDA events over 5 calls, the L2
+cache left warm (``chip_smoke.py`` phase 11 times them from a CUDA graph
+with the L2 flushed).
 
     PYTHONPATH=src python -m repro_torch.kernels.mla_probe
 
@@ -32,9 +35,13 @@ def build_report():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-        if entry and re.search(r"(fwd|bwd_dq|bwd_dkv)_kernel", entry) and (
+        if entry and re.search(r"(fwd|bwd_dq|bwd_dkv)_kernel|mla_hopper|"
+                               r"mla_dkv_reduce", entry) and (
                 "registers" in line or "spill" in line):
             print(entry[:60], line.strip())
+
+
+FAILED = []
 
 
 def check(dtype, B, S, H, KV, Dk, Dv, win=0, off=0, seed=0):
@@ -62,6 +69,15 @@ def check(dtype, B, S, H, KV, Dk, Dv, win=0, off=0, seed=0):
           (out.float() - want.float()).abs().max().item(), "lse",
           (lse - want_lse).abs().max().item(), "dq", rel(dq, wq), "dk",
           rel(dk, wk), "dv", rel(dv, wv), dict(K.LAUNCHES))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    if not max(rel(dq, wq), rel(dk, wk), rel(dv, wv)) <= tol:
+        FAILED.append(f"backward off its plain version at {dtype} "
+                      f"{(B, S, H, KV, Dk, Dv, win)}")
+    again = (fa.flash_attention_dq(q, k, v, lse, do, di, **kw),
+             *fa.flash_attention_dkv(q, k, v, lse, do, di, **kw))
+    if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+        FAILED.append(f"two backward calls differ at {dtype} "
+                      f"{(B, S, H, KV, Dk, Dv, win)}")
     return q, k, v, do, qo, sc, lse, di
 
 
@@ -75,6 +91,12 @@ def main():
     check(torch.bfloat16, 2, 100, 4, 1, 80, 64, 0, [0, 5])
     check(torch.bfloat16, 2, 100, 8, 2, 80, 64, 7)
     check(torch.bfloat16, 1, 100, 8, 2, 192, 192)
+    check(torch.float16, 2, 100, 4, 1, 80, 64, 0, [0, 5])
+    check(torch.bfloat16, 1, 77, 8, 2, 80, 64, 7, [3])      # KV 2, ragged
+    check(torch.bfloat16, 1, 200, 16, 1, 576, 512)
+    check(torch.float16, 2, 129, 16, 1, 576, 512, 50, [0, 9])
+    check(torch.bfloat16, 1, 100, 12, 4, 300, 200, 0, [5])  # G 3, padded
+    check(torch.bfloat16, 2, 1000, 16, 1, 576, 512, 300)
     check(torch.float32, 1, 200, 16, 1, 576, 512)
     q, k, v, do, qo, sc, lse, di = check(torch.bfloat16, 2, 1024, 16, 1,
                                          576, 512)
@@ -95,6 +117,8 @@ def main():
         e.record()
         e.synchronize()
         print(name, "ms", s.elapsed_time(e) / 5)
+    if FAILED:
+        raise SystemExit("mla_probe: FAILED: " + "; ".join(FAILED))
 
 
 if __name__ == "__main__":

@@ -128,6 +128,24 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, q_off, window: int,
     return dq, dk, dv
 
 
+def mla_dkv_reduce_ref(part_k, part_v, n_live, dtype):
+    """The sum of the tensor-core dk/dv's chunk partials: part_k (n, B,
+    Sk, KV, Dk) and part_v (n, B, Sk, KV, Dv) fp32, n_live (B, Sk) the
+    live chunks of each key (chunks 0 .. n_live - 1; the others are never
+    read, whatever they hold). Summed from 0 in chunk order, as the
+    kernel sums, and cast to ``dtype``: (dk, dv)."""
+    live = (torch.arange(part_k.shape[0], device=part_k.device)[:, None, None]
+            < n_live.to(part_k.device)[None])
+    out = []
+    for part in (part_k, part_v):
+        acc = torch.zeros(part.shape[1:], dtype=torch.float32,
+                          device=part.device)
+        for c in range(part.shape[0]):
+            acc = acc + torch.where(live[c, :, :, None, None], part[c], 0.0)
+        out.append(acc.to(dtype))
+    return tuple(out)
+
+
 def decode_partials_ref(q, k, v, pos, window: int, sm_scale: float,
                         block_k: int):
     """Split-KV partials of one-token decode over contiguous lanes.

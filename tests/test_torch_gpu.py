@@ -91,6 +91,16 @@ def test_flash_attention_kernel(dev, dtype, shape):
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 1e-2}
 
 
+def _mla_launches(dtype):
+    """The launches of one MLA-route forward, dq and dk/dv call: in bf16
+    and fp16 the tensor-core dk/dv's reduction too."""
+    out = {"flash_attention_mla": 1, "flash_attention_mla_dq": 1,
+           "flash_attention_mla_dkv": 1}
+    if dtype != torch.float32:
+        out["flash_attention_mla_dkv_reduce"] = 1
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("shape", [
@@ -489,9 +499,7 @@ def test_unsupported_head_dim_is_refused_by_name(dev, D):
             assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
         if D > 128:
             torch.cuda.synchronize()
-            assert K.LAUNCHES == {"flash_attention_mla": 1,
-                                  "flash_attention_mla_dq": 1,
-                                  "flash_attention_mla_dkv": 1}
+            assert K.LAUNCHES == _mla_launches(dtype)
             continue
         ps, NP = 16, 8
         pos = torch.tensor([5, 127], dtype=torch.int32, device=dev)
@@ -527,8 +535,10 @@ def test_unsupported_head_dim_is_refused_by_name(dev, D):
 ])
 def test_mla_route_kernels(dev, dtype, shape):
     """The MLA-route forward (out, lse), dq and dk/dv against their plain
-    versions, each launched once; two backward calls bitwise equal (no
-    atomics)."""
+    versions, each launched once (bf16/fp16: dq and dk/dv on the tensor
+    cores, dk/dv's reduction launched once too); two backward calls
+    bitwise equal (no atomics; the chunks' partials summed in a fixed
+    order)."""
     B, S, H, KV, Dk, Dv, win, off = shape
     g = torch.Generator(device=dev).manual_seed(S + Dk)
     q, k = _rn(g, dev, dtype, B, S, H, Dk), _rn(g, dev, dtype, B, S, KV, Dk)
@@ -551,12 +561,56 @@ def test_mla_route_kernels(dev, dtype, shape):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"flash_attention_mla": 1,
-                          "flash_attention_mla_dq": 1,
-                          "flash_attention_mla_dkv": 1}
+    assert K.LAUNCHES == _mla_launches(dtype)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=q_off,
                                    window=win, sm_scale=scale)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("window,off", [(0, (0, 0)), (40, (0, 37))])
+def test_mla_dkv_reduce_reads_only_live_chunks(dev, window, off):
+    """The dk/dv reduction alone, on partials whose dead chunks hold NaN
+    (a dead chunk is never written): equal to its plain version bit for
+    bit (both sum the live chunks from 0 in chunk order), one launch."""
+    B, S, H, KV, Dk, Dv = 2, 300, 16, 1, 576, 512
+    q_off = fa._positions(list(off), B, dev)
+    bq = fa.MLA_DKV_ROWS // (H // KV)
+    nq, rows, chunk = -(-S // bq), B * S * KV, 3
+    n = -(-nq // chunk)
+    n_live = torch.tensor(
+        [[-(-fa.mla_dkv_live(key // fa.MLA_DKV_KEYS, o, window, nq, bq)[1]
+            // chunk)
+          for key in range(S)] for o in off], device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    part = torch.randn(n, rows * (Dk + Dv), generator=g, device=dev)
+    part_k = part[:, :rows * Dk].view(n, B, S, KV, Dk)
+    part_v = part[:, rows * Dk:].view(n, B, S, KV, Dv)
+    dead = torch.arange(n, device=dev)[:, None, None] >= n_live[None]
+    for t in (part_k, part_v):
+        t.masked_fill_(dead[..., None, None], float("nan"))
+    K.reset_launches()
+    got = fa.mla_dkv_reduce(part.reshape(-1), q_off, B=B, Sq=S, Sk=S, H=H,
+                            KV=KV, Dk=Dk, Dv=Dv, window=window, chunk=chunk,
+                            dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_attention_mla_dkv_reduce": 1}
+    want = ref.mla_dkv_reduce_ref(part_k, part_v, n_live, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.isfinite(a.float()).all() for a in got)
+
+
+def test_mla_tensor_core_backward_sass(dev):
+    """The built dq, dk/dv (bf16, fp16) hold wgmma products (HGMMA) and TMA
+    loads (UTMALDG), and no kernel of the MLA backward on the tensor
+    cores (the reduction included) holds an atomic."""
+    K.build_all(("flash_attention",))
+    ops = K.sass_ops("flash_attention",
+                     r"bwd_dq_mla_hopper|bwd_dkv_mla_hopper|mla_dkv_reduce")
+    products = [n for n in ops if "mla_hopper" in n]
+    assert len(ops) == 6 and len(products) == 4, sorted(ops)
+    assert all(ops[n]["HGMMA"] > 0 and ops[n]["UTMALDG"] > 0
+               for n in products), ops
+    assert all(o["atomics"] == 0 for o in ops.values()), ops
 
 
 def test_mla_forward_and_decoder_on_the_card(dev):
