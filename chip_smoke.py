@@ -2809,9 +2809,8 @@ MOE_GRAD_TOL = 0.25   # the routed experts' and the router's gradients,
 def mla_build_report(K):
     """Registers and spills (``ptxas -v``) of the CUDA-core forward, dq and
     dk/dv (fp32 at D 32, 64, 128 and on the MLA route's (96, 64) and (576,
-    512); the MLA forward also in bf16 and fp16). Fails unless the five
-    (576, 512) ones (the forward in three types, fp32 dq and dk/dv) are in
-    the log."""
+    512)). Fails unless the three fp32 (576, 512) ones are in the log and
+    no bf16/fp16 one is."""
     out = {}
     pat = r"(?:fwd|bwd_dq|bwd_dkv)_kernel"
     for name, r in _ptxas(K.build_log("flash_attention"), pat):
@@ -2821,46 +2820,50 @@ def mla_build_report(K):
     print(f"flash CUDA-core kernels, ptxas ({len(out)} kernels): "
           + json.dumps(out))
     wide = [n for n in out if n.endswith("576, 512>")]
-    if len(wide) != 5:
-        _fail(f"expected 5 (576, 512) CUDA-core MLA-route kernels in the "
-              f"build log, found {wide}")
+    if len(wide) != 3 or any("<fp32, " not in n for n in out):
+        _fail(f"expected fp32 CUDA-core kernels alone, 3 of them at (576, "
+              f"512), in the build log; found {sorted(out)}")
     return out
 
 
-MLA_TC = re.compile(r"bwd_dq_mla_hopper|bwd_dkv_mla_hopper|mla_dkv_reduce")
-MLA_TC_KERNELS = 6   # dq, dk/dv and the reduction x bf16, fp16 at (576, 512)
+MLA_TC = re.compile(r"fwd_mla_hopper|bwd_dq_mla_hopper|bwd_dkv_mla_hopper|"
+                    r"mla_dkv_reduce")
+MLA_TC_KERNELS = 8   # forward, dq, dk/dv and the reduction x bf16, fp16 at
+                     # (576, 512)
 
 
 def _mla_label(mangled: str) -> str:
-    """``bwd_dq_mla_hopper<bf16, 576, 512>`` from a mangled kernel name."""
+    """``fwd_mla_hopper<bf16, 576, 512>`` from a mangled kernel name."""
     ints = re.findall(r"Li(\d+)E", mangled)
     return (f"{MLA_TC.search(mangled).group(0)}<"
             f"{', '.join([_dtype_label(mangled)] + ints)}>")
 
 
 def mla_tc_build_report(K):
-    """The MLA route's bf16/fp16 backward as built: registers and spills
-    (``ptxas -v``) of dq, dk/dv and the reduction, and in their SASS the
-    wgmma products (HGMMA), TMA loads (UTMALDG) and atomics. Fails unless
-    the six are built, dq and dk/dv hold HGMMA, none holds an atomic and
-    none spills."""
+    """The MLA route's bf16/fp16 kernels as built: registers and spills
+    (``ptxas -v``) of the forward, dq, dk/dv and the reduction, and in
+    their SASS the wgmma products (HGMMA), TMA loads (UTMALDG) and
+    atomics. Fails unless the eight are built, the forward, dq and dk/dv
+    hold HGMMA and UTMALDG, none holds an atomic and none spills."""
     regs = {_mla_label(n): r for n, r in _ptxas(
         K.build_log("flash_attention"), MLA_TC.pattern)}
     ops = {_mla_label(n): c for n, c in K.sass_ops(
         "flash_attention", MLA_TC.pattern).items()}
-    print("MLA tensor-core backward, ptxas: " + json.dumps(regs))
-    print("MLA tensor-core backward, SASS instructions: " + json.dumps(ops))
+    print("MLA tensor-core kernels, ptxas: " + json.dumps(regs))
+    print("MLA tensor-core kernels, SASS instructions: " + json.dumps(ops))
     products = [n for n in ops if "hopper" in n]
     if len(regs) != MLA_TC_KERNELS or sorted(ops) != sorted(regs) \
-            or len(products) != 4 \
-            or not all(ops[n]["HGMMA"] > 0 for n in products) \
+            or len(products) != 6 \
+            or not all(ops[n]["HGMMA"] > 0 and ops[n]["UTMALDG"] > 0
+                       for n in products) \
             or any(o["atomics"] for o in ops.values()):
-        _fail(f"the {MLA_TC_KERNELS} MLA tensor-core backward kernels must be "
-              f"built, dq and dk/dv with wgmma, none with atomics")
+        _fail(f"the {MLA_TC_KERNELS} MLA tensor-core kernels must be built, "
+              f"the forward, dq and dk/dv with wgmma and TMA, none with "
+              f"atomics")
     spills = {n: r for n, r in regs.items()
               if r["spill_stores"] + r["spill_loads"] > 0}
     if spills:
-        _fail(f"the MLA tensor-core backward spills: {spills}")
+        _fail(f"the MLA tensor-core kernels spill: {spills}")
     return regs, ops
 
 
@@ -2969,8 +2972,9 @@ def _mla_reduce_inputs(torch, fa, chunk, n_chunks, dev):
 
 def mla_kernel_phase(torch, ref, fa, flush, dev="cuda"):
     """(a) The MLA-route kernels against their plain versions at the MLA
-    shape in bf16 and fp16 (two backward calls bitwise equal: no atomics),
-    in fp32 at a smaller shape (the CUDA-core backward), and at a ragged S
+    shape in bf16 and fp16 (two forward and two backward calls bitwise
+    equal: no atomics), in fp32 at a smaller shape (the CUDA-core
+    kernels), and at a ragged S
     with a window in bf16 and fp16; the tensor-core dk/dv's reduction
     alone, bit for bit, on partials whose dead chunks hold NaN; each
     timed from a CUDA graph with the L2 flushed, beside its bound, its
@@ -2986,15 +2990,19 @@ def mla_kernel_phase(torch, ref, fa, flush, dev="cuda"):
         _check_mla(torch, ref, fa, dtype, (2, 1000, H, KV, Dk, Dv),
                    window=300, seed=seed, dev=dev)
     for cc in (c, c16):
+        fwd = fa.flash_attention(cc["q"], cc["k"], cc["v"], q_off=cc["qo"],
+                                 sm_scale=cc["scale"], return_lse=True)
         again = fa.flash_attention_bwd(cc["q"], cc["k"], cc["v"], cc["out"],
                                        cc["lse"], cc["do"], q_off=cc["qo"],
                                        sm_scale=cc["scale"])
+        same_f = torch.equal(fwd[0], cc["out"]) and torch.equal(fwd[1],
+                                                                 cc["lse"])
         same = all(torch.equal(a, b) for a, b in zip(cc["got"], again))
-        print(f"MLA backward {MLA_SHAPE} {str(cc['q'].dtype)[6:]}, two calls "
-              f"bitwise equal: {same}")
-        if not same:
-            _fail("two MLA backward calls differ")
-    del c16, again
+        print(f"MLA {MLA_SHAPE} {str(cc['q'].dtype)[6:]}, two calls bitwise "
+              f"equal: forward {same_f}, backward {same}")
+        if not (same_f and same):
+            _fail("two MLA forward or backward calls differ")
+    del c16, fwd, again
     q, k, v, do, out, lse, qo, scale = (c[n] for n in (
         "q", "k", "v", "do", "out", "lse", "qo", "scale"))
     chunk, n_chunks = fa.mla_dkv_plan(B, S, S, H, KV, _sms(torch, dev))
@@ -3062,16 +3070,18 @@ def mla_kernel_phase(torch, ref, fa, flush, dev="cuda"):
             replaces=f"src/repro/kernels/flash_attention.py:{line}", err=e,
             ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
             plain_ms=_median_ms(plain, flush=flush), library_ms=lib,
-            bound=_bound(nbytes, flops, flop_s),
-            bound_fp32_ms=_bound(nbytes, flops, FP32_FLOP_S)[0])
+            bound=_bound(nbytes, flops, flop_s))
         if outs is not None:
             row["rel_err"] = max(c["errs"][o] for o in outs)
         rows.append(row)
-    keys = ("err", "ms", "plain_ms", "library_ms", "bound", "bound_fp32_ms")
+    keys = ("err", "ms", "plain_ms", "library_ms", "bound")
     print(f"MLA kernels at {MLA_SHAPE} bf16 (bound: bf16 tensor-core peak, "
-          f"the reduction's fp32; bound_fp32_ms: the CUDA cores' fp32 peak, "
-          f"the forward's route): " + json.dumps(
+          f"the reduction's fp32): " + json.dumps(
               {r["name"]: {k_: r[k_] for k_ in keys} for r in rows}))
+    fwd = rows[0]
+    print(f"MLA forward at {MLA_SHAPE} bf16: {fwd['ms']} ms, "
+          f"{100 * fwd['bound'][0] / fwd['ms']:.1f} % of its bound "
+          f"{fwd['bound'][0]} ms; SDPA's forward {sdpa_fwd} ms")
     bwd_ms = rows[1]["ms"] + rows[2]["ms"]
     print(f"MLA backward at {MLA_SHAPE} bf16: dq + dk/dv {bwd_ms} ms "
           f"(of the bound {rows[1]['bound'][0] + rows[2]['bound'][0]} ms); "

@@ -41,10 +41,10 @@
 // two 64-value panels, see Tile); the Python wrappers zero-pad any other
 // head dim up to 128 to the next of them. The MLA absorbed layout (Dk !=
 // Dv, KV = 1) and head dims above 128 take the MLA route (flash_mla_*):
-// the CUDA-core forward in every dtype and the CUDA-core dq and dk/dv in
-// fp32, built at (Dk, Dv) = (96, 64) and (576, 512), others zero-padded up
-// to one of them; the bf16/fp16 dq and dk/dv on the tensor cores
-// (bwd_dq_mla_hopper, bwd_dkv_mla_hopper + mla_dkv_reduce), built at (576,
+// the CUDA-core forward, dq and dk/dv in fp32, built at (Dk, Dv) = (96,
+// 64) and (576, 512), others zero-padded up to one of them; in bf16/fp16
+// the forward, dq and dk/dv on the tensor cores (fwd_mla_hopper,
+// bwd_dq_mla_hopper, bwd_dkv_mla_hopper + mla_dkv_reduce), built at (576,
 // 512) alone, every pair zero-padded up to it. GQA group size G = H / KV:
 // up to 64 on the D <= 128 tensor-core kernels (a 64-row tile holds 64 / G
 // queries), up to 16 on the CUDA-core kernels, the MLA route and the
@@ -107,8 +107,8 @@ __device__ __forceinline__ bool window_keep(int qpos, int kpos, int win) {
 // - fp32 at DK = DV in {32, 64, 128}: the bf16/fp16 inputs of those dims
 //   take the tensor-core kernels below (fwd_hopper, bwd_*_hopper);
 // - the MLA absorbed layout and every head dim above 128 (mla_entry): DK
-//   != DV or DK > 128: the forward in all three types, dq and dk/dv in
-//   fp32 (bf16/fp16 take bwd_dq_mla_hopper / bwd_dkv_mla_hopper below).
+//   != DV or DK > 128, in fp32 (bf16/fp16 take fwd_mla_hopper,
+//   bwd_dq_mla_hopper and bwd_dkv_mla_hopper below).
 //   DeepSeek-V2's absorbed attention is one KV head (the 512-value latent
 //   plus the 64-value rope key, DK 576) whose values are the latent alone
 //   (DV 512), under G = 16 query heads
@@ -134,9 +134,9 @@ __device__ __forceinline__ bool window_keep(int qpos, int kpos, int win) {
 // fp32 accumulators a lane) over q tiles of 16 rows, where the fp32 head
 // dims keep 4 warps of 8 keys over 32 rows. No atomics: dk/dv are summed
 // over the G heads and all q tiles in one block's registers, so two calls
-// agree bit for bit. The MLA forward on the tensor cores (wgmma on 64-row
-// tiles of the 576-wide scores, the latent K tile shared by K and V) is
-// later work; its backward there is bwd_*_mla_hopper.
+// agree bit for bit. On the MLA route these run fp32 alone, the path of
+// the finite-difference and equivalence checks; bf16/fp16 training there
+// runs fwd_mla_hopper and bwd_*_mla_hopper.
 // ---------------------------------------------------------------------------
 
 constexpr int FWD_THREADS = 128;           // 4 warps
@@ -1762,6 +1762,271 @@ mla_dkv_reduce(const float* __restrict__ part, T* __restrict__ dk, T* __restrict
 }
 
 // ---------------------------------------------------------------------------
+// the MLA route's forward on the tensor cores (bf16 / fp16)
+// ---------------------------------------------------------------------------
+//
+// Replaces _fwd_kernel (src/repro/kernels/flash_attention.py) in the MLA
+// absorbed layout (q (B, S, H, 576), k = latent || rope key (B, S, KV, 576),
+// v = the latent (B, S, KV, 512), G = H / KV <= 16 heads folded into the
+// rows of a q tile). Bound by operations at the MLA shape (B 2, S 1024, 16
+// heads over 1): 2 (DK + DV) FLOPs a live (row, key) pair against a few
+// bytes of input a row and key.
+//
+// It is mla_bwd_tiles' dq (MODE 0) with no dO tile and no dP product, P in
+// place of dS, an online softmax, and O += P V in place of dQ += dS K:
+// - A block owns one q tile of 64 rows (64 / G queries x G heads; the
+//   spare rows of G not dividing 64 are zeroed once and never stored), Q
+//   resident in 9 panels of 64 values (73,728 bytes), and walks its live
+//   key tiles of 32 keys, the last q tiles (most keys) first. K (9 panels,
+//   36,864 bytes) and V (8, 32,768) stream by TMA through a ring of
+//   MF_STAGES = 2 stages on mbarriers, so the next tile's loads run under
+//   this tile's products. With X and the exchange: 222,744 bytes, one
+//   block an SM.
+// - Two warpgroups. Each scores 16 of the tile's 32 keys over all 576
+//   columns (m64n16k16 from shared memory, as dq does) and owns 4 of the
+//   output's 8 column panels (64 x 256 fp32: 128 registers a thread; one
+//   warpgroup with all 8 would need 256). A row's tile maximum crosses
+//   the warpgroups once a tile through shared memory, so both take the
+//   same m_next and alpha; each writes its half of P, rounded to v's
+//   dtype, into one swizzled [64][32] tile X (as dq writes dS), and after
+//   a barrier adds X V (V read transposed, m64n64k16 a panel) into its 4
+//   panels. Each keeps l over its own 16 keys of every tile; the two are
+//   added once at the end, before the divide and the lse.
+// Scoring all 32 keys in each warpgroup instead (m64n32, P as the register
+// A operand, no X and no exchange) would cost 2 DK + DV FLOPs a pair
+// where this costs DK + DV: 1.53x at (576, 512). Two variants were timed
+// beside this one on an H100: issuing the next tile's scores before this
+// tile's softmax was slower (ptxas serializes the in-flight accumulators
+// with injected waits); taking V's panels from the K tile (V is K's
+// first 512 columns in this layout) with a third stage in the freed
+// space was faster by a few percent, but needs v passed as a view of k
+// and a second kernel for the unaliased case, so it is left for later.
+//
+// Numerics as fwd_hopper: p = 2^(s sm_scale log2 e - m log2 e), masked p
+// zeroed explicitly, P rounded to v's dtype while l sums the unrounded p,
+// fp32 sums, l clamped at 1e-30, lse = m + log l (NEG_INF where a row sees
+// no key). The element mask runs only on tiles that cross the diagonal,
+// the window edge or a ragged end of the keys. No atomics: two calls agree
+// bit for bit.
+
+constexpr int MF_STAGES = 2;
+
+template <int DK, int DV> struct MlaFwd {
+  static_assert(DK % 64 == 0 && DV % 64 == 0 && DV % 128 == 0,
+                "head dims in panels of 64 values, DV's split over two warpgroups");
+  static constexpr int PK = DK / 64, PV = DV / 64;
+  static constexpr int KB = PK * MB_PANEL_B, VB = PV * MB_PANEL_B;  // a stage's K, V
+  static constexpr int Q = 0;
+  static constexpr int K = Q + PK * MB_PANEL_A;     // MF_STAGES K tiles
+  static constexpr int V = K + MF_STAGES * KB;      // MF_STAGES V tiles
+  static constexpr int X = V + MF_STAGES * VB;      // P: [64][64], 32 used
+  static constexpr int RED = X + HB_M * 128;        // [2][64] fp32: tile maxima, then l
+  static constexpr int BARS = RED + 2 * HB_M * 4;   // q, then one a stage
+  static constexpr int SMEM = BARS + (1 + MF_STAGES) * 8 + 1024;  // + 1024-byte alignment
+};
+
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(MB_THREADS, 1)
+fwd_mla_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
+               float* __restrict__ lse, const int* __restrict__ q_off, int B, int Sq, int Sk,
+               int H, int KV, int win, float sm_scale) {
+  using L = MlaFwd<DK, DV>;
+  constexpr int ST = MF_STAGES, NPW = L::PV / 2;  // output panels a warpgroup
+  const int G = H / KV, block_q = HB_M / G, rows = block_q * G;
+  const int nq = (Sq + block_q - 1) / block_q, nk = (Sk + MB_N - 1) / MB_N;
+  // heaviest first: the last q tile sees the most key tiles
+  const int pairs = KV * B;
+  const int i = nq - 1 - (int)blockIdx.x / pairs;
+  const int h = (int)blockIdx.x % pairs % KV, b = (int)blockIdx.x % pairs / KV;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int m0 = 16 * (tid / 32 % 4) + lane / 4;  // this thread's rows m0, m0 + 8
+  const int qoff = q_off[b];
+  const int first_q = qoff + i * block_q, last_q = qoff + min((i + 1) * block_q, Sq) - 1;
+  // live key tiles of 32 keys [j_lo, j_lo + n_tiles): causal below, window above
+  const int j_lo = win > 0 ? max(0, floor_div(first_q - win + 1, MB_N)) : 0;
+  const int j_hi = last_q < 0 ? -1 : min(nk - 1, last_q / MB_N);
+  const int n_tiles = max(0, j_hi - j_lo + 1);
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  float* red = reinterpret_cast<float*>(sm + L::RED);
+  const uint32_t a_q = smem_u32(sm + L::Q), a_k = smem_u32(sm + L::K),
+                 a_v = smem_u32(sm + L::V), x = smem_u32(sm + L::X),
+                 bar_q = smem_u32(sm + L::BARS), bar_kv = bar_q + 8;
+
+  if (rows < HB_M) {  // spare rows stay zero: the q box covers `rows` rows
+    for (int e = tid; e < L::K / 16; e += MB_THREADS)
+      reinterpret_cast<uint4*>(sm + L::Q)[e] = make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_kv = [&](int t) {
+    const int s = t % ST;
+    const uint32_t bar = bar_kv + 8 * s;
+    mbar_expect_tx(bar, MB_N * (DK + DV) * 2);
+    tma_panels(a_k + s * L::KB, &tm_k, bar, L::PK, MB_PANEL_B, h, (j_lo + t) * MB_N, b);
+    tma_panels(a_v + s * L::VB, &tm_v, bar, L::PV, MB_PANEL_B, h, (j_lo + t) * MB_N, b);
+  };
+  if (tid == 0) {
+    mbar_init(bar_q);
+    for (int s = 0; s < ST; ++s) mbar_init(bar_kv + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_tiles > 0) {
+      mbar_expect_tx(bar_q, rows * DK * 2);
+      tma_panels(a_q, &tm_q, bar_q, L::PK, MB_PANEL_A, h * G, i * block_q, b);
+      for (int t = 0; t < ST && t < n_tiles; ++t) load_kv(t);
+    }
+  }
+  __syncthreads();
+
+  // this thread's rows m0 and m0 + 8: their positions, the running max
+  // (log2 units; the same in both warpgroups) and this warpgroup's sum
+  int qpos[2];
+  float m2[2], l[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    qpos[u] = qoff + i * block_q + (m0 + 8 * u) / G;
+    m2[u] = NEG_INF;
+    l[u] = 0.f;
+  }
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc[NPW][32];
+#pragma unroll
+  for (int pp = 0; pp < NPW; ++pp) zero(acc[pp]);
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % ST, k0 = (j_lo + t) * MB_N;
+    const uint32_t ks = a_k + s * L::KB, vs = a_v + s * L::VB;
+    mbar_wait(bar_kv + 8 * s, (t / ST) & 1);
+    // S of this warpgroup's 16 keys, k0 + 16 wg ..
+    float sc[8];
+    zero(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss_n16(sc, mla_desc_k(a_q, MB_PANEL_A, kk),
+                   mla_desc_k(ks + 16 * wg * 128, MB_PANEL_B, kk), T());
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+
+    // element c of the m64n16 accumulator: row m0 + 8 ((c >> 1) & 1), key
+    // k0 + 16 wg + 8 (c >> 2) + 2 (lane & 3) + (c & 1); the element mask
+    // only where the tile crosses the diagonal, the window edge or the
+    // ragged end of the keys
+    const bool edge = k0 + MB_N > Sk || k0 + MB_N - 1 > first_q ||
+                      (win > 0 && last_q - k0 >= win);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int u = (c >> 1) & 1;
+      float xv = sc[c] * scale2;
+      if (edge) {
+        const int kpos = k0 + 16 * wg + 8 * (c >> 2) + 2 * (lane & 3) + (c & 1);
+        const bool keep = kpos <= qpos[u] && kpos < Sk && window_keep(qpos[u], kpos, win);
+        xv = keep ? xv : NEG_INF;
+      }
+      sc[c] = xv;
+      mx[u] = fmaxf(mx[u], xv);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+      if ((lane & 3) == 0) red[wg * HB_M + m0 + 8 * u] = mx[u];
+    }
+    __syncthreads();  // both warpgroups' tile maxima
+    float alpha[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int m = m0 + 8 * u;
+      const float m_next = fmaxf(m2[u], fmaxf(red[m], red[HB_M + m]));
+      alpha[u] = ex2(m2[u] - m_next);
+      m2[u] = m_next;
+      l[u] *= alpha[u];
+    }
+    // P into X[m][16 wg + n], rounded to T; X rows are 128 bytes, 16-byte
+    // chunk q of row m at chunk q ^ (m & 7) (TMA's 128-byte swizzle)
+#pragma unroll
+    for (int c = 0; c < 8; c += 2) {
+      const int u = (c >> 1) & 1, m = m0 + 8 * u, n = 8 * (c >> 2) + 2 * (lane & 3);
+      float p2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // explicit zeroing: while every key so far is masked m2 is still
+        // NEG_INF and 2^(x - m2) would be 1, not 0
+        float p = ex2(sc[c + e] - m2[u]);
+        if (edge && sc[c + e] == NEG_INF) p = 0.f;
+        l[u] += p;
+        p2[e] = p;
+      }
+      const int byte = (16 * wg + n) * 2;
+      *reinterpret_cast<uint32_t*>(sm + L::X + m * 128 + (((byte >> 4) ^ (m & 7)) << 4) +
+                                   (byte & 15)) = pack2<T>(p2[0], p2[1]);
+    }
+#pragma unroll
+    for (int pp = 0; pp < NPW; ++pp)
+#pragma unroll
+      for (int c = 0; c < 32; ++c) acc[pp][c] *= alpha[(c >> 1) & 1];
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // X whole
+    // O[:, this warpgroup's panels] += X (64 x 32) V (each panel read
+    // transposed: the keys are the contraction)
+    wg_fence();
+#pragma unroll
+    for (int pp = 0; pp < NPW; ++pp)
+#pragma unroll
+      for (int kk = 0; kk < MB_N / 16; ++kk)
+        wgmma_ss_tb(acc[pp], gmma_desc<64>(x + kk * 32, 16),
+                    mla_desc_t(vs + (wg * NPW + pp) * MB_PANEL_B, kk), T());
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int pp = 0; pp < NPW; ++pp) fence_regs(acc[pp]);
+    __syncthreads();  // every warpgroup done with X and stage s
+    if (tid == 0 && t + ST < n_tiles) load_kv(t + ST);
+  }
+
+  // l of the two warpgroups' keys, added in one order in both
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    if ((lane & 3) == 0) red[wg * HB_M + m0 + 8 * u] = l[u];
+  }
+  __syncthreads();
+  float lc[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+    lc[u] = fmaxf(red[m0 + 8 * u] + red[HB_M + m0 + 8 * u], 1e-30f);
+  // accumulator element c of panel p: row m0 + 8 ((c >> 1) & 1), column
+  // 64 p + 8 (c >> 2) + 2 (lane & 3) + (c & 1)
+#pragma unroll
+  for (int pp = 0; pp < NPW; ++pp) {
+    const int p = wg * NPW + pp;
+#pragma unroll
+    for (int c = 0; c < 32; c += 2) {
+      const int u = (c >> 1) & 1, m = m0 + 8 * u, qi = i * block_q + m / G;
+      if (m >= rows || qi >= Sq) continue;
+      const size_t row = ((size_t)b * Sq + qi) * H + h * G + m % G;
+      *reinterpret_cast<uint32_t*>(out + row * DV + 64 * p + 8 * (c >> 2) + 2 * (lane & 3)) =
+          pack2<T>(acc[pp][c] / lc[u], acc[pp][c + 1] / lc[u]);
+    }
+  }
+  if (lse != nullptr && wg == 0 && (lane & 3) == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int m = m0 + 8 * u, qi = i * block_q + m / G;
+      if (m >= rows || qi >= Sq) continue;
+      const size_t row = ((size_t)b * Sq + qi) * H + h * G + m % G;
+      lse[row] = (m2[u] == NEG_INF ? NEG_INF : m2[u] * LN2) + logf(lc[u]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // split-KV decode: one block per (key chunk, kv head [x row group], slot),
 // then one combine block per (kv head, slot)
 // ---------------------------------------------------------------------------
@@ -2362,6 +2627,30 @@ cudaError_t launch_mla_dkv_reduce(const void* part, void* dk, void* dv, const vo
   return cudaGetLastError();
 }
 
+// the MLA route's forward on the tensor cores: q tiles of 64 rows, key
+// tiles of 32 keys, each in panels of 64 values
+template <typename T, int DK, int DV>
+cudaError_t launch_fwd_mla(const void* q, const void* k, const void* v, void* out, void* lse,
+                           const void* q_off, int B, int Sq, int Sk, int H, int KV, int win,
+                           float sm_scale, cudaStream_t stream) {
+  const int G = H / KV, block_q = HB_M / G;
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = panel_map<T>(&mq, q, B, Sq, H, DK, 64, G, block_q)) != cudaSuccess ||
+      (e = panel_map<T>(&mk, k, B, Sk, KV, DK, 64, 1, MB_N)) != cudaSuccess ||
+      (e = panel_map<T>(&mv, v, B, Sk, KV, DV, 64, 1, MB_N)) != cudaSuccess)
+    return e;
+  constexpr int smem = MlaFwd<DK, DV>::SMEM;
+  auto kern = fwd_mla_hopper<T, DK, DV>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int nq = (Sq + block_q - 1) / block_q;
+  kern<<<nq * KV * B, MB_THREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<T*>(out), static_cast<float*>(lse),
+      static_cast<const int*>(q_off), B, Sq, Sk, H, KV, win, sm_scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_bwd_hopper(bool dq_pass, const void* q, const void* k, const void* v,
                               const void* dout, const void* lse, const void* di, void* o1,
@@ -2489,26 +2778,28 @@ cudaError_t decode_by_dtype(int dtype, const void* q, const void* k, const void*
 }
 
 // The MLA route at a built (DK, DV) pair, in the input's type: the forward
-// on the CUDA cores in every type; the backward on the CUDA cores in fp32
-// (its 1e-5 checks are out of TF32's reach) and on the tensor cores in
-// bf16/fp16, built at (MLA_TC_DK, MLA_TC_DV) alone (the wrapper pads the
-// other pairs up to it). which: 0 forward (o1 = out, o2 = lse), 1 dq (o1),
-// 2 dk/dv (fp32: o1 = dk, o2 = dv; bf16/fp16: the partials into part), 3
-// the bf16/fp16 dk/dv reduction (part into o1 = dk, o2 = dv). Nothing falls
-// back from one route to the other.
+// and the backward on the CUDA cores in fp32 (its 1e-5 checks are out of
+// TF32's reach), on the tensor cores in bf16/fp16, built at (MLA_TC_DK,
+// MLA_TC_DV) alone (the wrapper pads the other pairs up to it). which: 0
+// forward (o1 = out, o2 = lse), 1 dq (o1), 2 dk/dv (fp32: o1 = dk, o2 =
+// dv; bf16/fp16: the partials into part), 3 the bf16/fp16 dk/dv reduction
+// (part into o1 = dk, o2 = dv). Nothing falls back from one route to the
+// other.
 template <typename T, int DK, int DV>
 cudaError_t mla_launch(int which, const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* di, void* o1, void* o2, const void* q_off,
                        int B, int Sq, int Sk, int H, int KV, int win, float sm_scale,
                        void* part, int chunk, cudaStream_t s) {
-  if (which == 0)
-    return launch_fwd<T, DK, DV>(q, k, v, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
   if constexpr (std::is_same<T, float>::value) {
+    if (which == 0)
+      return launch_fwd<T, DK, DV>(q, k, v, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
     if (which == 1)
       return launch_bwd_dq<T, DK, DV>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
     if (which == 2)
       return launch_bwd_dkv<T, DK, DV>(q, k, v, dout, lse, di, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
   } else if constexpr (DK == MLA_TC_DK && DV == MLA_TC_DV) {
+    if (which == 0)
+      return launch_fwd_mla<T, DK, DV>(q, k, v, o1, o2, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
     if (which == 1)
       return launch_bwd_dq_mla<T, DK, DV>(q, k, v, dout, lse, di, o1, q_off, B, Sq, Sk, H, KV, win, sm_scale, s);
     if (which == 2)
@@ -2625,13 +2916,13 @@ int flash_decode_combine(const void* m, const void* l, const void* acc, const vo
 }
 
 // The MLA route: q (B, Sq, H, Dk), k (B, Sk, KV, Dk), v (B, Sk, KV, Dv),
-// (Dk, Dv) one of the built pairs, (96, 64) or (576, 512); G = H/KV <= 16.
-// flash_mla_fwd (any dtype): out (B, Sq, H, Dv), lse (B, Sq, H) fp32 or
-// NULL. The backward as flash_bwd_dq/dkv with dout (B, Sq, H, Dv): dq
-// (B, Sq, H, Dk), dk (B, Sk, KV, Dk), dv (B, Sk, KV, Dv); fp32 at either
-// pair on the CUDA cores (flash_mla_bwd_dkv writes dk and dv; part NULL,
-// chunk 0), bf16/fp16 at (576, 512) on the tensor cores (16-byte aligned
-// q, k, v, dout): flash_mla_bwd_dkv writes fp32 partials of `chunk` q
+// G = H/KV <= 16; fp32 at either built pair, (96, 64) or (576, 512), on
+// the CUDA cores, bf16/fp16 at (576, 512) on the tensor cores (16-byte
+// aligned, contiguous q, k, v, dout). flash_mla_fwd: out (B, Sq, H, Dv),
+// lse (B, Sq, H) fp32 or NULL. The backward as flash_bwd_dq/dkv with dout
+// (B, Sq, H, Dv): dq (B, Sq, H, Dk), dk (B, Sk, KV, Dk), dv (B, Sk, KV,
+// Dv); in fp32 flash_mla_bwd_dkv writes dk and dv (part NULL, chunk 0), in
+// bf16/fp16 it writes fp32 partials of `chunk` q
 // tiles of 32 rows into part (n_chunks x B x Sk x KV x (Dk + Dv) floats,
 // n_chunks = ceil(ceil(Sq / (32 / G)) / chunk)) and flash_mla_dkv_reduce
 // sums them into dk and dv.

@@ -14,7 +14,8 @@ Kernels (design notes in the CUDA source):
 - ``flash_attention`` -> ``flash_fwd``, replacing
   ``repro/kernels/flash_attention.py:_fwd_kernel``: in bf16/fp16
   ``fwd_hopper`` (wgmma products, TMA-fed K/V tiles), in fp32 the
-  CUDA-core ``fwd_kernel``. Differentiable in q,
+  CUDA-core ``fwd_kernel`` (the MLA route: ``flash_mla_fwd``, below).
+  Differentiable in q,
   k and v through :class:`FlashAttention` (the counterpart of the JAX
   package's custom VJP): the forward saves (out, lse) and the backward
   runs ``flash_attention_dq`` -> ``flash_bwd_dq`` (``_dq_kernel``) and
@@ -45,16 +46,16 @@ on the tensor cores with 64-row tiles, so G <= 64; in fp32 (forward 16
 rows, dq 16, dk/dv 32) on the CUDA cores, G <= 16. The MLA absorbed
 layout (Dk != Dv: DeepSeek-V2's latent 512 + rope 64 keys over the
 512-value latent) and any head dim above 128 take the MLA route
-(:func:`mla_route`; G <= 16): ``flash_mla_fwd``, the CUDA-core
-``fwd_kernel`` in every dtype, built at the (Dk, Dv) pairs of
+(:func:`mla_route`; G <= 16): ``flash_mla_fwd``, ``flash_mla_bwd_dq``
+and ``flash_mla_bwd_dkv``, in fp32 the CUDA-core ``fwd_kernel``,
+``bwd_dq_kernel`` and ``bwd_dkv_kernel``, built at the (Dk, Dv) pairs of
 :data:`MLA_PAIRS`, any other pair up to (576, 512) zero-padded to the
-smallest that holds it (:func:`mla_pair`); ``flash_mla_bwd_dq`` /
-``flash_mla_bwd_dkv``, in fp32 the CUDA-core ``bwd_dq_kernel`` /
-``bwd_dkv_kernel`` at that pair, in bf16/fp16 the tensor-core
-``bwd_dq_mla_hopper`` / ``bwd_dkv_mla_hopper`` at :data:`MLA_TC_PAIR`,
-every pair zero-padded up to it (:func:`mla_bwd_pair`), dk/dv there as
-fp32 partials of chunks of q tiles (:func:`mla_dkv_plan`) that
-``flash_mla_dkv_reduce`` (:func:`mla_dkv_reduce`) sums. They count their
+smallest that holds it (:func:`mla_pair`); in bf16/fp16 the tensor-core
+``fwd_mla_hopper``, ``bwd_dq_mla_hopper`` and ``bwd_dkv_mla_hopper`` at
+:data:`MLA_TC_PAIR`, every pair zero-padded up to it
+(:func:`mla_kernel_pair`), dk/dv there as fp32 partials of chunks of q
+tiles (:func:`mla_dkv_plan`) that ``flash_mla_dkv_reduce``
+(:func:`mla_dkv_reduce`) sums. They count their
 launches as ``flash_attention_mla``, ``flash_attention_mla_dq``,
 ``flash_attention_mla_dkv`` and ``flash_attention_mla_dkv_reduce``.
 Above Dk 576 or Dv 512 raises ``NotImplementedError`` naming the dims.
@@ -88,14 +89,15 @@ DECODE_CHUNKS_PER_SM = 2
 MAX_GROUP_TENSOR_CORES = 64
 MAX_GROUP_FP32 = 16
 MAX_GROUP_DECODE = 16
-# (Dk, Dv) pairs the MLA-route kernels are built for (csrc mla_entry): the
-# smoke config's (80, 64) pads to the first, DeepSeek-V2-Lite's (576, 512)
-# is the second; the forward's and fp32's CUDA-core blocks hold 16 rows,
-# so G <= 16
+# (Dk, Dv) pairs the MLA route's fp32 kernels are built for (csrc
+# mla_entry): the smoke config's (80, 64) pads to the first,
+# DeepSeek-V2-Lite's (576, 512) is the second; their CUDA-core blocks hold
+# 16 rows, and the route takes G <= 16 in every dtype
 MLA_PAIRS = ((96, 64), (576, 512))
 MAX_GROUP_MLA = 16
-# the one pair of the MLA route's bf16/fp16 backward on the tensor cores
-# (csrc MLA_TC_DK / MLA_TC_DV); every bf16/fp16 pair pads up to it
+# the one pair of the MLA route's bf16/fp16 forward and backward on the
+# tensor cores (csrc MLA_TC_DK / MLA_TC_DV); every bf16/fp16 pair pads up
+# to it
 MLA_TC_PAIR = (576, 512)
 # its dk/dv blocks: 64 keys (csrc HB_M) over q tiles of 32 rows (MB_N),
 # cut into chunks of at least MLA_DKV_MIN_CHUNK q tiles (mla_dkv_plan)
@@ -138,12 +140,13 @@ def mla_pair(name: str, Dk: int, Dv: int) -> tuple[int, int]:
         f"take (Dk <= {MLA_PAIRS[-1][0]}, Dv <= {MLA_PAIRS[-1][1]})")
 
 
-def mla_bwd_pair(name: str, Dk: int, Dv: int, dtype) -> tuple[int, int]:
-    """The (Dk, Dv) the MLA-route backward computes ``(Dk, Dv)`` at: in
-    fp32 the CUDA-core ``bwd_dq_kernel`` / ``bwd_dkv_kernel`` at
-    :func:`mla_pair`'s pair; in bf16/fp16 the tensor-core
-    ``bwd_dq_mla_hopper`` / ``bwd_dkv_mla_hopper`` (+ ``mla_dkv_reduce``)
-    at :data:`MLA_TC_PAIR`, zero-padded up (exact, as :func:`pad_head_dim`).
+def mla_kernel_pair(name: str, Dk: int, Dv: int, dtype) -> tuple[int, int]:
+    """The (Dk, Dv) the MLA-route kernels compute ``(Dk, Dv)`` at, the
+    forward and the backward alike: in fp32 the CUDA-core ``fwd_kernel``,
+    ``bwd_dq_kernel`` and ``bwd_dkv_kernel`` at :func:`mla_pair`'s pair;
+    in bf16/fp16 the tensor-core ``fwd_mla_hopper``, ``bwd_dq_mla_hopper``
+    and ``bwd_dkv_mla_hopper`` (+ ``mla_dkv_reduce``) at
+    :data:`MLA_TC_PAIR`, zero-padded up (exact, as :func:`pad_head_dim`).
     Beyond (576, 512) raises, naming the dims."""
     pair = mla_pair(name, Dk, Dv)
     return pair if dtype == torch.float32 else MLA_TC_PAIR
@@ -301,11 +304,14 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
 def _mla_forward(q, k, v, q_off, window: int, sm_scale: float,
                  return_lse: bool):
     """The forward on the MLA route: q/k padded to the pair's Dk, v to its
-    Dv, then ``flash_mla_fwd``."""
+    Dv (:func:`mla_kernel_pair`), then ``flash_mla_fwd``: in fp32 the
+    CUDA-core ``fwd_kernel``, in bf16/fp16 the tensor-core
+    ``fwd_mla_hopper`` (TMA-ready inputs)."""
     Dv = v.shape[-1]
-    pk, pv = mla_pair("flash_attention", q.shape[-1], Dv)
+    pk, pv = mla_kernel_pair("flash_attention", q.shape[-1], Dv, q.dtype)
     (q, k), (v,) = _pad_to(pk, q, k), _pad_to(pv, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    tc = q.dtype != torch.float32
+    q, k, v = (_tma_ready(t) if tc else t.contiguous() for t in (q, k, v))
     B, Sq, H, _ = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, pv), dtype=q.dtype, device=q.device)
@@ -326,7 +332,7 @@ def _mla_bwd(which: str, q, k, v, lse, do, di, q_off, window: int,
     """dq (``which`` "dq") or (dk, dv) ("dkv") on the MLA route: in fp32
     the CUDA-core kernels, in bf16/fp16 the tensor-core ones, dk/dv then
     in two launches (the chunks' fp32 partials into one ``torch.empty``
-    scratch, then their sum); see :func:`mla_bwd_pair`."""
+    scratch, then their sum); see :func:`mla_kernel_pair`."""
     name = f"flash_attention_{which}"
     _check_cuda(name, q, k, v)
     if do.dtype != q.dtype or do.shape[:3] != q.shape[:3] \
@@ -334,7 +340,7 @@ def _mla_bwd(which: str, q, k, v, lse, do, di, q_off, window: int,
         raise TypeError(f"{name}: do {tuple(do.shape)} {do.dtype} does not "
                         f"match q {tuple(q.shape)} / v {tuple(v.shape)}")
     Dk, Dv = q.shape[-1], v.shape[-1]
-    pk, pv = mla_bwd_pair(name, Dk, Dv, q.dtype)
+    pk, pv = mla_kernel_pair(name, Dk, Dv, q.dtype)
     tc = q.dtype != torch.float32
     (q, k), (v, do) = _pad_to(pk, q, k), _pad_to(pv, v, do)
     q, k, v, do = (_tma_ready(t) if tc else t.contiguous()

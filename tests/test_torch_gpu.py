@@ -535,10 +535,10 @@ def test_unsupported_head_dim_is_refused_by_name(dev, D):
 ])
 def test_mla_route_kernels(dev, dtype, shape):
     """The MLA-route forward (out, lse), dq and dk/dv against their plain
-    versions, each launched once (bf16/fp16: dq and dk/dv on the tensor
-    cores, dk/dv's reduction launched once too); two backward calls
-    bitwise equal (no atomics; the chunks' partials summed in a fixed
-    order)."""
+    versions, each launched once (bf16/fp16: all three on the tensor
+    cores, dk/dv's reduction launched once too); two forward and two
+    backward calls bitwise equal (no atomics; the chunks' partials summed
+    in a fixed order)."""
     B, S, H, KV, Dk, Dv, win, off = shape
     g = torch.Generator(device=dev).manual_seed(S + Dk)
     q, k = _rn(g, dev, dtype, B, S, H, Dk), _rn(g, dev, dtype, B, S, KV, Dk)
@@ -565,6 +565,42 @@ def test_mla_route_kernels(dev, dtype, shape):
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=q_off,
                                    window=win, sm_scale=scale)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    out2, lse2 = fa.flash_attention(q, k, v, q_off=q_off, window=win,
+                                    sm_scale=scale, return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [
+    # B, Sq, Sk, H, KV, Dk, Dv, window, q_off
+    (2, 1024, 1024, 16, 1, 576, 512, 0, (0, 0)),   # DeepSeek-V2-Lite's
+    (2, 1000, 1000, 16, 1, 576, 512, 300, (0, 0)),
+    (1, 200, 200, 24, 2, 576, 512, 0, (0,)),       # G 12 over KV 2: spare rows
+    (2, 100, 300, 16, 1, 576, 512, 0, (200, 150)), # Sq < Sk, q offsets
+    (2, 70, 333, 12, 1, 576, 512, 64, (263, 40)),  # G 12, a window, ragged
+    (2, 45, 130, 4, 1, 80, 64, 7, (85, 3)),        # padded, Sq < Sk
+])
+def test_mla_forward_tensor_cores(dev, dtype, shape):
+    """The MLA route's bf16/fp16 forward (``fwd_mla_hopper``) against its
+    plain version: out within 1e-2, lse within 1e-3; one launch; two calls
+    bitwise equal."""
+    B, Sq, Sk, H, KV, Dk, Dv, win, off = shape
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + Dk)
+    q, k = _rn(g, dev, dtype, B, Sq, H, Dk), _rn(g, dev, dtype, B, Sk, KV, Dk)
+    v = _rn(g, dev, dtype, B, Sk, KV, Dv)
+    q_off = fa._positions(list(off), B, dev)
+    scale = 1 / math.sqrt(Dk)
+    kw = dict(q_off=q_off, window=win, sm_scale=scale, return_lse=True)
+    K.reset_launches()
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_attention_mla": 1}
+    want, want_lse = ref.flash_attention_ref(q, k, v, q_off, win, scale, True)
+    assert out.shape == (B, Sq, H, Dv) and out.dtype == dtype
+    assert (out.float() - want.float()).abs().max() <= TOL[dtype]
+    assert (lse - want_lse).abs().max() <= 1e-3
+    out2, lse2 = fa.flash_attention(q, k, v, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("window,off", [(0, (0, 0)), (40, (0, 37))])
@@ -597,6 +633,25 @@ def test_mla_dkv_reduce_reads_only_live_chunks(dev, window, off):
     want = ref.mla_dkv_reduce_ref(part_k, part_v, n_live, torch.bfloat16)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.isfinite(a.float()).all() for a in got)
+
+
+def test_mla_tensor_core_forward_sass(dev):
+    """The built forward (bf16, fp16) holds wgmma products (HGMMA) and TMA
+    loads (UTMALDG), no atomic, and spills nothing (``ptxas -v``)."""
+    import re
+    K.build_all(("flash_attention",))
+    ops = K.sass_ops("flash_attention", r"fwd_mla_hopper")
+    assert len(ops) == 2, sorted(ops)
+    assert all(o["HGMMA"] > 0 and o["UTMALDG"] > 0 and o["atomics"] == 0
+               for o in ops.values()), ops
+    lines = K.build_log("flash_attention").splitlines()
+    seen = 0
+    for n, line in enumerate(lines):
+        if re.search(r"Compiling entry function '\w*fwd_mla_hopper", line):
+            props = " ".join(lines[n + 1:n + 4])
+            assert "0 bytes spill stores, 0 bytes spill loads" in props, props
+            seen += 1
+    assert seen == 2
 
 
 def test_mla_tensor_core_backward_sass(dev):

@@ -1,9 +1,10 @@
 #!/usr/bin/env bash
-# The MLA route's tensor-core backward in two trees on one card, in the
-# order parent, change, change, parent: at DeepSeek-V2-Lite's training
-# shape (B 2, S 1024, 16 heads over 1, Dk 576, Dv 512, bf16) dq and dk/dv
-# are held to their plain versions, then timed from a CUDA graph with the
-# L2 flushed (chip_smoke._median_ms), dk/dv with its reduction.
+# The MLA route's forward and tensor-core backward in two trees on one
+# card, in the order parent, change, change, parent: at DeepSeek-V2-Lite's
+# training shape (B 2, S 1024, 16 heads over 1, Dk 576, Dv 512, bf16) the
+# forward (out, lse), dq and dk/dv are held to their plain versions, then
+# timed from a CUDA graph with the L2 flushed (chip_smoke._median_ms),
+# dk/dv with its reduction.
 #
 #   bash tools/ab_mla_bwd.sh PARENT_DIR [CHANGE_DIR]
 #
@@ -30,6 +31,10 @@ q, k, v, do = rn(B, S, H, Dk), rn(B, S, KV, Dk), rn(B, S, KV, Dv), rn(B, S, H, D
 qo = torch.zeros(B, dtype=torch.int32, device='cuda')
 sc = 1 / math.sqrt(Dk)
 out, lse = fa.flash_attention(q, k, v, sm_scale=sc, return_lse=True)
+want_o, want_l = ref.flash_attention_ref(q, k, v, qo, 0, sc, True)
+fwd_err = [(out.float() - want_o.float()).abs().max().item(),
+           (lse - want_l).abs().max().item()]
+assert fwd_err[0] <= cs.FWD_TOL and fwd_err[1] <= 1e-3, fwd_err
 di = ref.flash_attention_di(out, do)
 kw = dict(q_off=qo, sm_scale=sc)
 got = (fa.flash_attention_dq(q, k, v, lse, do, di, **kw),
@@ -40,9 +45,11 @@ rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 assert max(rel) <= cs.BWD_TOL, rel
 l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device='cuda')
 ms = {n: cs._median_ms(f, flush=l2.zero_) for n, f in (
+    ('fwd', lambda: fa.flash_attention(q, k, v, return_lse=True, **kw)),
     ('dq', lambda: fa.flash_attention_dq(q, k, v, lse, do, di, **kw)),
     ('dkv', lambda: fa.flash_attention_dkv(q, k, v, lse, do, di, **kw)))}
-print('mla_bwd ' + json.dumps(dict(tree='$2', rel_err=rel, **ms)))
+print('mla ' + json.dumps(dict(tree='$2', fwd_err=fwd_err, rel_err=rel,
+                                **ms)))
 ")
 }
 run "$parent" parent
