@@ -223,6 +223,37 @@ and the CUDA toolkit. In order:
    (greedy) served alone must get the tokens it got beside 7 others, and
    a short ``page_size=0`` pass must finish.
 
+12. The state-space and early-fusion decoders (it runs after phase 11,
+   and frees the card back to the memory it started from; its wall time
+   is printed): (e) the split-KV decode, contiguous and paged, and its
+   combine at Hymba's decode (8 slots at positions up to 2047 over 2 K
+   lanes, 25 heads over 5, D 64, a 1024-key window, bf16) and the forward
+   at Hymba's windowed prefill chunk (128 queries at 1280), each held to
+   its plain version and timed beside SDPA and its bound (phase 3 holds
+   the sampler at Hymba's vocab of 32,001, the scalar loads, and
+   Mamba2's 50,280, at the decode's (8, 1, V) and the prefill tails'
+   (1, 32 or 128, V)); (a) full mamba2-1.3b (48 SSD blocks,
+   1,446,714,368 parameters, random bf16 weights from a seeded
+   generator) through the ``Engine`` with phase 4's traffic: 8 slots of
+   fp32 SSM state, no attention to page (the slot-granular pool),
+   chunks rounded up to the SSD chunk of 128; decode and prefill tok/s,
+   p50/p99, one decode step's host ms and device operations; only the
+   sampler launches; request 8 through a reused slot equals a fresh
+   engine's; (b) full hymba-1.5b (32 layers, 1,641,179,520 parameters)
+   the same, its attention paged in pages of 16 beside the SSM lanes,
+   no prefix cache, plus two requests of 1100-1500 prompt tokens at
+   ``max_seq`` 2048 that carry the sliding layers past their window, and
+   a contiguous pass that reaches ``flash_decode``; (c) for each, the
+   teacher-forced prefill (chunks of 128) and 4 decode steps of two
+   prompts (hymba: 256 and 1152 tokens) through the kernels in bf16 held
+   to the einsum attention (hymba) or to the same path in fp32 (mamba2,
+   no attention), each beside its distance from fp32, and a prompt
+   prefilled in chunks held to one call (fp32; bf16 printed); (d) the
+   gradient checks of hymba-1.5b at full width cut to 3 layers (1 x 1024
+   tokens after its 128 meta tokens, so layer 1's window cuts) and
+   chameleon-34b cut to 2 layers (1024 image embeddings of width 8192
+   before 512 tokens), launches equal to the prediction.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero; with no CUDA device, or outside a checkout, it
@@ -255,6 +286,13 @@ QWEN_LOGIT_TOL = 0.15  # the same through qwen1.5-4b's 40 layers: on an
                        # while each bf16 path lay 0.083 from the kernels in
                        # fp32 (the control printed beside it), so two
                        # correct bf16 paths may differ by up to ~0.17
+FP32_LOGIT_TOL = 1e-3  # teacher-forced logits, the kernels vs the plain
+                       # route both in fp32 (TF32 off), max |d| over the
+                       # largest logit: only the order of sums differs.
+                       # On an H100 80GB HBM3 at 700 W: 1.7e-6 (llama),
+                       # 2.1e-6 (qwen), 2.5e-6 (hymba), 7.3e-6 (mamba2),
+                       # while bf16 alone moves the logits 0.013-0.05 of
+                       # the largest (the control, printed beside it)
 QWEN_GRAD_LAYERS = 4  # qwen1.5-4b's gradient check: full width, depth cut
                       # from 40 to 4 layers (three models' gradients of the
                       # 151,936 x 2560 embedding and head fit beside the
@@ -528,7 +566,7 @@ LONG_POSITIONS = (0, 511, 1024, 2047, 4095, 5000, 7777, 8191)  # 8 K lanes
 
 
 def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
-                  dev="cuda", ps=16):
+                  dev="cuda", ps=16, window=0):
     """The one-token decode of len(positions) slots over lanes of S keys,
     contiguous and paged (pages of ``ps``, a random page table, the null
     page past each position), held to the plain version; paged equal to
@@ -536,7 +574,8 @@ def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
     bit. The combine kernel held to its plain version on the plain
     version's chunk partials, its dead chunks poisoned with NaN. With
     ``flush``, each kernel's time beside its plain version's, SDPA's
-    (contiguous) and its bound. Returns {kernel name: row}."""
+    (contiguous) and its bound. ``window`` > 0 limits each slot to its
+    last ``window`` keys. Returns {kernel name: row}."""
     import torch.nn.functional as F
     rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
     tol = 1e-5 if dtype == torch.float32 else DECODE_TOL
@@ -544,7 +583,8 @@ def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
     scale = 1 / math.sqrt(D)
     src = "src/repro_torch/csrc/flash_attention.cu"
     label = f"{len(positions)} slots over {S} keys, {H}/{KV} heads, D {D}, " \
-        f"{str(dtype)[6:]}, pages of {ps}"
+        f"{str(dtype)[6:]}, pages of {ps}" + (f", window {window}"
+                                              if window else "")
     B = len(positions)
     NP = S // ps
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
@@ -556,34 +596,39 @@ def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
     live = (torch.arange(NP, device=dev)[None] * ps <= pos[:, None].long())
     tables = torch.where(live, tables, 0).to(torch.int32)  # null page past pos
     lk, lv = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
-    got_c = fa.flash_decode(qd, lk, lv, pos)
-    want_c = ref.flash_decode_ref(qd, lk, lv, pos, 0, scale, 512)
+    W = dict(window=window)
+    got_c = fa.flash_decode(qd, lk, lv, pos, **W)
+    want_c = ref.flash_decode_ref(qd, lk, lv, pos, window, scale, 512)
     err_c = (got_c.float() - want_c.float()).abs().max().item()
-    got_p = fa.flash_decode_paged(qd, kp, vp, tables, pos, page_size=ps)
-    want_p = ref.flash_decode_paged_ref(qd, kp, vp, tables, pos, 0, scale, ps)
+    got_p = fa.flash_decode_paged(qd, kp, vp, tables, pos, page_size=ps, **W)
+    want_p = ref.flash_decode_paged_ref(qd, kp, vp, tables, pos, window,
+                                        scale, ps)
     err_p = (got_p.float() - want_p.float()).abs().max().item()
     if not (err_c <= tol and err_p <= tol):
         _fail(f"flash decode ({label}) vs plain: max err {err_c} / {err_p}")
-    if not torch.equal(got_p, fa.flash_decode(qd, lk, lv, pos, block_k=ps)):
+    if not torch.equal(got_p, fa.flash_decode(qd, lk, lv, pos, block_k=ps,
+                                              **W)):
         _fail(f"flash_decode_paged != flash_decode(gathered, "
               f"block_k={ps}) ({label})")
-    if not (torch.equal(got_c, fa.flash_decode(qd, lk, lv, pos)) and
+    if not (torch.equal(got_c, fa.flash_decode(qd, lk, lv, pos, **W)) and
             torch.equal(got_p, fa.flash_decode_paged(qd, kp, vp, tables, pos,
-                                                     page_size=ps))):
+                                                     page_size=ps, **W))):
         _fail(f"two flash decode calls differ ({label})")
 
     # the combine, on the chunks the contiguous call makes
     chunk, ns = fa.decode_plan(S, fa.DEFAULT_DECODE_BLOCK_K, _sms(torch, dev))
-    m, l, acc = ref.decode_partials_ref(qd, lk, lv, pos, 0, scale, chunk)
-    chunk_live = (torch.arange(ns, device=dev)[None] * chunk
-                  <= pos[:, None].long())               # (B, ns)
+    m, l, acc = ref.decode_partials_ref(qd, lk, lv, pos, window, scale, chunk)
+    cj = torch.arange(ns, device=dev)[None]
+    chunk_live = cj * chunk <= pos[:, None].long()          # (B, ns)
+    if window:
+        chunk_live &= (cj + 1) * chunk > pos[:, None].long() - window + 1
     dead = ~chunk_live[:, None, :, None]
     m, l = m.masked_fill(dead, float("nan")), l.masked_fill(dead, float("nan"))
     acc = acc.masked_fill(dead[..., None], float("nan"))
     comb = lambda: fa.decode_combine(m, l, acc, pos, chunk=chunk, kv_len=S,
-                                     dtype=dtype)
-    comb_plain = lambda: ref.combine_live_splits(m, l, acc, pos, 0, chunk,
-                                                 S).to(dtype)
+                                     dtype=dtype, **W)
+    comb_plain = lambda: ref.combine_live_splits(m, l, acc, pos, window,
+                                                 chunk, S).to(dtype)
     err_m = (comb().float() - comb_plain().float()).abs().max().item()
     if not err_m <= tol:
         _fail(f"flash_decode_combine ({label}) vs plain: max err {err_m}")
@@ -602,24 +647,29 @@ def _serve_decode(torch, ref, fa, g, H, KV, D, dtype, flush, positions, S,
     if flush is None:
         return rows
 
-    dmask = (torch.arange(S, device=dev)[None] <= pos[:, None])[:, None, None]
-    need = int((pos.long() + 1).sum())                 # visible keys, all slots
+    kpos = torch.arange(S, device=dev)[None]
+    dmask = kpos <= pos[:, None]
+    if window:
+        dmask &= pos[:, None] - kpos < window
+    dmask = dmask[:, None, None]
+    # visible keys, all slots
+    need = int((pos.long() + 1).clamp(max=window or S).sum())
     dec_bytes = 2 * qd.numel() * es + 2 * need * KV * D * es + 4 * B
     dec_flops = 4 * D * H * need
     parts = int(chunk_live.sum()) * H           # live (chunk, query row) pairs
     calls = dict(
         flash_decode=(
-            lambda: fa.flash_decode(qd, lk, lv, pos),
-            lambda: ref.flash_decode_ref(qd, lk, lv, pos, 0, scale, 512),
+            lambda: fa.flash_decode(qd, lk, lv, pos, **W),
+            lambda: ref.flash_decode_ref(qd, lk, lv, pos, window, scale, 512),
             lambda: F.scaled_dot_product_attention(
                 qd.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2),
                 attn_mask=dmask, enable_gqa=True),
             _bound(dec_bytes, dec_flops)),
         flash_decode_paged=(
             lambda: fa.flash_decode_paged(qd, kp, vp, tables, pos,
-                                          page_size=ps),
-            lambda: ref.flash_decode_paged_ref(qd, kp, vp, tables, pos, 0,
-                                               scale, ps),
+                                          page_size=ps, **W),
+            lambda: ref.flash_decode_paged_ref(qd, kp, vp, tables, pos,
+                                               window, scale, ps),
             None,                         # no single library call pages
             _bound(dec_bytes + int(live.sum()) * 4, dec_flops)),
         flash_decode_combine=(
@@ -653,6 +703,12 @@ def _device_ops(torch, fn) -> int:
         torch.cuda.synchronize()
     return sum(1 for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _shape_key(name: str, shape) -> str:
+    """A path's count of ``name``'s launches at ``shape`` (from
+    ``K.LAUNCH_SHAPES``), as its launches dict keeps it."""
+    return f"{name} {tuple(shape)}"
 
 
 def _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev="cuda"):
@@ -715,6 +771,25 @@ def kernel_phase(torch, ref, fa, sg, flush):
             r = _sampler_check(torch, ref, sg, g, S_, C, V, flush)
             if (V, C) == (128256, 1):
                 rows.append(r)
+            print(f"slot_gather_sample ({S_}, {C}, {V}), equal to plain, "
+                  f"library = argmax of these selected rows: " + json.dumps(
+                      {k_: r[k_] for k_ in ("plan", "device_ops", "ms",
+                                            "plain_ms", "library_ms",
+                                            "host_ms", "bound")}))
+    # phase 12's vocabularies (hymba-1.5b's 32,001, not a multiple of 8:
+    # the scalar loads; mamba2-1.3b's 50,280), here where the profiler's
+    # count of one operation holds (phase 11 notes why): the decode, the
+    # 32-row tail and the SSM engines' 128-row prefill tail. The two shapes
+    # those engines give it are rows of the kernels line, each counting
+    # the path's launches at its own shape
+    for V, arch in ((32001, HYMBA_ARCH), (50280, MAMBA_ARCH)):
+        for S_, C in ((8, 1), (1, 32), (1, 128)):
+            r = _sampler_check(torch, ref, sg, g, S_, C, V, flush)
+            if C != 32:
+                rows.append(dict(r, shape=f"({S_}, {C}, {V}) bf16",
+                                 paths=("serve_" + arch,),
+                                 count_key=_shape_key(r["name"],
+                                                      (S_, C, V))))
             print(f"slot_gather_sample ({S_}, {C}, {V}), equal to plain, "
                   f"library = argmax of these selected rows: " + json.dumps(
                       {k_: r[k_] for k_ in ("plan", "device_ops", "ms",
@@ -799,9 +874,11 @@ def _rel_err(a, b) -> float:
 
 
 def _check_bwd(torch, ref, fa, dtype, shape, tol, fwd_tol=None, seed=0,
-               dev="cuda"):
+               dev="cuda", window=0, twice=False):
     """The flash backward kernels (and, with ``fwd_tol``, the forward)
-    against their plain versions at one shape; returns the inputs and the
+    against their plain versions at one causal shape (queries from
+    position 0, on ``window`` keys; 0 = all) and, with ``twice``, a second
+    backward call bitwise equal to the first; returns the inputs and the
     backward's errors, relative (``errs``, held to ``tol``) and absolute
     (``abs_errs``)."""
     B, S, H, KV, D = shape
@@ -811,25 +888,33 @@ def _check_bwd(torch, ref, fa, dtype, shape, tol, fwd_tol=None, seed=0,
         rn(B, S, H, D)
     qo = torch.zeros(B, dtype=torch.int32, device=dev)
     scale = 1 / math.sqrt(D)
-    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    label = f"{shape}{f' window {window}' if window else ''} {str(dtype)[6:]}"
+    out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
     if fwd_tol is not None:
-        want, want_lse = ref.flash_attention_ref(q, k, v, qo, 0, scale, True)
+        want, want_lse = ref.flash_attention_ref(q, k, v, qo, window, scale,
+                                                 True)
         err = (out.float() - want.float()).abs().max().item()
         err_l = (lse - want_lse).abs().max().item()
         if not (err <= fwd_tol and err_l <= 1e-3):
-            _fail(f"flash_attention {shape} {dtype}: max err {err}, lse "
-                  f"{err_l}")
-    got = fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=qo,
-                                 sm_scale=scale)
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, qo, 0, scale)
+            _fail(f"flash_attention {label}: max err {err}, lse {err_l}")
+    bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, q_off=qo,  # noqa: E731
+                                         window=window, sm_scale=scale)
+    got = bwd()
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, qo, window,
+                                       scale)
     names = ("dq", "dk", "dv")
     errs = {n: _rel_err(a, b) for n, a, b in zip(names, got, want)}
     abs_errs = {n: (a.float() - b.float()).abs().max().item()
                 for n, a, b in zip(names, got, want)}
-    print(f"flash backward {shape} {str(dtype)[6:]}: max |d| / max |plain| "
+    print(f"flash backward {label}: max |d| / max |plain| "
           + json.dumps(errs))
     if not all(e <= tol for e in errs.values()):
-        _fail(f"flash backward {shape} {dtype} vs plain: {errs} > {tol}")
+        _fail(f"flash backward {label} vs plain: {errs} > {tol}")
+    if twice:
+        same = all(torch.equal(a, b) for a, b in zip(got, bwd()))
+        print(f"flash backward {label}, two calls bitwise equal: {same}")
+        if not same:
+            _fail(f"two flash backward calls at {label} differ")
     return dict(q=q, k=k, v=v, do=do, out=out, lse=lse, qo=qo, scale=scale,
                 got=got, want=want, errs=errs, abs_errs=abs_errs)
 
@@ -859,15 +944,9 @@ def _lm_flash(torch, ref, fa, flush, shape, seed, dev="cuda"):
     the _check_bwd result)."""
     B, S, H, KV, D = shape
     c = _check_bwd(torch, ref, fa, torch.bfloat16, shape, BWD_TOL,
-                   fwd_tol=FWD_TOL, seed=seed, dev=dev)
+                   fwd_tol=FWD_TOL, seed=seed, dev=dev, twice=True)
     q, k, v, do, lse, qo, scale = (c[n] for n in ("q", "k", "v", "do", "lse",
                                                   "qo", "scale"))
-    again = fa.flash_attention_bwd(q, k, v, c["out"], lse, do, q_off=qo,
-                                   sm_scale=scale)
-    same = all(torch.equal(a, b) for a, b in zip(c["got"], again))
-    print(f"flash backward {shape}, two calls bitwise equal: {same}")
-    if not same:
-        _fail(f"two flash backward calls at {shape} differ")
     di = ref.flash_attention_di(c["out"], do)
     kw = dict(q_off=qo, window=0, sm_scale=scale)
     lib_ms = _library_bwd_ms(torch, q, k, v, do, flush)
@@ -959,18 +1038,25 @@ def _leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def lm_grad_check(torch, cfg, models, dev):
-    """decoder_loss of full ``cfg`` on 2 x 512 tokens, and the gradient of
-    every leaf, through the kernels and through the einsum attention."""
+def lm_grad_check(torch, cfg, models, dev, shape=(2, 512), image_tokens=0):
+    """decoder_loss of full ``cfg`` on ``shape`` (B x S) tokens (after
+    ``image_tokens`` seeded random image embeddings a sequence), and the
+    gradient of every leaf, through the kernels and through the einsum
+    attention. Returns the kernels' launches."""
     import numpy as np
 
     from repro_torch.configs.base import with_attn_impl
     from repro_torch.data.synthetic import LMTokenSource
     from repro_torch import kernels as K
     from repro_torch.tree import flatten, unflatten
-    src = LMTokenSource(cfg.vocab_size, 512)
+    B, S = shape
+    src = LMTokenSource(cfg.vocab_size, S)
     batch = {n: torch.from_numpy(v).to(dev)
-             for n, v in src.batch(2, 4242).items()}
+             for n, v in src.batch(B, 4242).items()}
+    if image_tokens:
+        batch["image_embeds"] = torch.randn(
+            B, image_tokens, cfg.d_model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(5))
     master = models.build_model(cfg, dev).init(
         torch.Generator(device=dev).manual_seed(3))
     leaves, treedef = flatten(master)
@@ -1002,8 +1088,11 @@ def lm_grad_check(torch, cfg, models, dev):
     errs = rel("flash", "ref")
     worst = sorted(zip(errs, names), reverse=True)[:4]
     d_loss = abs(out["flash"][0] - out["ref"][0])
-    print(f"grad check, {cfg.name} ({L} layers) on 2 x 512 tokens, kernels "
-          f"vs einsum: "
+    prefix = (f" after {image_tokens} image embeddings" if image_tokens else
+              f" after {cfg.num_meta_tokens} meta tokens"
+              if cfg.num_meta_tokens else "")
+    print(f"grad check, {cfg.name} ({L} layers) on {B} x {S} tokens{prefix}, "
+          f"kernels vs einsum (launches {out['flash'][2]}): "
           f"loss {out['flash'][0]:.6f} vs {out['ref'][0]:.6f} (|d| "
           f"{d_loss:.3g}); leaf gradients, relative Frobenius error: max "
           f"{max(errs):.4g}, median {float(np.median(errs)):.4g}, worst "
@@ -1021,6 +1110,7 @@ def lm_grad_check(torch, cfg, models, dev):
            if not (math.isfinite(e) and e <= t)]
     if bad:
         _fail(f"grad check: leaf gradients past their bound: {bad}")
+    return out["flash"][2]
 
 
 def _sync(torch, dev):
@@ -1111,54 +1201,83 @@ def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
     return launches, stats
 
 
-def check_flash_vs_ref(torch, cfg, models, params, prompts, dev, logit_tol):
-    """Teacher-forced prefill (2 chunks) + 4 decode steps of each prompt
-    through the kernels and through the einsum path, on a paged cache,
-    held to ``logit_tol``; beside them, each path's distance from the
-    kernels in fp32 on the same weights (the control: how far bf16
-    alone moves the logits)."""
+def check_flash_vs_ref(torch, cfg, models, params, prompts, dev,
+                       logit_tol=None, chunk=32):
+    """Teacher-forced prefill (chunks of ``chunk``) + 4 decode steps of
+    each prompt on a paged pool (pages of 16, SSM lanes one a slot),
+    through the kernels and through a plain route, each in the served
+    dtype and in fp32 on the same weights. The plain route is the einsum
+    attention on the same pool or, with no attention, the decoder's
+    forward over the whole teacher-forced sequence. Held: the kernels vs
+    the plain route in fp32 at FP32_LOGIT_TOL of the largest logit (only
+    the order of sums differs there, so a kernel or carry fault shows far
+    above rounding), and in the served dtype at ``logit_tol`` or, where it
+    is None, at twice the plain route's own distance from its fp32 run
+    (the control: two paths each that far from fp32 lie at most twice
+    that far apart)."""
     from repro_torch.configs.base import with_attn_impl
     from repro_torch.tree import flatten, unflatten
     leaves, treedef = flatten(params)
-    runs = {"flash": (with_attn_impl(cfg, "flash"), params),
-            "ref": (with_attn_impl(cfg, "ref"), params),
-            "fp32": (cfg.with_overrides(dtype="float32"),
-                     unflatten(treedef, [t.float() for t in leaves]))}
+    p32 = unflatten(treedef, [t.float() for t in leaves])
     del leaves
+    c32 = cfg.with_overrides(dtype="float32")
+    attn = cfg.attention is not None
+    runs = {"kernels": (with_attn_impl(cfg, "flash"), params),
+            "plain": (with_attn_impl(cfg, "ref"), params),
+            "kernels_fp32": (c32, p32),
+            "plain_fp32": (with_attn_impl(c32, "ref"), p32)}
     outs = {impl: [] for impl in runs}
     for impl, (c, ps) in runs.items():
         m = models.build_model(c, dev)
         for prompt in prompts:
-            pool = m.init_paged_cache(1, 16, 9)
-            tables = torch.arange(1, 9, dtype=torch.int32, device=dev)[None]
-            toks = torch.tensor(prompt, dtype=torch.int64, device=dev)
-            for ch in range(0, 64, 32):
-                lg, pool = m.chunk_prefill(ps, pool, toks[None, ch:ch + 32],
-                                           ch, 32, seq_len=128,
-                                           block_tables=tables, page_size=16)
-                outs[impl].append(lg.float())
+            n = len(prompt)
+            toks = torch.tensor(prompt + prompt[:4], dtype=torch.int64,
+                                device=dev)
+            sizes = [min(chunk, n - ch) for ch in range(0, n, chunk)]
+            if impl.startswith("plain") and not attn:
+                lg = m.forward(ps, {"tokens": toks[None]})[0].float()
+                outs[impl] += list(lg.split(sizes + [1] * 4))
+                continue
+            S = -(-(n + 4) // 128) * 128          # lanes of 128 positions
+            pool = m.init_paged_cache(1, 16, S // 16 + 1)
+            kw = dict(seq_len=S, page_size=16, block_tables=torch.arange(
+                1, S // 16 + 1, dtype=torch.int32, device=dev)[None])
+            for ch, c_ in zip(range(0, n, chunk), sizes):
+                lg, pool = m.chunk_prefill(ps, pool, toks[None, ch:ch + c_],
+                                           ch, c_, **kw)
+                outs[impl].append(lg.float().reshape(c_, -1))
             for i in range(4):
                 lg, pool = m.decode_step(ps, pool,
-                                         {"tokens": toks[None, i:i + 1]},
-                                         torch.tensor([64 + i], device=dev),
-                                         seq_len=128, block_tables=tables,
-                                         page_size=16)
-                outs[impl].append(lg.float())
-    del runs
-    err = lambda a, b: [(x - y).abs().max().item()
+                                         {"tokens": toks[None, n + i:n + i + 1]},
+                                         torch.tensor([n + i], device=dev),
+                                         **kw)
+                outs[impl].append(lg.float().reshape(1, -1))
+            del pool
+    del runs, p32
+    err = lambda a, b: [(x - y).abs().max().item()  # noqa: E731
                         for x, y in zip(outs[a], outs[b])]
-    errs = err("flash", "ref")
-    scale = max(b.abs().max().item() for b in outs["ref"])
+    errs, errs32 = err("kernels", "plain"), err("kernels_fp32", "plain_fp32")
+    scale = max(b.abs().max().item() for b in outs["plain_fp32"])
+    control = max(err("plain", "plain_fp32"))
+    limit = 2 * control if logit_tol is None else logit_tol
     top1 = sum(int((a.argmax(-1) == b.argmax(-1)).all())
-               for a, b in zip(outs["flash"], outs["ref"]))
-    print(f"flash vs ref logits ({cfg.name}, {len(prompts)} prompts): max "
-          f"err per call {errs}, max |logit| {scale:.3f}, calls with equal "
-          f"top-1 {top1}/{len(errs)}; vs the kernels in fp32: flash max "
-          f"{max(err('flash', 'fp32')):.4g}, ref max "
-          f"{max(err('ref', 'fp32')):.4g}")
-    if not all(math.isfinite(e) for e in errs) or max(errs) > logit_tol:
-        _fail(f"{cfg.name}: flash vs ref logits differ by {max(errs)} > "
-              f"{logit_tol}")
+               for a, b in zip(outs["kernels"], outs["plain"]))
+    route = "einsum attention" if attn else "the whole-sequence forward"
+    print(f"teacher-forced logits ({cfg.name}, prompts of "
+          f"{[len(p) for p in prompts]} tokens in chunks of {chunk} + 4 "
+          f"decode steps), kernels vs {route}: {cfg.dtype} max err per call "
+          f"{errs} (limit {limit:.4g}), calls with equal top-1 "
+          f"{top1}/{len(errs)}; fp32 max err {max(errs32):.4g} of max "
+          f"|logit| {scale:.3f} (limit {FP32_LOGIT_TOL * scale:.4g}); "
+          f"distance from fp32, kernels {max(err('kernels', 'kernels_fp32')):.4g}"
+          f", plain (the control) {control:.4g}")
+    if not all(math.isfinite(e) for e in errs + errs32) or (
+            max(errs32) > FP32_LOGIT_TOL * scale):
+        _fail(f"{cfg.name}: kernels vs {route} logits in fp32 differ by "
+              f"{max(errs32)} > {FP32_LOGIT_TOL} of {scale}")
+    if max(errs) > limit:
+        _fail(f"{cfg.name}: kernels vs {route} logits differ by {max(errs)} "
+              f"> {limit}")
 
 
 # ---------------------------------------------------------------------------
@@ -3203,14 +3322,18 @@ def ds_train_phase(device="cuda:0", smoke=False):
     return dict(m["launches"])
 
 
-def _decode_step_cost(torch, model, params, dev):
+def _decode_step_cost(torch, model, params, dev, paged=True):
     """One decode step of ``model`` (8 slots at SERVE_POSITIONS, pages of
-    16): host ms to return and wall ms to its synchronize (medians of 20),
-    and the operations it runs on the card (torch.profiler)."""
+    16, or contiguous 1 K lanes when not ``paged``): host ms to return and
+    wall ms to its synchronize (medians of 20), and the operations it runs
+    on the card (torch.profiler)."""
     B, ps, NP = 8, 16, 64
-    pool = model.init_paged_cache(B, ps, B * NP + 1)
-    tables = (torch.arange(B * NP, dtype=torch.int32, device=dev) + 1
-              ).reshape(B, NP)
+    if paged:
+        pool = model.init_paged_cache(B, ps, B * NP + 1)
+        tables = (torch.arange(B * NP, dtype=torch.int32, device=dev) + 1
+                  ).reshape(B, NP)
+    else:
+        pool, tables, ps = model.init_cache(B, NP * ps), None, 0
     pos = torch.tensor(SERVE_POSITIONS, device=dev)
     tok = {"tokens": torch.zeros(B, 1, dtype=torch.int64, device=dev)}
     step = lambda: model.decode_step(params, pool, tok, pos, seq_len=1024,
@@ -3343,6 +3466,388 @@ def ds_phase(torch, ref, fa, K, models, serve, cfg_mod):
     return rows, by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the state-space and early-fusion decoders
+# ---------------------------------------------------------------------------
+
+MAMBA_ARCH, HYMBA_ARCH = "mamba2-1.3b", "hymba-1.5b"
+CHAMELEON_ARCH = "chameleon-34b"
+MAMBA_PARAMS = 1_446_714_368   # the reference's tree: 48 SSD blocks, the
+                               # embedding and an untied head
+HYMBA_PARAMS = 1_641_179_520   # 32 hybrid layers and 128 meta tokens
+HYMBA_GRAD_LAYERS = 3          # layers 0 and 2 global, 1 on its 1024-key
+                               # window, which 1024 tokens + 128 meta cut
+HYMBA_GRAD_TOKENS = 1024
+CHAMELEON_GRAD_LAYERS = 2
+CHAMELEON_GRAD_TOKENS = 512    # after its 1024 image embeddings
+HYMBA_MAX_SEQ = 2048           # room for the long requests
+HYMBA_LONG = 2                 # requests of 1100-1500 prompt tokens: they
+                               # carry the sliding layers past the window
+# 8 slots over 2 K lanes, past the 1024-key window (the decode rows)
+HYMBA_POSITIONS = (100, 700, 1023, 1024, 1100, 1400, 1700, 2047)
+HYMBA_CHUNK_OFF = 1280         # the forward row's prefill chunk start
+CHUNK_TOL = 1e-3      # chunked vs single-call prefill on the card in fp32,
+                      # max |d| over max |x| of the last logits and each SSM
+                      # leaf: bitwise on the CPU, but cuBLAS picks its
+                      # kernels by shape (M 128 vs the whole prompt), so sums
+                      # run in another order. In bf16 (printed, not held)
+                      # the rounding apart carries through depth to the bf16
+                      # policy's own noise: 0.0565 of the state's max at
+                      # mamba2's 48 blocks on an H100 (its bf16 logits lie
+                      # 0.23 from fp32 of |x| 4.75), so bf16 cannot tell a
+                      # carry fault from rounding
+
+
+def _phase12_requests(cfg, n_long=0):
+    """Phase 4's traffic (16 prompts of 32-512 tokens, half greedy, the
+    rest at temperature 0.8), then ``n_long`` greedy prompts of 1100-1500
+    tokens."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    lens = list(rng.randint(32, 513, size=16)) + list(
+        rng.randint(1100, 1501, size=n_long))
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    sps = [(0.0, 0) if i % 2 == 0 or i >= 16 else (0.8, i)
+           for i in range(len(prompts))]
+    return prompts, sps
+
+
+def ssm_engine_phase(torch, K, cfg, models, serve, dev, want_params,
+                     max_seq, n_long=0):
+    """(a)/(b) ``cfg`` whole (random weights in the compute dtype from a
+    seeded generator) through the Engine: 8 slots, chunks rounded up to
+    the SSD chunk, pages of 16 where the model has attention (the SSM
+    lanes one a slot, no prefix cache), fused sampling. Prints the rates,
+    latencies and launches, one decode step's host ms and device
+    operations; request 8 (greedy, in a lane that held one of requests
+    0-7) must get what it gets through a fresh engine. With attention, a
+    short contiguous pass reaches ``flash_decode``. Returns (launches,
+    model, the engine's parameters)."""
+    cfg = cfg.with_overrides(param_dtype=cfg.dtype)
+    model = models.build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    _sync(torch, dev)
+    n = models.count_params(params)
+    print(f"{cfg.name}: init {n:,} params ({cfg.dtype}) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    if dev.type == "cuda" and n != want_params:
+        _fail(f"{cfg.name} has {n} parameters, not {want_params:,}")
+    prompts, sps = _phase12_requests(cfg, n_long)
+    SP = serve.SamplingParams
+    shape = dict(max_slots=8, max_seq=max_seq, prefill_chunk=32,
+                 page_size=16, fused_sampling=True, device=dev)
+    eng = serve.Engine(model, params, **shape)
+    del params
+    paged = cfg.attention is not None
+    Q = cfg.ssm.chunk
+    if (eng.paged, eng.prefill_chunk) != (paged, -(-32 // Q) * Q) or (
+            eng.allocator is not None and eng.allocator.prefix_cache):
+        _fail(f"{cfg.name}: engine paged {eng.paged}, chunk "
+              f"{eng.prefill_chunk}, prefix cache on")
+    rids = [eng.submit(p, 32, SP(temperature=t, seed=sd))
+            for p, (t, sd) in zip(prompts, sps)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run()
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    need = (("flash_attention", "flash_decode_paged", "flash_decode_combine")
+            if paged else ()) + ("slot_gather_sample",)
+    for name in need:
+        if launches.get(name, 0) <= 0:
+            _fail(f"{name} was not launched serving {cfg.name}")
+    if not paged and set(launches) != {"slot_gather_sample"}:
+        _fail(f"{cfg.name} has no attention but launched {launches}")
+    # the sampler's launches by shape: the decode's (8, 1, V) and the
+    # prefill tail's (1, chunk, V), nothing else
+    shapes = {s_: c for (n_, s_), c in K.LAUNCH_SHAPES.items()
+              if n_ == "slot_gather_sample"}
+    V = cfg.vocab_size
+    if (set(shapes) - {(8, 1, V), (1, eng.prefill_chunk, V)}
+            or sum(shapes.values()) != launches["slot_gather_sample"]):
+        _fail(f"{cfg.name}: the sampler ran at {shapes}, "
+              f"{launches['slot_gather_sample']} launches in all")
+    launches.update({_shape_key("slot_gather_sample", s_): c
+                     for s_, c in shapes.items()})
+    for r in rids:
+        out = results[int(r)]
+        if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+            _fail(f"{cfg.name} request {int(r)} returned {len(out)} tokens")
+    st = eng.stats
+    last = max(len(p) for p in prompts) + 31     # the last position decoded
+    stats = dict(
+        params=n, requests=len(rids), paged=eng.paged,
+        prefill_chunk=eng.prefill_chunk, wall_s=wall,
+        prefill_tokens=st.prefill_tokens, prefill_tok_s=st.prefill_tok_s(),
+        decode_steps=st.steps, decoded_tokens=st.decoded_tokens,
+        decode_tok_s=st.decode_tok_s(), last_position=last,
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if dev.type == "cuda" else None),
+        token_latency_ms={str(q): v * 1e3 for q, v in
+                          st.token_latency_percentiles().items()},
+        launches=launches)
+    if paged:
+        w = cfg.attention.sliding_window
+        stats["requests_past_window"] = sum(len(p) + 31 >= w
+                                            for p in prompts)
+        if last < w + eng.prefill_chunk:
+            _fail(f"{cfg.name}: no request passed the {w}-key window")
+    print(f"engine {cfg.name} " + json.dumps(stats))
+    print(f"decode step ({cfg.name}, 8 slots, "
+          f"{'pages of 16' if paged else 'contiguous 1 K lanes'}): "
+          + json.dumps(_decode_step_cost(torch, model, eng.params, dev,
+                                         paged=paged)))
+    # request 8 was admitted into a lane that one of requests 0-7 held
+    solo = serve.Engine(model, eng.params, **shape)
+    rid = solo.submit(prompts[8], 32, SP(temperature=0.0))
+    alone = solo.run()[int(rid)]
+    same = alone == results[int(rids[8])]
+    print(f"{cfg.name} request 8 through a reused slot equals a fresh "
+          f"engine's: {same}")
+    if not same:
+        _fail(f"{cfg.name}: request 8 in a fresh engine gave {alone[:8]}..., "
+              f"through a reused slot {results[int(rids[8])][:8]}...")
+    del solo
+    if paged:
+        eng0 = serve.Engine(model, eng.params, **dict(
+            shape, max_slots=4, max_seq=256, page_size=0))
+        rids0 = [eng0.submit(p[:96], 8) for p in prompts[:4]]
+        K.reset_launches()
+        res0 = eng0.run()
+        _sync(torch, dev)
+        launches["flash_decode"] = K.LAUNCHES.get("flash_decode", 0)
+        launches["flash_decode_combine"] += K.LAUNCHES.get(
+            "flash_decode_combine", 0)
+        if launches["flash_decode"] <= 0:
+            _fail(f"flash_decode was not launched by {cfg.name}'s "
+                  f"contiguous engine run")
+        if any(len(res0[int(r)]) != 8 for r in rids0):
+            _fail(f"{cfg.name}: the contiguous engine run did not finish")
+        print(f"{cfg.name} contiguous pass: 4 requests x 8 tokens, launches "
+              + json.dumps(dict(K.LAUNCHES)))
+        del eng0
+    return launches, model, eng.params
+
+
+def check_chunked_prefill(torch, cfg, models, params, prompt, dev):
+    """(c) ``prompt`` prefilled in chunks of the SSD chunk against one
+    call on a paged pool: the last logits and every SSM leaf, in fp32 held
+    to CHUNK_TOL, in the served dtype printed."""
+    from repro_torch.tree import flatten, unflatten
+    leaves, treedef = flatten(params)
+    fp32 = (cfg.with_overrides(dtype="float32"),
+            unflatten(treedef, [t.float() for t in leaves]))
+    del leaves
+    Q, ps = cfg.ssm.chunk, 16
+    prompt = torch.tensor(prompt, dtype=torch.int64, device=dev)[None]
+    S0 = prompt.shape[1]
+    NP = -(-S0 // ps)
+    tables = torch.arange(1, NP + 1, dtype=torch.int32, device=dev)[None]
+    read = {}
+    for label, (c, pr) in (("fp32", fp32), (cfg.dtype, (cfg, params))):
+        m = models.build_model(c, dev)
+        got = []
+        for C in (Q, S0):
+            pool = m.init_paged_cache(1, ps, NP + 1)
+            for ch in range(0, S0, C):
+                lg, pool = m.chunk_prefill(pr, pool, prompt[:, ch:ch + C], ch,
+                                           C, seq_len=NP * ps,
+                                           block_tables=tables, page_size=ps)
+            got.append([lg[:, -1].float()] + [
+                seg["ssm"][n].float() for seg in pool if "ssm" in seg
+                for n in ("conv", "state")])
+            del pool
+        diffs = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                 for a, b in zip(*got)]
+        read[label] = dict(bitwise=all(torch.equal(a, b) for a, b in
+                                       zip(*got)),
+                           last_logits=diffs[0], ssm_leaves=max(diffs[1:]))
+        if label == "fp32":
+            held = diffs
+    del fp32
+    print(f"chunked ({S0 // Q} x {Q}) vs one-call prefill ({cfg.name}, "
+          f"{S0} tokens), max |d| / max |x| (fp32 held to {CHUNK_TOL}): "
+          + json.dumps(read))
+    if not all(math.isfinite(d) and d <= CHUNK_TOL for d in held):
+        _fail(f"{cfg.name}: chunked prefill differs from one call by "
+              f"{max(held)} > {CHUNK_TOL} in fp32")
+
+
+def _window_flash(torch, ref, fa, g, flush, dev="cuda"):
+    """The forward at Hymba's prefill chunk (128 queries at HYMBA_CHUNK_OFF
+    over a 2 K lane, 25 heads over 5, D 64, bf16) on a sliding layer's
+    1024-key window, held to its plain version (output and lse) and timed
+    beside SDPA and its bound."""
+    import torch.nn.functional as F
+    H, KV, D, Sq, Sk, W = 25, 5, 64, 128, HYMBA_MAX_SEQ, 1024
+    dtype = torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    q, k, v = rn(1, Sq, H, D), rn(1, Sk, KV, D), rn(1, Sk, KV, D)
+    q_off = torch.tensor([HYMBA_CHUNK_OFF], dtype=torch.int32, device=dev)
+    scale = 1 / math.sqrt(D)
+    got, lse = fa.flash_attention(q, k, v, q_off=q_off, window=W,
+                                  return_lse=True)
+    want, want_lse = ref.flash_attention_ref(q, k, v, q_off, W, scale, True)
+    err = (got.float() - want.float()).abs().max().item()
+    err_l = (lse - want_lse).abs().max().item()
+    if not (err <= FWD_TOL and err_l <= 1e-3):
+        _fail(f"flash_attention at Hymba's chunk (window {W}) vs plain: max "
+              f"err {err}, lse {err_l}")
+    row = dict(name="flash_attention", src="src/repro_torch/csrc/"
+               "flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:97", err=err,
+               lse_err=err_l, shape=f"q (1, {Sq}, {H}, {D}) at {int(q_off)} "
+               f"over {Sk} keys / {KV} heads, window {W}, bf16")
+    if flush is None:
+        return row
+    qpos = torch.arange(Sq, device=dev) + int(q_off)
+    kpos = torch.arange(Sk, device=dev)[None]
+    mask = (kpos <= qpos[:, None]) & (qpos[:, None] - kpos < W)
+    keys = int(mask.sum())                        # live (row, key) pairs
+    span = int(q_off) + Sq - max(int(q_off) - W + 1, 0)   # keys read
+    fn = lambda: fa.flash_attention(q, k, v, q_off=q_off, window=W)
+    row.update(
+        ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
+        plain_ms=_median_ms(
+            lambda: ref.flash_attention_ref(q, k, v, q_off, W, scale),
+            flush=flush),
+        library_ms=_median_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), flush=flush),
+        bound=_bound(2 * q.numel() * 2 + 2 * span * KV * D * 2 + 4,
+                     4 * D * H * keys))
+    return row
+
+
+def phase12_kernel_rows(torch, ref, fa, flush, dev="cuda"):
+    """(e) The flash kernels at Hymba's serve shapes, each held to its
+    plain version: the split-KV decode, contiguous and paged, and its
+    combine at Hymba's decode (8 slots at HYMBA_POSITIONS over 2 K lanes,
+    25 heads over 5, D 64, window 1024, bf16); the forward at Hymba's
+    windowed prefill chunk. Each row carries its shape and the path that
+    runs it. (The sampler's rows at the new vocabularies come from phase
+    3.) Then the flash forward and backward at the gradient checks'
+    shapes, held to their plain versions and two backward calls bitwise
+    equal: Hymba's 128 meta + 1024 tokens (25 heads over 5, D 64) on the
+    sliding layer's 1024-key window and on every key, Chameleon's 1024
+    image embeddings + 512 tokens (64 heads over 8, D 128)."""
+    hy = (1, HYMBA_GRAD_TOKENS + 128, 25, 5, 64)
+    cham = (1, CHAMELEON_GRAD_TOKENS + 1024, 64, 8, 128)
+    for i, (shape, window) in enumerate(((hy, 1024), (hy, 0), (cham, 0))):
+        _check_bwd(torch, ref, fa, torch.bfloat16, shape, BWD_TOL,
+                   fwd_tol=FWD_TOL, seed=25 + i, dev=dev, window=window,
+                   twice=True)
+    g = torch.Generator(device=dev).manual_seed(1512)
+    hymba = ("serve_" + HYMBA_ARCH,)
+    rows = []
+    dec = _serve_decode(torch, ref, fa, g, 25, 5, 64, torch.bfloat16, flush,
+                        HYMBA_POSITIONS, HYMBA_MAX_SEQ, dev, window=1024)
+    for r in dec.values():
+        r.update(shape=f"8 slots at {list(HYMBA_POSITIONS)} over "
+                 f"{HYMBA_MAX_SEQ} keys, 25/5 heads, D 64, window 1024, "
+                 f"bf16, pages of 16", paths=hymba)
+        rows.append(r)
+    r = _window_flash(torch, ref, fa, g, flush, dev)
+    r["paths"] = hymba
+    rows.append(r)
+    print("serve kernels at Hymba's shapes, equal to plain within "
+          "tolerance: " + json.dumps(
+              [{k_: r.get(k_) for k_ in ("name", "shape", "err", "ms",
+                                         "plain_ms", "library_ms", "bound")}
+               for r in rows]))
+    return rows
+
+
+def ssm_phase(torch, ref, fa, K, models, serve, cfg_mod):
+    """Phase 12: (e) the kernels at the new shapes, (a) mamba2-1.3b and
+    (b) hymba-1.5b served whole, each with (c) its teacher-forced and
+    chunked-prefill checks, (d) the gradient checks of hymba-1.5b (3
+    layers) and chameleon-34b (2 layers) at full width. Frees the card
+    back to the memory it started from. Returns (kernel rows, {path:
+    launches})."""
+    import numpy as np
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    start_mem = torch.cuda.memory_allocated()
+    l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = phase12_kernel_rows(torch, ref, fa, l2.zero_)
+    del l2
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(12)
+    by_path = {}
+    for arch, want, max_seq, n_long, lens in (
+            (MAMBA_ARCH, MAMBA_PARAMS, 1024, 0, (256, 256)),
+            (HYMBA_ARCH, HYMBA_PARAMS, HYMBA_MAX_SEQ, HYMBA_LONG,
+             (256, 1152))):
+        cfg = cfg_mod.get_config(arch)
+        launches, model, params = ssm_engine_phase(
+            torch, K, cfg, models, serve, dev, want, max_seq, n_long)
+        by_path["serve_" + arch] = launches
+        prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+                   for n in lens]
+        check_flash_vs_ref(torch, cfg, models, params, prompts, dev,
+                           chunk=cfg.ssm.chunk)
+        check_chunked_prefill(torch, cfg, models, params, prompts[0], dev)
+        del model, params
+        torch.cuda.empty_cache()
+    hymba = cfg_mod.get_config(HYMBA_ARCH)
+    by_path["grad_" + HYMBA_ARCH] = lm_grad_check(
+        torch, hymba.with_overrides(num_layers=HYMBA_GRAD_LAYERS), models,
+        dev, shape=(1, HYMBA_GRAD_TOKENS))
+    torch.cuda.empty_cache()
+    cham = cfg_mod.get_config(CHAMELEON_ARCH)
+    by_path["grad_" + CHAMELEON_ARCH] = lm_grad_check(
+        torch, cham.with_overrides(num_layers=CHAMELEON_GRAD_LAYERS), models,
+        dev, shape=(1, CHAMELEON_GRAD_TOKENS),
+        image_tokens=cham.num_image_tokens)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - start_mem
+    print(f"phase 12 ({MAMBA_ARCH}, {HYMBA_ARCH}, {CHAMELEON_ARCH}): "
+          f"{time.perf_counter() - t0:.1f}s, {left} bytes left allocated")
+    if left > PHASE11_LEFT:
+        _fail(f"phase 12 left {left} bytes allocated")
+    return rows, by_path
+
+
+def kernels_line(rows, by_path):
+    """The kernels line's entries: one a row, with the launches of the
+    paths it stands for. A row at one path's shape counts that path's
+    launches alone (at that shape, where it has a count_key); a row
+    without paths counts the paths that no such row of its kernel claims,
+    so no launch is counted in two rows."""
+    claimed = {}
+    for r in rows:
+        claimed.setdefault(r["name"], set()).update(r.get("paths", ()))
+    out = []
+    for r in rows:
+        b_ms, b_by = r["bound"]
+        key = r.get("count_key", r["name"])
+        paths = {p: c for p, c in by_path.items()
+                 if (p in r["paths"] if "paths" in r
+                     else p not in claimed[r["name"]])}
+        out.append({"name": r["name"], "route": "cuda", "source": r["src"],
+                    "replaces": r["replaces"],
+                    "launches": sum(p.get(key, 0) for p in paths.values()),
+                    "launches_by_path": {p: c[key] for p, c in paths.items()
+                                         if c.get(key)},
+                    "max_abs_err": r["err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": r["library_ms"]})
+        if "rel_err" in r:
+            out[-1]["max_rel_err"] = r["rel_err"]
+        if "shape" in r:
+            out[-1]["shape"] = r["shape"]
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -3406,6 +3911,9 @@ def main() -> int:
     ds_rows, ds_launches = ds_phase(torch, ref, fa, K, models, serve,
                                     cfg_mod)
     rows += ds_rows
+    ssm_rows, ssm_launches = ssm_phase(torch, ref, fa, K, models, serve,
+                                       cfg_mod)
+    rows += ssm_rows
     lm_grad_check(torch, llama, models, torch.device("cuda"))
     torch.cuda.empty_cache()
     lm_grad_check(torch, qwen.with_overrides(num_layers=QWEN_GRAD_LAYERS),
@@ -3413,10 +3921,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # launches per kernel and main path (serving llama3.2-1b and
     # qwen1.5-4b, serve chaos, DeepSeek-V2-Lite's training and serving,
-    # the convnets' training, LM training, the int8 round trip), each path
-    # counted from zero around its run
+    # serving mamba2-1.3b and hymba-1.5b, the gradient checks of hymba-1.5b
+    # and chameleon-34b, the convnets' training, LM training, the int8
+    # round trip), each path counted from zero around its run
     by_path = {"serve": launches, "serve_qwen1.5-4b": qwen_launches,
-               "serve_chaos": chaos_launches, **ds_launches}
+               "serve_chaos": chaos_launches, **ds_launches, **ssm_launches}
     conv_shapes = {}
     for arch in TRAIN_ARCHS:
         by_path[f"{arch}_train"], conv_shapes[arch] = train_phase(arch=arch)
@@ -3439,21 +3948,7 @@ def main() -> int:
         wire_check(torch, ref, buckets, "alexnet elastic", 5e-4, k=kk)
         torch.cuda.empty_cache()
 
-    out = []
-    for r in rows:
-        b_ms, b_by = r["bound"]
-        out.append({"name": r["name"], "route": "cuda", "source": r["src"],
-                    "replaces": r["replaces"],
-                    "launches": sum(p.get(r["name"], 0)
-                                    for p in by_path.values()),
-                    "launches_by_path": {p: c[r["name"]]
-                                         for p, c in by_path.items()
-                                         if c.get(r["name"])},
-                    "max_abs_err": r["err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": r["library_ms"]})
-        if "rel_err" in r:
-            out[-1]["max_rel_err"] = r["rel_err"]
+    out = kernels_line(rows, by_path)
     print("wrapper call incl. host dispatch, ms: " + json.dumps(
         {r["name"]: r["host_ms"] for r in rows}))
     print(json.dumps({"kernels": out}))

@@ -9,9 +9,10 @@ layout. The trees keep their nesting, so GoogLeNet's Inception modules
 (``i3a.b3r.w``, ...) and aux heads (``aux0_fc1.w``, ...) cross as they
 are.
 
-Decoders (``decoder_params_from_jax``): the JAX tree stacks consecutive same-kind layers into ``blocks[seg]``
-with a leading layer axis; the port keeps one dict per layer
-(``params["layers"]``). Leaves keep their layout — dense weights are the
+Decoders (``decoder_params_from_jax``): the JAX tree stacks consecutive
+same-kind layers into ``blocks[seg]`` with a leading layer axis; the port
+keeps one dict per layer (``params["layers"]``). Hymba's ``meta`` tokens
+cross as a top-level leaf. Leaves keep their layout — dense weights are the
 same ``(in, *out)`` einsum operands on both sides — so both packages
 compute the same thing from the same numbers. Nothing here imports JAX:
 convert the tree with ``np.asarray`` on each leaf first.
@@ -51,12 +52,11 @@ def _leaves(tree):
 
 
 def decoder_params_from_jax(tree, device=None) -> dict:
-    """{embed, ln_f, [head], blocks: [stacked segment trees]} (numpy
-    leaves) -> {embed, ln_f, [head], layers: [per-layer trees]}."""
-    out = {k: to_tensor(v, device) for k, v in tree.items()
-           if k not in ("blocks", "meta")}
-    if "meta" in tree:
-        raise NotImplementedError("meta-token (hymba) decoders are not ported")
+    """{embed, ln_f, [head], [meta], blocks: [stacked segment trees]}
+    (numpy leaves) -> {embed, ln_f, [head], [meta], layers: [per-layer
+    trees]}. SSM leaves ({"ssm": {wz, ..., A_log, D, norm}}) and the
+    hybrid layer's ``fuse_na``/``fuse_ns`` cross like any other leaf."""
+    out = {k: to_tensor(v, device) for k, v in tree.items() if k != "blocks"}
     layers = []
     for seg in tree["blocks"]:
         count = np.asarray(next(_leaves(seg))).shape[0]

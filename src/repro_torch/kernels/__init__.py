@@ -72,17 +72,24 @@ SIGNATURES = {
 
 # launches per wrapper name; the wrappers add one where they launch
 LAUNCHES: dict[str, int] = {}
+# the same per (name, shape) for the wrappers that pass their shape, so a
+# run can split one kernel's launches over the shapes a path gave it
+LAUNCH_SHAPES: dict[tuple[str, tuple[int, ...]], int] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def count(name: str) -> None:
+def count(name: str, shape: tuple[int, ...] | None = None) -> None:
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    if shape is not None:
+        key = (name, tuple(shape))
+        LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCH_SHAPES.clear()
 
 
 def _nvcc() -> str:

@@ -81,7 +81,7 @@ def slot_gather_sample(logits, onehot, temperature, noise):
         K.ptr(greedy), K.ptr(sampled), S, C, V, cl, slice_, code,
         K.stream_ptr(logits))
     K.check(err, "slot_gather_sample")
-    K.count("slot_gather_sample")
+    K.count("slot_gather_sample", (S, C, V))
     return greedy, sampled
 
 

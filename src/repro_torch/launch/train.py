@@ -58,9 +58,10 @@ j of rank r holds the source's batch ``j * k + r``. Convnets:
 full-size AlexNet cannot take), by default 128 a rank for AlexNet, 32 for
 GoogLeNet and 16 for VGG-16; momentum SGD 0.9 with weight decay 5e-4 and
 the JAX launcher's ``warmup_cosine(0.01, 10, steps)``; convolutions and
-matmuls in full fp32 (TF32 off), as the reference computes them. Decoders:
-``LMTokenSource`` tokens of ``--seq`` positions (int32 tokens and labels,
-untouched by the loader); momentum SGD 0.9 with weight decay 1e-4 and
+matmuls in full fp32 (TF32 off), as the reference computes them. Decoders
+(dense, MoE, SSM and hybrid): ``LMTokenSource`` tokens of ``--seq``
+positions (int32 tokens and labels, untouched by the loader), after
+zero image embeddings for a VLM (``synthetic_batch``); momentum SGD 0.9 with weight decay 1e-4 and
 ``warmup_cosine(0.01, 20, steps)``, the JAX package's
 ``examples/train_lm_bsp.py`` recipe, whose ~100M config ``--preset
 train_lm_bsp`` builds. ``--ckpt`` saves checkpoints (every
@@ -107,7 +108,6 @@ from repro_torch.data.synthetic import (ImageSource, LMTokenSource,
                                         materialize_batch_files)
 from repro_torch.kernels import fused_sgd as fs
 from repro_torch.models import build_model, count_params
-from repro_torch.models.transformer import layer_kinds
 from repro_torch.optim import constant, sgd_momentum, warmup_cosine
 from repro_torch.train.engine import TrainPlan
 from repro_torch.train.loop import train
@@ -115,17 +115,10 @@ from repro_torch.train.loop import train
 CROP_MARGIN = 8
 
 
-def _ported_decoder(cfg) -> bool:
-    """A decoder of dense and MoE layers (GQA or MLA attention), no meta
-    tokens: what ``models/transformer.py`` runs (VLMs on text alone)."""
-    return (cfg.family == "decoder" and cfg.num_meta_tokens == 0
-            and set(layer_kinds(cfg)) <= {"dense", "moe"})
-
-
-# the archs this launcher trains: the paper's convnets and the ported
-# decoders
-TRAIN_ARCHS = tuple(PAPER_ARCHS) + tuple(a for a in ASSIGNED_ARCHS
-                                         if _ported_decoder(get_config(a)))
+# the archs this launcher trains: the paper's convnets and the decoders
+# (dense, MoE, SSM and hybrid layers; VLMs with the stub image prefix)
+TRAIN_ARCHS = tuple(PAPER_ARCHS) + tuple(
+    a for a in ASSIGNED_ARCHS if get_config(a).family == "decoder")
 # examples per rank and step when --batch is not given
 CONV_BATCH = {"alexnet": 128, "googlenet": 32, "vggnet": 16}
 LM_BATCH = 8
@@ -216,12 +209,39 @@ class RankShare:
         return self.source.batch(batch_size, step * self.k + self.rank)
 
 
+def synthetic_batch(cfg, batch_size: int, step: int, seq_len: int = 128):
+    """The batch at index ``step``, deterministic in (cfg, sizes, step)
+    (the reference launcher's ``synthetic_batch``): images for a convnet;
+    else ``LMTokenSource`` tokens, with zero image embeddings (B,
+    ``num_image_tokens``, d) before them for a ``vlm`` config (the stub
+    frontend)."""
+    if cfg.family == "conv":
+        return ImageSource(cfg.image_size, cfg.num_classes).batch(
+            batch_size, step)
+    b = LMTokenSource(cfg.vocab_size, seq_len).batch(batch_size, step)
+    if cfg.modality == "vlm":
+        b["image_embeds"] = np.zeros(
+            (batch_size, cfg.num_image_tokens, cfg.d_model), np.float32)
+    return b
+
+
+class _DecoderSource:
+    """``synthetic_batch`` of a decoder config as a batch source."""
+
+    def __init__(self, cfg, seq: int):
+        self.cfg, self.seq = cfg, seq
+
+    def batch(self, batch_size: int, step: int):
+        return synthetic_batch(self.cfg, batch_size, step, self.seq)
+
+
 def rank_source(cfg, seq: int = 0):
-    """Images at ``image_size + 8`` pixels for a convnet, else ``seq``
-    positions of ``LMTokenSource`` tokens."""
+    """Images at ``image_size + 8`` pixels for a convnet, else
+    ``synthetic_batch``'s ``seq`` token positions (and a VLM's image
+    embeddings)."""
     if cfg.family == "conv":
         return ImageSource(cfg.image_size + CROP_MARGIN, cfg.num_classes)
-    return LMTokenSource(cfg.vocab_size, seq)
+    return _DecoderSource(cfg, seq)
 
 
 def write_rank_batches(cfg, rank: int, k: int, batch: int, count: int,
@@ -299,7 +319,7 @@ def elastic_batch_fn(cfg, batch: int, seq: int, slots: int, device,
     batches drawn once, batch ``(step + row) % pool`` (host image
     preparation off the step)."""
     src = (ImageSource(cfg.image_size, cfg.num_classes)
-           if cfg.family == "conv" else LMTokenSource(cfg.vocab_size, seq))
+           if cfg.family == "conv" else _DecoderSource(cfg, seq))
 
     def draw(i):
         return {n: torch.from_numpy(v).to(device)

@@ -15,10 +15,16 @@
   load-balance loss (metrics {"loss", "aux"}); differentiable, so
   gradients flow through the cast to the fp32 masters
 
-Decoders of dense and MoE layers, with GQA or MLA attention (DeepSeek-V2:
-MLA with the MoE of ``models/moe.py`` after ``first_k_dense`` dense
-layers); ``init`` draws every leaf from one ``torch.Generator`` on
-``device`` (the MoE router in fp32 whatever ``param_dtype`` says).
+Decoders of dense, MoE, SSM and hybrid layers, with GQA or MLA attention
+(DeepSeek-V2: MLA with the MoE of ``models/moe.py`` after
+``first_k_dense`` dense layers; Mamba-2: SSD blocks alone; Hymba:
+attention and SSD side by side, after 128 meta tokens; VLMs take
+``batch["image_embeds"]`` before the tokens); ``init`` draws every leaf
+from one ``torch.Generator`` on ``device`` (the MoE router in fp32
+whatever ``param_dtype`` says). Every decoder exposes the same fields,
+``init_paged_cache`` included: a pure-SSM model's paged pool holds its
+slot lanes alone, and the serving engine, not the model, decides to run
+it slot-granular.
 
 Every call casts fp32 matrices to the compute dtype (``cast_params``);
 a caller that keeps params already cast (the serving engine) pays

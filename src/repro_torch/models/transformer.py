@@ -1,16 +1,18 @@
-"""Decoder-only LM executor, dense and MoE layers (counterpart of
-``repro/models/transformer.py``).
+"""Decoder-only LM executor: dense, MoE, SSM and hybrid layers
+(counterpart of ``repro/models/transformer.py``).
 
 Parameters are a dict: ``embed`` (V, d), ``ln_f`` (d,), ``head`` (d, V)
-unless embeddings are tied, and ``layers`` — one dict per layer (the JAX
-package's ``blocks[seg]`` stacks unstacked; ``repro_torch.bridge``
-converts). The JAX ``lax.scan`` over stacked layers is a Python loop over
-layers here. Caches keep the JAX structure: one entry per segment of
-consecutive same-kind layers, ``{"attn": {"k", "v"}}`` (MLA: ``{"ckv",
-"kr"}``, the latent and the rope key) with a leading layer axis, so a
-paged pool is ``(layers, P, page_size, KV, hd)`` (MLA: ``(layers, P,
-page_size, R)``). Decode and prefill write the caches in place and
-return them.
+unless embeddings are tied, ``meta`` (num_meta_tokens, d) for Hymba, and
+``layers`` — one dict per layer (the JAX package's ``blocks[seg]`` stacks
+unstacked; ``repro_torch.bridge`` converts). The JAX ``lax.scan`` over
+stacked layers is a Python loop over layers here. Caches keep the JAX
+structure: one entry per segment of consecutive same-kind layers,
+``{"attn": {"k", "v"}}`` (MLA: ``{"ckv", "kr"}``, the latent and the rope
+key) and/or ``{"ssm": {"conv", "state"}}`` with a leading layer axis, so
+a paged pool's attention leaf is ``(layers, P, page_size, KV, hd)``
+(MLA: ``(layers, P, page_size, R)``) while its SSM lanes stay one per
+slot, ``(layers, max_slots, ...)``. Decode and prefill write the caches
+in place and return them.
 
 Training runs ``decoder_loss`` under autograd. With ``cfg.remat`` each
 layer runs under ``torch.utils.checkpoint`` (non-reentrant), the
@@ -18,14 +20,25 @@ counterpart of the JAX package's ``jax.checkpoint(body)``: only the
 layer inputs are kept, and the backward recomputes each layer's forward
 (the flash forward kernel launches twice per layer and step).
 
-Layer kinds: ``dense`` (attention + MLP) and ``moe`` (attention + the
-MoE layer of ``models/moe.py``; DeepSeek-V2's first ``first_k_dense``
-layers are dense). Training routes with the capped capacity and adds the
-layers' load-balance loss to the loss; decode and prefill route with
-full capacity (no drops, so a slot's tokens never depend on what the
-other slots hold), and prefill keeps the pad tail out of the routing.
-SSM and hybrid layers and meta tokens come with a later slice and raise
-``NotImplementedError``.
+Layer kinds:
+
+- ``dense`` (attention + MLP) and ``moe`` (attention + the MoE layer of
+  ``models/moe.py``; DeepSeek-V2's first ``first_k_dense`` layers are
+  dense). Training routes with the capped capacity and adds the layers'
+  load-balance loss to the loss; decode and prefill route with full
+  capacity (no drops, so a slot's tokens never depend on what the other
+  slots hold), and prefill keeps the pad tail out of the routing.
+- ``ssm`` (Mamba-2's SSD block of ``models/ssm.py`` alone) and
+  ``hybrid`` (Hymba: attention and SSD on the same normed input, fused
+  as ``0.5 * (rms_norm(attn) + rms_norm(ssm))``, then the MLP when
+  ``d_ff``). Prefill keeps the pad tail out of the SSM state.
+
+The forward puts early-fusion image embeddings (``batch["image_embeds"]``
+of a ``vlm`` config, the stub frontend) before the tokens, and Hymba's
+meta tokens before both, with positions over the whole prefix; the
+logits cover the token positions alone. The serve paths (decode,
+prefill) embed the tokens alone, as the reference's do: a served Hymba
+runs without its meta prefix. The ``encdec`` family is not ported.
 """
 from __future__ import annotations
 
@@ -34,14 +47,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (dtype_of, embed_init, dense_init,
                                        rms_norm, softmax_xent)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward
 
-LATER_SLICE = ("only dense and MoE decoder layers are ported; SSM and "
-               "hybrid layers and meta tokens come with a later slice "
-               "(ROADMAP queue 1)")
+LATER_SLICE = ("only decoder-only models are ported; the encdec family "
+               "comes with a later slice (ROADMAP queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -94,13 +107,31 @@ def segments(cfg: ArchConfig) -> list[tuple[str, int]]:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family != "decoder" or cfg.num_meta_tokens or any(
-            k not in ("dense", "moe") for k in layer_kinds(cfg)):
+    if cfg.family != "decoder":
         raise NotImplementedError(f"{cfg.name}: {LATER_SLICE}")
 
 
 def _embed(params, tokens, dtype):
     return params["embed"][tokens].to(dtype)
+
+
+def _has_images(batch, cfg: ArchConfig) -> bool:
+    return cfg.modality == "vlm" and "image_embeds" in batch
+
+
+def _embed_inputs(params, batch, cfg: ArchConfig, dtype):
+    """One sequence of Hymba's meta tokens, then a VLM's image embeddings
+    (early fusion), then the token embeddings. Returns (h, the length of
+    the prefix before the tokens)."""
+    h = _embed(params, batch["tokens"], dtype)
+    parts = [h]
+    if _has_images(batch, cfg):
+        parts.insert(0, batch["image_embeds"].to(dtype))  # (B, n_img, d)
+    if cfg.num_meta_tokens:
+        parts.insert(0, params["meta"].to(dtype)[None].expand(
+            h.shape[0], cfg.num_meta_tokens, cfg.d_model))
+    n_prefix = sum(t.shape[1] for t in parts[:-1])
+    return (torch.cat(parts, dim=1) if n_prefix else h), n_prefix
 
 
 # ---------------------------------------------------------------------------
@@ -110,65 +141,97 @@ def _embed(params, tokens, dtype):
 def _init_layer(gen, cfg: ArchConfig, kind: str, dtype, device):
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
-    p = {"ln1": zeros(),
-         "attn": attn_mod.init_attention(gen, cfg, dtype, device),
-         "ln2": zeros()}
+    p = {"ln1": zeros()}
+    if kind in ("dense", "moe", "hybrid"):
+        p["attn"] = attn_mod.init_attention(gen, cfg, dtype, device)
+    if kind in ("ssm", "hybrid"):
+        p["ssm"] = ssm_mod.init_ssm(gen, d, cfg.ssm, dtype, device)
+    if kind == "hybrid":
+        p["fuse_na"], p["fuse_ns"] = zeros(), zeros()
     if kind == "moe":
-        p["moe"] = init_moe(gen, d, cfg.moe, dtype, device)
-    else:
+        p["ln2"], p["moe"] = zeros(), init_moe(gen, d, cfg.moe, dtype, device)
+    elif kind == "dense" or (kind == "hybrid" and cfg.d_ff):
+        p["ln2"] = zeros()
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
     return p
 
 
 def _ffn(p, x, cfg: ArchConfig, **moe_kw):
-    """The layer's MLP or MoE on the normed residual: (y, aux)."""
+    """x plus the layer's MLP or MoE on the normed residual (x itself when
+    the layer has neither): (x, aux or None)."""
+    if "ln2" not in p:
+        return x, None
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        return moe_forward(p["moe"], h, cfg.moe, **moe_kw)
-    return mlp_forward(p["mlp"], h), None
+        y, aux = moe_forward(p["moe"], h, cfg.moe, **moe_kw)
+        return x + y, aux
+    return x + mlp_forward(p["mlp"], h), None
 
 
-def _apply_layer(p, x, positions, cfg: ArchConfig, window, attn_impl):
+def _mix(p, kind: str, eps: float, attn_fn, ssm_fn):
+    """The layer's token mixer from its attention and SSM calls: one of
+    them, or Hymba's fusion of both."""
+    if kind == "ssm":
+        return ssm_fn()
+    if kind != "hybrid":
+        return attn_fn()
+    ya, ys = attn_fn(), ssm_fn()
+    return 0.5 * (rms_norm(ya, p["fuse_na"], eps)
+                  + rms_norm(ys, p["fuse_ns"], eps))
+
+
+def _apply_layer(p, x, positions, cfg: ArchConfig, kind: str, window,
+                 attn_impl):
     """Full-sequence layer: (x, aux or None)."""
-    x = x + attn_mod.attn_forward(p["attn"], rms_norm(x, p["ln1"],
-                                                      cfg.norm_eps),
-                                  positions, cfg, window, impl=attn_impl)
-    y, aux = _ffn(p, x, cfg)
-    return x + y, aux
+    eps = cfg.norm_eps
+    h = rms_norm(x, p["ln1"], eps)
+    x = x + _mix(p, kind, eps,
+                 lambda: attn_mod.attn_forward(p["attn"], h, positions, cfg,
+                                               window, impl=attn_impl),
+                 lambda: ssm_mod.ssm_forward(p["ssm"], h, cfg.d_model,
+                                             cfg.ssm, eps))
+    return _ffn(p, x, cfg)
 
 
-def _decode_layer(p, cache, x, pos, cfg: ArchConfig, window, attn_impl,
-                  tables, page_size):
-    y, _ = attn_mod.attn_decode(p["attn"], cache,
-                                rms_norm(x, p["ln1"], cfg.norm_eps), pos, cfg,
-                                window, impl=attn_impl, tables=tables,
-                                page_size=page_size)
-    x = x + y
+def _decode_layer(p, cache, x, pos, cfg: ArchConfig, kind: str, window,
+                  attn_impl, tables, page_size):
+    eps = cfg.norm_eps
+    h = rms_norm(x, p["ln1"], eps)
+    x = x + _mix(p, kind, eps,
+                 lambda: attn_mod.attn_decode(
+                     p["attn"], cache["attn"], h, pos, cfg, window,
+                     impl=attn_impl, tables=tables, page_size=page_size)[0],
+                 lambda: ssm_mod.ssm_decode(p["ssm"], cache["ssm"], h,
+                                            cfg.d_model, cfg.ssm, eps)[0])
     # full capacity: decode routing is drop-free, so each slot's output is
     # independent of what the other slots are decoding
-    y, _ = _ffn(p, x, cfg, full_capacity=True)
-    return x + y
+    return _ffn(p, x, cfg, full_capacity=True)[0]
 
 
-def _prefill_layer(p, cache, x, positions, pos0, valid_flat, cfg: ArchConfig,
-                   window, attn_impl, tables, page_size):
-    y, _ = attn_mod.attn_prefill(p["attn"], cache,
-                                 rms_norm(x, p["ln1"], cfg.norm_eps),
-                                 positions, pos0, cfg, window,
-                                 impl=attn_impl, tables=tables,
-                                 page_size=page_size)
-    x = x + y
-    y, _ = _ffn(p, x, cfg, full_capacity=True, valid=valid_flat)
-    return x + y
+def _prefill_layer(p, cache, x, positions, pos0, valid: int, valid_flat,
+                   cfg: ArchConfig, kind: str, window, attn_impl, tables,
+                   page_size):
+    eps = cfg.norm_eps
+    h = rms_norm(x, p["ln1"], eps)
+    x = x + _mix(p, kind, eps,
+                 lambda: attn_mod.attn_prefill(
+                     p["attn"], cache["attn"], h, positions, pos0, cfg,
+                     window, impl=attn_impl, tables=tables,
+                     page_size=page_size)[0],
+                 lambda: ssm_mod.ssm_prefill(p["ssm"], cache["ssm"], h, valid,
+                                             cfg.d_model, cfg.ssm, eps)[0])
+    return _ffn(p, x, cfg, full_capacity=True, valid=valid_flat)[0]
 
 
 def _layer_caches(caches, cfg: ArchConfig):
-    """Per-layer views ({"k", "v"} or MLA's {"ckv", "kr"}) into the stacked
+    """Per-layer views ({"attn": {"k", "v"} or MLA's {"ckv", "kr"}, "ssm":
+    {"conv", "state"}}, as the layer's kind has them) into the stacked
     segment caches (writes through them land in the pool)."""
     out = []
     for seg_idx, (_, count) in enumerate(segments(cfg)):
-        c = caches[seg_idx]["attn"]
-        out += [{n: t[j] for n, t in c.items()} for j in range(count)]
+        seg = caches[seg_idx]
+        out += [{grp: {n: t[j] for n, t in leaves.items()}
+                 for grp, leaves in seg.items()} for j in range(count)]
     return out
 
 
@@ -194,35 +257,40 @@ def init_decoder(gen: torch.Generator, cfg: ArchConfig, device=None):
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, (cfg.vocab_size,),
                                     dtype, device)
+    if cfg.num_meta_tokens:
+        meta = torch.empty((cfg.num_meta_tokens, cfg.d_model),
+                           dtype=torch.float32, device=device)
+        params["meta"] = meta.normal_(0.0, 0.02, generator=gen).to(dtype)
     params["layers"] = [_init_layer(gen, cfg, kind, dtype, device)
                         for kind in layer_kinds(cfg)]
     return params
 
 
 def decoder_forward(params, batch, cfg: ArchConfig):
-    """batch {tokens (B, S)} -> (logits (B, S, V), aux): aux is the MoE
-    layers' summed load-balance loss (fp32; 0 without MoE).
-    Image-embedding inputs (the VLM stub frontend) are not ported."""
+    """batch {tokens (B, S) [, image_embeds (B, Ni, d) of a vlm config]}
+    -> (logits (B, S, V), aux): aux is the MoE layers' summed load-balance
+    loss (fp32; 0 without MoE). The logits cover the token positions
+    alone (the meta and image prefixes are stripped)."""
     _check_ported(cfg)
-    if "image_embeds" in batch:
-        raise NotImplementedError("image_embeds inputs are not ported")
     dtype = dtype_of(cfg.dtype)
-    h = _embed(params, batch["tokens"], dtype)
+    h, n_prefix = _embed_inputs(params, batch, cfg, dtype)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
     wins = layer_windows(cfg, "train", S)
     attn_impl = attn_mod.resolve_attn_impl(cfg.attention)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp, win in zip(params["layers"], wins):
+    for lp, kind, win in zip(params["layers"], layer_kinds(cfg), wins):
         if remat:
-            h, aux = checkpoint(_apply_layer, lp, h, positions, cfg, win,
-                                attn_impl, use_reentrant=False)
+            h, aux = checkpoint(_apply_layer, lp, h, positions, cfg, kind,
+                                win, attn_impl, use_reentrant=False)
         else:
-            h, aux = _apply_layer(lp, h, positions, cfg, win, attn_impl)
+            h, aux = _apply_layer(lp, h, positions, cfg, kind, win,
+                                  attn_impl)
         if aux is not None:
             aux_total = aux_total + aux
-    return _head(params, h, cfg, dtype), aux_total
+    # the final norm is per position, so stripping before it is the same
+    return _head(params, h[:, n_prefix:], cfg, dtype), aux_total
 
 
 def decoder_loss(params, batch, cfg: ArchConfig):
@@ -241,32 +309,48 @@ def decoder_loss(params, batch, cfg: ArchConfig):
 
 def init_decoder_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     """Contiguous cache: per segment {"attn": {"k", "v"}} of (count, batch,
-    max_len, KV, hd) (MLA: {"ckv", "kr"} of (count, batch, max_len, R /
-    rope))."""
+    L, KV, hd) (MLA: {"ckv", "kr"} of (count, batch, L, R / rope)) and
+    {"ssm": {"conv", "state"}} of (count, batch, ...), as the segment's
+    kind has them. L is ``max_len`` plus the meta and image rows, as in the
+    reference (the serve paths write neither)."""
     _check_ported(cfg)
-    dtype = dtype_of(cfg.dtype)
-    return [{"attn": _stacked_cache(count, batch, max_len, cfg, dtype, device)}
-            for _, count in segments(cfg)]
-
-
-def _stacked_cache(count: int, rows: int, length: int, cfg: ArchConfig,
-                   dtype, device):
-    """The attention cache leaves of (count, rows, length, ...) zeros."""
-    one = attn_mod.attn_init_cache(count * rows, length, cfg, dtype, device)
-    return {n: t.reshape(count, rows, *t.shape[1:]) for n, t in one.items()}
+    total = max_len + cfg.num_meta_tokens + (
+        cfg.num_image_tokens if cfg.modality == "vlm" else 0)
+    return _segment_caches(cfg, batch, total, batch, device)
 
 
 def init_paged_decoder_cache(cfg: ArchConfig, max_slots: int, page_size: int,
                              num_pages: int, device=None):
     """Paged pool: per segment {"attn": {"k", "v"}} of (count, num_pages,
     page_size, KV, hd) (MLA: {"ckv", "kr"} of (count, num_pages,
-    page_size, R / rope)) physical pages shared through block tables."""
-    del max_slots           # attention leaves are page-granular, not slotted
+    page_size, R / rope)) physical pages shared through block tables, and
+    {"ssm": {"conv", "state"}} of (count, max_slots, ...): one lane a slot,
+    since they have no sequence axis to page. No meta/image rows: the
+    serve paths write no prefix, and pages are allocated by demand."""
     _check_ported(cfg)
+    return _segment_caches(cfg, num_pages, page_size, max_slots, device)
+
+
+def _segment_caches(cfg: ArchConfig, rows: int, length: int, lanes: int,
+                    device):
+    """Per segment, zeros of the attention leaves (count, rows, length,
+    ...) and the SSM leaves (count, lanes, ...)."""
     dtype = dtype_of(cfg.dtype)
-    return [{"attn": _stacked_cache(count, num_pages, page_size, cfg, dtype,
-                                    device)}
-            for _, count in segments(cfg)]
+    out = []
+    for kind, count in segments(cfg):
+        seg = {}
+        if kind in ("dense", "moe", "hybrid"):
+            one = attn_mod.attn_init_cache(count * rows, length, cfg, dtype,
+                                           device)
+            seg["attn"] = {n: t.reshape(count, rows, *t.shape[1:])
+                           for n, t in one.items()}
+        if kind in ("ssm", "hybrid"):
+            one = ssm_mod.ssm_init_cache(count * lanes, cfg.d_model, cfg.ssm,
+                                         dtype, device)
+            seg["ssm"] = {n: t.reshape(count, lanes, *t.shape[1:])
+                          for n, t in one.items()}
+        out.append(seg)
+    return out
 
 
 def decoder_decode_step(params, caches, tokens, pos, cfg: ArchConfig, *,
@@ -280,9 +364,10 @@ def decoder_decode_step(params, caches, tokens, pos, cfg: ArchConfig, *,
     h = _embed(params, tokens, dtype)
     wins = layer_windows(cfg, "decode", seq_len)
     attn_impl = attn_mod.resolve_attn_impl(cfg.attention)
-    for lp, lc, win in zip(params["layers"], _layer_caches(caches, cfg), wins):
-        h = _decode_layer(lp, lc, h, pos, cfg, win, attn_impl, block_tables,
-                          page_size)
+    for lp, lc, kind, win in zip(params["layers"], _layer_caches(caches, cfg),
+                                 layer_kinds(cfg), wins):
+        h = _decode_layer(lp, lc, h, pos, cfg, kind, win, attn_impl,
+                          block_tables, page_size)
     return _head(params, h, cfg, dtype), caches
 
 
@@ -293,9 +378,10 @@ def decoder_prefill(params, caches, tokens, pos0: int, valid: int,
     at cache position ``pos0`` that computes logits for every chunk
     position and writes every layer's cache in place. ``valid`` (<= C)
     counts the real leading tokens: the pad tail is kept out of MoE
-    routing (dense layers need no masking of it: its rows sit past the
-    live sequence, hidden by causality). Returns (logits (B, C, V),
-    caches)."""
+    routing and out of the SSM state and conv window (attention needs no
+    masking of it: its rows sit past the live sequence, hidden by
+    causality). Tokens alone are embedded (no meta or image prefix, as in
+    the reference). Returns (logits (B, C, V), caches)."""
     _check_ported(cfg)
     dtype = dtype_of(cfg.dtype)
     B, C = tokens.shape
@@ -305,7 +391,8 @@ def decoder_prefill(params, caches, tokens, pos0: int, valid: int,
         B, C).reshape(-1)
     wins = layer_windows(cfg, "decode", seq_len)
     attn_impl = attn_mod.resolve_attn_impl(cfg.attention)
-    for lp, lc, win in zip(params["layers"], _layer_caches(caches, cfg), wins):
-        h = _prefill_layer(lp, lc, h, positions, pos0, valid_flat, cfg, win,
-                           attn_impl, block_tables, page_size)
+    for lp, lc, kind, win in zip(params["layers"], _layer_caches(caches, cfg),
+                                 layer_kinds(cfg), wins):
+        h = _prefill_layer(lp, lc, h, positions, pos0, int(valid), valid_flat,
+                           cfg, kind, win, attn_impl, block_tables, page_size)
     return _head(params, h, cfg, dtype), caches

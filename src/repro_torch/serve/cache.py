@@ -9,7 +9,8 @@ Two pool layouts back the engine:
   ``flash_decode_paged`` (or gather lanes on the ``ref`` path), writes
   scatter rows through the table, and the host-side :class:`PageAllocator`
   owns the free list, refcounts, the hashed prefix cache and copy-on-write
-  bookkeeping.
+  bookkeeping. SSM conv/state leaves have no sequence axis to page and
+  keep one lane per slot: ``(layers, max_slots, ...)``.
 - **Contiguous.** ``model.init_cache(max_slots, max_seq)``: one private
   ``max_seq`` lane per slot — the parity oracle for the paged engine.
 
@@ -21,9 +22,11 @@ Unlike the JAX package's pure functions, the device ops here update the
 pool in place (``copy_page``, the writes through ``slot_view`` and
 ``paged_view``) and return the pool they were given. :class:`PageAllocator` and
 :func:`hash_prefix_chunk` are host-side copies of the originals, pinned to
-them by ``tests/test_torch_host.py``. SSM state lanes (slot-granular
-leaves) come with the SSM serving slice; every leaf here is an attention
-leaf.
+them by ``tests/test_torch_host.py``.
+
+A pool is a list of segments, each a dict of groups (``"attn"``,
+``"ssm"``) of named tensors; a leaf's *path* is ``(segment, group,
+name)``.
 """
 from __future__ import annotations
 
@@ -50,50 +53,95 @@ def make_paged_pool(model, max_slots: int, page_size: int, num_pages: int):
     return model.init_paged_cache(max_slots, page_size, num_pages)
 
 
+def leaves_with_path(pool):
+    """((segment, group, name), tensor) for every cache tensor."""
+    return [((i, grp, n), t) for i, seg in enumerate(pool)
+            for grp, ts in seg.items() for n, t in ts.items()]
+
+
 def leaves(pool):
-    """Every cache tensor of the pool (segment -> "attn" -> k/v)."""
-    return [t for seg in pool for t in seg["attn"].values()]
+    """Every cache tensor of the pool."""
+    return [t for _, t in leaves_with_path(pool)]
+
+
+def is_paged_leaf(path) -> bool:
+    """True for attention K/V and MLA latent leaves (page-granular in a
+    paged pool); False for SSM conv/state lanes (slot-granular, no
+    sequence axis)."""
+    return "attn" in path
+
+
+def _map_views(pool, fn):
+    """The pool's structure with ``fn(path, tensor)`` at every leaf."""
+    return [{grp: {n: fn((i, grp, n), t) for n, t in ts.items()}
+             for grp, ts in seg.items()} for i, seg in enumerate(pool)]
+
+
+def _lane(t, slot: int):
+    """Slot ``slot`` of a slot-granular leaf, as a (layer, 1, ...) view:
+    segments stack their caches as (layer, slot, ...). (In a paged pool,
+    axis 1 of an attention leaf is the page id.)"""
+    return t.narrow(1, slot, 1)
+
+
+def _fold(pool, slot: int, view, paged: bool):
+    """Copy each slot lane of ``view`` into the pool unless it is already
+    a view of it (attention leaves of a paged pool were written in
+    place)."""
+    for (i, grp, n), t in leaves_with_path(pool):
+        if paged and is_paged_leaf((i, grp, n)):
+            continue
+        dst, src = _lane(t, slot), view[i][grp][n]
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src)
+    return pool
 
 
 def slot_view(pool, slot: int):
     """Slot ``slot`` of a contiguous pool as a batch-1 cache: views, so
     writes through them land in the pool."""
-    return [{"attn": {n: t[:, slot:slot + 1] for n, t in seg["attn"].items()}}
-            for seg in pool]
+    return _map_views(pool, lambda p, t: _lane(t, slot))
 
 
 def slot_write(pool, slot: int, view):
     """Fold a batch-1 cache back into the pool at ``slot``: a no-op for the
     views :func:`slot_view` hands out, a copy for anything else."""
-    for seg, vseg in zip(pool, view):
-        for n, t in seg["attn"].items():
-            dst, src = t[:, slot:slot + 1], vseg["attn"][n]
-            if src.data_ptr() != dst.data_ptr():
-                dst.copy_(src)
-    return pool
+    return _fold(pool, slot, view, paged=False)
 
 
 def paged_view(pool, slot: int):
     """Prefill view of a paged pool: page-granular leaves pass through
-    whole (chunk writes scatter through the block table). Every leaf of a
-    dense or MoE decoder's pool (GQA's k/v, MLA's latent and rope key) is
-    page-granular, so this is the pool itself;
-    slot-granular SSM lanes would be sliced here."""
-    del slot
-    return pool
+    whole (chunk writes scatter through the block table), slot-granular
+    SSM leaves are sliced to the (1, ...) lane the batched path expects
+    (views: writes land in the pool)."""
+    return _map_views(pool, lambda p, t: t if is_paged_leaf(p)
+                      else _lane(t, slot))
 
 
 def paged_write(pool, slot: int, view):
-    """Fold a :func:`paged_view` back: its pages were written in place."""
-    del slot, view
+    """Fold a :func:`paged_view` back: pages were written in place; SSM
+    lanes fold to their slot as :func:`slot_write` folds them."""
+    return _fold(pool, slot, view, paged=True)
+
+
+def reset_slot_ssm(pool, slot: int):
+    """Zero one slot's SSM conv/state lanes only, in place. Attention
+    rows need no zeroing (a previous occupant's rows are causally masked
+    until the new request overwrites them in order, and a paged slot
+    starts from fresh pages); the SSM lanes do, since their state carries
+    across prefill chunks by design. Works on both pool layouts."""
+    for p, t in leaves_with_path(pool):
+        if not is_paged_leaf(p):
+            _lane(t, slot).zero_()
     return pool
 
 
 def copy_page(pool, dst: int, src: int):
     """Copy one physical page across all layers of every page-granular
     leaf, in place — the copy-on-write device op."""
-    for t in leaves(pool):
-        t[:, dst] = t[:, src]
+    for p, t in leaves_with_path(pool):
+        if is_paged_leaf(p):
+            t[:, dst] = t[:, src]
     return pool
 
 

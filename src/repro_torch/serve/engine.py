@@ -18,6 +18,12 @@
   list, refcounts and the hashed prefix cache (hits skip their pages;
   the first write to a shared page copies it). ``page_size=0`` selects
   the contiguous per-slot pool, the parity oracle.
+- **SSM families.** Mamba-2's and Hymba's conv/state lanes are
+  slot-granular in either pool and are zeroed at admission; the prefill
+  chunk is rounded up to a multiple of the SSD chunk (so chunked prefill
+  equals a single call bit for bit); a pure-SSM model runs the
+  contiguous pool whatever ``page_size`` says, and any SSM family runs
+  without the prefix cache (its state is not rebuilt from pages).
 - **Sampling.** Greedy/temperature/top-k/top-p per request;
   ``fused_sampling=True`` routes greedy/temperature through the
   ``slot_gather_sample`` kernel.
@@ -296,6 +302,10 @@ class Engine:
             cfg = with_attn_impl(cfg, attn_impl)
         if attn_impl or model.device != self.device:
             model = build_model(cfg, self.device)
+        if cfg.ssm is not None and prefill_chunk % cfg.ssm.chunk:
+            # SSD block boundaries must align across chunked calls for the
+            # cache state to match a single-call prefill bitwise
+            prefill_chunk += cfg.ssm.chunk - prefill_chunk % cfg.ssm.chunk
         if max_seq % prefill_chunk:
             # every chunk writes a full [pos0, pos0+C) window: round the
             # pool up so the last window never crosses max_seq
@@ -323,7 +333,9 @@ class Engine:
         self.params = cast_params(_to(params, self.device),
                                   dtype_of(cfg.dtype))
 
-        self.paged = page_size > 0
+        # a pure-SSM family has no sequence-axis leaves to page: it falls
+        # back to the slot-granular pool
+        self.paged = page_size > 0 and cfg.attention is not None
         self.page_size = page_size if self.paged else 0
         self.allocator = None
         sched_kw = dict(max_queue=max_queue if guardrails else 0,
@@ -337,9 +349,10 @@ class Engine:
             self.num_pages = num_pages
             self.pool = cache_mod.make_paged_pool(model, max_slots, page_size,
                                                   num_pages)
+            # SSM state is not rebuilt from cached pages: no prefix cache
             self.allocator = cache_mod.PageAllocator(
                 num_pages, page_size, max_slots, pps,
-                prefix_cache=prefix_cache)
+                prefix_cache=prefix_cache and cfg.ssm is None)
             self.sched = SlotScheduler(max_slots, max_seq,
                                        allocator=self.allocator, **sched_kw)
         else:
@@ -532,6 +545,11 @@ class Engine:
         t0 = self._clock()
         with trace.span("serve/prefill", slot=slot, rid=req.rid, tokens=S0,
                         cached=hit):
+            if self.cfg.ssm is not None:
+                # the SSM conv/state carry across prefill chunks, so a
+                # previous occupant's must not leak in; attention rows need
+                # no zeroing (stale rows stay causally masked)
+                self.pool = cache_mod.reset_slot_ssm(self.pool, slot)
             logits, valid = None, 0
             for c in range(start, S0, C):
                 sl = toks[c:c + C]

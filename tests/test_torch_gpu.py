@@ -416,7 +416,10 @@ def _sampler_inputs(g, dev, dtype, S, C, V, case):
 @pytest.mark.parametrize("S,C,V", [(8, 1, 128256), (1, 32, 128256),
                                    (8, 1, 151936), (1, 32, 151936),
                                    (3, 5, 1000),
-                                   (2, 3, 1537)])      # V % 8 != 0: scalar loads
+                                   (2, 3, 1537),       # V % 8 != 0: scalar loads
+                                   (8, 1, 32001),      # hymba-1.5b's vocab:
+                                   (1, 128, 32001),    # scalar loads too
+                                   (8, 1, 50280)])     # mamba2-1.3b's
 def test_slot_gather_kernel_exact(dev, dtype, S, C, V, case):
     """The one-launch sampler equals the plain version bit for bit, on
     every load path (16-byte and scalar), and two calls agree."""
@@ -762,6 +765,78 @@ def test_flash_decode_at_the_chaos_shape(dev, dtype):
                                       1 / math.sqrt(D), ps)
     assert (paged.float() - want.float()).abs().max() <= TOL[dtype]
     assert torch.equal(paged, fa.flash_decode(q, lk, lv, pos, block_k=ps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_hymbas_windowed_shape(dev, dtype):
+    """hymba-1.5b's decode on a sliding layer: 8 slots over 2 K lanes in
+    pages of 16, positions on both sides of the 1024-key window, 25 heads
+    over 5, D 64; and its prefill chunk of 128 queries past the window."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    B, NP, ps, H, KV, D, W = 8, 128, 16, 25, 5, 64, 1024
+    P = B * NP + 1
+    q = _rn(g, dev, dtype, B, 1, H, D)
+    kp, vp = _rn(g, dev, dtype, P, ps, KV, D), _rn(g, dev, dtype, P, ps, KV, D)
+    tables = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
+        B, NP).to(torch.int32)
+    pos = torch.tensor([100, 700, 1023, 1024, 1100, 1400, 1700, 2047],
+                       dtype=torch.int32, device=dev)
+    lk, lv = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+    scale = 1 / math.sqrt(D)
+    K.reset_launches()
+    got = fa.flash_decode(q, lk, lv, pos, window=W)
+    paged = fa.flash_decode_paged(q, kp, vp, tables, pos, page_size=ps,
+                                  window=W)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_decode": 1, "flash_decode_paged": 1,
+                          "flash_decode_combine": 2}
+    want = ref.flash_decode_ref(q, lk, lv, pos, W, scale, 512)
+    assert (got.float() - want.float()).abs().max() <= TOL[dtype]
+    assert torch.equal(paged, fa.flash_decode(q, lk, lv, pos, window=W,
+                                              block_k=ps))
+    # the window changes the answer past position 1023
+    full = ref.flash_decode_ref(q, lk, lv, pos, 0, scale, 512)
+    assert torch.equal(want[:3], full[:3]) and not torch.equal(want[4:],
+                                                               full[4:])
+    qc = _rn(g, dev, dtype, 1, 128, H, D)
+    q_off = torch.tensor([1280], dtype=torch.int32, device=dev)
+    out = fa.flash_attention(qc, lk[:1], lv[:1], q_off=q_off, window=W)
+    want = ref.flash_attention_ref(qc, lk[:1], lv[:1], q_off, W, scale)
+    assert (out.float() - want.float()).abs().max() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_ssm_engines_on_the_card(dev, arch):
+    """The smoke mamba2 (slot-granular, sampler alone) and hymba (paged
+    attention + SSM lanes, then contiguous) engines on the card: the
+    kernels launch, every request finishes, and a greedy request gives
+    the tokens ``generate`` gives it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, SamplingParams
+    from repro_torch.train.serve import generate
+    cfg = get_smoke_config(arch).with_overrides(num_layers=3, dtype="float32")
+    model = build_model(cfg, dev)
+    params = model.init(0)
+    prompt = list(range(3, 44))
+    want = generate(model, params, [prompt], max_new=6)[0, 41:].tolist()
+    for page_size in (16, 0):
+        eng = Engine(model, params, max_slots=2, max_seq=96, prefill_chunk=16,
+                     page_size=page_size, fused_sampling=True, device=dev)
+        assert eng.paged == (page_size > 0 and arch == "hymba-1.5b")
+        K.reset_launches()
+        rid = eng.submit(prompt, 6)
+        for n in (5, 20, 9):
+            eng.submit(list(range(1, n + 1)), 4,
+                       SamplingParams(temperature=0.5, seed=n))
+        res = eng.run()
+        assert res[int(rid)] == want
+        assert all(len(t) in (4, 6) for t in res.values())
+        names = {"slot_gather_sample"}
+        if arch == "hymba-1.5b":
+            names |= {"flash_attention", "flash_decode_combine",
+                      "flash_decode_paged" if eng.paged else "flash_decode"}
+        assert set(K.LAUNCHES) == names
 
 
 def test_chaos_on_the_card_replays_and_restores(dev):

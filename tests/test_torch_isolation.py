@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.kernels.fused_rs_update, repro_torch.checkpoint, "
             "repro_torch.train.serve, repro_torch.fault, "
             "repro_torch.fault.smoke, repro_torch.telemetry.report, "
-            "repro_torch.telemetry.validate; "
+            "repro_torch.telemetry.validate, repro_torch.models.ssm, "
+            "repro_torch.models.transformer, repro_torch.serve.cache; "
             "from repro_torch import kernels; "
             "assert not any(m.split('.')[0] in ('jax', 'repro') "
             "for m in sys.modules), sorted(sys.modules); "
@@ -68,6 +69,25 @@ def test_build_model_without_device_raises_on_cpu_host():
     from repro_torch.models import build_model
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(get_smoke_config("llama3.2-1b"))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b",
+                                  "chameleon-34b"])
+def test_new_families_without_device_raise_on_cpu_host(arch):
+    """The state-space and early-fusion decoders, their engine and the
+    serve launcher take the card unless the CPU is asked for."""
+    _no_gpu()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(get_smoke_config(arch))
+    model = build_model(get_smoke_config(arch), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(model, model.init(0), max_slots=2, max_seq=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--arch", arch, "--num-requests", "1"])
 
 
 def test_training_without_device_raises_on_cpu_host():
