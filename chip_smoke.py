@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py gspmd      # the build, then phase 13 alone
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. In order:
@@ -253,6 +254,29 @@ and the CUDA toolkit. In order:
    tokens after its 128 meta tokens, so layer 1's window cuts) and
    chameleon-34b cut to 2 layers (1024 image embeddings of width 8192
    before 512 tokens), launches equal to the prediction.
+
+13. Sharded (GSPMD/FSDP) training (it runs after phase 9; ``python3
+   chip_smoke.py gspmd`` builds the kernels and runs it alone), on 2
+   gloo ranks sharing the card: (a) full llama3.2-1b (bf16 over fp32
+   masters, remat) on the LM phase's batches (4 x 1024 tokens a rank),
+   momentum SGD 0.9 with ``fused_sgd``, 4 steps each of gspmd ``zero1``,
+   gspmd ``ar`` and BSP ``asa`` with the sharded update (the fp32
+   fused RS tail), each printed with tokens/s, its step split, staged MB
+   a step and peak memory a rank, launches equal to the prediction;
+   zero1 held to ar and to BSP (each rank on its own shards) and to
+   gspmd at k=1 on the global batches (rank 0, a group of one) at
+   ``GSPMD_REL`` of the run's largest movement, and one fp32 gspmd step of each mode at the smoke
+   config, k=2 on halves vs k=1 on the batch, at ``K_TOL``; (b) full
+   qwen1.5-4b (40 layers, 3,950,369,280 parameters), gspmd zero1, 1 x
+   1024 tokens a rank, 2 steps, after a printed reckoning of what
+   replicated BSP would need against the card: its first loss held to a
+   k=1 forward of the same parameters, its peak memory a rank printed;
+   (c) ``chunk_sum`` on the largest gather's fp32 receive and
+   ``fused_sgd`` on the largest shard of each model (and at every
+   distinct shard shape, bit for bit), and the flash forward and
+   backward at qwen1.5-4b's training shape (1 x 1024, 20/20 heads, D
+   128), each held to its plain version and timed; their launches are
+   the phase's paths' own.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -3817,6 +3841,474 @@ def ssm_phase(torch, ref, fa, K, models, serve, cfg_mod):
     return rows, by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 13: sharded (GSPMD/FSDP) training
+# ---------------------------------------------------------------------------
+
+GSPMD_STEPS = 4       # steps of each llama3.2-1b run of phase 13(a)
+GSPMD_REL = 0.05      # max |dp| between two bf16 trajectories of (a) that
+                      # compute the same mean gradient in another shape or
+                      # order (k=2 halves vs k=1 on the batch; zero1's
+                      # all-to-all vs ar's all-reduce; gspmd vs BSP's fused
+                      # RS tail), over the largest parameter movement of the
+                      # 4 steps: bf16 gradients agree to a few 2^-8 of |g|
+                      # (the CPU rehearsal at the smoke config read 0.013)
+GSPMD_LOSS_RTOL = 1e-3  # their losses (the global batch's mean, bf16)
+QWEN_ARCH = "qwen1.5-4b"
+QWEN_PARAMS = 3_950_369_280
+QWEN_GSPMD_STEPS = 2
+QWEN_TOKENS = 1024    # 1 x 1024 tokens a rank
+
+
+def _gspmd_predicted(cfg, n_leaves: int, steps: int, mode: str) -> dict:
+    """A gspmd run's launches on one rank: the flash forward (twice a layer
+    under remat), dq and dk/dv a layer; ``chunk_sum`` once a gather
+    (the top-level leaves, an untied head, each layer) in zero1's
+    reduce-scatter; ``fused_sgd`` on every shard leaf."""
+    L = cfg.num_layers
+    out = {"flash_attention": (2 if cfg.remat else 1) * L * steps,
+           "flash_attention_dq": L * steps,
+           "flash_attention_dkv": L * steps,
+           "fused_sgd": n_leaves * steps}
+    if mode == "zero1":
+        out["chunk_sum"] = (L + (1 if cfg.tie_embeddings else 2)) * steps
+    return out
+
+
+def _gspmd_packs(specs) -> list:
+    """Elements a rank sends into each gather of a decoder's gspmd step
+    (the top-level leaves, an untied head, then each layer): shard
+    elements plus whole leaves."""
+    from repro_torch.tree import leaves
+    n = lambda tree: sum(math.prod(s.shard_shape) for s in leaves(tree))  # noqa: E731
+    top = {k_: v for k_, v in specs.items() if k_ not in ("layers", "head")}
+    head = [n(specs["head"])] if "head" in specs else []
+    return [n(top)] + head + [n(lp) for lp in specs["layers"]]
+
+
+def _global_batch(torch, cfg, k, batch, seq, step, dev):
+    """Global batch ``step`` of the k rank shares that write_rank_batches
+    gives the ranks, concatenated in rank order (on ``dev``)."""
+    import numpy as np
+
+    from repro_torch.launch.train import RankShare, rank_source
+    parts = [RankShare(rank_source(cfg, seq), r, k).batch(batch, step)
+             for r in range(k)]
+    return {n: torch.from_numpy(np.concatenate([p[n] for p in parts])).to(dev)
+            for n in parts[0]}
+
+
+def _gspmd_rank(rank, k, out_dir, device, smoke):
+    """One of the 2 ranks of phase 13 (a spawned process on ``device``:
+    cuda:0, or the CPU with smoke configs to rehearse)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import exchanger
+    from repro_torch.core.gspmd import (abstract_params, fsdp_shardings,
+                                        shard_leaf)
+    from repro_torch.data.synthetic import LMTokenSource
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.launch.train import (rank_loader, set_fp32_math,
+                                          write_rank_batches)
+    from repro_torch.models import build_model, count_params
+    from repro_torch.optim import constant, sgd_momentum, warmup_cosine
+    from repro_torch.train.engine import TrainPlan, build_engine
+    from repro_torch.train.loop import train
+    from repro_torch.tree import leaves
+
+    set_fp32_math()        # the fp32 k=2 vs k=1 check wants full fp32 matmuls
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    quiet = lambda *a: None  # noqa: E731
+    opt = sgd_momentum(momentum=0.9, weight_decay=1e-4,
+                       fused_kernel=fs.fused_sgd)
+    get = get_smoke_config if smoke else get_config
+    solo = dist.new_group([0])
+    out = {"rank": rank}
+
+    def free():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    def run(model, plan, batches, steps, lr, group=None):
+        """One training run through the loop: (state, its report)."""
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        state, rep = train(model, opt, lr, batches, plan=plan, group=group,
+                           num_steps=steps, log_every=steps, seed=0,
+                           print_fn=quiet)
+        if cuda:
+            torch.cuda.synchronize()
+        return state, _run_report(torch, rep, dict(K.LAUNCHES), None, cuda)
+
+    # --- (a) llama3.2-1b at full width and depth: gspmd zero1 and ar, BSP
+    # asa with the sharded update, 4 steps each on the LM phase's batches
+    cfg = get("llama3.2-1b")
+    model = build_model(cfg, dev)
+    specs = fsdp_shardings(abstract_params(model), k)
+    spec_ls = leaves(specs)
+    n_params = count_params(abstract_params(model))
+    if not smoke and n_params != LM_PARAMS:
+        _fail(f"llama3.2-1b has {n_params} parameters, not {LM_PARAMS:,}")
+    batch, seq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
+    files = write_rank_batches(cfg, rank, k, batch, GSPMD_STEPS,
+                               os.path.join(out_dir, f"g{rank}"), seq=seq)
+    lr = warmup_cosine(0.01, 2, GSPMD_STEPS)
+    dmax = lambda a, b: max((x.float() - y.float()).abs().max().item()  # noqa: E731
+                            for x, y in zip(a, b))
+    # this rank's shards of the loop's initial parameters (its seed 0)
+    init = [shard_leaf(p, s, rank).cpu() for p, s in zip(leaves(model.init(
+        torch.Generator(device=dev).manual_seed(0))), spec_ls)]
+    free()
+    finals, runs = {}, {}
+    for name, plan in (("zero1", TrainPlan(algo="gspmd", mode="zero1")),
+                       ("ar", TrainPlan(algo="gspmd", mode="ar")),
+                       ("bsp", TrainPlan(exchanger="asa",
+                                         sharded_update=True))):
+        loader = rank_loader(cfg, files, dev, GSPMD_STEPS, seed=rank)
+        state, rr = run(model, plan, loader, GSPMD_STEPS, lr)
+        loader.stop()
+        ps = leaves(state["params"])
+        if name == "bsp":       # this rank's shard of the full parameters
+            rsplan = exchanger.make_rs_plan(state["params"], k)
+            nb, ns = rsplan.num_buckets, len(rsplan.small)
+            # fp32 wire both ways: the fused tail on the card, else the sum
+            # and the flat update; no cast
+            rr["predicted"] = {n: c * GSPMD_STEPS for n, c in (
+                {"fused_rs_update": nb, "fused_sgd": ns} if cuda else
+                {"chunk_sum": nb, "fused_sgd": nb + ns}).items() if c}
+            rr["predicted"].update({
+                n: c for n, c in _gspmd_predicted(
+                    cfg, 0, GSPMD_STEPS, "ar").items()
+                if n.startswith("flash")})
+            ps = [shard_leaf(p, s, rank) for p, s in zip(ps, spec_ls)]
+        else:
+            rr["predicted"] = _gspmd_predicted(cfg, len(ps), GSPMD_STEPS,
+                                               name)
+            rr["shard_numel"] = sum(p.numel() for p in ps)
+        finals[name] = [p.detach().cpu() for p in ps]
+        runs[name] = rr
+        del state, ps
+        free()
+    out["runs"] = runs
+    out["params"] = n_params
+    out["packs"] = _gspmd_packs(specs)
+    out["max_abs_step"] = dmax(finals["zero1"], init)
+    out["zero1_vs_ar"] = dict(max_abs_dp=dmax(finals["zero1"], finals["ar"]),
+                              bitwise=all(torch.equal(x, y) for x, y in zip(
+                                  finals["zero1"], finals["ar"])))
+    out["zero1_vs_bsp_max_abs_dp"] = dmax(finals["zero1"], finals["bsp"])
+    # gspmd at k=1 on the global batches (rank 0, a group of one; rank 1
+    # has freed the card and waits)
+    dist.barrier()
+    if rank == 0:
+        gb = [_global_batch(torch, cfg, k, batch, seq, j, dev)
+              for j in range(GSPMD_STEPS)]
+        state, rr = run(model, TrainPlan(algo="gspmd"), gb, GSPMD_STEPS, lr,
+                        group=solo)
+        one = [shard_leaf(p, s, 0).cpu()
+               for p, s in zip(leaves(state["params"]), spec_ls)]
+        out["k1"] = dict(losses=rr["losses"], peak_mem_gb=rr["peak_mem_gb"],
+                         max_abs_dp={n: dmax(finals[n], one)
+                                     for n in ("zero1", "ar")})
+        del state, gb
+    del finals, init, model
+    free()
+    dist.barrier()
+
+    # --- the fp32 k=2 = k=1 check of the LM phase, at the smoke config
+    # with the attention through the kernels, for both modes
+    scfg = get_smoke_config("llama3.2-1b").with_overrides(dtype="float32")
+    smodel = build_model(scfg, dev)
+    full = {n: torch.from_numpy(v).to(dev) for n, v in
+            LMTokenSource(scfg.vocab_size, 64).batch(4, 777).items()}
+    half = {n: v[rank * 2:(rank + 1) * 2] for n, v in full.items()}
+    out["k2_vs_k1"] = {}
+    for mode in ("zero1", "ar"):
+        plan = TrainPlan(algo="gspmd", mode=mode)
+        eng = build_engine(plan, smodel, opt, constant(0.01))
+        two, _ = eng.step(eng.init_state(torch.Generator(device=dev)
+                                         .manual_seed(7)), half)
+        mine = leaves(two["params"])
+        if rank == 0:
+            eng1 = build_engine(plan, smodel, opt, constant(0.01), solo)
+            one, _ = eng1.step(eng1.init_state(torch.Generator(device=dev)
+                                               .manual_seed(7)), full)
+            sspecs = leaves(eng.specs)
+            out["k2_vs_k1"][mode] = dmax(
+                mine, [shard_leaf(p, s, 0) for p, s in zip(
+                    leaves(one["params"]), sspecs)])
+    del smodel
+    free()
+    dist.barrier()
+
+    # --- (b) qwen1.5-4b at full width and depth, gspmd zero1, 1 x 1024
+    # tokens a rank, 2 steps
+    qcfg = get(QWEN_ARCH)
+    qmodel = build_model(qcfg, dev)
+    nq = count_params(abstract_params(qmodel))
+    if not smoke and nq != QWEN_PARAMS:
+        _fail(f"{QWEN_ARCH} has {nq} parameters, not {QWEN_PARAMS:,}")
+    qseq = 64 if smoke else QWEN_TOKENS
+    qfiles = write_rank_batches(qcfg, rank, k, 1, QWEN_GSPMD_STEPS,
+                                os.path.join(out_dir, f"q{rank}"), seq=qseq)
+    if rank == 0:
+        # the first step's loss at k=1: the same parameters (the loop's
+        # init, seed 0) forward on the global batch, bf16, no gradient
+        with torch.no_grad():
+            p0 = qmodel.init(torch.Generator(device=dev).manual_seed(0))
+            loss1, _ = qmodel.loss_fn(p0, _global_batch(
+                torch, qcfg, k, 1, qseq, 0, dev))
+            out["qwen_k1_loss"] = float(loss1)
+            del p0, loss1
+        free()
+    dist.barrier()
+    loader = rank_loader(qcfg, qfiles, dev, QWEN_GSPMD_STEPS, seed=rank)
+    state, rr = run(qmodel, TrainPlan(algo="gspmd"), loader,
+                    QWEN_GSPMD_STEPS, warmup_cosine(0.01, 2,
+                                                    QWEN_GSPMD_STEPS))
+    loader.stop()
+    qspecs = fsdp_shardings(abstract_params(qmodel), k)
+    rr["predicted"] = _gspmd_predicted(qcfg, len(leaves(state["params"])),
+                                       QWEN_GSPMD_STEPS, "zero1")
+    rr["shard_numel"] = sum(p.numel() for p in leaves(state["params"]))
+    out["qwen"] = dict(rr, params=nq, layers=qcfg.num_layers,
+                       packs=_gspmd_packs(qspecs))
+    del state
+    free()
+    dist.barrier()
+    with open(os.path.join(out_dir, f"gspmd{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def gspmd_phase(device="cuda:0", smoke=False):
+    """Phase 13: prints the reckoning of (b), spawns the 2 ranks, and checks
+    and prints what they report. Returns ({path: rank 0's launches},
+    the shapes of (c): {"llama"/"qwen": (receive buffer, largest shard,
+    distinct shard shapes)})."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.gspmd import abstract_params, fsdp_shardings
+    from repro_torch.launch.train import run_ranks
+    from repro_torch.models import build_model, count_params
+    from repro_torch.tree import leaves
+    k = 2
+    get = get_smoke_config if smoke else get_config
+    specs = {}
+    for key, arch in (("llama", "llama3.2-1b"), ("qwen", QWEN_ARCH)):
+        specs[key] = fsdp_shardings(abstract_params(build_model(
+            get(arch), "meta")), k)
+    # (b)'s reckoning, before the run: replicated BSP holds fp32 parameters,
+    # gradients and momentum whole on each rank; FSDP holds 1/k of the
+    # parameters and momentum at rest, and 1/k of the gradients after
+    # the backward
+    nq = sum(math.prod(s.shape) for s in leaves(specs["qwen"]))
+    total = (torch.cuda.get_device_properties(0).total_memory
+             if torch.cuda.is_available() else float("nan"))
+    bsp_rank = 3 * nq * 4
+    fsdp_rank = 3 * sum(math.prod(s.shard_shape)
+                        for s in leaves(specs["qwen"])) * 4
+    print(f"phase 13(b) reckoning, {QWEN_ARCH} ({nq:,} parameters, fp32 "
+          f"masters) on {k} ranks: replicated BSP needs parameters + "
+          f"gradients + momentum = {bsp_rank / 1e9:.1f} GB a rank, "
+          f"{k * bsp_rank / 1e9:.1f} GB for {k}, against the card's "
+          f"{total / 1e9:.1f} GB; gspmd zero1 holds {fsdp_rank / 1e9:.1f} GB "
+          f"a rank of shards (parameters, momentum, gradients) before "
+          f"activations, one layer's gathered parameters and the gathered "
+          f"embeddings ({k * fsdp_rank / 1e9:.1f} GB for {k})")
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        run_ranks(_gspmd_rank, k, (td, device, smoke), backend="gloo")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(Path(td, f"gspmd{r}.json").read_text())
+                 for r in range(k)]
+    r0 = ranks[0]
+    print(f"gspmd phase: {k} gloo ranks on {device}, {wall:.1f}s")
+    show = ("tokens_per_s", "first_step_s", "phase_ms", "staged_mb_per_step",
+            "stage_ms_per_step", "wire_ms_per_step", "launches", "predicted",
+            "losses")
+    for label, steps, get_run in (
+            ("zero1", GSPMD_STEPS, lambda rk: rk["runs"]["zero1"]),
+            ("ar", GSPMD_STEPS, lambda rk: rk["runs"]["ar"]),
+            ("bsp", GSPMD_STEPS, lambda rk: rk["runs"]["bsp"]),
+            ("qwen", QWEN_GSPMD_STEPS, lambda rk: rk["qwen"])):
+        for rk in ranks:
+            rr = get_run(rk)
+            bad = [x for x in rr["losses"] if not math.isfinite(x)]
+            if len(rr["losses"]) != steps or bad:
+                _fail(f"gspmd run {label} rank {rk['rank']}: losses "
+                      f"{rr['losses']}")
+            if device != "cpu" and rr["launches"] != rr["predicted"]:
+                _fail(f"gspmd run {label} rank {rk['rank']}: launches "
+                      f"{rr['launches']} != predicted {rr['predicted']}")
+        rr = get_run(r0)
+        what = {"zero1": "llama3.2-1b gspmd zero1", "ar": "llama3.2-1b "
+                "gspmd ar", "bsp": "llama3.2-1b BSP asa sharded (fp32 "
+                "wire)", "qwen": f"{QWEN_ARCH} gspmd zero1, full depth "
+                f"({r0['qwen']['layers']} layers)"}[label]
+        print(f"phase 13 run, {what}, {steps} steps: " + json.dumps(
+            {key: rr[key] for key in show}))
+        print(f"phase 13 run, {what}: peak memory per rank, GB: "
+              + json.dumps([get_run(rk)["peak_mem_gb"] for rk in ranks])
+              + ("" if label == "bsp" else
+                 f"; shard elements a rank {rr['shard_numel']:,} of "
+                 f"{r0['qwen']['params'] if label == 'qwen' else r0['params']:,}"))
+    # (a)'s parity, each rank on its own shards, against GSPMD_REL of the
+    # largest movement of that rank's parameters over the 4 steps
+    for rk in ranks:
+        za, zb = rk["zero1_vs_ar"], rk["zero1_vs_bsp_max_abs_dp"]
+        tol = GSPMD_REL * rk["max_abs_step"]
+        print(f"phase 13(a) rank {rk['rank']}: zero1 vs ar max |dp| "
+              f"{za['max_abs_dp']} (bitwise {za['bitwise']}), zero1 vs BSP "
+              f"asa sharded max |dp| {zb} (bound {tol}: {GSPMD_REL} of the "
+              f"largest movement, {rk['max_abs_step']})")
+        if not (za["max_abs_dp"] <= tol and zb <= tol):
+            _fail(f"gspmd rank {rk['rank']}: zero1 vs ar {za}, vs BSP {zb} "
+                  f"> {tol}")
+    runs = r0["runs"]
+    for name in ("ar", "bsp"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            runs[name]["losses"], runs["zero1"]["losses"]))
+        if not rel <= GSPMD_LOSS_RTOL:
+            _fail(f"gspmd zero1 and {name} losses differ by {rel}")
+    k1 = r0["k1"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["zero1"]["losses"],
+                                                   k1["losses"]))
+    tol = GSPMD_REL * r0["max_abs_step"]
+    print(f"phase 13(a) k=2 vs gspmd k=1 on the global batches (rank 0's "
+          f"shards): max |dp| " + json.dumps(k1["max_abs_dp"])
+          + f" (bound {tol}), losses within {rel} (bound "
+          f"{GSPMD_LOSS_RTOL}); k=1 peak memory {k1['peak_mem_gb']} GB")
+    if not (max(k1["max_abs_dp"].values()) <= tol
+            and rel <= GSPMD_LOSS_RTOL):
+        _fail(f"gspmd k=2 and k=1 differ: {k1['max_abs_dp']}, losses {rel}")
+    print(f"phase 13 gspmd step (smoke config, fp32), k=2 on halves vs k=1 "
+          f"on the batch: max |dp| " + json.dumps(r0["k2_vs_k1"])
+          + f" (bound {K_TOL})")
+    if not max(r0["k2_vs_k1"].values()) <= K_TOL:
+        _fail(f"gspmd k=2 and k=1 steps differ: {r0['k2_vs_k1']}")
+    q = r0["qwen"]
+    rel = abs(q["losses"][0] - r0["qwen_k1_loss"]) / abs(r0["qwen_k1_loss"])
+    print(f"phase 13(b) {QWEN_ARCH}: first loss {q['losses'][0]} vs a k=1 "
+          f"forward of the same parameters {r0['qwen_k1_loss']}: relative "
+          f"{rel} (bound {GSPMD_LOSS_RTOL})")
+    if not rel <= GSPMD_LOSS_RTOL:
+        _fail(f"{QWEN_ARCH} gspmd first loss {q['losses'][0]} vs k=1 "
+              f"{r0['qwen_k1_loss']}")
+    by_path = {"gspmd_llama": {}, "gspmd_bsp_llama": dict(runs["bsp"][
+        "launches"]), "gspmd_qwen": dict(q["launches"])}
+    for name in ("zero1", "ar"):
+        for n, c in runs[name]["launches"].items():
+            by_path["gspmd_llama"][n] = by_path["gspmd_llama"].get(n, 0) + c
+    shapes = {}
+    for key in ("llama", "qwen"):
+        ls = leaves(specs[key])
+        packs = _gspmd_packs(specs[key])
+        if key == "llama" and packs != r0["packs"]:
+            _fail(f"phase 13 gather packs {r0['packs']} != {packs}")
+        shapes[key] = ((k, max(packs)),
+                       max((s.shard_shape for s in ls), key=math.prod),
+                       sorted({s.shard_shape for s in ls}))
+    return by_path, shapes
+
+
+def gspmd_kernel_rows(torch, ref, fa, shapes, flush, dev="cuda"):
+    """(c) The kernels of phase 13's paths at their shapes, each held to its
+    plain version: ``chunk_sum`` on the fp32 receive buffer of the
+    largest gather's reduce-scatter and ``fused_sgd`` on the largest shard
+    leaf, of llama3.2-1b and of qwen1.5-4b (bit for bit, as every training
+    kernel), and ``fused_sgd`` bit for bit at every distinct shard shape;
+    the flash forward and backward at qwen1.5-4b's training shape (1 x
+    1024 tokens, 20 heads over 20, D 128, bf16)."""
+    from repro_torch.kernels import chunk_sum as cs
+    from repro_torch.kernels import fused_sgd as fs
+    g = torch.Generator(device=dev).manual_seed(1313)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    lr = torch.tensor([0.01], device=dev)
+    rows = []
+
+    def row(name, src, line, got, want, fn, plain, library, bound, shape,
+            path):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want)):
+            _fail(f"{name} at {shape} differs from its plain version")
+        rows.append(dict(name=name, src=f"src/repro_torch/csrc/{src}",
+                         replaces=f"src/repro/kernels/{line}", err=0.0,
+                         bound=bound, shape=shape, paths=(path,),
+                         ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
+                         plain_ms=_median_ms(plain, flush=flush),
+                         library_ms=library()))
+
+    for key, arch in (("llama", "llama3.2-1b"), ("qwen", QWEN_ARCH)):
+        (kk, n), big, distinct = shapes[key]
+        path = f"gspmd_{key}"
+        recv = rn(kk, n)
+        row("chunk_sum", "exchange.cu", "chunk_sum.py:29",
+            cs.chunk_sum(recv), ref.chunk_sum_ref(recv),
+            lambda: cs.chunk_sum(recv), lambda: ref.chunk_sum_ref(recv),
+            lambda: _median_ms(lambda: torch.sum(recv, 0), flush=flush),
+            _bound(3 * n * 4, (kk - 1) * n, FP32_FLOP_S),
+            f"{arch} zero1 receive ({kk}, {n}) fp32", path)
+        del recv
+        p, gr, m = rn(*big) * 0.01, rn(*big) * 0.001, rn(*big) * 0.001
+        nb = math.prod(big)
+
+        def library():
+            sp = p.clone().requires_grad_(True)
+            sp.grad = gr.clone()
+            sgd = torch.optim.SGD([sp], lr=0.01, momentum=0.9, fused=True)
+            return _event_ms(sgd.step)
+        row("fused_sgd", "sgd.cu", "fused_sgd.py:24",
+            fs.fused_sgd(p, gr, m, lr, 0.9),
+            ref.fused_sgd_ref(p, gr, m, lr, 0.9),
+            lambda: fs.fused_sgd(p, gr, m, lr, 0.9),
+            lambda: ref.fused_sgd_ref(p, gr, m, lr, 0.9), library,
+            _bound(5 * nb * 4, 5 * nb, FP32_FLOP_S),
+            f"{arch} shard {tuple(big)} fp32", path)
+        del p, gr, m
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+        sgd_check(torch, ref, distinct, f"gspmd {arch} shards", dev=dev)
+    # the flash kernels at qwen1.5-4b's training shape
+    shape = (1, QWEN_TOKENS if dev != "cpu" else 128, 20, 20, 128)
+    fl, c = _lm_flash(torch, ref, fa, flush, shape, 31, dev)
+    fwd = fl.pop("fwd")
+    q_, k_, v_, qo = (c[n_] for n_ in ("q", "k", "v", "qo"))
+    want = ref.flash_attention_ref(q_, k_, v_, qo, 0, c["scale"])
+    rows.append(dict(
+        name="flash_attention",
+        src="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:97",
+        err=(c["out"].float() - want.float()).abs().max().item(),
+        plain_ms=_median_ms(lambda: ref.flash_attention_ref(
+            q_, k_, v_, qo, 0, c["scale"]), flush=flush),
+        host_ms=_host_ms(lambda: fa.flash_attention(q_, k_, v_, q_off=qo)),
+        bound=(fwd.pop("bound_ms"), fwd.pop("bound_by")), **fwd))
+    rows += list(fl.values())
+    for r in rows[-3:]:
+        r.update(shape=f"{QWEN_ARCH} train ({shape[0]}, {shape[1]}, 20/20 "
+                 f"heads, D 128) bf16", paths=("gspmd_qwen",))
+    print("phase 13(c) kernels at the gspmd paths' shapes, equal to plain: "
+          + json.dumps([{k_: r.get(k_) for k_ in (
+              "name", "shape", "err", "ms", "plain_ms", "library_ms",
+              "bound")} for r in rows]))
+    return rows
+
+
 def kernels_line(rows, by_path):
     """The kernels line's entries: one a row, with the launches of the
     paths it stands for. A row at one path's shape counts that path's
@@ -3879,6 +4371,8 @@ def main() -> int:
     K.build_all()
     print(f"built {len(K.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s")
+    if sys.argv[1:] == ["gspmd"]:        # phase 13 alone
+        return finish(torch, card, *gspmd_main(torch, ref, fa))
     hopper_build_report(K)
     decode_build_report(K)
     sampler_build_report(K)
@@ -3934,6 +4428,9 @@ def main() -> int:
     by_path.update(async_phase())
     elastic_launches, elastic_buckets = elastic_phase()
     by_path.update(elastic_launches)
+    gspmd_rows, gspmd_launches = gspmd_main(torch, ref, fa)
+    rows += gspmd_rows
+    by_path.update(gspmd_launches)
     # the kernels of every training path, held to their plain versions at
     # the shapes that path gave them (the overlap's fp32 accumulated
     # receives into fused_rs_update at the LM's and AlexNet's buckets)
@@ -3948,6 +4445,25 @@ def main() -> int:
         wire_check(torch, ref, buckets, "alexnet elastic", 5e-4, k=kk)
         torch.cuda.empty_cache()
 
+    return finish(torch, card, rows, by_path)
+
+
+def gspmd_main(torch, ref, fa):
+    """Phase 13 from the main process: (a) and (b) on the spawned ranks,
+    then (c) on this one. Returns (kernel rows, {path: launches})."""
+    t0 = time.perf_counter()
+    by_path, shapes = gspmd_phase()
+    torch.cuda.empty_cache()
+    l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = gspmd_kernel_rows(torch, ref, fa, shapes, flush=l2.zero_)
+    del l2
+    torch.cuda.empty_cache()
+    print(f"phase 13 (gspmd): {time.perf_counter() - t0:.1f}s")
+    return rows, by_path
+
+
+def finish(torch, card, rows, by_path) -> int:
+    """The kernels line, the card, and the contract's last line."""
     out = kernels_line(rows, by_path)
     print("wrapper call incl. host dispatch, ms: " + json.dumps(
         {r["name"]: r["host_ms"] for r in rows}))

@@ -25,6 +25,15 @@ ranks.
     # alpha 0.5, then asgd at tau 2, on asa16):
     PYTHONPATH=src python -m repro_torch.launch.train --preset easgd_async
 
+    # sharded (GSPMD/FSDP) training: each rank holds 1/k of the parameters
+    # and optimizer state; zero1 reduce-scatters the gradients (ar:
+    # all-reduces them); then on the CPU with AdamW at peak lr 0.01:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
+        --ranks 2 --batch 1 --seq 1024 --steps 2 --algo gspmd --mode zero1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+        --smoke --device cpu --ranks 2 --batch 2 --seq 16 --steps 4 \
+        --algo gspmd --mode zero1 --optimizer adamw --lr 0.01
+
     # DeepSeek-V2-Lite (MLA + MoE) at full width, its depth cut to the
     # dense first layer and one MoE layer (the loss adds the MoE aux):
     PYTHONPATH=src python -m repro_torch.launch.train \
@@ -68,8 +77,17 @@ train_lm_bsp`` builds. ``--ckpt`` saves checkpoints (every
 ``--ckpt-every`` steps and at the end; one directory per rank when k > 1)
 and ``--resume`` continues from one.
 
+``--optimizer adamw`` swaps the recipe's momentum SGD for AdamW (the
+reference launcher's ``adamw()``) and ``--lr`` sets the schedule's peak;
+without them the recipe above runs.
+
 ``--algo easgd|asgd`` trains each rank as an EASGD worker with a center
 exchanged every ``--tau`` steps (``--alpha``: the elastic coefficient).
+``--algo gspmd`` trains with FSDP shards (``core/gspmd.py``), the
+gradients reduce-scattered (``--mode zero1``) or all-reduced (``--mode
+ar``); it has no exchanger (``--exchanger`` other than ``asa`` is
+refused, as the reference's ``TrainPlan`` refuses it), and each rank
+checkpoints its own shards.
 ``--overlap buckets`` overlaps each microbatch's reduce-scatter with the
 next one's backprop (``--microbatches`` >= 2; it implies the sharded
 update). ``--pods P`` splits the k ranks into P pods of consecutive
@@ -103,12 +121,13 @@ from repro_torch import default_device, telemetry
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.configs.registry import ASSIGNED_ARCHS, PAPER_ARCHS
+from repro_torch.core.gspmd import abstract_params
 from repro_torch.data.prefetch import ParallelLoader
 from repro_torch.data.synthetic import (ImageSource, LMTokenSource,
                                         materialize_batch_files)
 from repro_torch.kernels import fused_sgd as fs
 from repro_torch.models import build_model, count_params
-from repro_torch.optim import constant, sgd_momentum, warmup_cosine
+from repro_torch.optim import adamw, constant, sgd_momentum, warmup_cosine
 from repro_torch.train.engine import TrainPlan
 from repro_torch.train.loop import train
 
@@ -276,9 +295,12 @@ def slot_path(path: str | None, rank: int, k: int) -> str | None:
 
 
 def plan_from_opts(opts) -> TrainPlan:
-    """The TrainPlan of the launcher's flags."""
-    return TrainPlan(algo=opts["algo"], exchanger=opts["exchanger"],
-                     scheme=opts["scheme"],
+    """The TrainPlan of the launcher's flags (no ``--exchanger``: ``asa``
+    for gspmd, which has none, else ``asa16``)."""
+    exchanger = opts["exchanger"] or ("asa" if opts["algo"] == "gspmd"
+                                      else "asa16")
+    return TrainPlan(algo=opts["algo"], exchanger=exchanger,
+                     mode=opts.get("mode") or "zero1", scheme=opts["scheme"],
                      sharded_update=opts["sharded_update"],
                      overlap=opts["overlap"],
                      microbatches=opts["microbatches"],
@@ -288,19 +310,23 @@ def plan_from_opts(opts) -> TrainPlan:
                                 else ("data",)))
 
 
-def recipe(cfg, steps: int):
+def recipe(cfg, steps: int, optimizer: str | None = None,
+           lr: float | None = None):
     """(optimizer, lr schedule) of the arch's reference recipe. Every
     convnet takes the JAX package's launcher schedule,
     ``warmup_cosine(0.01, 10, steps)``; VGG-16, which has no normalisation,
     needs the warm-up (from He init a first step at 0.01 blows its loss up,
-    6.2 to 11,346 in one step at the smoke config)."""
-    if cfg.family == "conv":
-        return (sgd_momentum(momentum=0.9, weight_decay=5e-4,
-                             fused_kernel=fs.fused_sgd),
-                warmup_cosine(0.01, 10, steps))
-    return (sgd_momentum(momentum=0.9, weight_decay=1e-4,
-                         fused_kernel=fs.fused_sgd),
-            warmup_cosine(0.01, 20, steps))
+    6.2 to 11,346 in one step at the smoke config). ``optimizer="adamw"``
+    takes AdamW with the reference's defaults in place of the momentum
+    SGD, and ``lr`` the schedule's peak in place of 0.01."""
+    conv = cfg.family == "conv"
+    if optimizer == "adamw":
+        opt = adamw()
+    else:
+        opt = sgd_momentum(momentum=0.9, weight_decay=5e-4 if conv else 1e-4,
+                           fused_kernel=fs.fused_sgd)
+    return opt, warmup_cosine(0.01 if lr is None else lr, 10 if conv else 20,
+                              steps)
 
 
 def set_fp32_math() -> None:
@@ -333,7 +359,8 @@ def elastic_batch_fn(cfg, batch: int, seq: int, slots: int, device,
 def _elastic_rank(rank, k, opts, cfg, model, dev):
     from repro_torch.fault.elastic import elastic_train
     plan = plan_from_opts(opts)
-    opt, lr = recipe(cfg, opts["steps"])
+    opt, lr = recipe(cfg, opts["steps"], opts.get("optimizer"),
+                     opts.get("lr"))
     say = print if rank == 0 else None
     _, rep = elastic_train(
         model, opt, lr, elastic_batch_fn(cfg, opts["batch"], opts["seq"], k,
@@ -381,7 +408,8 @@ def _train_runs(rank, k, opts, backend, data_dir, cfg, model, dev):
     runs = PRESET_RUNS.get(opts.get("preset")) or ((None, None, False),)
     for kw, lr0, by_k in runs:
         plan = TrainPlan(**kw) if kw else plan_from_opts(opts)
-        opt, lr = recipe(cfg, opts["steps"])
+        opt, lr = recipe(cfg, opts["steps"], opts.get("optimizer"),
+                         opts.get("lr"))
         if lr0 is not None:      # the preset's own recipe
             opt = sgd_momentum(momentum=0.9, weight_decay=0.0,
                                fused_kernel=fs.fused_sgd)
@@ -403,6 +431,8 @@ def _train_runs(rank, k, opts, backend, data_dir, cfg, model, dev):
 
 
 def _plan_label(plan: TrainPlan, pods: int) -> str:
+    if plan.algo == "gspmd":
+        return f"gspmd {plan.mode}"
     label = plan.exchanger
     if plan.is_async:
         label = f"{plan.algo} tau={plan.tau} alpha={plan.alpha} on {label}"
@@ -418,7 +448,9 @@ def _plan_label(plan: TrainPlan, pods: int) -> str:
 
 
 def _report(cfg, plan, state, report, k, backend, dev, pods) -> None:
-    n = count_params(state["params"])
+    # a gspmd rank holds shards: count the model's own leaves
+    n = count_params(abstract_params(build_model(cfg, "meta"))
+                     if plan.algo == "gspmd" else state["params"])
     split = ", ".join(f"{p} {s * 1e3:.1f} ms"
                       for p, s in report.phase_s.items())
     rate = (f"{report.steady_examples_per_s:.1f} images/s"
@@ -440,14 +472,25 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (convnets: 96 px, 16 classes; "
                          "decoders: 2 layers, d_model 256)")
-    ap.add_argument("--exchanger", default="asa16",
+    ap.add_argument("--exchanger", default=None,
                     help="ar | asa | asa16 | asabf16 | asa8 | ring | ring16 "
-                         "| hier | hier16 | none")
+                         "| hier | hier16 | none (default asa16; gspmd has "
+                         "no exchanger: asa)")
     ap.add_argument("--scheme", default="subgd", choices=["subgd", "awagd"])
     ap.add_argument("--sharded-update", action="store_true",
                     help="RS -> update -> AG on this rank's 1/k shard")
-    ap.add_argument("--algo", default="bsp", choices=["bsp", "easgd", "asgd"],
-                    help="synchronous BSP, or async EASGD/ASGD workers")
+    ap.add_argument("--algo", default="bsp",
+                    choices=["bsp", "easgd", "asgd", "gspmd"],
+                    help="synchronous BSP, async EASGD/ASGD workers, or "
+                         "GSPMD/FSDP shards")
+    ap.add_argument("--mode", default="zero1", choices=["zero1", "ar"],
+                    help="gspmd: reduce-scatter (zero1) or all-reduce (ar) "
+                         "the gradients")
+    ap.add_argument("--optimizer", default=None, choices=["sgd", "adamw"],
+                    help="the recipe's momentum SGD (default) or AdamW")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="peak of the warm-up cosine schedule (default "
+                         "0.01)")
     ap.add_argument("--tau", type=int, default=1,
                     help="easgd/asgd: steps between center exchanges")
     ap.add_argument("--alpha", type=float, default=None,

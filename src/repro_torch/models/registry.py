@@ -10,10 +10,12 @@
   page_size=0) -> (logits, cache)``
 - ``chunk_prefill(params, cache, tokens, pos0, valid, *, seq_len,
   block_tables=None, page_size=0) -> (logits, cache)``
-- ``loss_fn(params, batch, gen=None) -> (loss, metrics)``  next-token
-  cross-entropy on ``batch`` {tokens, labels} plus the MoE layers'
-  load-balance loss (metrics {"loss", "aux"}); differentiable, so
-  gradients flow through the cast to the fp32 masters
+- ``loss_fn(params, batch, gen=None, gather=None) -> (loss, metrics)``
+  next-token cross-entropy on ``batch`` {tokens, labels} plus the MoE
+  layers' load-balance loss (metrics {"loss", "aux"}); differentiable,
+  so gradients flow through the cast to the fp32 masters; ``gather``
+  (sharded training, ``core/gspmd.py``) takes ``params`` as shards and
+  gathers them a layer at a time
 
 Decoders of dense, MoE, SSM and hybrid layers, with GQA or MLA attention
 (DeepSeek-V2: MLA with the MoE of ``models/moe.py`` after
@@ -114,9 +116,14 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         with torch.no_grad():
             return transformer.init_decoder(gen, cfg, dev)
 
-    def loss_fn(params, batch, gen=None):
+    def loss_fn(params, batch, gen=None, gather=None):
         del gen                 # decoders draw no randomness
-        return transformer.decoder_loss(cast_params(params, cdt), batch, cfg)
+        if gather is None:
+            return transformer.decoder_loss(cast_params(params, cdt), batch,
+                                            cfg)
+        # sharded training: each gathered subtree is cast as it arrives
+        return transformer.decoder_loss(
+            params, batch, cfg, lambda t: cast_params(gather(t), cdt))
 
     @torch.no_grad()
     def forward(params, batch):

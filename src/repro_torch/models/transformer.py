@@ -181,8 +181,12 @@ def _mix(p, kind: str, eps: float, attn_fn, ssm_fn):
 
 
 def _apply_layer(p, x, positions, cfg: ArchConfig, kind: str, window,
-                 attn_impl):
-    """Full-sequence layer: (x, aux or None)."""
+                 attn_impl, gather=None):
+    """Full-sequence layer: (x, aux or None). ``gather`` (sharded
+    training) turns the layer's parameter shards into its parameters
+    first, inside the remat region."""
+    if gather is not None:
+        p = gather(p)
     eps = cfg.norm_eps
     h = rms_norm(x, p["ln1"], eps)
     x = x + _mix(p, kind, eps,
@@ -266,12 +270,25 @@ def init_decoder(gen: torch.Generator, cfg: ArchConfig, device=None):
     return params
 
 
-def decoder_forward(params, batch, cfg: ArchConfig):
+def decoder_forward(params, batch, cfg: ArchConfig, gather=None):
     """batch {tokens (B, S) [, image_embeds (B, Ni, d) of a vlm config]}
     -> (logits (B, S, V), aux): aux is the MoE layers' summed load-balance
     loss (fp32; 0 without MoE). The logits cover the token positions
-    alone (the meta and image prefixes are stripped)."""
+    alone (the meta and image prefixes are stripped).
+
+    ``gather`` (``core/gspmd.py``): ``params`` hold parameter shards, and
+    ``gather(subtree)`` returns the parameters of a subtree: called on an
+    untied ``head`` alone, on the other top-level leaves, and once a layer
+    inside its (remat) body (two vocab-sized leaves in one gather would
+    double its backward's buffers)."""
     _check_ported(cfg)
+    if gather is not None:
+        shards = params
+        params = dict(gather({n: v for n, v in shards.items()
+                              if n not in ("layers", "head")}),
+                      layers=shards["layers"])
+        if "head" in shards:
+            params.update(gather({"head": shards["head"]}))
     dtype = dtype_of(cfg.dtype)
     h, n_prefix = _embed_inputs(params, batch, cfg, dtype)
     B, S = h.shape[:2]
@@ -283,21 +300,21 @@ def decoder_forward(params, batch, cfg: ArchConfig):
     for lp, kind, win in zip(params["layers"], layer_kinds(cfg), wins):
         if remat:
             h, aux = checkpoint(_apply_layer, lp, h, positions, cfg, kind,
-                                win, attn_impl, use_reentrant=False)
+                                win, attn_impl, gather, use_reentrant=False)
         else:
             h, aux = _apply_layer(lp, h, positions, cfg, kind, win,
-                                  attn_impl)
+                                  attn_impl, gather)
         if aux is not None:
             aux_total = aux_total + aux
     # the final norm is per position, so stripping before it is the same
     return _head(params, h[:, n_prefix:], cfg, dtype), aux_total
 
 
-def decoder_loss(params, batch, cfg: ArchConfig):
+def decoder_loss(params, batch, cfg: ArchConfig, gather=None):
     """Mean next-token cross-entropy over the positions with ``labels >=
     0``, plus the MoE layers' load-balance loss (0 without MoE). Returns
-    (loss + aux, {"loss", "aux"})."""
-    logits, aux = decoder_forward(params, batch, cfg)
+    (loss + aux, {"loss", "aux"}). ``gather``: see ``decoder_forward``."""
+    logits, aux = decoder_forward(params, batch, cfg, gather)
     labels = batch["labels"]
     loss = softmax_xent(logits, labels.clamp_min(0), labels >= 0)
     return loss + aux, {"loss": loss, "aux": aux}

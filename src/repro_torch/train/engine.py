@@ -4,22 +4,28 @@ knobs, and ``build_engine`` resolves it (counterpart of
 
 ``TrainPlan`` is a copy of the JAX package's, validation included
 (pinned by ``tests/test_torch_train.py``). ``build_engine`` builds the
-``bsp`` arm (with ``overlap`` and ``sharded_update``) and the async
-``easgd``/``asgd`` arm; ``gspmd`` raises until its slice (ROADMAP queue
-1: sharded training), and quorum plans go through
+``bsp`` arm (with ``overlap`` and ``sharded_update``), the async
+``easgd``/``asgd`` arm and the ``gspmd`` arm (``core/gspmd.py``: FSDP
+shards, ``mode`` ``zero1`` or ``ar``); quorum plans go through
 :func:`build_elastic_programs`, which ``fault.elastic.elastic_train``
 rebuilds on every membership change. The canonical state is
 
     {"params": ..., "opt": ..., "step": int}     (+ "center" when async)
 
-with per-bucket flat shards under ``opt`` when ``sharded_update``.
+with per-bucket flat shards under ``opt`` when ``sharded_update``, and
+with this rank's FSDP shard of every parameter and of ``m``/``v`` for
+``gspmd``, whose step consumes the state it is given. A gspmd engine
+has no exchanger, so ``Engine.wire`` is None for it, as the
+reference's; its transport still counts what the gathers stage.
 ``Engine.step`` takes the global step index: the async arm dispatches
 its sync step on every tau-th step and its collective-free local step
 otherwise, so a resumed run keeps the unbroken run's tau phase.
 
 ``data_axes=("pod", "data")`` runs the exchange in two levels over
 ``pods`` pods of consecutive ranks (``core.exchanger.make_transport``):
-the ``hier``/``hier16`` topology of the reference.
+the ``hier``/``hier16`` topology of the reference. ``gspmd`` shards
+over both axes as one, as the reference's FSDP rule does: over every
+rank of the group.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from repro_torch.core.easgd import init_async_state, make_async_step
 from repro_torch.core.exchanger import (Transport, get_exchanger,
                                         make_rs_plan, make_transport,
                                         wire_summary)
+from repro_torch.core.gspmd import (abstract_params, fsdp_shardings,
+                                    init_gspmd_state, make_gspmd_step)
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer
 
@@ -117,7 +125,10 @@ class TrainPlan:
 def plan_wire(plan: TrainPlan, params, k: int) -> dict | None:
     """Analytic per-rank bytes on the wire of one step of ``plan`` for a
     params tree of these shapes, ``k`` ranks on the reduce-scatter axis
-    (the JAX package's ``_plan_wire``); None for ``none``."""
+    (the JAX package's ``_plan_wire``); None for ``none`` and for
+    ``gspmd``, which has no exchanger."""
+    if plan.algo == "gspmd":
+        return None
     ex = get_exchanger(plan.exchanger)
     if ex.kind == "none":
         return None
@@ -146,6 +157,8 @@ class Engine:
     init_state: Callable[[Any], Any]
     step: Callable[..., Any]
     transport: Transport
+    # gspmd: the parameters' FSDP layout (a ``core.gspmd.LeafSpec`` tree)
+    specs: Any = None
 
     def wire(self, params) -> dict | None:
         """Analytic per-rank bytes on the wire of one step for a params
@@ -207,9 +220,20 @@ def build_engine(plan: TrainPlan, model: Model, optimizer: Optimizer,
             "build_elastic_programs); build_engine builds fixed-membership "
             "engines and would silently ignore quorum")
     if plan.algo == "gspmd":
-        raise NotImplementedError(
-            "algo 'gspmd' is not ported yet (ROADMAP queue 1: sharded "
-            "training, core/gspmd.py)")
+        tr = make_transport(("data",), 1, group)
+        if tr.lead is not None:
+            raise ValueError("gspmd shards over every rank as one level; "
+                             "pass a process group, not a two-level "
+                             "transport")
+        specs = fsdp_shardings(abstract_params(model), tr.k)
+        gstep = make_gspmd_step(model, optimizer, lr_fn, specs, tr,
+                                mode=plan.mode)
+
+        def step_g(state, batch, gen=None, timer=None, step_idx: int = 0):
+            return gstep(state, batch, gen, timer)
+
+        return Engine(plan, lambda gen: init_gspmd_state(
+            model, optimizer, gen, specs, tr), step_g, tr, specs)
     ex = get_exchanger(plan.exchanger)
     tr = make_transport(plan.data_axes, pods, group)
     if plan.is_async:

@@ -18,6 +18,9 @@ through the bridge, token batches from ``LMTokenSource``.
   past a torn or missing latest step, ``keep`` pruning, and save at step
   3 -> resume to 6 equal bit for bit to an unbroken 6-step run.
 - ``generate``: greedy tokens equal to the JAX package's (fp32).
+- The launcher: BSP with ``--ckpt``/``--resume``, and ``--algo gspmd``
+  with AdamW (each rank's shards saved and resumed; ``--exchanger
+  asa16`` refused).
 - The quickstart recipe (bf16, ``asa``, ``warmup_cosine(0.02, 10, 100)``,
   batch 16 of 64 tokens) for 30 steps: the loss falls as the JAX run's
   does on the same batches, within 2e-2 a step (bf16 rounds in other
@@ -425,3 +428,28 @@ def test_launcher_trains_and_resumes_a_decoder_on_the_cpu(tmp_path, capfd):
     out = capfd.readouterr().out
     assert "done: 3 steps of llama3.2-1b" in out
     assert tckpt.latest_step(tckpt.rank_dir(ck, 1, 2)) == 2
+
+
+def test_launcher_trains_gspmd_and_resumes_on_the_cpu(tmp_path, capfd):
+    """``--algo gspmd`` with AdamW on 2 ranks, saved and resumed (each
+    rank its own shards); an exchanger other than asa is refused as the
+    reference's TrainPlan refuses it."""
+    from repro_torch.launch import train as launch
+    args = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--ranks",
+            "2", "--batch", "2", "--seq", "16", "--algo", "gspmd", "--mode",
+            "zero1", "--optimizer", "adamw", "--lr", "0.01"]
+    ck = str(tmp_path / "ck")
+    launch.main(args + ["--steps", "2", "--ckpt", ck])
+    out = capfd.readouterr().out
+    n = sum(t.numel() for t in leaves(tbuild(tget_smoke("llama3.2-1b"),
+                                             "meta").init(torch.Generator())))
+    assert f"done: 2 steps of llama3.2-1b ({n:,} params)" in out
+    assert "gspmd zero1" in out and "tokens/s" in out
+    assert sorted(os.listdir(ck)) == ["rank0", "rank1"]
+    assert tckpt.load_meta(tckpt.rank_dir(ck, 0, 2))["algo"] == "gspmd"
+    launch.main(args + ["--steps", "3", "--resume", ck])
+    assert "done: 3 steps of llama3.2-1b" in capfd.readouterr().out
+    assert tckpt.latest_step(tckpt.rank_dir(ck, 1, 2)) == 2
+    with pytest.raises(SystemExit):
+        launch.main(args + ["--steps", "1", "--exchanger", "asa16"])
+    assert "exchanger knob does not apply" in capfd.readouterr().err

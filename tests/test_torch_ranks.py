@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-rank tests (``test_torch_exchange.py``,
-``test_torch_train.py``, ``test_torch_lm_train.py``). Each runs in a spawned gloo process, which
+``test_torch_train.py``, ``test_torch_lm_train.py``, ``test_torch_gspmd.py``
+and others). Each runs in a spawned gloo process, which
 imports the module that holds it; this one imports torch and the port
 only, not JAX, so a rank starts in about a second. It holds no tests.
 """
@@ -513,3 +514,83 @@ def elastic_worker(rank, k, out_dir):
                                    ref=ref_rep.losses[-1],
                                    resumed=rr.losses[-1])
     torch.save(res, os.path.join(out_dir, f"elastic{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# gspmd (FSDP) training on k ranks (test_torch_gspmd.py)
+# ---------------------------------------------------------------------------
+
+GSPMD_STEPS = 3              # steps of each parity run
+GSPMD_RESUME = (2, 4)        # save at step 2, resume to 4
+GSPMD_LR = {"sgd": 0.05, "adamw": 0.01}
+GSPMD_CASES = [(f"{mode}-{opt}", mode, opt) for opt in ("sgd", "adamw")
+               for mode in ("zero1", "ar")]
+
+
+def gspmd_optimizer(name):
+    """The parity runs' optimizers (the JAX side builds the same)."""
+    if name == "sgd":
+        return topt.sgd_momentum(momentum=0.9, weight_decay=1e-4)
+    return topt.adamw()
+
+
+def gspmd_worker(rank, k, out_dir, cfg):
+    """Every gspmd case (mode x optimizer) for GSPMD_STEPS steps from the
+    saved parameters, this rank on its 1/k of each saved global batch;
+    BSP ``asa`` with the sharded update the same way, with either
+    optimizer; and a zero1 AdamW
+    run saved at step 2 and resumed to 4 against an unbroken 4-step run.
+    Saves this rank's shards, their shapes at rest and the losses."""
+    from repro_torch.train.engine import TrainPlan, build_engine
+    from repro_torch.train.loop import train
+    params = torch.load(os.path.join(out_dir, "init.pt"))
+    batches = torch.load(os.path.join(out_dir, "batches.pt"))
+    model = dataclasses.replace(build_model(cfg, "cpu"),
+                                init=lambda gen: tree_map(torch.clone, params))
+    part = batches[0]["tokens"].shape[0] // k
+    mine = [{n: v[rank * part:(rank + 1) * part] for n, v in b.items()}
+            for b in batches]
+    shapes = lambda tree: [tuple(t.shape) for t in leaves(tree)]  # noqa: E731
+    res = {}
+    for name, mode, oname in GSPMD_CASES:
+        eng = build_engine(TrainPlan(algo="gspmd", mode=mode), model,
+                           gspmd_optimizer(oname),
+                           tsched.constant(GSPMD_LR[oname]))
+        state = eng.init_state(None)
+        rest = {"params": shapes(state["params"]),
+                **{n: shapes(state["opt"][n]) for n in ("m", "v")
+                   if n in state["opt"]}}
+        losses = []
+        for i, b in enumerate(mine[:GSPMD_STEPS]):
+            state, metrics = eng.step(state, b, step_idx=i)
+            losses.append(float(metrics["loss"]))
+        res[name] = {"params": state["params"], "opt": state["opt"],
+                     "losses": losses, "rest": rest, "specs": eng.specs,
+                     "step": state["step"]}
+    for oname in ("sgd", "adamw"):
+        opt = gspmd_optimizer(oname)
+        state = tbsp.init_sharded_train_state(model, opt, None)
+        step = tbsp.make_bsp_step(model, opt, tex.get_exchanger("asa"),
+                                  tsched.constant(GSPMD_LR[oname]),
+                                  sharded_update=True)
+        losses = []
+        for b in mine[:GSPMD_STEPS]:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+        res[f"bsp-{oname}"] = {"params": state["params"], "losses": losses}
+    ck = os.path.join(out_dir, "ck")
+    plan, opt = TrainPlan(algo="gspmd"), gspmd_optimizer("adamw")
+    finals = []
+    for kw in (dict(num_steps=GSPMD_RESUME[1]),
+               dict(num_steps=GSPMD_RESUME[0], ckpt_path=ck),
+               dict(num_steps=GSPMD_RESUME[1], resume_from=ck)):
+        st, rep = train(model, opt, tsched.constant(GSPMD_LR["adamw"]), mine,
+                        plan, log_every=0, print_fn=lambda *a: None, **kw)
+        finals.append((leaves(st), rep.steps, rep.losses))
+    (a, na, la), (_, n2, _), (b, nb, lb) = finals
+    res["resume"] = dict(
+        steps=[na, n2, nb], losses=(la, lb),
+        bitwise=len(a) == len(b) and all(
+            torch.equal(x, y) if torch.is_tensor(x) else x == y
+            for x, y in zip(a, b)))
+    torch.save(res, os.path.join(out_dir, f"gspmd{rank}.pt"))

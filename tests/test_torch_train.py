@@ -214,23 +214,26 @@ def test_bsp_step_options_are_checked():
     with pytest.raises(ValueError, match="fuse_rs_update"):
         tbsp.make_bsp_step(model, opt, ex, tsched.constant(LR),
                            sharded_update=True, fuse_rs_update=True)
-    # the overlap and the async plans build and step (their parity is
-    # held in test_torch_overlap.py / test_torch_easgd.py); gspmd and
-    # quorum plans are refused by name
+    # the overlap, the async and the gspmd plans build and step (their
+    # parity is held in test_torch_overlap.py / test_torch_easgd.py /
+    # test_torch_gspmd.py); quorum plans are refused by name
     batch = {n: torch.from_numpy(v) for n, v in _batches(1, 2)[0].items()}
     real = port_model(conv_params_from_jax(_init_params()))
     for plan in (tengine.TrainPlan(overlap="buckets", microbatches=2),
                  tengine.TrainPlan(algo="easgd", tau=2),
-                 tengine.TrainPlan(algo="asgd")):
+                 tengine.TrainPlan(algo="asgd"),
+                 tengine.TrainPlan(algo="gspmd", mode="zero1"),
+                 tengine.TrainPlan(algo="gspmd", mode="ar")):
         eng = tengine.build_engine(plan, real, opt, tsched.constant(LR))
         state = eng.init_state(None)
         for i in range(2):
             state, m = eng.step(state, batch, step_idx=i)
         assert state["step"] == 2 and torch.isfinite(m["loss"])
         assert ("center" in state) == plan.is_async
-    with pytest.raises(NotImplementedError, match="gspmd"):
-        tengine.build_engine(tengine.TrainPlan(algo="gspmd"), model, opt,
-                             tsched.constant(LR))
+        # one rank: its shards are the whole leaves; no exchanger, no wire
+        assert (eng.specs is not None) == (plan.algo == "gspmd")
+        if plan.algo == "gspmd":
+            assert eng.wire(state["params"]) is None
     with pytest.raises(ValueError, match="quorum"):
         tengine.build_engine(tengine.TrainPlan(algo="easgd", quorum=1),
                              model, opt, tsched.constant(LR))
