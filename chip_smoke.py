@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py gspmd      # the build, then phase 13 alone
+    python3 chip_smoke.py encdec     # the build, then phase 14 alone
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. In order:
@@ -278,6 +279,39 @@ and the CUDA toolkit. In order:
    128), each held to its plain version and timed; their launches are
    the phase's paths' own.
 
+14. The encoder-decoder (it runs after phase 13; ``python3 chip_smoke.py
+   encdec`` builds the kernels and runs it alone), seamless-m4t-large-v2
+   (24 encoder and 24 decoder layers, d_model 1024, 16 heads of 64,
+   vocab 256,206, 4096 stub frames): (a) the whole model (2,034,783,232
+   parameters by ``param_count``; random fp32 masters from a seeded
+   generator, bf16 compute) decodes 4 requests: ``prefill`` runs the
+   encoder once and writes each layer's cross K/V (its bytes printed
+   beside the reckoning), 16 prompt tokens go through ``decode_step``,
+   then 32 greedy tokens, launches counted from zero around that run
+   (``flash_decode`` and its combine, a layer and step); teacher-forced
+   on those tokens, the kernels are held to the einsum attention in fp32
+   at FP32_LOGIT_TOL of the largest logit and in bf16 at twice the
+   einsum route's distance from its fp32 run; ``generate`` equals the
+   decode loop from a zero cross cache bit for bit (it never runs the
+   encoder, as the reference's); the encoder's ms, a decode step's host
+   and device ms and operations, and peak memory printed; (b) the
+   gradient check at full width cut to 2 + 2 layers on 2 x 1024 tokens
+   after 4096 frames: the kernels in bf16 against the einsum route in
+   bf16 and in fp32 at GRAD_TOL, in fp32 against it in fp32 at
+   GRAD_TOL_FP32, every leaf printed; (c) BSP through the launcher's
+   config, batches (the reference launcher's frames), loader and recipe
+   on 2 gloo ranks sharing the card, both stacks cut to 4 layers
+   (776,390,656 parameters), 2 x 1024 tokens and 2 x 4096 frames a rank,
+   ``asa16`` sharded, 4 steps, after a printed reckoning of the whole
+   model's training state: tokens/s and frames/s, the step split, staged
+   MB and peak memory a rank, launches equal to the prediction, finite
+   losses, and one fp32 step of k=2 on halves equal to k=1 at K_TOL;
+   (d) the flash forward, dq and dk/dv at (2, 1024, 16/16, D 64) bf16,
+   ``flash_decode`` and its combine at (a)'s 48-key lanes, the wire and
+   update kernels at (c)'s largest bucket and small leaf, each held to
+   its plain version and timed, then at every bucket and small-leaf
+   shape bit for bit.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero; with no CUDA device, or outside a checkout, it
@@ -352,6 +386,9 @@ GRAD_TOL = 5e-2       # each leaf's gradient there, relative Frobenius error:
                       # qwen1.5-4b cut to 4 layers of d_model 2560 (D 128,
                       # G 1) read 2.4e-2 (max) on an H100, each side 2.2e-2
                       # / 2.6e-2 from fp32: the same policy, the same limit
+GRAD_TOL_FP32 = 1e-3  # the same in fp32, kernels vs einsum attention: only
+                      # the order of the sums differs, so a kernel fault
+                      # shows far above it
 LM_STEPS = 6          # steps of the LM training run
 LM_BATCH, LM_SEQ = 4, 1024   # sequences of tokens per rank and step
 LM_PARAMS = 1_235_814_400    # llama3.2-1b with tied embeddings
@@ -719,14 +756,21 @@ def _sms(torch, dev) -> int:
 def _device_ops(torch, fn) -> int:
     """Operations one call of ``fn`` runs on the card (kernels, copies and
     sets, counted by ``torch.profiler``), after a warm-up call."""
+    return _device_profile(torch, fn)[0]
+
+
+def _device_profile(torch, fn) -> tuple:
+    """(operations, their summed device ms) of one call of ``fn`` on the
+    card, by ``torch.profiler``, after a warm-up call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA)
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return len(evs), sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
 
 
 def _shape_key(name: str, shape) -> str:
@@ -1062,11 +1106,15 @@ def _leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def lm_grad_check(torch, cfg, models, dev, shape=(2, 512), image_tokens=0):
+def lm_grad_check(torch, cfg, models, dev, shape=(2, 512), image_tokens=0,
+                  fp32_plain=False):
     """decoder_loss of full ``cfg`` on ``shape`` (B x S) tokens (after
-    ``image_tokens`` seeded random image embeddings a sequence), and the
-    gradient of every leaf, through the kernels and through the einsum
-    attention. Returns the kernels' launches."""
+    ``image_tokens`` seeded random image embeddings a sequence; an
+    encoder-decoder's loss on ``encoder_seq_len`` seeded normal frames
+    before them), and the gradient of every leaf, through the kernels and
+    through the einsum attention. With ``fp32_plain``, also the einsum
+    route in fp32: the kernels in fp32 held to it at GRAD_TOL_FP32 and in
+    bf16 at GRAD_TOL, every leaf printed. Returns the kernels' launches."""
     import numpy as np
 
     from repro_torch.configs.base import with_attn_impl
@@ -1081,14 +1129,21 @@ def lm_grad_check(torch, cfg, models, dev, shape=(2, 512), image_tokens=0):
         batch["image_embeds"] = torch.randn(
             B, image_tokens, cfg.d_model, device=dev,
             generator=torch.Generator(device=dev).manual_seed(5))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            B, cfg.encoder_seq_len, cfg.d_model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(6))
     master = models.build_model(cfg, dev).init(
         torch.Generator(device=dev).manual_seed(3))
     leaves, treedef = flatten(master)
     names = _leaf_names(master)
     out = {}
-    for impl in ("flash", "ref", "fp32"):
-        c = (cfg.with_overrides(dtype="float32") if impl == "fp32" else
-             with_attn_impl(cfg, impl))
+    c32 = cfg.with_overrides(dtype="float32")
+    runs = {"flash": with_attn_impl(cfg, "flash"),
+            "ref": with_attn_impl(cfg, "ref"), "fp32": c32}
+    if fp32_plain:
+        runs["ref_fp32"] = with_attn_impl(c32, "ref")
+    for impl, c in runs.items():
         model = models.build_model(c, dev)
         ps = [t.detach().requires_grad_(True) for t in leaves]
         K.reset_launches()
@@ -1114,7 +1169,10 @@ def lm_grad_check(torch, cfg, models, dev, shape=(2, 512), image_tokens=0):
     d_loss = abs(out["flash"][0] - out["ref"][0])
     prefix = (f" after {image_tokens} image embeddings" if image_tokens else
               f" after {cfg.num_meta_tokens} meta tokens"
-              if cfg.num_meta_tokens else "")
+              if cfg.num_meta_tokens else
+              f" against {cfg.encoder_seq_len} frames through "
+              f"{cfg.num_encoder_layers} encoder layers"
+              if cfg.family == "encdec" else "")
     print(f"grad check, {cfg.name} ({L} layers) on {B} x {S} tokens{prefix}, "
           f"kernels vs einsum (launches {out['flash'][2]}): "
           f"loss {out['flash'][0]:.6f} vs {out['ref'][0]:.6f} (|d| "
@@ -1132,6 +1190,18 @@ def lm_grad_check(torch, cfg, models, dev, shape=(2, 512), image_tokens=0):
             GRAD_TOL for n in names]
     bad = [(n, e, t) for n, e, t in zip(names, errs, tols)
            if not (math.isfinite(e) and e <= t)]
+    if fp32_plain:
+        e16, e32 = rel("flash", "ref_fp32"), rel("fp32", "ref_fp32")
+        print(f"  every leaf, relative Frobenius error against the einsum "
+              f"route in fp32 (loss {out['ref_fp32'][0]:.6f}), [kernels "
+              f"bf16, kernels fp32]: " + json.dumps(
+                  {n: [a, b] for n, a, b in zip(names, e16, e32)}))
+        bad += [(n + " (bf16 vs plain fp32)", e, GRAD_TOL)
+                for n, e in zip(names, e16)
+                if not (math.isfinite(e) and e <= GRAD_TOL)]
+        bad += [(n + " (fp32 vs plain fp32)", e, GRAD_TOL_FP32)
+                for n, e in zip(names, e32)
+                if not (math.isfinite(e) and e <= GRAD_TOL_FP32)]
     if bad:
         _fail(f"grad check: leaf gradients past their bound: {bad}")
     return out["flash"][2]
@@ -3346,11 +3416,19 @@ def ds_train_phase(device="cuda:0", smoke=False):
     return dict(m["launches"])
 
 
+def _release_card(torch) -> int:
+    """Frees the cuBLAS workspaces of the streams the timers made and the
+    allocator's cache; returns the bytes still allocated."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
 def _decode_step_cost(torch, model, params, dev, paged=True):
     """One decode step of ``model`` (8 slots at SERVE_POSITIONS, pages of
-    16, or contiguous 1 K lanes when not ``paged``): host ms to return and
-    wall ms to its synchronize (medians of 20), and the operations it runs
-    on the card (torch.profiler)."""
+    16, or contiguous 1 K lanes when not ``paged``): :func:`_step_cost`."""
     B, ps, NP = 8, 16, 64
     if paged:
         pool = model.init_paged_cache(B, ps, B * NP + 1)
@@ -3360,8 +3438,17 @@ def _decode_step_cost(torch, model, params, dev, paged=True):
         pool, tables, ps = model.init_cache(B, NP * ps), None, 0
     pos = torch.tensor(SERVE_POSITIONS, device=dev)
     tok = {"tokens": torch.zeros(B, 1, dtype=torch.int64, device=dev)}
-    step = lambda: model.decode_step(params, pool, tok, pos, seq_len=1024,
-                                     block_tables=tables, page_size=ps)
+    cost = _step_cost(torch, lambda: model.decode_step(
+        params, pool, tok, pos, seq_len=1024, block_tables=tables,
+        page_size=ps), dev)
+    del pool
+    return cost
+
+
+def _step_cost(torch, step, dev) -> dict:
+    """Host ms for ``step()`` to return and wall ms to its synchronize
+    (medians of 20, after 3 warm-up calls), and the operations it runs on
+    the card and their summed device ms (torch.profiler)."""
     host, wall = [], []
     for i in range(23):
         _sync(torch, dev)
@@ -3372,10 +3459,11 @@ def _decode_step_cost(torch, model, params, dev, paged=True):
         if i >= 3:
             host.append((t1 - t0) * 1e3)
             wall.append((time.perf_counter() - t0) * 1e3)
-    ops = _device_ops(torch, step) if dev.type == "cuda" else None
-    del pool
+    ops, busy = (_device_profile(torch, step) if dev.type == "cuda"
+                 else (None, None))
     return dict(host_ms=sorted(host)[len(host) // 2],
-                wall_ms=sorted(wall)[len(wall) // 2], device_ops=ops)
+                wall_ms=sorted(wall)[len(wall) // 2], device_ops=ops,
+                device_busy_ms=busy)
 
 
 def ds_engine_phase(torch, K, cfg, models, serve, dev):
@@ -3478,11 +3566,7 @@ def ds_phase(torch, ref, fa, K, models, serve, cfg_mod):
     by_path = {"deepseek_train": ds_train_phase()}
     by_path["serve_deepseek"] = ds_engine_phase(torch, K, cfg, models, serve,
                                                 dev)
-    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-    if clear is not None:
-        clear()
-    torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated() - start_mem
+    left = _release_card(torch) - start_mem
     print(f"phase 11 ({DS_ARCH}): {time.perf_counter() - t0:.1f}s, "
           f"{left} bytes left allocated")
     if left > PHASE11_LEFT:
@@ -3829,11 +3913,7 @@ def ssm_phase(torch, ref, fa, K, models, serve, cfg_mod):
         torch, cham.with_overrides(num_layers=CHAMELEON_GRAD_LAYERS), models,
         dev, shape=(1, CHAMELEON_GRAD_TOKENS),
         image_tokens=cham.num_image_tokens)
-    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-    if clear is not None:
-        clear()
-    torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated() - start_mem
+    left = _release_card(torch) - start_mem
     print(f"phase 12 ({MAMBA_ARCH}, {HYMBA_ARCH}, {CHAMELEON_ARCH}): "
           f"{time.perf_counter() - t0:.1f}s, {left} bytes left allocated")
     if left > PHASE11_LEFT:
@@ -4309,6 +4389,489 @@ def gspmd_kernel_rows(torch, ref, fa, shapes, flush, dev="cuda"):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the encoder-decoder (SeamlessM4T-v2's backbone)
+# ---------------------------------------------------------------------------
+
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+SEAMLESS_PARAMS = 2_034_783_232   # ArchConfig.param_count(); the tree holds
+                                  # one more d_model-wide final norm
+SEAMLESS_REQUESTS = 4
+SEAMLESS_PROMPT = 16              # prompt tokens forced through decode_step
+SEAMLESS_NEW = 32                 # greedy tokens after them
+SEAMLESS_GRAD_LAYERS = 2          # (b): 2 encoder and 2 decoder layers
+SEAMLESS_TRAIN_LAYERS = 4         # (c): 4 + 4
+SEAMLESS_TRAIN_PARAMS = 776_390_656
+SEAMLESS_BATCH, SEAMLESS_TOKENS = 2, 1024   # (b), (c): a rank's sequences
+SEAMLESS_STEPS = 4
+SEAMLESS_POSITIONS = (0, 15, 32, 47)   # (d): the decode's 4 slots over
+                                       # (a)'s 48-key lanes
+
+
+def _encdec_decode(torch, model, params, cache, prompt, new, forced=None):
+    """The prompt's tokens through ``decode_step`` one position at a time,
+    then ``new`` tokens: greedy, or ``forced``'s (teacher-forced). Returns
+    (each step's (B, V) fp32 logits, the (B, S0 + new) tokens), as the
+    stepwise ``generate`` runs them."""
+    S0 = prompt.shape[1]
+    total = S0 + new
+    tok = prompt[:, :1]
+    toks, logits = [tok], []
+    for i in range(total - 1):
+        lg, cache = model.decode_step(params, cache, {"tokens": tok}, i,
+                                      seq_len=total)
+        logits.append(lg[:, -1].float())
+        src = prompt if i + 1 < S0 else forced
+        tok = (src[:, i + 1:i + 2] if src is not None
+               else lg[:, -1].argmax(-1)[:, None])
+        toks.append(tok)
+    return logits, torch.cat(toks, 1)
+
+
+def encdec_decode_phase(torch, K, cfg, models, dev):
+    """(a) The whole model decoded: bf16 over fp32 masters, 4 requests of
+    seeded frames, ``prefill`` (the encoder once, each layer's cross K/V),
+    16 prompt tokens forced through ``decode_step``, then 32 greedy
+    tokens, launches counted from zero around that run. The kernels
+    (``flash_decode`` and its combine) held to the einsum route
+    teacher-forced on those tokens, in fp32 at FP32_LOGIT_TOL of the
+    largest logit and in bf16 at twice the einsum route's distance from
+    its fp32 run; ``generate`` equal bit for bit to the decode loop from a
+    zero cross cache (it never runs the encoder, as the reference's).
+    Returns {path: launches}."""
+    from repro_torch.configs.base import with_attn_impl
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.registry import cast_params
+    from repro_torch.train.serve import generate
+    B, S0, new = SEAMLESS_REQUESTS, SEAMLESS_PROMPT, SEAMLESS_NEW
+    total = S0 + new
+    cuda = dev.type == "cuda"
+    model = models.build_model(cfg, dev)
+    master = model.init(torch.Generator(device=dev).manual_seed(14))
+    n = models.count_params(master)
+    if n != cfg.param_count() + cfg.d_model:
+        _fail(f"{cfg.name}: {n} parameters in the tree, not param_count() "
+              f"{cfg.param_count()} + the second final norm")
+    params = cast_params(master, dtype_of(cfg.dtype))
+    g = torch.Generator(device=dev).manual_seed(140)
+    frames = torch.randn(B, cfg.encoder_seq_len, cfg.d_model, generator=g,
+                         device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S0), generator=g,
+                           device=dev)
+    a = cfg.attention
+    cross_want = (cfg.num_layers * B * cfg.encoder_seq_len * a.num_kv_heads
+                  * a.head_dim * 2 * torch.finfo(dtype_of(cfg.dtype)).bits
+                  // 8)
+
+    # the main run: the kernels in bf16, greedy
+    cache = model.init_cache(B, total)
+    cross = sum(t.nbytes for t in cache["cross"].values())
+    enc_ms = []
+    for _ in range(2):                # the first call also warms the card
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        model.prefill(params, frames, cache)
+        _sync(torch, dev)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    K.reset_launches()
+    logits, toks = _encdec_decode(torch, model, params, cache, prompt, new)
+    _sync(torch, dev)
+    launches = dict(K.LAUNCHES)
+    want = {"flash_decode": cfg.num_layers * (total - 1),
+            "flash_decode_combine": cfg.num_layers * (total - 1)}
+    if cuda and launches != want:
+        _fail(f"{cfg.name} decode launches {launches} != {want}")
+    tok = {"tokens": toks[:, -1:]}
+    cost = _step_cost(torch, lambda: model.decode_step(
+        params, cache, tok, total - 1, seq_len=total), dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    print(f"phase 14(a) {cfg.name} ({cfg.num_encoder_layers} + "
+          f"{cfg.num_layers} layers, {n:,} parameters, bf16 over fp32 "
+          f"masters), {B} requests of {cfg.encoder_seq_len} frames, {S0} "
+          f"prompt + {new} greedy tokens: cross K/V cache {cross:,} bytes "
+          f"(reckoned {cross_want:,}); encoder (prefill) "
+          f"{enc_ms[1]:.2f} ms (first call {enc_ms[0]:.2f}); a decode step "
+          + json.dumps(cost) + f"; launches {launches}; peak memory "
+          f"{peak} GB")
+    if cross != cross_want:
+        _fail(f"cross K/V cache {cross} bytes, reckoned {cross_want}")
+    del cache
+
+    # teacher-forced on the main run's tokens: the einsum route in bf16,
+    # and both routes in fp32 on the fp32 masters (TF32 off)
+    c32 = cfg.with_overrides(dtype="float32")
+    outs = {"kernels": logits}
+    for name, c, ps in (("plain", with_attn_impl(cfg, "ref"), params),
+                        ("kernels_fp32", c32, master),
+                        ("plain_fp32", with_attn_impl(c32, "ref"), master)):
+        m = models.build_model(c, dev)
+        cache = m.prefill(ps, frames, m.init_cache(B, total))
+        outs[name], _ = _encdec_decode(torch, m, ps, cache, prompt, new,
+                                       forced=toks)
+        del cache
+    err = lambda x, y: [(p - q).abs().max().item()  # noqa: E731
+                        for p, q in zip(outs[x], outs[y])]
+    errs, errs32 = err("kernels", "plain"), err("kernels_fp32", "plain_fp32")
+    scale = max(t.abs().max().item() for t in outs["plain_fp32"])
+    control = max(err("plain", "plain_fp32"))
+    top1 = sum(int((p.argmax(-1) == q.argmax(-1)).all())
+               for p, q in zip(outs["kernels"], outs["plain"]))
+    print(f"phase 14(a) teacher-forced logits ({total - 1} decode steps), "
+          f"flash_decode vs einsum attention: bf16 max err {max(errs):.4g} "
+          f"(limit {2 * control:.4g}: twice the einsum route's distance "
+          f"from its fp32 run), steps with equal top-1 {top1}/{len(errs)}; "
+          f"fp32 max err {max(errs32):.4g} of max |logit| {scale:.3f} "
+          f"(limit {FP32_LOGIT_TOL * scale:.4g}); distance from fp32, "
+          f"kernels {max(err('kernels', 'kernels_fp32')):.4g}")
+    if not all(math.isfinite(e) for e in errs + errs32) or (
+            max(errs32) > FP32_LOGIT_TOL * scale):
+        _fail(f"{cfg.name}: kernels vs einsum decode logits in fp32 differ "
+              f"by {max(errs32)} > {FP32_LOGIT_TOL} of {scale}")
+    if max(errs) > 2 * control:
+        _fail(f"{cfg.name}: kernels vs einsum decode logits in bf16 differ "
+              f"by {max(errs)} > {2 * control}")
+    del outs
+
+    # generate: the stepwise path, whose cross K/V stay zero
+    K.reset_launches()
+    got = generate(model, params, prompt, max_new=new)
+    _sync(torch, dev)
+    gen_launches = dict(K.LAUNCHES)
+    zlogits, ztoks = _encdec_decode(torch, model, params,
+                                    model.init_cache(B, total), prompt, new)
+    gap = (zlogits[0] - logits[0]).abs().max().item()
+    print(f"phase 14(a) generate: {tuple(got.shape)} tokens, equal to the "
+          f"decode loop's from a zero cross cache bit for bit: "
+          f"{torch.equal(got, ztoks)}; the encoder's K/V move the first "
+          f"step's logits by up to {gap:.4g} (generate never runs the "
+          f"encoder, as the reference's); launches {gen_launches}")
+    if not torch.equal(got, ztoks):
+        _fail(f"{cfg.name}: generate's tokens differ from the decode loop's")
+    if cuda and gen_launches != want:
+        _fail(f"{cfg.name} generate launches {gen_launches} != {want}")
+    return {"seamless_decode": launches, "seamless_generate": gen_launches}
+
+
+def _seamless_rank(rank, k, out_dir, device, smoke):
+    """One of the 2 ranks of phase 14(c) (a spawned process on ``device``:
+    cuda:0, or the CPU with the smoke config to rehearse): BSP through the
+    launcher's config, batches, loader and recipe, then the fp32 k=2 vs
+    k=1 step at the smoke config."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import bsp, exchanger
+    from repro_torch.launch.train import (launch_config, rank_loader, recipe,
+                                          set_fp32_math, synthetic_batch,
+                                          write_rank_batches)
+    from repro_torch.models import build_model, count_params
+    from repro_torch.optim import constant
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+    from repro_torch.tree import leaves
+
+    set_fp32_math()        # the fp32 k=2 vs k=1 check wants full fp32 matmuls
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    cfg = launch_config(dict(arch=SEAMLESS_ARCH, smoke=smoke,
+                             layers=None if smoke else SEAMLESS_TRAIN_LAYERS))
+    model = build_model(cfg, dev)
+    batch, seq = (2, 16) if smoke else (SEAMLESS_BATCH, SEAMLESS_TOKENS)
+    files = write_rank_batches(cfg, rank, k, batch, SEAMLESS_STEPS,
+                               os.path.join(out_dir, f"s{rank}"), seq=seq)
+    loader = rank_loader(cfg, files, dev, SEAMLESS_STEPS, seed=rank)
+    opt, lr = recipe(cfg, SEAMLESS_STEPS)
+    plan = TrainPlan(exchanger="asa16", sharded_update=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    state, rep = train(model, opt, lr, loader, plan=plan,
+                       num_steps=SEAMLESS_STEPS, log_every=SEAMLESS_STEPS,
+                       seed=0, print_fn=lambda *a: None)
+    _sync(torch, dev)
+    launches = dict(K.LAUNCHES)
+    loader.stop()
+    n = count_params(state["params"])
+    if not smoke and n != SEAMLESS_TRAIN_PARAMS:
+        _fail(f"{cfg.name} at {SEAMLESS_TRAIN_LAYERS} + "
+              f"{SEAMLESS_TRAIN_LAYERS} layers has {n} parameters, not "
+              f"{SEAMLESS_TRAIN_PARAMS:,}")
+    rsplan = exchanger.make_rs_plan(state["params"], k)
+    ls = leaves(state["params"])
+    predicted = _predicted_launches(rsplan, len(ls), "asa16", True,
+                                    SEAMLESS_STEPS, cuda, k)
+    L = cfg.num_layers
+    predicted.update(flash_attention=(2 if cfg.remat else 1) * L
+                     * SEAMLESS_STEPS, flash_attention_dq=L * SEAMLESS_STEPS,
+                     flash_attention_dkv=L * SEAMLESS_STEPS)
+    out = dict(rank=rank, run=_run_report(torch, rep, launches, {
+        n_: c for n_, c in predicted.items() if c}, cuda), params=n,
+        layers=[cfg.num_encoder_layers, L], seq=seq,
+        frames=cfg.encoder_seq_len,
+        buckets=sorted({(b.padded, b.shard_len) for b in rsplan.buckets}),
+        small=sorted({tuple(ls[i].shape) for i in rsplan.small}))
+    del state, model, loader
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # one fp32 asa step at the smoke config, the decoder's self-attention
+    # through the kernels: the two ranks on two halves, then a group of
+    # one (rank 0) on the whole batch, from the same parameters
+    solo = dist.new_group([0])
+    scfg = get_smoke_config(SEAMLESS_ARCH).with_overrides(dtype="float32")
+    smodel = build_model(scfg, dev)
+    full = {n_: torch.from_numpy(v).to(dev) for n_, v in
+            synthetic_batch(scfg, 4, 777, 64).items()}
+    half = {n_: v[rank * 2:(rank + 1) * 2] for n_, v in full.items()}
+    params = smodel.init(torch.Generator(device=dev).manual_seed(7))
+    sstate = {"params": params, "opt": opt.init(params), "step": 0}
+    asa = exchanger.get_exchanger("asa")
+    two, _ = bsp.make_bsp_step(smodel, opt, asa, constant(0.01))(sstate, half)
+    if rank == 0:
+        one, _ = bsp.make_bsp_step(smodel, opt, asa, constant(0.01),
+                                   group=solo)(sstate, full)
+        out["k2_vs_k1_max_abs_dp"] = max(
+            (a - b).abs().max().item()
+            for a, b in zip(leaves(two["params"]), leaves(one["params"])))
+        out["k2_vs_k1_max_abs_step"] = max(
+            (b - p0).abs().max().item()
+            for b, p0 in zip(leaves(one["params"]), leaves(params)))
+    dist.barrier()
+    with open(os.path.join(out_dir, f"seamless{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def encdec_train_phase(device="cuda:0", smoke=False):
+    """(c) Prints what the whole model's training state would take, spawns
+    the 2 ranks and checks and prints what they report. Returns (rank 0's
+    launches, its (padded, shard) bucket shapes, its small-leaf
+    shapes)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_ranks
+    k = 2
+    full = get_config(SEAMLESS_ARCH)
+    n = full.param_count() + full.d_model
+    total = (torch.cuda.get_device_properties(0).total_memory
+             if torch.cuda.is_available() else float("nan"))
+    print(f"phase 14(c) reckoning, {SEAMLESS_ARCH} whole ({n:,} parameters, "
+          f"fp32 masters): parameters + gradients + momentum = "
+          f"{12 * n / 1e9:.1f} GB a rank, {k * 12 * n / 1e9:.1f} GB for {k}, "
+          f"before the wire's buffers and the activations, against the "
+          f"card's {total / 1e9:.1f} GB: the run cuts both stacks to "
+          f"{SEAMLESS_TRAIN_LAYERS} layers")
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        run_ranks(_seamless_rank, k, (td, device, smoke), backend="gloo")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(Path(td, f"seamless{r}.json").read_text())
+                 for r in range(k)]
+    for rk in ranks:
+        rr = rk["run"]
+        bad = [x for x in rr["losses"] if not math.isfinite(x)]
+        if len(rr["losses"]) != SEAMLESS_STEPS or bad:
+            _fail(f"seamless run rank {rk['rank']}: losses {rr['losses']}")
+        if device != "cpu" and rr["launches"] != rr["predicted"]:
+            _fail(f"seamless run rank {rk['rank']}: launches "
+                  f"{rr['launches']} != predicted {rr['predicted']}")
+    r0 = ranks[0]
+    rr = r0["run"]
+    frames_s = rr["tokens_per_s"] / r0["seq"] * r0["frames"]
+    print(f"phase 14(c) {SEAMLESS_ARCH} at {r0['layers'][0]} + "
+          f"{r0['layers'][1]} layers ({r0['params']:,} parameters), BSP "
+          f"asa16 sharded on {k} gloo ranks ({device}, {wall:.1f}s), "
+          f"{SEAMLESS_STEPS} steps: " + json.dumps(
+              {key: rr[key] for key in (
+                  "tokens_per_s", "first_step_s", "phase_ms",
+                  "staged_mb_per_step", "stage_ms_per_step",
+                  "wire_ms_per_step", "launches", "predicted", "losses")})
+          + f"; frames/s {frames_s:.1f}; first loss {rr['losses'][0]:.4f} "
+          f"(ln V = {math.log(full.vocab_size):.4f}); peak memory per "
+          f"rank, GB: " + json.dumps([rk["run"]["peak_mem_gb"]
+                                      for rk in ranks]))
+    dp = r0["k2_vs_k1_max_abs_dp"]
+    print(f"phase 14(c) asa step (smoke config, fp32), k=2 on halves vs k=1 "
+          f"on the batch: max |dp| {dp} (bound {K_TOL}; the step moved "
+          f"parameters by up to {r0['k2_vs_k1_max_abs_step']})")
+    if not dp <= K_TOL:
+        _fail(f"seamless k=2 and k=1 asa steps differ by {dp} > {K_TOL}")
+    return (dict(rr["launches"]), [tuple(b) for b in r0["buckets"]],
+            [tuple(s_) for s_ in r0["small"]])
+
+
+def encdec_kernel_rows(torch, ref, fa, buckets, small, flush, dev="cuda"):
+    """(d) The kernels at phase 14's shapes, each held to its plain version
+    and timed: the flash forward, dq and dk/dv at the training shape (2 x
+    1024 tokens, 16 heads over 16, D 64, bf16, causal; two backward calls
+    bitwise equal); ``flash_decode`` and its combine at (a)'s decode (4
+    slots over 48-key lanes, 16/16 heads, D 64, bf16); ``quant_fp16``,
+    ``dequant_fp16`` and ``fused_rs_update`` bit for bit at (c)'s largest
+    bucket and ``fused_sgd`` at its largest small leaf, then at every
+    bucket and small-leaf shape through ``wire_check``/``sgd_check``."""
+    from repro_torch.kernels import fused_rs_update as fru
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.kernels import quantize as qz
+    g = torch.Generator(device=dev).manual_seed(1414)
+    train, decode = ("seamless_train", "seamless_grad"), (
+        "seamless_decode", "seamless_generate")
+    shape = (2, SEAMLESS_TOKENS if dev != "cpu" else 64, 16, 16, 64)
+    fl, c = _lm_flash(torch, ref, fa, flush, shape, 41, dev)
+    fwd = fl.pop("fwd")
+    q_, k_, v_, qo = (c[n_] for n_ in ("q", "k", "v", "qo"))
+    want = ref.flash_attention_ref(q_, k_, v_, qo, 0, c["scale"])
+    rows = [dict(
+        name="flash_attention",
+        src="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:97",
+        err=(c["out"].float() - want.float()).abs().max().item(),
+        plain_ms=_median_ms(lambda: ref.flash_attention_ref(
+            q_, k_, v_, qo, 0, c["scale"]), flush=flush),
+        host_ms=_host_ms(lambda: fa.flash_attention(q_, k_, v_, q_off=qo)),
+        bound=(fwd.pop("bound_ms"), fwd.pop("bound_by")), **fwd)]
+    rows += list(fl.values())
+    for r in rows:
+        r.update(shape=f"{SEAMLESS_ARCH} train ({shape[0]}, {shape[1]}, "
+                 f"16/16 heads, D 64) bf16, causal", paths=train)
+    dec = _serve_decode(torch, ref, fa, g, 16, 16, 64, torch.bfloat16, flush,
+                        SEAMLESS_POSITIONS, SEAMLESS_PROMPT + SEAMLESS_NEW,
+                        dev)
+    for name in ("flash_decode", "flash_decode_combine"):
+        dec[name].update(shape=f"{len(SEAMLESS_POSITIONS)} slots at "
+                         f"{list(SEAMLESS_POSITIONS)} over "
+                         f"{SEAMLESS_PROMPT + SEAMLESS_NEW} keys, 16/16 "
+                         f"heads, D 64, bf16", paths=decode)
+        rows.append(dec[name])
+
+    # the wire and update kernels at the largest bucket, the update at the
+    # largest small leaf
+    padded, s = max(buckets)
+    kk = padded // s
+    lr = torch.tensor([0.01], device=dev)
+    rn = lambda *s_: torch.randn(*s_, generator=g, device=dev)  # noqa: E731
+    bits = lambda t: t.view({2: torch.int16, 4: torch.int32}[  # noqa: E731
+        t.element_size()])
+
+    def row(name, src, line, got, want, fn, plain, library, bound, label):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+            _fail(f"{name} at {label} differs from its plain version")
+        rows.append(dict(name=name, src=f"src/repro_torch/csrc/{src}",
+                         replaces=f"src/repro/kernels/{line}", err=0.0,
+                         bound=bound, shape=label, paths=train[:1],
+                         ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
+                         plain_ms=_median_ms(plain, flush=flush),
+                         library_ms=library()))
+
+    x = rn(kk, s)
+    h = x.half()
+    row("quant_fp16", "exchange.cu", "quantize.py:39", qz.quant_fp16(x),
+        ref.quant_fp16_ref(x), lambda: qz.quant_fp16(x),
+        lambda: ref.quant_fp16_ref(x),
+        lambda: _median_ms(lambda: x.half(), flush=flush),
+        _bound(padded * 6, padded, FP32_FLOP_S),
+        f"{SEAMLESS_ARCH} bucket ({kk}, {s}) fp32")
+    row("dequant_fp16", "exchange.cu", "quantize.py:57", qz.dequant_fp16(h),
+        ref.dequant_fp16_ref(h), lambda: qz.dequant_fp16(h),
+        lambda: ref.dequant_fp16_ref(h),
+        lambda: _median_ms(lambda: h.float(), flush=flush),
+        _bound(padded * 6, padded, FP32_FLOP_S),
+        f"{SEAMLESS_ARCH} bucket ({kk}, {s}) fp16")
+    del x
+    ps, ms_, mask = rn(s) * 0.01, rn(s) * 0.001, torch.ones(s, device=dev)
+    args = dict(wd_mask=mask, scale=1 / kk, momentum=0.9, weight_decay=1e-4)
+    row("fused_rs_update", "sgd.cu", "fused_rs_update.py:53",
+        fru.fused_rs_update(h, ps, ms_, lr, **args),
+        ref.fused_rs_update_ref(h, ps, ms_, mask, lr, 0.9, False, 1 / kk,
+                                1e-4, None),
+        lambda: fru.fused_rs_update(h, ps, ms_, lr, **args),
+        lambda: ref.fused_rs_update_ref(h, ps, ms_, mask, lr, 0.9, False,
+                                        1 / kk, 1e-4, None),
+        lambda: None, _bound(padded * 2 + 5 * s * 4, (kk + 7) * s,
+                             FP32_FLOP_S),
+        f"{SEAMLESS_ARCH} receive ({kk}, {s}) fp16")
+    del h, ps, ms_, mask
+    sm = max(small, key=math.prod)
+    p, gr, m = rn(*sm) * 0.01, rn(*sm) * 0.001, rn(*sm) * 0.001
+    nb = math.prod(sm)
+
+    def library():
+        sp = p.clone().requires_grad_(True)
+        sp.grad = gr.clone()
+        sgd = torch.optim.SGD([sp], lr=0.01, momentum=0.9, fused=True)
+        return _event_ms(sgd.step)
+    row("fused_sgd", "sgd.cu", "fused_sgd.py:24",
+        fs.fused_sgd(p, gr, m, lr, 0.9), ref.fused_sgd_ref(p, gr, m, lr, 0.9),
+        lambda: fs.fused_sgd(p, gr, m, lr, 0.9),
+        lambda: ref.fused_sgd_ref(p, gr, m, lr, 0.9), library,
+        _bound(5 * nb * 4, 5 * nb, FP32_FLOP_S),
+        f"{SEAMLESS_ARCH} small leaf {tuple(sm)} fp32")
+    del p, gr, m
+    print("phase 14(d) kernels at the encoder-decoder's shapes, equal to "
+          "plain: " + json.dumps([{k_: r.get(k_) for k_ in (
+              "name", "shape", "err", "ms", "plain_ms", "library_ms",
+              "bound")} for r in rows]))
+    wire_check(torch, ref, buckets, SEAMLESS_ARCH, 1e-4, dev=dev)
+    sgd_check(torch, ref, small, f"{SEAMLESS_ARCH} small leaves", dev=dev)
+    return rows
+
+
+def encdec_main(torch, ref, fa, K, models, dev="cuda", smoke=False):
+    """Phase 14: (a) the whole model decoded, (b) the gradient check at
+    full width cut to 2 + 2 layers, (c) k=2 BSP at 4 + 4 layers on gloo
+    ranks sharing the card, (d) the kernels at those shapes. Frees the
+    card back to the memory it started from. Returns (kernel rows, {path:
+    launches})."""
+    from repro_torch.configs import get_config, get_smoke_config
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    start_mem = 0
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False   # the fp32 holds
+        torch.backends.cudnn.allow_tf32 = False
+        start_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = (get_smoke_config if smoke else get_config)(SEAMLESS_ARCH)
+    if not smoke and cfg.param_count() != SEAMLESS_PARAMS:
+        _fail(f"{SEAMLESS_ARCH}: param_count {cfg.param_count()} != "
+              f"{SEAMLESS_PARAMS:,}")
+    by_path = encdec_decode_phase(torch, K, cfg, models, dev)
+    if cuda:
+        torch.cuda.empty_cache()
+    cut = SEAMLESS_GRAD_LAYERS
+    by_path["seamless_grad"] = lm_grad_check(
+        torch, cfg.with_overrides(num_layers=cut, num_encoder_layers=cut),
+        models, dev, shape=(SEAMLESS_BATCH,
+                            16 if smoke else SEAMLESS_TOKENS),
+        fp32_plain=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    launches, buckets, small = encdec_train_phase(
+        "cuda:0" if cuda else "cpu", smoke)
+    by_path["seamless_train"] = launches
+    l2 = torch.empty(128 * 2 ** 20 if cuda else 1, dtype=torch.uint8,
+                     device=dev)
+    rows = encdec_kernel_rows(torch, ref, fa, buckets, small, l2.zero_,
+                              str(dev))
+    del l2
+    left = _release_card(torch) - start_mem if cuda else 0
+    print(f"phase 14 ({SEAMLESS_ARCH}): {time.perf_counter() - t0:.1f}s, "
+          f"{left} bytes left allocated")
+    if left > PHASE11_LEFT:
+        _fail(f"phase 14 left {left} bytes allocated")
+    return rows, by_path
+
+
 def kernels_line(rows, by_path):
     """The kernels line's entries: one a row, with the launches of the
     paths it stands for. A row at one path's shape counts that path's
@@ -4373,6 +4936,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
     if sys.argv[1:] == ["gspmd"]:        # phase 13 alone
         return finish(torch, card, *gspmd_main(torch, ref, fa))
+    if sys.argv[1:] == ["encdec"]:       # phase 14 alone
+        return finish(torch, card, *encdec_main(torch, ref, fa, K, models))
     hopper_build_report(K)
     decode_build_report(K)
     sampler_build_report(K)
@@ -4431,6 +4996,9 @@ def main() -> int:
     gspmd_rows, gspmd_launches = gspmd_main(torch, ref, fa)
     rows += gspmd_rows
     by_path.update(gspmd_launches)
+    encdec_rows, encdec_launches = encdec_main(torch, ref, fa, K, models)
+    rows += encdec_rows
+    by_path.update(encdec_launches)
     # the kernels of every training path, held to their plain versions at
     # the shapes that path gave them (the overlap's fp32 accumulated
     # receives into fused_rs_update at the LM's and AlexNet's buckets)

@@ -14,7 +14,11 @@ same-kind layers into ``blocks[seg]`` with a leading layer axis; the port
 keeps one dict per layer (``params["layers"]``). Hymba's ``meta`` tokens
 cross as a top-level leaf. Leaves keep their layout — dense weights are the
 same ``(in, *out)`` einsum operands on both sides — so both packages
-compute the same thing from the same numbers. Nothing here imports JAX:
+compute the same thing from the same numbers.
+
+Encoder-decoders (``encdec_params_from_jax``): the JAX tree stacks the
+encoder and decoder layers along a leading axis in ``enc`` and ``dec``;
+the port keeps one dict per layer in each list. Nothing here imports JAX:
 convert the tree with ``np.asarray`` on each leaf first.
 """
 from __future__ import annotations
@@ -51,19 +55,32 @@ def _leaves(tree):
         yield tree
 
 
+def _unstack(stacked, device) -> list:
+    """A tree of leaves with a leading layer axis -> one tree a layer."""
+    count = np.asarray(next(_leaves(stacked))).shape[0]
+    return [_map(stacked, lambda a, j=j: to_tensor(np.asarray(a)[j], device))
+            for j in range(count)]
+
+
 def decoder_params_from_jax(tree, device=None) -> dict:
     """{embed, ln_f, [head], [meta], blocks: [stacked segment trees]}
     (numpy leaves) -> {embed, ln_f, [head], [meta], layers: [per-layer
     trees]}. SSM leaves ({"ssm": {wz, ..., A_log, D, norm}}) and the
     hybrid layer's ``fuse_na``/``fuse_ns`` cross like any other leaf."""
     out = {k: to_tensor(v, device) for k, v in tree.items() if k != "blocks"}
-    layers = []
-    for seg in tree["blocks"]:
-        count = np.asarray(next(_leaves(seg))).shape[0]
-        for j in range(count):
-            layers.append(_map(seg, lambda a, j=j: to_tensor(np.asarray(a)[j],
-                                                             device)))
-    out["layers"] = layers
+    out["layers"] = [lp for seg in tree["blocks"]
+                     for lp in _unstack(seg, device)]
+    return out
+
+
+def encdec_params_from_jax(tree, device=None) -> dict:
+    """{embed, head, ln_enc, ln_dec, enc, dec} with ``enc``/``dec``
+    stacked along their layer axis (numpy leaves) -> the same dict with
+    ``enc``/``dec`` lists of per-layer trees."""
+    out = {k: to_tensor(v, device) for k, v in tree.items()
+           if k not in ("enc", "dec")}
+    out["enc"] = _unstack(tree["enc"], device)
+    out["dec"] = _unstack(tree["dec"], device)
     return out
 
 

@@ -8,6 +8,8 @@ Runs on ``cuda`` unless ``--device cpu`` is given (the kernels' plain
 versions). ``--full`` serves the registry configuration at full width and
 depth; the default is its smoke reduction. ``--reference`` runs the
 static-batch greedy ``train.serve.generate`` instead, the parity oracle.
+Decoders alone have a serve path: the encoder-decoder is refused, as in
+the reference.
 
 SLO guardrails: ``--deadline-ms`` stamps a per-request budget (hopeless
 requests are shed, in-flight ones past deadline cancelled),
@@ -143,6 +145,10 @@ def main(argv=None):
                          "torch.profiler: device time by kernel and the "
                          "device's busy share")
     args = ap.parse_args(argv)
+    family = get_config(args.arch).family
+    if family != "decoder":
+        # as the reference's launcher: only decoders have a serve path
+        raise SystemExit(f"{family!r} models have no serve path")
     if args.no_profile:
         telemetry.configure(profile=False)
 

@@ -1,6 +1,6 @@
 """Training launcher: the paper's BSP and async (EASGD/ASGD) training of
-its convnets (AlexNet, GoogLeNet, VGG-16), and of the decoder LMs, on k
-ranks.
+its convnets (AlexNet, GoogLeNet, VGG-16), and of the decoder LMs and the
+encoder-decoder, on k ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
         --ranks 2 --exchanger asa16 --sharded-update --batch 128 --steps 20
@@ -40,6 +40,12 @@ ranks.
         --arch deepseek-v2-lite-16b --layers 2 --ranks 2 --batch 2 \
         --seq 1024 --steps 4 --exchanger asa16 --sharded-update
 
+    # SeamlessM4T-v2's encoder-decoder at full width, both stacks cut to 4
+    # layers, 4096 stub frames before each sequence (BSP only):
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-large-v2 --layers 4 --ranks 2 --batch 2 \\
+        --seq 1024 --steps 4 --exchanger asa16 --sharded-update
+
     # on the CPU, with the kernels' plain versions (a smoke-sized model):
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --smoke --device cpu --ranks 2 --batch 4 --seq 64 --steps 4
@@ -70,7 +76,9 @@ the JAX launcher's ``warmup_cosine(0.01, 10, steps)``; convolutions and
 matmuls in full fp32 (TF32 off), as the reference computes them. Decoders
 (dense, MoE, SSM and hybrid): ``LMTokenSource`` tokens of ``--seq``
 positions (int32 tokens and labels, untouched by the loader), after
-zero image embeddings for a VLM (``synthetic_batch``); momentum SGD 0.9 with weight decay 1e-4 and
+zero image embeddings for a VLM, beside ``encoder_seq_len`` normal
+stub frames for the encoder-decoder (``synthetic_batch``); momentum SGD
+0.9 with weight decay 1e-4 and
 ``warmup_cosine(0.01, 20, steps)``, the JAX package's
 ``examples/train_lm_bsp.py`` recipe, whose ~100M config ``--preset
 train_lm_bsp`` builds. ``--ckpt`` saves checkpoints (every
@@ -80,6 +88,9 @@ and ``--resume`` continues from one.
 ``--optimizer adamw`` swaps the recipe's momentum SGD for AdamW (the
 reference launcher's ``adamw()``) and ``--lr`` sets the schedule's peak;
 without them the recipe above runs.
+
+The encoder-decoder trains with BSP alone: ``--algo`` other than
+``bsp`` refuses it (not ported).
 
 ``--algo easgd|asgd`` trains each rank as an EASGD worker with a center
 exchanged every ``--tau`` steps (``--alpha``: the elastic coefficient).
@@ -134,10 +145,10 @@ from repro_torch.train.loop import train
 CROP_MARGIN = 8
 
 
-# the archs this launcher trains: the paper's convnets and the decoders
-# (dense, MoE, SSM and hybrid layers; VLMs with the stub image prefix)
-TRAIN_ARCHS = tuple(PAPER_ARCHS) + tuple(
-    a for a in ASSIGNED_ARCHS if get_config(a).family == "decoder")
+# the archs this launcher trains: the paper's convnets, the decoders (dense,
+# MoE, SSM and hybrid layers; VLMs with the stub image prefix) and the
+# encoder-decoder (stub frames)
+TRAIN_ARCHS = tuple(PAPER_ARCHS) + tuple(ASSIGNED_ARCHS)
 # examples per rank and step when --batch is not given
 CONV_BATCH = {"alexnet": 128, "googlenet": 32, "vggnet": 16}
 LM_BATCH = 8
@@ -178,8 +189,10 @@ def launch_config(opts):
     cfg = (get_smoke_config if opts["smoke"] else get_config)(opts["arch"])
     if opts.get("layers"):
         # depth cut at full width (DeepSeek-V2-Lite: 2 = the dense first
-        # layer and one MoE layer)
-        cfg = cfg.with_overrides(num_layers=opts["layers"])
+        # layer and one MoE layer; an encoder-decoder: both stacks)
+        n = opts["layers"]
+        cfg = cfg.with_overrides(num_layers=n, **(
+            {"num_encoder_layers": n} if cfg.family == "encdec" else {}))
     return cfg
 
 
@@ -233,11 +246,17 @@ def synthetic_batch(cfg, batch_size: int, step: int, seq_len: int = 128):
     (the reference launcher's ``synthetic_batch``): images for a convnet;
     else ``LMTokenSource`` tokens, with zero image embeddings (B,
     ``num_image_tokens``, d) before them for a ``vlm`` config (the stub
-    frontend)."""
+    frontend), or, for an encoder-decoder, ``frames`` (B,
+    ``encoder_seq_len``, d) drawn from ``default_rng(step)`` (the stub
+    audio frontend)."""
     if cfg.family == "conv":
         return ImageSource(cfg.image_size, cfg.num_classes).batch(
             batch_size, step)
     b = LMTokenSource(cfg.vocab_size, seq_len).batch(batch_size, step)
+    if cfg.family == "encdec":
+        b["frames"] = np.random.default_rng(step).normal(
+            0, 1, (batch_size, cfg.encoder_seq_len,
+                   cfg.d_model)).astype(np.float32)
     if cfg.modality == "vlm":
         b["image_embeds"] = np.zeros(
             (batch_size, cfg.num_image_tokens, cfg.d_model), np.float32)
@@ -245,7 +264,8 @@ def synthetic_batch(cfg, batch_size: int, step: int, seq_len: int = 128):
 
 
 class _DecoderSource:
-    """``synthetic_batch`` of a decoder config as a batch source."""
+    """``synthetic_batch`` of a decoder or encoder-decoder config as a
+    batch source."""
 
     def __init__(self, cfg, seq: int):
         self.cfg, self.seq = cfg, seq
@@ -257,7 +277,7 @@ class _DecoderSource:
 def rank_source(cfg, seq: int = 0):
     """Images at ``image_size + 8`` pixels for a convnet, else
     ``synthetic_batch``'s ``seq`` token positions (and a VLM's image
-    embeddings)."""
+    embeddings, an encoder-decoder's frames)."""
     if cfg.family == "conv":
         return ImageSource(cfg.image_size + CROP_MARGIN, cfg.num_classes)
     return _DecoderSource(cfg, seq)
@@ -508,7 +528,8 @@ def main(argv=None):
                     help="split the ranks into this many pods for the "
                          "two-level exchange (hier, hier16)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut a decoder's depth to this many layers")
+                    help="cut a decoder's depth to this many layers (an "
+                         "encoder-decoder: each of its two stacks)")
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--batch", type=int, default=None,
                     help="examples per rank and step (AlexNet 128, "
@@ -547,6 +568,10 @@ def main(argv=None):
         plan_from_opts(vars(args))
     except ValueError as e:
         ap.error(str(e))
+    if (not args.preset and get_config(args.arch).family == "encdec"
+            and args.algo != "bsp"):
+        ap.error(f"--algo {args.algo} does not train the encdec family "
+                 f"({args.arch}): not ported, BSP alone")
     if is_elastic(vars(args)):
         if args.algo not in ("easgd", "asgd"):
             ap.error("--quorum/--fault-plan need an async plan (--algo "

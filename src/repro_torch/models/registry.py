@@ -28,6 +28,15 @@ whatever ``param_dtype`` says). Every decoder exposes the same fields,
 slot lanes alone, and the serving engine, not the model, decides to run
 it slot-granular.
 
+The ``encdec`` family (SeamlessM4T's backbone; ``models/encdec.py``)
+has ``init``, ``forward(params, batch)`` and ``loss_fn`` on batch
+{frames, tokens, labels}, ``init_cache(batch, max_len)``,
+``prefill(params, frames, cache) -> cache`` (the encoder once, then each
+layer's cross K/V) and ``decode_step(params, cache, batch, pos,
+seq_len)``; no chunked prefill and no paged cache, as in the reference.
+Its ``loss_fn`` takes ``gather=None`` alone: sharded training of it is
+not ported.
+
 Every call casts fp32 matrices to the compute dtype (``cast_params``);
 a caller that keeps params already cast (the serving engine) pays
 nothing for that. ``device`` defaults to ``cuda`` and raises when no GPU
@@ -52,7 +61,7 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer, vision
+from repro_torch.models import encdec, transformer, vision
 from repro_torch.models.common import dtype_of
 
 
@@ -79,6 +88,7 @@ class Model:
     chunk_prefill: Callable | None = None
     init_paged_cache: Callable | None = None
     loss_fn: Callable | None = None
+    prefill: Callable | None = None      # encdec: encoder -> cross K/V
 
 
 def _build_conv(cfg: ArchConfig, dev: torch.device) -> Model:
@@ -99,22 +109,65 @@ def _build_conv(cfg: ArchConfig, dev: torch.device) -> Model:
     return Model(cfg, dev, init, forward, loss_fn=loss_fn)
 
 
-def build_model(cfg: ArchConfig, device=None) -> Model:
-    dev = default_device(device)
-    if cfg.family == "conv":
-        return _build_conv(cfg, dev)
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (decoder LMs and "
-            f"the paper's convnets)")
-    cdt = dtype_of(cfg.dtype)
-
+def _initializer(init_fn, cfg: ArchConfig, dev: torch.device):
+    """``init(seed_or_generator=0)``: ``init_fn(gen, cfg, dev)`` with a
+    generator on ``dev`` seeded from an int, or the one given."""
     def init(seed_or_generator=0):
         gen = seed_or_generator
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(gen))
         with torch.no_grad():
-            return transformer.init_decoder(gen, cfg, dev)
+            return init_fn(gen, cfg, dev)
+    return init
+
+
+def _build_encdec(cfg: ArchConfig, dev: torch.device) -> Model:
+    cdt = dtype_of(cfg.dtype)
+
+    def loss_fn(params, batch, gen=None, gather=None):
+        del gen                 # the encoder-decoder draws no randomness
+        if gather is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: sharded (gspmd) training of the encdec family "
+                f"is not ported")
+        return encdec.encdec_loss(cast_params(params, cdt), batch, cfg)
+
+    @torch.no_grad()
+    def forward(params, batch):
+        p = cast_params(params, cdt)
+        return encdec.decode_train(p, batch["tokens"],
+                                   encdec.encode(p, batch["frames"], cfg),
+                                   cfg)
+
+    def init_cache(batch, max_len):
+        return encdec.init_encdec_cache(cfg, batch, max_len, dev)
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch, pos, seq_len):
+        return encdec.encdec_decode_step(cast_params(params, cdt), cache,
+                                         batch["tokens"], pos, cfg,
+                                         seq_len=seq_len)
+
+    @torch.no_grad()
+    def prefill(params, frames, cache):
+        return encdec.prefill_encoder(cast_params(params, cdt), frames, cfg,
+                                      cache)
+
+    return Model(cfg, dev, _initializer(encdec.init_encdec, cfg, dev),
+                 forward, init_cache, decode_step, loss_fn=loss_fn,
+                 prefill=prefill)
+
+
+def build_model(cfg: ArchConfig, device=None) -> Model:
+    dev = default_device(device)
+    if cfg.family == "conv":
+        return _build_conv(cfg, dev)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg, dev)
+    if cfg.family != "decoder":
+        raise ValueError(f"unknown family {cfg.family!r}")
+    cdt = dtype_of(cfg.dtype)
+    init = _initializer(transformer.init_decoder, cfg, dev)
 
     def loss_fn(params, batch, gen=None, gather=None):
         del gen                 # decoders draw no randomness

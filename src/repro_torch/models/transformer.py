@@ -38,7 +38,8 @@ of a ``vlm`` config, the stub frontend) before the tokens, and Hymba's
 meta tokens before both, with positions over the whole prefix; the
 logits cover the token positions alone. The serve paths (decode,
 prefill) embed the tokens alone, as the reference's do: a served Hymba
-runs without its meta prefix. The ``encdec`` family is not ported.
+runs without its meta prefix. The ``encdec`` family has its own
+executor, ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -52,10 +53,6 @@ from repro_torch.models.common import (dtype_of, embed_init, dense_init,
                                        rms_norm, softmax_xent)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward
-
-LATER_SLICE = ("only decoder-only models are ported; the encdec family "
-               "comes with a later slice (ROADMAP queue 1)")
-
 
 # ---------------------------------------------------------------------------
 # layer layout (plain Python, as in the JAX package)
@@ -104,11 +101,6 @@ def segments(cfg: ArchConfig) -> list[tuple[str, int]]:
         else:
             segs.append((k, 1))
     return segs
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family != "decoder":
-        raise NotImplementedError(f"{cfg.name}: {LATER_SLICE}")
 
 
 def _embed(params, tokens, dtype):
@@ -252,7 +244,6 @@ def _head(params, h, cfg: ArchConfig, dtype):
 
 def init_decoder(gen: torch.Generator, cfg: ArchConfig, device=None):
     """Master parameters (``param_dtype``) from ``gen``, on ``device``."""
-    _check_ported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
@@ -281,7 +272,6 @@ def decoder_forward(params, batch, cfg: ArchConfig, gather=None):
     untied ``head`` alone, on the other top-level leaves, and once a layer
     inside its (remat) body (two vocab-sized leaves in one gather would
     double its backward's buffers)."""
-    _check_ported(cfg)
     if gather is not None:
         shards = params
         params = dict(gather({n: v for n, v in shards.items()
@@ -330,7 +320,6 @@ def init_decoder_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     {"ssm": {"conv", "state"}} of (count, batch, ...), as the segment's
     kind has them. L is ``max_len`` plus the meta and image rows, as in the
     reference (the serve paths write neither)."""
-    _check_ported(cfg)
     total = max_len + cfg.num_meta_tokens + (
         cfg.num_image_tokens if cfg.modality == "vlm" else 0)
     return _segment_caches(cfg, batch, total, batch, device)
@@ -344,7 +333,6 @@ def init_paged_decoder_cache(cfg: ArchConfig, max_slots: int, page_size: int,
     {"ssm": {"conv", "state"}} of (count, max_slots, ...): one lane a slot,
     since they have no sequence axis to page. No meta/image rows: the
     serve paths write no prefix, and pages are allocated by demand."""
-    _check_ported(cfg)
     return _segment_caches(cfg, num_pages, page_size, max_slots, device)
 
 
@@ -376,7 +364,6 @@ def decoder_decode_step(params, caches, tokens, pos, cfg: ArchConfig, *,
     indices; ``block_tables`` (B, NP) int32 routes the attention caches
     through the paged layout. Writes the caches in place. Returns (logits
     (B, 1, V), caches)."""
-    _check_ported(cfg)
     dtype = dtype_of(cfg.dtype)
     h = _embed(params, tokens, dtype)
     wins = layer_windows(cfg, "decode", seq_len)
@@ -399,7 +386,6 @@ def decoder_prefill(params, caches, tokens, pos0: int, valid: int,
     masking of it: its rows sit past the live sequence, hidden by
     causality). Tokens alone are embedded (no meta or image prefix, as in
     the reference). Returns (logits (B, C, V), caches)."""
-    _check_ported(cfg)
     dtype = dtype_of(cfg.dtype)
     B, C = tokens.shape
     h = _embed(params, tokens, dtype)
