@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py gspmd      # the build, then phase 13 alone
     python3 chip_smoke.py encdec     # the build, then phase 14 alone
+    python3 chip_smoke.py roofline   # the build, then phase 15 alone
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. In order:
@@ -103,9 +104,12 @@ and the CUDA toolkit. In order:
    sharing the card: batches of 4 x 1024 ``LMTokenSource`` tokens a rank
    through the ``ParallelLoader``, ``asa16`` with the sharded update (the
    fused RS tail), momentum SGD 0.9, weight decay 1e-4, ``warmup_cosine``,
-   6 steps. The launch counts (flash forward twice a layer and step under
+   6 steps, per-program attribution on (the launcher's default, so the
+   exchange halves run after the first step) and ``REPRO_PEAK_FLOPS``
+   set. The launch counts (flash forward twice a layer and step under
    remat, dq and dk/dv once, the wire and update kernels as the bucket
-   plan says) must equal the prediction and every loss must be finite.
+   plan says, the halves' casts and sums) must equal the prediction and
+   every loss must be finite.
    At the smoke config the ranks then check that one fp32 ``asa`` step on
    two halves equals one step of a group of one on the whole batch, and
    that a run saved at step 3 and resumed to 6 equals an unbroken 6-step
@@ -311,6 +315,34 @@ and the CUDA toolkit. In order:
    update kernels at (c)'s largest bucket and small leaf, each held to
    its plain version and timed, then at every bucket and small-leaf
    shape bit for bit.
+15. The roofline and per-program attribution (it runs last; ``python3
+   chip_smoke.py roofline`` builds the kernels and runs it alone, with
+   the rows of its paths' kernels timed as phases 3 and 6 time them):
+   prints ``roofline.analysis.peaks()`` beside the card's name and power
+   limit; (a) a bf16 8192^3 cuBLAS product counted by ``CostMode`` at
+   exactly 2 * 8192^3 flops and 3 * 8192^2 * 2 bytes, and timed; (b) each
+   hand kernel launched at its PERF.md §6 shape under a ``CostMode``: the
+   counted flops and bytes equal its cost function's, whose bound equals
+   the table's to the digits the table shows; (c) phase 6's profiled
+   run of full llama3.2-1b (2 gloo ranks, 4 x 1024 tokens a rank,
+   ``asa16`` sharded, 6 steps, ``REPRO_PEAK_FLOPS`` set; standalone, phase
+   6 runs first): ``profile/train_step/*`` with 5 calls and
+   ``compile/train_step_s``, the exchange halves (``exchange/rs``,
+   ``exchange/ag``) counted and timed, the gauges ``train/model_flops_s``
+   and ``train/mfu``, the step's count between 6·N·D and 1.1 (8·N·D +
+   the attention kernels' flops); then the same run with profiling off:
+   its six losses bit for bit phase 6's, its launches the prediction
+   without the halves, no profile left; (d)
+   full llama3.2-1b served with phase 4's traffic: ``serve/decode_step``
+   and ``serve/prefill_chunk`` counted with the decode's, the combine's
+   and the sampler's costs in them, the decode step's bytes at least the
+   weights', one argument signature each. Every share (MFU, HBM and
+   collective fractions; for (c) also their sum over the two ranks) must
+   be at most SHARE_LIMIT; the launches of (c) and (d) join the kernels
+   line. Phases 1-14 run at the launcher's defaults, attribution on: a
+   program's first call is its counted call, and each training run that
+   exchanges runs the exchange halves alone after its first step, whose
+   launches its prediction counts (``_halves_launches``).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -321,6 +353,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1212,15 +1245,9 @@ def _sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
-    """``cfg`` through the Engine on ``dev``; returns (launches, stats)."""
-    model = models.build_model(cfg, dev)
-    t0 = time.perf_counter()
-    master = model.init(torch.Generator(device=dev).manual_seed(0))
-    _sync(torch, dev)
-    print(f"init {models.count_params(master) / 1e9:.3f} B params in "
-          f"{time.perf_counter() - t0:.1f}s")
-
+def _phase4_requests(cfg, serve):
+    """Phase 4's traffic: 16 prompts of 32-512 tokens (two share a
+    256-token prefix), half greedy, half at temperature 0.8."""
     rng = __import__("numpy").random.RandomState(0)
     lens = rng.randint(32, 513, size=16)
     prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).tolist()
@@ -1233,7 +1260,19 @@ def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
     SP = serve.SamplingParams
     sps = [SP(temperature=0.0) if i % 2 == 0 else SP(temperature=0.8, seed=i)
            for i in range(16)]
+    return prompts, sps
 
+
+def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
+    """``cfg`` through the Engine on ``dev``; returns (launches, stats)."""
+    model = models.build_model(cfg, dev)
+    t0 = time.perf_counter()
+    master = model.init(torch.Generator(device=dev).manual_seed(0))
+    _sync(torch, dev)
+    print(f"init {models.count_params(master) / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    prompts, sps = _phase4_requests(cfg, serve)
     eng = serve.Engine(model, master, max_slots=8, max_seq=1024,
                        prefill_chunk=32, page_size=16, fused_sampling=True,
                        device=dev)
@@ -1719,6 +1758,48 @@ def _predicted_launches(rsplan, n_leaves: int, ex: str, sharded: bool,
     return {name: c * steps for name, c in per_step.items() if c}
 
 
+HALF_TIMING_CAP = 256 << 20   # the train loop's cap on timing the halves
+
+
+def _halves_launches(rsplan, ex: str, grad_bytes: int, k: int = 2) -> dict:
+    """Kernel launches of the exchange halves that a profiled run (the
+    launcher's default) counts after its first step
+    (``train.loop._profile_exchange_halves``): the reduce-scatter half and
+    the parameter all-gather half alone on zero gradients of
+    ``grad_bytes``, once each, and twice more when they take at most
+    HALF_TIMING_CAP bytes. The all-gather goes at ``param_wire_dtype``'s
+    width."""
+    nb = rsplan.num_buckets
+    ex = {"hier16": "asa16", "hier": "asa"}.get(ex, ex)   # the pod's wire
+    if ex == "ring16":       # k - 1 hops of each half, fp16 out and in
+        hops = 2 * (k - 1) * nb
+        per = {"quant_fp16": hops, "dequant_fp16": hops}
+    elif ex == "asa16":      # fp16 RS out, the sum; fp16 AG out and in
+        per = {"quant_fp16": 2 * nb, "chunk_sum": nb, "dequant_fp16": nb}
+    elif ex == "asa8":       # the int8 RS in plain ops; the fp16 AG
+        per = {"quant_fp16": nb, "dequant_fp16": nb}
+    elif ex in ("asa", "asabf16"):   # the sum; no cast kernel
+        per = {"chunk_sum": nb}
+    else:                    # ar, ring: no kernel
+        per = {}
+    runs = 3 if grad_bytes <= HALF_TIMING_CAP else 1
+    return {n: c * runs for n, c in per.items() if c}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _plus(*counts) -> dict:
+    """Launch counts added kernel by kernel."""
+    out = {}
+    for c in counts:
+        for n, v in c.items():
+            out[n] = out.get(n, 0) + v
+    return {n: v for n, v in out.items() if v}
+
+
 # The convnet training phases: per arch, the full config's parameter count,
 # images per rank and step, the runs (name, exchanger, sharded, steps),
 # and whether one asa step of k=2 on halves is held to k=1 on the whole
@@ -1802,8 +1883,10 @@ def _train_rank(rank, k, out_dir, device, smoke, arch="alexnet"):
             peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9 if cuda
                          else None),
             launches=launches,
-            predicted=_predicted_launches(rsplan, n_leaves, ex, sharded,
-                                          steps, cuda, k))
+            predicted=_plus(
+                _predicted_launches(rsplan, n_leaves, ex, sharded, steps,
+                                    cuda, k),
+                _halves_launches(rsplan, ex, _tree_bytes(shapes), k)))
         del rep
         if cuda:
             torch.cuda.empty_cache()
@@ -1901,6 +1984,47 @@ def train_phase(device="cuda:0", smoke=False, arch="alexnet"):
     return total, (buckets, sgd_shapes)
 
 
+def _lm_predicted(cfg, params, k: int, cuda: bool) -> dict:
+    """One rank's launches over the LM run's LM_STEPS steps, the exchange
+    halves apart: the flash forward (twice a layer under remat), dq and
+    dk/dv a layer, and the asa16 sharded exchange."""
+    from repro_torch.core import exchanger
+    from repro_torch.tree import leaves
+    L = cfg.num_layers
+    return _plus(_predicted_launches(exchanger.make_rs_plan(params, k),
+                                     len(leaves(params)), "asa16", True,
+                                     LM_STEPS, cuda, k),
+                 dict(flash_attention=(2 if cfg.remat else 1) * L * LM_STEPS,
+                      flash_attention_dq=L * LM_STEPS,
+                      flash_attention_dkv=L * LM_STEPS))
+
+
+def _lm_attribution(torch, cfg, rep, n_params: int, batch: int,
+                    seq: int) -> dict:
+    """What phase 15(c) checks of a profiled LM run: the programs'
+    profiles, the loop's gauges, the peaks, and the flash kernels' flops
+    of one step (their cost functions at the run's shapes)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.roofline import analysis as tan
+    from repro_torch.telemetry import profile
+    L, H, KV, D = (cfg.num_layers, cfg.attention.num_heads,
+                   cfg.attention.num_kv_heads, cfg.attention.head_dim)
+    zq = torch.zeros(batch, dtype=torch.int32)
+    attn = L * sum(
+        fa.attention_cost(part, batch, seq, seq, H, KV, D, D, zq, 0, 2)[0]
+        * times for part, times in (("fwd", 2 if cfg.remat else 1),
+                                    ("dq", 1), ("dkv", 1)))
+    return dict(
+        n_params=n_params, tokens=batch * seq, attention_flops=attn,
+        peaks=tan.peaks(), tokens_per_s=rep.steady_tokens_per_s,
+        first_step_s=rep.first_step_time,
+        programs={n: _profile_dict(profile.get(n)) for n in (
+            "train/step", "exchange/rs", "exchange/ag")},
+        gauges={n: rep.metrics[n].value for n in (
+            "train/model_flops_s", "train/mfu", "train/device_mem_bytes")
+            if n in rep.metrics})
+
+
 def _lm_rank(rank, k, out_dir, device, smoke):
     """One rank of the LM training phase (a spawned process on ``device``:
     cuda:0, or the CPU with the smoke config to rehearse)."""
@@ -1933,7 +2057,11 @@ def _lm_rank(rank, k, out_dir, device, smoke):
     plan = TrainPlan(exchanger="asa16", sharded_update=True)
     out = {"rank": rank}
 
-    # --- the main path: full llama3.2-1b, asa16 with the fused RS tail
+    # --- the main path: full llama3.2-1b, asa16 with the fused RS tail,
+    # per-program attribution on (the launcher's default), the card's peak
+    # named for train/mfu (phase 15(c) reads the profiles)
+    from repro_torch.roofline import analysis as tan
+    os.environ["REPRO_PEAK_FLOPS"] = repr(tan.peaks()["flops"])
     cfg = (get_smoke_config if smoke else get_config)("llama3.2-1b")
     model = build_model(cfg, dev)
     batch, seq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
@@ -1954,12 +2082,11 @@ def _lm_rank(rank, k, out_dir, device, smoke):
     if not smoke and n_params != LM_PARAMS:
         _fail(f"llama3.2-1b has {n_params} parameters, not {LM_PARAMS:,}")
     rsplan = exchanger.make_rs_plan(state["params"], k)
-    predicted = _predicted_launches(rsplan, len(leaves(state["params"])),
-                                    "asa16", True, LM_STEPS, cuda, k)
-    L = cfg.num_layers
-    predicted.update(flash_attention=(2 if cfg.remat else 1) * L * LM_STEPS,
-                     flash_attention_dq=L * LM_STEPS,
-                     flash_attention_dkv=L * LM_STEPS)
+    predicted = _plus(_lm_predicted(cfg, state["params"], k, cuda),
+                      _halves_launches(rsplan, "asa16",
+                                       _tree_bytes(state["params"]), k))
+    out["attribution"] = _lm_attribution(torch, cfg, rep, n_params,
+                                         batch, seq)
     out["main"] = dict(
         params=n_params, steps=rep.steps, losses=rep.losses,
         tokens_per_s=rep.steady_tokens_per_s,
@@ -1972,7 +2099,7 @@ def _lm_rank(rank, k, out_dir, device, smoke):
         buckets=rsplan.num_buckets, launches=launches,
         bucket_shapes=sorted({(b.padded, b.shard_len)
                               for b in rsplan.buckets}),
-        predicted={n: c for n, c in predicted.items() if c})
+        predicted=predicted)
     del state, model, loader
     if cuda:
         torch.cuda.empty_cache()
@@ -2035,8 +2162,8 @@ def _lm_rank(rank, k, out_dir, device, smoke):
 
 def lm_train_phase(device="cuda:0", smoke=False):
     """Spawns the k=2 LM rank processes and checks what they report;
-    returns the main run's launches and its (padded, shard) bucket
-    shapes."""
+    returns the main run's launches, its (padded, shard) bucket shapes
+    and each rank's report (phase 15(c) reads the attribution)."""
     import tempfile
 
     from repro_torch.launch.train import run_ranks
@@ -2079,7 +2206,8 @@ def lm_train_phase(device="cuda:0", smoke=False):
           f"parameters by up to {ranks[0]['k2_vs_k1_max_abs_step']})")
     if not dp <= K_TOL:
         _fail(f"LM k=2 and k=1 asa steps differ by {dp} > {K_TOL}")
-    return dict(m["launches"]), [tuple(b) for b in m["bucket_shapes"]]
+    return (dict(m["launches"]), [tuple(b) for b in m["bucket_shapes"]],
+            ranks)
 
 
 # Phase 8: async (EASGD/ASGD), overlap and hier training. The runs: the
@@ -2233,7 +2361,9 @@ def _phase8_rank(rank, k, out_dir, device, smoke):
         plan = TrainPlan(algo=algo, tau=tau, exchanger="asa16")
         res = run(model, cfg, files, plan, ASYNC_STEPS,
                   recipe(cfg, ASYNC_STEPS),
-                  _async_launches(rsplan, n_leaves, ASYNC_STEPS, tau))
+                  _plus(_async_launches(rsplan, n_leaves, ASYNC_STEPS, tau),
+                        _halves_launches(rsplan, "asa16",
+                                         _tree_bytes(shapes), k)))
         res["wire_bytes_per_step"] = plan_wire(plan, shapes, k)[
             "bytes_per_step"]
         res["tau"] = tau
@@ -2243,10 +2373,12 @@ def _phase8_rank(rank, k, out_dir, device, smoke):
     for name, kw in (("overlap", dict(overlap="buckets")),
                      ("sharded", dict(sharded_update=True))):
         plan = TrainPlan(exchanger="asa16", microbatches=OVERLAP_MB, **kw)
-        pred = (_overlap_launches(rsplan, n_leaves, OVERLAP_STEPS,
-                                  OVERLAP_MB, cuda) if plan.overlap
-                else _predicted_launches(rsplan, n_leaves, "asa16", True,
-                                         OVERLAP_STEPS, cuda, k))
+        pred = _plus(_overlap_launches(rsplan, n_leaves, OVERLAP_STEPS,
+                                       OVERLAP_MB, cuda) if plan.overlap
+                     else _predicted_launches(rsplan, n_leaves, "asa16",
+                                              True, OVERLAP_STEPS, cuda, k),
+                     _halves_launches(rsplan, "asa16", _tree_bytes(shapes),
+                                      k))
         out["overlap"][name] = run(model, cfg, files, plan, OVERLAP_STEPS,
                                    recipe(cfg, OVERLAP_STEPS), pred)
     del model
@@ -2356,7 +2488,8 @@ def _phase8_rank(rank, k, out_dir, device, smoke):
             pred = (_overlap_launches(lplan, n, LM_OVERLAP_STEPS, m, cuda)
                     if overlap else _predicted_launches(
                         lplan, n, "asa16", True, LM_OVERLAP_STEPS, cuda, k))
-            return dict(pred, **flash)
+            return _plus(pred, flash, _halves_launches(
+                lplan, "asa16", _tree_bytes(params), k))
         return of
 
     for name, kw in (("overlap", dict(overlap="buckets")),
@@ -2420,8 +2553,10 @@ def _hier_rank(rank, k, out_dir, device, smoke):
             torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
         loader.stop()
-        res = _run_report(torch, rep, launches, _predicted_launches(
-            rsplan, n_leaves, ex, sharded, HIER_STEPS, False, per_pod),
+        res = _run_report(torch, rep, launches, _plus(
+            _predicted_launches(rsplan, n_leaves, ex, sharded, HIER_STEPS,
+                                False, per_pod),
+            _halves_launches(rsplan, ex, _tree_bytes(shapes), per_pod)),
             cuda)
         res["cross_pod_wire_ms_per_step"] = rep.lead_wire_s * 1e3
         out["runs"][name] = res
@@ -3362,6 +3497,8 @@ def _ds_rank(rank, k, out_dir, device, smoke):
                       MLA_KERNELS[2]: L * DS_STEPS,
                       # bf16 on the card: the tensor-core dk/dv's sum
                       MLA_KERNELS[3]: L * DS_STEPS if cuda else 0})
+    predicted = _plus(predicted, _halves_launches(
+        rsplan, "asa16", _tree_bytes(state["params"]), k))
     out = dict(rank=rank, params=n_params, steps=rep.steps,
                losses=rep.losses, aux=[float(a) for a in aux_seen],
                tokens_per_s=rep.steady_tokens_per_s,
@@ -4070,6 +4207,8 @@ def _gspmd_rank(rank, k, out_dir, device, smoke):
                 n: c for n, c in _gspmd_predicted(
                     cfg, 0, GSPMD_STEPS, "ar").items()
                 if n.startswith("flash")})
+            rr["predicted"] = _plus(rr["predicted"], _halves_launches(
+                rsplan, "asa", _tree_bytes(state["params"]), k))
             ps = [shard_leaf(p, s, rank) for p, s in zip(ps, spec_ls)]
         else:
             rr["predicted"] = _gspmd_predicted(cfg, len(ps), GSPMD_STEPS,
@@ -4208,12 +4347,29 @@ def gspmd_phase(device="cuda:0", smoke=False):
           f"a rank of shards (parameters, momentum, gradients) before "
           f"activations, one layer's gathered parameters and the gathered "
           f"embeddings ({k * fsdp_rank / 1e9:.1f} GB for {k})")
-    with tempfile.TemporaryDirectory() as td:
-        t0 = time.perf_counter()
-        run_ranks(_gspmd_rank, k, (td, device, smoke), backend="gloo")
-        wall = time.perf_counter() - t0
-        ranks = [json.loads(Path(td, f"gspmd{r}.json").read_text())
-                 for r in range(k)]
+    if torch.cuda.is_available():
+        free_b, total_b = torch.cuda.mem_get_info()
+        print(f"phase 13: the card's free memory before the ranks start "
+              f"{free_b / 1e9:.2f} of {total_b / 1e9:.2f} GB (this process "
+              f"reserves {torch.cuda.memory_reserved() / 1e9:.2f} GB)")
+    # the BSP run of (a) peaks at ~32 GB a rank with two ranks on one
+    # card: growable segments keep each rank's cache from splitting
+    # (with fixed segments a rank once held 14 GB it could not reuse for
+    # a 2 GB block)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            t0 = time.perf_counter()
+            run_ranks(_gspmd_rank, k, (td, device, smoke), backend="gloo")
+            wall = time.perf_counter() - t0
+            ranks = [json.loads(Path(td, f"gspmd{r}.json").read_text())
+                     for r in range(k)]
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     r0 = ranks[0]
     print(f"gspmd phase: {k} gloo ranks on {device}, {wall:.1f}s")
     show = ("tokens_per_s", "first_step_s", "phase_ms", "staged_mb_per_step",
@@ -4610,6 +4766,8 @@ def _seamless_rank(rank, k, out_dir, device, smoke):
     predicted.update(flash_attention=(2 if cfg.remat else 1) * L
                      * SEAMLESS_STEPS, flash_attention_dq=L * SEAMLESS_STEPS,
                      flash_attention_dkv=L * SEAMLESS_STEPS)
+    predicted = _plus(predicted, _halves_launches(
+        rsplan, "asa16", _tree_bytes(state["params"]), k))
     out = dict(rank=rank, run=_run_report(torch, rep, launches, {
         n_: c for n_, c in predicted.items() if c}, cuda), params=n,
         layers=[cfg.num_encoder_layers, L], seq=seq,
@@ -4872,6 +5030,492 @@ def encdec_main(torch, ref, fa, K, models, dev="cuda", smoke=False):
     return rows, by_path
 
 
+# Phase 15: the roofline and per-program attribution. (c) trains
+# llama3.2-1b as phase 6 does, 4 steps, profiling on and then off.
+SHARE_LIMIT = 1.05    # a share of a peak above this means the count or
+                      # the peak is wrong
+MATMUL_N = 8192       # (a): a bf16 N^3 product
+SERVE_SPEC = (32, 8, 64)           # llama3.2-1b: heads, KV heads, head dim
+HYMBA_SPEC = (25, 5, 64)
+
+
+def _sig_equal(got: float, want: str) -> bool:
+    """``got`` equals the table entry ``want`` to the digits it shows (at
+    most 3)."""
+    d = min(len(want.replace(".", "").lstrip("0")), 3)
+    return float(f"{got:.{d}g}") == float(f"{float(want):.{d}g}")
+
+
+def _shares(name: str, prof: dict, limit: float = SHARE_LIMIT) -> dict:
+    """The program's shares of the peaks, failing above ``limit``."""
+    out = {k_: prof[k_] for k_ in ("mfu", "hbm_frac", "coll_frac")
+           if k_ in prof}
+    bad = {k_: v for k_, v in out.items() if not v <= limit}
+    if bad:
+        _fail(f"{name}: shares above {limit}: {bad}")
+    return out
+
+
+def _profile_dict(prof) -> dict | None:
+    """A ProgramProfile as JSON, its roofline when it has calls."""
+    if prof is None:
+        return None
+    out = dict(flops=prof.flops, hbm_bytes=prof.hbm_bytes,
+               coll_bytes=prof.coll_bytes, calls=prof.calls,
+               mean_time_s=prof.mean_time_s,
+               compile_time_s=prof.compile_time_s, captured=prof.captured,
+               kernels=prof.meta.get("kernels", {}),
+               collectives=prof.meta.get("collectives", {}),
+               error=prof.meta.get("capture_error"))
+    if prof.captured and prof.calls:
+        out.update(prof.roofline())
+    return out
+
+
+def roofline_matmul(torch, tan, peaks, dev="cuda"):
+    """(a) A bf16 N^3 cuBLAS product: counted at exactly 2 N^3 flops and
+    3 N^2 * 2 bytes, timed, its share of the flops peak gated."""
+    n = MATMUL_N if dev != "cpu" else 256
+    g = torch.Generator(device=dev).manual_seed(15)
+    a = torch.randn(n, n, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(n, n, generator=g, device=dev).to(torch.bfloat16)
+    out, m = tan.count_cost(torch.mm, a, b)
+    if not (m.flops == 2 * n ** 3 and m.hbm_bytes == 3 * n * n * 2
+            and m.errors == 0):
+        _fail(f"(a) the {n}^3 product counted {m.flops} flops and "
+              f"{m.hbm_bytes} bytes, not {2 * n ** 3} and {3 * n * n * 2}")
+    ms = _event_ms(lambda: torch.mm(a, b)) if dev != "cpu" else 1.0
+    mfu = m.flops / (ms / 1e3) / peaks["flops"]
+    row = dict(n=n, flops=m.flops, bytes=m.hbm_bytes, ms=ms,
+               tflop_s=m.flops / ms / 1e9, mfu=mfu)
+    print("phase 15(a) bf16 product: " + json.dumps(row))
+    if not mfu <= SHARE_LIMIT:
+        _fail(f"(a) the product runs at {mfu} of the flops peak")
+    return row
+
+
+def _cost_cases(torch, fa, sg, cs, qz, fs, fru, dev):
+    """(b): (label, call at the PERF.md §6 shape, the kernels its launch
+    reports with their cost functions' (flops, bytes), the table's bound)
+    for one shape of each hand kernel."""
+    small = dev == "cpu"
+    g = torch.Generator(device=dev).manual_seed(1515)
+    bf = torch.bfloat16
+    rn = lambda *s, dt=bf: torch.randn(*s, generator=g, device=dev).to(dt)
+    pos = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
+    cases = []
+
+    # row 1: the serve path's prefill chunk, 32 queries at the end of 1 K
+    H, KV, D = SERVE_SPEC
+    q, k, v = rn(1, 32, H, D), rn(1, 1024, KV, D), rn(1, 1024, KV, D)
+    qo = pos(992)
+    cases.append(("1 flash_attention serve chunk",
+                  lambda: fa.flash_attention(q, k, v, q_off=qo),
+                  {"flash_attention": fa.attention_cost(
+                      "fwd", 1, 32, 1024, H, KV, D, D, qo, 0, 2)},
+                  "0.000704"))
+    # rows 2-3: the LM training shape (smaller on the CPU)
+    B, S = (1, 128) if small else (4, 1024)
+    ql, kl, vl, do = (rn(B, S, H, D), rn(B, S, KV, D), rn(B, S, KV, D),
+                      rn(B, S, H, D))
+    lse = torch.randn(B, S, H, generator=g, device=dev)
+    di = torch.randn(B, S, H, generator=g, device=dev)
+    z = pos(*[0] * B)
+    kw = dict(q_off=z, window=0, sm_scale=0.125)
+    cases += [
+        ("2 flash_attention_dq LM",
+         lambda: fa.flash_attention_dq(ql, kl, vl, lse, do, di, **kw),
+         {"flash_attention_dq": fa.attention_cost(
+             "dq", B, S, S, H, KV, D, D, z, 0, 2)}, "0.02608"),
+        ("3 flash_attention_dkv LM",
+         lambda: fa.flash_attention_dkv(ql, kl, vl, lse, do, di, **kw),
+         {"flash_attention_dkv": fa.attention_cost(
+             "dkv", B, S, S, H, KV, D, D, z, 0, 2)}, "0.03478")]
+    # rows 4-5: the serve decode, contiguous and paged; its combine at
+    # Hymba's decode (window 1024 over 2 K lanes)
+    for label, (h, kvh, d), ps, S_, win, want, want_c in (
+            ("serve", SERVE_SPEC, (64, 200, 333, 480, 512, 700, 871, 1000),
+             1024, 0, "0.002568", None),
+            ("Hymba", HYMBA_SPEC, (100, 700, 1023, 1024, 1100, 1400, 1700,
+                                   2047), 2048, 1024, "0.002669",
+             "0.000124")):
+        P = pos(*ps)
+        qd, lk, lv = rn(8, 1, h, d), rn(8, S_, kvh, d), rn(8, S_, kvh, d)
+        bk = fa.DEFAULT_DECODE_BLOCK_K
+        chunk, ns = fa.decode_plan(S_, bk, _sms(torch, dev))
+        want_k = {"flash_decode": fa.decode_cost(P, h, kvh, d, 2, win),
+                  "flash_decode_combine": fa.combine_cost(
+                      P, h, d, 2, chunk, ns, win)}
+        cases.append((f"4 flash_decode {label}",
+                      lambda qd=qd, lk=lk, lv=lv, P=P, win=win:
+                      fa.flash_decode(qd, lk, lv, P, window=win),
+                      want_k, want))
+        if want_c:
+            cases.append((f"4 flash_decode_combine {label}", None,
+                          {"flash_decode_combine":
+                           want_k["flash_decode_combine"]}, want_c))
+    H, KV, D = SERVE_SPEC
+    P = pos(64, 200, 333, 480, 512, 700, 871, 1000)
+    kp, vp = rn(8 * 64 + 1, 16, KV, D), rn(8 * 64 + 1, 16, KV, D)
+    tables = (torch.arange(8 * 64, device=dev, dtype=torch.int32) + 1
+              ).reshape(8, 64)
+    qd = rn(8, 1, H, D)
+    chunk, ns = fa.decode_plan(1024, 16, _sms(torch, dev))
+    cases.append(("5 flash_decode_paged serve",
+                  lambda: fa.flash_decode_paged(qd, kp, vp, tables, P,
+                                                page_size=16),
+                  {"flash_decode_paged": fa.decode_cost(P, H, KV, D, 2, 0,
+                                                        16),
+                   "flash_decode_combine": fa.combine_cost(
+                       P, H, D, 2, chunk, ns, 0)}, "0.002568"))
+    # row 6: the sampler at llama3.2-1b's decode
+    V = 128256
+    lg = rn(8, 1, V)
+    oh = torch.ones(8, 1, device=dev)
+    T = torch.full((8,), 0.8, device=dev)
+    nz = torch.zeros(8, V, device=dev)
+    cases.append(("6 slot_gather_sample (8, 1, 128256)",
+                  lambda: sg.slot_gather_sample(lg, oh, T, nz),
+                  {"slot_gather_sample": sg.sampler_cost(8, 1, V, 2)},
+                  "0.001838"))
+    # rows 7-13: AlexNet's f6.w bucket and its k=2 shard
+    n, sh = (F6_BUCKET, F6_SHARD) if not small else (8192, 4096)
+    recv = rn(2, sh, dt=torch.float16)
+    x = rn(n, dt=torch.float32)
+    h16 = x.half()
+    p_, g_, m_ = (rn(n, dt=torch.float32) for _ in range(3))
+    ps_, ms_ = rn(sh, dt=torch.float32), rn(sh, dt=torch.float32)
+    mask = torch.ones(sh, device=dev)
+    q8 = torch.randint(-127, 128, (2, sh), generator=g, device=dev).to(
+        torch.int8)
+    sc = torch.rand(2, generator=g, device=dev)
+    lr = torch.tensor([0.01], device=dev)
+    qi, si = qz.quant_int8(x)
+    rs = dict(wd_mask=mask, scale=0.5, momentum=0.9, weight_decay=5e-4)
+    cases += [
+        ("7 chunk_sum f6 shard", lambda: cs.chunk_sum(recv),
+         {"chunk_sum": cs.chunk_sum_cost(2, sh, 2)}, "0.0451"),
+        ("8 quant_fp16 f6", lambda: qz.quant_fp16(x),
+         {"quant_fp16": qz.cast_cost(n, 4, 2)}, "0.0676"),
+        ("9 dequant_fp16 f6", lambda: qz.dequant_fp16(h16),
+         {"dequant_fp16": qz.cast_cost(n, 2, 4)}, "0.0676"),
+        ("10 quant_int8 f6", lambda: qz.quant_int8(x),
+         {"quant_int8": qz.int8_cost("quant_int8", n)}, "0.05636"),
+        ("11 dequant_int8 f6", lambda: qz.dequant_int8(qi, si),
+         {"dequant_int8": qz.int8_cost("dequant_int8", n)}, "0.05636"),
+        ("12 fused_sgd f6", lambda: fs.fused_sgd(p_, g_, m_, lr, 0.9),
+         {"fused_sgd": fs.fused_sgd_cost(n)}, "0.2254"),
+        ("13 fused_rs_update f6 shard",
+         lambda: fru.fused_rs_update(recv, ps_, ms_, lr, **rs),
+         {"fused_rs_update": fru.fused_rs_update_cost(2, sh, 2, True,
+                                                      False)}, "0.1352"),
+        ("13 fused_rs_update f6 shard int8",
+         lambda: fru.fused_rs_update(q8, ps_, ms_, lr, **rs, scales=sc),
+         {"fused_rs_update": fru.fused_rs_update_cost(2, sh, 1, True,
+                                                      True)}, "0.1240")]
+    # rows 1-3 on the MLA route at its table shape (Dk 576 / Dv 512)
+    Bm, Sm = (1, 64) if small else (2, 1024)
+    qm, km, vm = rn(Bm, Sm, 16, 576), rn(Bm, Sm, 1, 576), rn(Bm, Sm, 1, 512)
+    dom = rn(Bm, Sm, 16, 512)
+    lm = torch.randn(Bm, Sm, 16, generator=g, device=dev)
+    dim = torch.randn(Bm, Sm, 16, generator=g, device=dev)
+    zm = pos(*[0] * Bm)
+    kwm = dict(q_off=zm, window=0, sm_scale=0.05)
+    chunk, _ = fa.mla_dkv_plan(Bm, Sm, Sm, 16, 1, _sms(torch, dev))
+    live = fa.mla_live_partials(Bm, Sm, Sm, 16, 1, 576, 512, zm, 0, chunk)
+    cases += [
+        ("1 flash_attention_mla MLA",
+         lambda: fa.flash_attention(qm, km, vm, q_off=zm, return_lse=True),
+         {"flash_attention_mla": fa.attention_cost(
+             "fwd", Bm, Sm, Sm, 16, 1, 576, 512, zm, 0, 2, True)},
+         "0.03695"),
+        ("2 flash_attention_mla_dq MLA",
+         lambda: fa.flash_attention_dq(qm, km, vm, lm, dom, dim, **kwm),
+         {"flash_attention_mla_dq": fa.attention_cost(
+             "dq", Bm, Sm, Sm, 16, 1, 576, 512, zm, 0, 2)}, "0.05651"),
+        ("3 flash_attention_mla_dkv MLA",
+         lambda: fa.flash_attention_dkv(qm, km, vm, lm, dom, dim, **kwm),
+         {"flash_attention_mla_dkv": fa.attention_cost(
+             "dkv", Bm, Sm, Sm, 16, 1, 576, 512, zm, 0, 2, partials=live),
+          "flash_attention_mla_dkv_reduce": fa.mla_reduce_cost(
+              Bm, Sm, Sm, 16, 1, 576, 512, zm, 0, chunk, 2)}, "0.07390"),
+        ("3 flash_attention_mla_dkv_reduce MLA", None,
+         {"flash_attention_mla_dkv_reduce": fa.mla_reduce_cost(
+             Bm, Sm, Sm, 16, 1, 576, 512, zm, 0, chunk, 2)}, "0.01463")]
+    return cases
+
+
+def roofline_kernel_costs(torch, fa, sg, tan, dev="cuda"):
+    """(b) Each hand kernel launched at its §6 shape under a CostMode:
+    the launch reports its cost function's flops and bytes exactly, and
+    the bound of that cost (bytes over 3.35 TB/s or flops over 989
+    TFLOP/s) is the table's. A case without a call is a kernel that the
+    case before it launched (the combine, the MLA reduction). On the CPU
+    the shapes are small and only the counted costs are checked."""
+    from repro_torch.kernels import chunk_sum as cs
+    from repro_torch.kernels import fused_rs_update as fru
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.kernels import quantize as qz
+    out, counted = [], {}
+    for label, call, want, bound in _cost_cases(torch, fa, sg, cs, qz, fs,
+                                                fru, dev):
+        if call is not None:
+            with tan.CostMode() as m:
+                call()
+            if m.errors:
+                _fail(f"(b) {label}: {m.first_error}")
+            counted = {n: (r["flops"], r["bytes"])
+                       for n, r in m.kernels.items()}
+        for name, (fl, nb) in want.items():
+            if counted.get(name) != (float(fl), float(nb)):
+                _fail(f"(b) {label}: {name} counted {counted.get(name)}, "
+                      f"its cost function says {(fl, nb)}")
+        name = label.split()[1]
+        b_ms, b_by = _bound(want[name][1], want[name][0])
+        if dev != "cpu" and not _sig_equal(b_ms, bound):
+            _fail(f"(b) {label}: bound {b_ms} ms, the table's {bound}")
+        out.append(dict(case=label, flops=want[name][0],
+                        bytes=want[name][1], bound_ms=b_ms, bound_by=b_by,
+                        table=bound))
+    print("phase 15(b) each kernel's counted cost = its cost function, "
+          "bound = the table's: " + json.dumps(out))
+    return out
+
+
+def _roofline_rank(rank, k, out_dir, device, smoke):
+    """(c) One rank: phase 6's LM run again (llama3.2-1b, LM_STEPS steps on
+    the same batches and seed), with profiling off."""
+    import os
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch import telemetry
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.launch.train import (rank_loader, set_fp32_math,
+                                          write_rank_batches)
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd_momentum, warmup_cosine
+    from repro_torch.telemetry import profile
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+
+    set_fp32_math()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = (get_smoke_config if smoke else get_config)("llama3.2-1b")
+    model = build_model(cfg, dev)
+    batch, seq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
+    files = write_rank_batches(cfg, rank, k, batch, LM_STEPS,
+                               os.path.join(out_dir, f"roof{rank}"), seq=seq)
+    telemetry.configure(profile=False)
+    opt = sgd_momentum(momentum=0.9, weight_decay=1e-4,
+                       fused_kernel=fs.fused_sgd)
+    loader = rank_loader(cfg, files, dev, LM_STEPS, seed=rank)
+    K.reset_launches()
+    state, rep = train(model, opt, warmup_cosine(0.01, 2, LM_STEPS), loader,
+                       plan=TrainPlan(exchanger="asa16", sharded_update=True),
+                       num_steps=LM_STEPS, log_every=LM_STEPS, seed=0,
+                       print_fn=lambda *a: None)
+    _sync(torch, dev)
+    loader.stop()
+    out = dict(rank=rank, losses=rep.losses, launches=dict(K.LAUNCHES),
+               predicted=_lm_predicted(cfg, state["params"], k,
+                                       dev.type == "cuda"),
+               tokens_per_s=rep.steady_tokens_per_s,
+               first_step_s=rep.first_step_time,
+               phase_ms={p: v * 1e3 for p, v in rep.phase_s.items()},
+               profiles=sorted(profile.programs()))
+    with open(os.path.join(out_dir, f"roof_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def roofline_train(lm_ranks, device="cuda:0", smoke=False):
+    """(c) Phase 6's LM run, profiled at the launcher's defaults
+    (``lm_ranks``, what its ranks reported), against the same run with
+    profiling off, spawned here: the attribution checks on the first, the
+    losses bit for bit equal, the second's launches the prediction with
+    no exchange halves. Returns the second run's launches (rank 0's)."""
+    import tempfile
+
+    from repro_torch.launch.train import run_ranks
+    k = len(lm_ranks)
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        run_ranks(_roofline_rank, k, (td, device, smoke), backend="gloo")
+        wall = time.perf_counter() - t0
+        offs = [json.loads(Path(td, f"roof_rank{r}.json").read_text())
+                for r in range(k)]
+    sums = {}
+    for lm, off in zip(lm_ranks, offs):
+        r, rk, on = off["rank"], lm["attribution"], lm["main"]
+        step = rk["programs"]["train/step"]
+        if on["losses"] != off["losses"] or len(off["losses"]) != LM_STEPS:
+            _fail(f"(c) rank {r}: losses with profiling {on['losses']} != "
+                  f"without {off['losses']}")
+        if device != "cpu" and off["launches"] != off["predicted"]:
+            _fail(f"(c) rank {r}: launches with profiling off "
+                  f"{off['launches']} != predicted {off['predicted']}")
+        if off["profiles"]:
+            _fail(f"(c) rank {r}: profiling off left profiles "
+                  f"{off['profiles']}")
+        if not (step and step["captured"] and step["calls"] ==
+                LM_STEPS - 1 and step["compile_time_s"] > 0):
+            _fail(f"(c) rank {r}: train/step profile {step}")
+        for half in ("exchange/rs", "exchange/ag"):
+            h = rk["programs"][half]
+            if not (h and h["captured"] and h["compile_time_s"] > 0):
+                _fail(f"(c) rank {r}: {half} not counted and timed: {h}")
+        g = rk["gauges"]
+        if not ("train/model_flops_s" in g and "train/mfu" in g):
+            _fail(f"(c) rank {r}: gauges {g}")
+        if not math.isclose(g["train/mfu"], g["train/model_flops_s"]
+                            / rk["peaks"]["flops"], rel_tol=1e-9):
+            _fail(f"(c) rank {r}: train/mfu {g['train/mfu']} is not "
+                  f"train/model_flops_s over the peak")
+        nd = rk["n_params"] * rk["tokens"]
+        lo, hi = 6 * nd, 1.1 * (8 * nd + rk["attention_flops"])
+        if not lo <= step["flops"] <= hi:
+            _fail(f"(c) rank {r}: the step counts {step['flops']} flops, "
+                  f"outside [6ND {lo}, 1.1 (8ND + attention) {hi}]")
+        shares = {n: _shares(f"(c) rank {r} {n}", p)
+                  for n, p in rk["programs"].items() if p}
+        shares["train/mfu"] = g["train/mfu"]
+        _shares(f"(c) rank {r} train/mfu", {"mfu": g["train/mfu"]})
+        for n, sh in shares.items():
+            if isinstance(sh, dict):
+                for q, v in sh.items():
+                    sums[f"{n} {q}"] = sums.get(f"{n} {q}", 0.0) + v
+            else:
+                sums[n] = sums.get(n, 0.0) + sh
+    bad = {n: v for n, v in sums.items() if not v <= SHARE_LIMIT}
+    if bad:
+        _fail(f"(c) shares summed over the ranks above {SHARE_LIMIT}: {bad}")
+    r0 = lm_ranks[0]["attribution"]
+    print(f"phase 15(c) llama3.2-1b, {k} gloo ranks, {LM_STEPS} steps: "
+          f"phase 6's run (profiled) against the same with profiling off "
+          f"({wall:.1f}s): " + json.dumps(dict(
+              n_params=r0["n_params"], tokens_a_rank=r0["tokens"],
+              six_nd=6 * r0["n_params"] * r0["tokens"],
+              attention_flops=r0["attention_flops"],
+              programs=r0["programs"], gauges=r0["gauges"],
+              tokens_per_s=[lm["attribution"]["tokens_per_s"]
+                            for lm in lm_ranks],
+              tokens_per_s_off=[off["tokens_per_s"] for off in offs],
+              first_step_s=[lm["attribution"]["first_step_s"]
+                            for lm in lm_ranks],
+              first_step_s_off=[off["first_step_s"] for off in offs],
+              phase_ms=lm_ranks[0]["main"]["phase_ms"],
+              phase_ms_off=offs[0]["phase_ms"],
+              losses=offs[0]["losses"], shares_summed_over_ranks=sums)))
+    print("phase 15(c) rank 1's programs: " + json.dumps(
+        lm_ranks[1]["attribution"]["programs"]))
+    return dict(offs[0]["launches"])
+
+
+def roofline_serve(torch, K, cfg, models, serve, dev):
+    """(d) ``cfg`` served with phase 4's traffic, profiling on: the decode
+    step and the prefill chunk counted with the decode's, the combine's
+    and the sampler's costs in them, the decode step's bytes at least the
+    weights', one argument signature each. Returns the launches."""
+    from repro_torch import telemetry
+    from repro_torch.telemetry import profile
+    from repro_torch.tree import leaves
+    model = models.build_model(cfg, dev)
+    master = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts, sps = _phase4_requests(cfg, serve)
+    telemetry.reset()
+    telemetry.configure(profile=True)
+    eng = serve.Engine(model, master, max_slots=8, max_seq=1024,
+                       prefill_chunk=32, page_size=16, fused_sampling=True,
+                       device=dev)
+    del master
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in leaves(eng.params))
+    for p, sp in zip(prompts, sps):
+        eng.submit(p, 32, sp)
+    K.reset_launches()
+    eng.run()
+    _sync(torch, dev)
+    launches = dict(K.LAUNCHES)
+    progs = {n: _profile_dict(profile.get(n))
+             for n in ("serve/decode_step", "serve/prefill_chunk")}
+    dec, pre = progs["serve/decode_step"], progs["serve/prefill_chunk"]
+    for n, p in progs.items():
+        if not (p and p["captured"] and p["calls"] > 0):
+            _fail(f"(d) {n} not counted: {p}")
+        _shares(f"(d) {n}", p)
+    # the counted prefill chunk is a request's first: no token sampled yet
+    need = ({"flash_decode_paged", "flash_decode_combine",
+             "slot_gather_sample"}, {"flash_attention"})
+    if dev.type == "cuda" and not (need[0] <= set(dec["kernels"])
+                                   and need[1] <= set(pre["kernels"])):
+        _fail(f"(d) the kernels' costs missing: decode {dec['kernels']}, "
+              f"prefill {pre['kernels']}")
+    if not dec["hbm_bytes"] >= weight_bytes:
+        _fail(f"(d) the decode step counts {dec['hbm_bytes']} bytes, under "
+              f"the weights' {weight_bytes}")
+    if eng.trace_counts.get("decode") != 1 or \
+            eng.trace_counts.get("prefill") != 1:
+        _fail(f"(d) trace_counts {eng.trace_counts}")
+    print(f"phase 15(d) {cfg.name} served, weights {weight_bytes} bytes: "
+          + json.dumps(dict(programs=progs, trace_counts=eng.trace_counts,
+                            launches=launches)))
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def roofline_main(torch, ref, fa, sg, K, models, serve, cfg_mod, card,
+                  lm_ranks=None):
+    """Phase 15 from the main process; ``lm_ranks``: what phase 6's ranks
+    reported (None: standalone, which runs phase 6 first). Returns
+    (kernel rows: standalone, the rows of the paths' kernels timed as
+    phases 3 and 6 time them, else none; {path: launches})."""
+    from repro_torch.roofline import analysis as tan
+    standalone = lm_ranks is None
+    t0 = time.perf_counter()
+    peaks = tan.peaks()
+    print(f"phase 15 peaks {json.dumps(peaks)} on {card}")
+    roofline_matmul(torch, tan, peaks)
+    roofline_kernel_costs(torch, fa, sg, tan)
+    torch.cuda.empty_cache()
+    by_path = {}
+    if standalone:
+        by_path["lm_train"], _, lm_ranks = lm_train_phase()
+        torch.cuda.empty_cache()
+    by_path["roofline_train"] = roofline_train(lm_ranks)
+    torch.cuda.empty_cache()
+    by_path["roofline_serve"] = roofline_serve(
+        torch, K, cfg_mod.get_config("llama3.2-1b"), models, serve,
+        torch.device("cuda"))
+    rows = []
+    if standalone:
+        l2 = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(1234)
+        rows += list(_serve_flash(torch, ref, fa, g, *SERVE_SPEC,
+                                  torch.bfloat16, flush=l2.zero_).values())
+        rows.append(_sampler_check(torch, ref, sg, g, 8, 1, 128256,
+                                   l2.zero_))
+        lm, _ = _lm_flash(torch, ref, fa, l2.zero_,
+                          (LM_BATCH, LM_SEQ, *SERVE_SPEC), 11)
+        rows += [lm["flash_attention_dq"], lm["flash_attention_dkv"]]
+        rows += train_kernel_phase(torch, ref, flush=l2.zero_)[0]
+        del l2
+        torch.cuda.empty_cache()
+        # the rows of the kernels the paths launched, and a row for each
+        launched = {n for c in by_path.values() for n, v in c.items() if v}
+        rows = [r for r in rows if r["name"] in launched]
+        missing = launched - {r["name"] for r in rows}
+        if missing:
+            _fail(f"phase 15's paths launched {sorted(missing)}, which "
+                  f"have no row")
+    print(f"phase 15 (roofline): {time.perf_counter() - t0:.1f}s")
+    return rows, by_path
+
+
 def kernels_line(rows, by_path):
     """The kernels line's entries: one a row, with the launches of the
     paths it stands for. A row at one path's shape counts that path's
@@ -4938,6 +5582,9 @@ def main() -> int:
         return finish(torch, card, *gspmd_main(torch, ref, fa))
     if sys.argv[1:] == ["encdec"]:       # phase 14 alone
         return finish(torch, card, *encdec_main(torch, ref, fa, K, models))
+    if sys.argv[1:] == ["roofline"]:     # phase 15 alone
+        return finish(torch, card, *roofline_main(
+            torch, ref, fa, sg, K, models, serve, cfg_mod, card))
     hopper_build_report(K)
     decode_build_report(K)
     sampler_build_report(K)
@@ -4989,7 +5636,7 @@ def main() -> int:
     for arch in TRAIN_ARCHS:
         by_path[f"{arch}_train"], conv_shapes[arch] = train_phase(arch=arch)
     by_path["int8_roundtrip"] = int8_launches
-    by_path["lm_train"], lm_buckets = lm_train_phase()
+    by_path["lm_train"], lm_buckets, lm_ranks = lm_train_phase()
     by_path.update(async_phase())
     elastic_launches, elastic_buckets = elastic_phase()
     by_path.update(elastic_launches)
@@ -5012,6 +5659,9 @@ def main() -> int:
     for kk, buckets in elastic_buckets.items():
         wire_check(torch, ref, buckets, "alexnet elastic", 5e-4, k=kk)
         torch.cuda.empty_cache()
+    _, roofline_launches = roofline_main(torch, ref, fa, sg, K, models,
+                                         serve, cfg_mod, card, lm_ranks)
+    by_path.update(roofline_launches)
 
     return finish(torch, card, rows, by_path)
 

@@ -34,6 +34,12 @@ part, and the transport's ``wire_s`` the collectives' whole time.
 
 On a two-level transport (``hier``) the raw (fused) tail is refused:
 the shard is summed across pods before the update.
+
+``grad_norm=True`` adds the gradient norm to an unsharded step's
+metrics (the reference's rule: for subgd the norm of the exchanged
+global mean, the same on every rank; for awagd the root of the workers'
+mean squared local norm). Its square rides in the metrics' one
+all-reduce, so it adds no collective.
 """
 from __future__ import annotations
 
@@ -178,7 +184,8 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
                   lr_fn: Callable, group=None, scheme: str = "subgd",
                   microbatches: int = 1,
                   bucket_bytes: int = 0, sharded_update: bool = False,
-                  overlap: str | None = None, fuse_rs_update=None):
+                  overlap: str | None = None, fuse_rs_update=None,
+                  grad_norm: bool = False):
     """Returns ``step(state, batch, gen=None, timer=None) -> (state,
     metrics)``. ``batch`` is this rank's share; ``gen`` (a
     ``torch.Generator``) draws dropout, None runs without it; ``timer``
@@ -187,7 +194,8 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
     splits the batch and accumulates fp32 gradients before one exchange.
     ``sharded_update=True`` (subgd only) takes the RS -> update -> AG path
     on a state from :func:`init_sharded_train_state` with the same
-    ``bucket_bytes``; ``overlap="buckets"`` implies it (module
+    ``bucket_bytes``; ``overlap="buckets"`` implies it; ``grad_norm``
+    adds ``metrics["grad_norm"]`` on the unsharded paths (module
     docstring)."""
     if overlap not in (None, "buckets"):
         raise ValueError(f"unknown overlap mode {overlap!r}")
@@ -261,6 +269,11 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
             new_params = exchanger.exchange(new_params, tr, bucket_bytes)
             new_opt = exchanger.exchange(new_opt, tr, bucket_bytes)
             mark("exchange")
+        if grad_norm:
+            # subgd: the exchanged mean (equal on every rank); awagd: the
+            # local gradient, whose square mean_metrics averages
+            metrics["grad_sq"] = sum(g.float().square().sum()
+                                     for g in leaves(grads))
         return new_params, new_opt, metrics
 
     def overlapped_rs(params, batch, gen, mark, plan, use_raw):
@@ -378,6 +391,8 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
         mark = timer.mark if timer is not None else (lambda phase: None)
         new_params, new_opt, metrics = body(state, batch, gen, mark)
         metrics = mean_metrics(metrics, tr)
+        if "grad_sq" in metrics:
+            metrics["grad_norm"] = metrics.pop("grad_sq").sqrt()
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}, metrics)
 

@@ -771,6 +771,39 @@ def param_wire_dtype(exchanger: Exchanger):
     return exchanger.transfer_dtype
 
 
+def half_programs(exchanger: Exchanger, params, group=None, *,
+                  bucket_bytes: int = 0):
+    """Standalone reduce-scatter and all-gather halves of one rank's
+    exchange, for a gradient tree of ``params``' shapes and dtypes: the
+    attribution path for the exchange halves (the reference's
+    ``half_programs``). The halves run inside the train step, where they
+    cannot be counted or timed apart; these rebuild each with the same
+    plan, wire dtypes and kernels.
+
+    Returns ``(rs_fn, ag_fn, grads, shards, plan)``: ``rs_fn(grads)`` and
+    ``ag_fn(shards)``, and zero inputs for them on ``params``' device (the
+    gradient tree, and an fp32 shard a bucket). Each is a collective:
+    every rank of the group calls them in the same order."""
+    if exchanger.kind == "none":
+        raise ValueError("'none' exchanger has no halves to profile")
+    tr = as_transport(group)
+    plan = make_rs_plan(params, tr.k, bucket_bytes)
+
+    def rs(grads):
+        return exchanger.reduce_scatter(grads, tr, plan=plan)[0]
+
+    def ag(shards):
+        return exchanger.all_gather(shards, plan, tr,
+                                    wire_dtype=param_wire_dtype(exchanger))
+
+    ls, treedef = flatten(params)
+    grads = unflatten(treedef, [torch.zeros_like(l) for l in ls])
+    dev = ls[0].device
+    shards = [torch.zeros((b.shard_len,), dtype=torch.float32, device=dev)
+              for b in plan.buckets]
+    return rs, ag, grads, shards, plan
+
+
 def _dtype_name(dtype) -> str:
     return str(dtype or torch.float32).replace("torch.", "")
 

@@ -11,7 +11,9 @@ tests import every module on a host with no CUDA toolkit.
 Each Python wrapper takes its plain PyTorch version (``kernels/ref.py``)
 only for tensors on the CPU; for a CUDA tensor it launches the kernel or
 raises. A wrapper counts its launches in :data:`LAUNCHES` so a run can
-show that a path went through the kernel.
+show that a path went through the kernel, and reports each launch's
+flops and bytes through :func:`cost` so a program's cost count
+(``roofline.analysis.CostMode``) includes the kernels.
 
 Built without ``--use_fast_math``: the sampling kernel's ``row / T +
 noise`` must round exactly as the plain version's IEEE division does.
@@ -76,6 +78,9 @@ LAUNCHES: dict[str, int] = {}
 # run can split one kernel's launches over the shapes a path gave it
 LAUNCH_SHAPES: dict[tuple[str, tuple[int, ...]], int] = {}
 
+# the active cost counters (``roofline.analysis.CostMode``), innermost last
+cost_sinks: list = []
+
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -85,6 +90,17 @@ def count(name: str, shape: tuple[int, ...] | None = None) -> None:
     if shape is not None:
         key = (name, tuple(shape))
         LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
+
+
+def cost(name: str, work) -> None:
+    """Report one launch's work to the innermost active ``CostMode``,
+    which cannot see a ``ctypes`` launch: ``work()`` returns (flops, bytes
+    read plus written) and is called only when a mode is active, so a
+    cost that reads a device value (a decode's positions) syncs nothing
+    and no launch pays for its cost otherwise."""
+    if cost_sinks:
+        flops, nbytes = work()
+        cost_sinks[-1].add_kernel(name, float(flops), float(nbytes))
 
 
 def reset_launches() -> None:

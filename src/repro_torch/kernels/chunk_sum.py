@@ -16,6 +16,12 @@ from repro_torch import kernels as K
 from repro_torch.kernels import ref
 
 
+def chunk_sum_cost(k: int, n: int, es: int) -> tuple:
+    """(flops, bytes) of one launch: the (k, n) receive read at ``es``
+    bytes a value, the (n,) fp32 sum written; k - 1 adds a value."""
+    return float((k - 1) * n), float(k * n * es + 4 * n)
+
+
 def chunk_sum(chunks):
     """(k, ...) float32/bfloat16/float16 chunks -> (...) fp32 sum over the
     leading axis."""
@@ -36,4 +42,5 @@ def chunk_sum(chunks):
                                        K.stream_ptr(flat))
     K.check(err, "chunk_sum")
     K.count("chunk_sum")
+    K.cost("chunk_sum", lambda: chunk_sum_cost(k, n, flat.element_size()))
     return out

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 
 import torch
 
@@ -255,6 +256,158 @@ def _unpad(t, D: int):
     return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
+def host_offsets(q_off) -> Counter:
+    """{position: slots} of a (B,) position tensor (read on the host: the
+    cost functions run only under a CostMode)."""
+    return Counter(int(v) for v in q_off.reshape(-1).tolist())
+
+
+def attention_flops_bytes(*, batch: int, q_len: int, kv_len: int,
+                          heads: int, kv_heads: int, head_dim_k: int,
+                          head_dim_v: int = 0, window: int = 0,
+                          causal: bool = True, q_start: int = 0,
+                          kind: str = "fwd", dtype_bytes: int = 2) -> dict:
+    """Analytic FLOPs and minimal HBM bytes for (windowed-)causal
+    attention — the roofline an exact fused kernel can at best achieve.
+
+    ``pairs`` counts surviving (q, k) interactions: query at absolute
+    position ``q_start + i`` sees ``min(pos+1, kv_len)`` keys, clipped to
+    ``window`` when one is set — so windowed layers get a *linear* (not
+    quadratic) compute term and the bench can report achieved-vs-roofline
+    per masking mode. FLOPs: 2·(Dk+Dv) per pair per head forward (QK^T +
+    PV); the backward recomputes the score tile and runs the dQ/dK/dV
+    matmuls (3·Dk + 2·Dv dots of 2 FLOPs each). Bytes: one q/k/v read +
+    one out write at ``dtype_bytes`` (+ the fp32 lse/di residual rows and
+    a re-read of everything for ``fwd+bwd``) — no (S, S) term at all,
+    which is exactly what separates flash from the dense XLA path."""
+    import numpy as np
+    Dk = head_dim_k
+    Dv = head_dim_v or head_dim_k
+    if causal:
+        pos = q_start + np.arange(q_len, dtype=np.int64)
+        per_q = np.minimum(pos + 1, kv_len)
+        if window > 0:
+            per_q = np.minimum(per_q, window)
+        pairs = int(per_q.sum())
+    else:
+        pairs = q_len * kv_len
+    f_fwd = 2.0 * batch * heads * pairs * (Dk + Dv)
+    f_bwd = 2.0 * batch * heads * pairs * (3 * Dk + 2 * Dv)
+    flops = f_fwd + (f_bwd if kind != "fwd" else 0.0)
+    qo_bytes = batch * q_len * heads * (Dk + Dv) * dtype_bytes
+    kv_bytes = batch * kv_len * kv_heads * (Dk + Dv) * dtype_bytes
+    hbm = qo_bytes + kv_bytes
+    if kind != "fwd":
+        hbm += 2 * (qo_bytes + kv_bytes)          # re-read + grad writes
+        hbm += batch * q_len * heads * 2 * 4      # lse + di, fp32
+    return {"flops": flops, "hbm_bytes": float(hbm), "pairs": pairs,
+            "intensity": flops / max(hbm, 1.0)}
+
+
+def _keys_read(off: int, Sq: int, Sk: int, window: int) -> int:
+    """Keys that query rows off .. off + Sq - 1 see, together: up to the
+    last row's, from the first row's window start."""
+    lo = max(0, off - window + 1) if window > 0 else 0
+    return max(min(Sk, off + Sq) - lo, 0)
+
+
+def attention_cost(part: str, B: int, Sq: int, Sk: int, H: int, KV: int,
+                   Dk: int, Dv: int, q_off, window: int, es: int,
+                   lse: bool = False, partials=None) -> tuple:
+    """(flops, bytes) of one flash launch at the caller's head dims (the
+    zero columns the kernels pad to are no work): ``part`` "fwd", "dq" or
+    "dkv". The (query, key) pairs are ``attention_flops_bytes``'s for the
+    call's own causal mask, window, q_off and dims; the forward's flops
+    are its ``fwd`` count, 2 (Dk + Dv) a pair and head, dq's 2 (2 Dk +
+    Dv) (it recomputes the scores) and dk/dv's 2 (2 Dk + 2 Dv). Bytes:
+    each input read and each output written once at ``es`` bytes a
+    value, K and V over the keys the rows see; lse (when returned) and
+    the backward's lse and di rows fp32; q_off. ``partials``: bytes the
+    MLA tensor-core dk/dv writes in place of dk and dv. ``q_off`` is read
+    on the host (call it only under a CostMode)."""
+    flops = 0.0
+    nbytes = 4 * B + (B * Sq * H * 4 if lse else 0)
+    if part != "fwd":
+        nbytes += 2 * B * Sq * H * 4
+    for off, n in host_offsets(q_off).items():
+        a = attention_flops_bytes(batch=n, q_len=Sq, kv_len=Sk, heads=H,
+                                  kv_heads=KV, head_dim_k=Dk, head_dim_v=Dv,
+                                  window=window, q_start=off, kind="fwd",
+                                  dtype_bytes=es)
+        kv = _keys_read(off, Sq, Sk, window) * KV * (Dk + Dv)
+        pairs = 2.0 * n * H * a["pairs"]
+        if part == "fwd":
+            flops += a["flops"]
+            nbytes += n * (Sq * H * (Dk + Dv) + kv) * es
+        elif part == "dq":
+            flops += pairs * (2 * Dk + Dv)
+            nbytes += n * (Sq * H * (2 * Dk + Dv) + kv) * es
+        else:
+            flops += pairs * (2 * Dk + 2 * Dv)
+            nbytes += n * (Sq * H * (Dk + Dv) + kv) * es
+            if partials is None:
+                nbytes += n * Sk * KV * (Dk + Dv) * es
+    if part == "dkv" and partials is not None:
+        nbytes += partials
+    return flops, float(nbytes)
+
+
+def mla_live_partials(B: int, Sq: int, Sk: int, H: int, KV: int, Dk: int,
+                      Dv: int, q_off, window: int, chunk: int) -> int:
+    """Bytes of the fp32 partials of the MLA tensor-core dk/dv that hold a
+    live chunk (:func:`mla_dkv_live`): what it writes and its reduction
+    reads. ``q_off`` is read on the host."""
+    bq = MLA_DKV_ROWS // (H // KV)
+    nq = -(-Sq // bq)
+    n = 0
+    for off, slots in host_offsets(q_off).items():
+        for j in range(-(-Sk // MLA_DKV_KEYS)):
+            keys = min(MLA_DKV_KEYS, Sk - j * MLA_DKV_KEYS)
+            live = mla_dkv_live(j, off, window, nq, bq)[1]
+            n += slots * keys * -(-live // chunk)
+    return n * KV * (Dk + Dv) * 4
+
+
+def mla_reduce_cost(B: int, Sq: int, Sk: int, H: int, KV: int, Dk: int,
+                    Dv: int, q_off, window: int, chunk: int, es: int):
+    """(flops, bytes) of ``mla_dkv_reduce``: the live partials read and
+    added, dk and dv written, q_off read."""
+    live = mla_live_partials(B, Sq, Sk, H, KV, Dk, Dv, q_off, window, chunk)
+    return live / 4, float(live + B * Sk * KV * (Dk + Dv) * es + 4 * B)
+
+
+def decode_cost(pos, H: int, KV: int, D: int, es: int, window: int,
+                page: int = 0) -> tuple:
+    """(flops, bytes) of one split-KV decode: the keys each slot reads
+    (pos + 1, clipped to the window) times the KV heads times K's and V's
+    D at ``es`` bytes, q read and the output written, the positions; the
+    paged kernel (``page`` > 0) also reads the table entry of each page
+    that holds a visible key. 4 D flops a key and query head. ``pos`` is
+    read on the host."""
+    ps = list(host_offsets(pos).elements())
+    B = len(ps)
+    need = sum(min(p + 1, window) if window > 0 else p + 1 for p in ps)
+    nbytes = 2 * B * H * D * es + 2 * need * KV * D * es + 4 * B
+    if page:
+        nbytes += 4 * sum(p // page - (max(0, p - window + 1) // page
+                                        if window > 0 else 0) + 1 for p in ps)
+    return 4.0 * D * H * need, float(nbytes)
+
+
+def combine_cost(pos, H: int, D: int, es: int, chunk: int, ns: int,
+                 window: int) -> tuple:
+    """(flops, bytes) of the decode's combine: the fp32 m, l and D-wide acc
+    of every live (chunk, query row), the positions, the output written
+    at ``es`` bytes; 3 D flops a live row. ``pos`` is read on the
+    host."""
+    ps = list(host_offsets(pos).elements())
+    live = sum(1 for p in ps for c in range(ns) if c * chunk <= p and (
+        window <= 0 or (c + 1) * chunk > p - window + 1))
+    parts = live * H
+    return (3.0 * D * parts,
+            float(parts * (2 + D) * 4 + 4 * len(ps) + len(ps) * H * D * es))
+
+
 def _positions(x, batch: int, device) -> torch.Tensor:
     """None / int / (B,) -> contiguous (B,) int32 on ``device``."""
     if (isinstance(x, torch.Tensor) and x.dtype == torch.int32
@@ -284,6 +437,7 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
     if mla_route(q.shape[-1], v.shape[-1]):
         return _mla_forward(q, k, v, q_off, window, sm_scale, return_lse)
     D = q.shape[-1]
+    es = q.element_size()
     q, k, v = pad_head_dim(D, q, k, v)
     B, Sq, H, Dk = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -297,6 +451,8 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
         ctypes.c_float(sm_scale), K.stream_ptr(q))
     K.check(err, "flash_fwd")
     K.count("flash_attention")
+    K.cost("flash_attention", lambda: attention_cost(
+        "fwd", B, Sq, Sk, H, KV, D, D, q_off, window, es, return_lse))
     out = _unpad(out, D)
     return (out, lse) if return_lse else out
 
@@ -307,8 +463,8 @@ def _mla_forward(q, k, v, q_off, window: int, sm_scale: float,
     Dv (:func:`mla_kernel_pair`), then ``flash_mla_fwd``: in fp32 the
     CUDA-core ``fwd_kernel``, in bf16/fp16 the tensor-core
     ``fwd_mla_hopper`` (TMA-ready inputs)."""
-    Dv = v.shape[-1]
-    pk, pv = mla_kernel_pair("flash_attention", q.shape[-1], Dv, q.dtype)
+    Dk, Dv = q.shape[-1], v.shape[-1]
+    pk, pv = mla_kernel_pair("flash_attention", Dk, Dv, q.dtype)
     (q, k), (v,) = _pad_to(pk, q, k), _pad_to(pv, v)
     tc = q.dtype != torch.float32
     q, k, v = (_tma_ready(t) if tc else t.contiguous() for t in (q, k, v))
@@ -323,6 +479,9 @@ def _mla_forward(q, k, v, q_off, window: int, sm_scale: float,
         ctypes.c_float(sm_scale), K.stream_ptr(q))
     K.check(err, "flash_mla_fwd")
     K.count("flash_attention_mla")
+    K.cost("flash_attention_mla", lambda: attention_cost(
+        "fwd", B, Sq, Sk, H, KV, Dk, Dv, q_off, window, q.element_size(),
+        return_lse))
     out = _unpad(out, Dv)
     return (out, lse) if return_lse else out
 
@@ -357,6 +516,9 @@ def _mla_bwd(which: str, q, k, v, lse, do, di, q_off, window: int,
                                    ctypes.c_float(sm_scale), K.stream_ptr(q))
         K.check(err, "flash_mla_bwd_dq")
         K.count("flash_attention_mla_dq")
+        K.cost("flash_attention_mla_dq", lambda: attention_cost(
+            "dq", B, Sq, Sk, H, KV, Dk, Dv, q_off, window,
+            q.element_size()))
         return _unpad(dq, Dk)
     part, chunk = None, 0
     if tc:
@@ -370,6 +532,10 @@ def _mla_bwd(which: str, q, k, v, lse, do, di, q_off, window: int,
                                 chunk, K.stream_ptr(q))
     K.check(err, "flash_mla_bwd_dkv")
     K.count("flash_attention_mla_dkv")
+    K.cost("flash_attention_mla_dkv", lambda: attention_cost(
+        "dkv", B, Sq, Sk, H, KV, Dk, Dv, q_off, window, q.element_size(),
+        partials=mla_live_partials(B, Sq, Sk, H, KV, pk, pv, q_off, window,
+                                   chunk) if tc else None))
     if tc:
         dk, dv = mla_dkv_reduce(part, q_off, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV,
                                 Dk=pk, Dv=pv, window=window, chunk=chunk,
@@ -409,6 +575,8 @@ def mla_dkv_reduce(part, q_off, *, B: int, Sq: int, Sk: int, H: int,
         Dk, Dv, K.dtype_code(dk), int(window), chunk, K.stream_ptr(part))
     K.check(err, "flash_mla_dkv_reduce")
     K.count("flash_attention_mla_dkv_reduce")
+    K.cost("flash_attention_mla_dkv_reduce", lambda: mla_reduce_cost(
+        B, Sq, Sk, H, KV, Dk, Dv, q_off, window, chunk, dk.element_size()))
     return dk, dv
 
 
@@ -446,6 +614,9 @@ def flash_attention_dq(q, k, v, lse, do, di, *, q_off, window: int = 0,
         int(window), ctypes.c_float(sm_scale), K.stream_ptr(q))
     K.check(err, "flash_bwd_dq")
     K.count("flash_attention_dq")
+    K.cost("flash_attention_dq", lambda: attention_cost(
+        "dq", B, Sq, Sk, H, KV, D_true, D_true, q_off, window,
+        q.element_size()))
     return _unpad(dq, D_true)
 
 
@@ -472,6 +643,9 @@ def flash_attention_dkv(q, k, v, lse, do, di, *, q_off, window: int = 0,
         K.stream_ptr(q))
     K.check(err, "flash_bwd_dkv")
     K.count("flash_attention_dkv")
+    K.cost("flash_attention_dkv", lambda: attention_cost(
+        "dkv", B, Sq, Sk, H, KV, D_true, D_true, q_off, window,
+        q.element_size()))
     return _unpad(dk, D_true), _unpad(dv, D_true)
 
 
@@ -548,10 +722,10 @@ def decode_plan(lane_len: int, page: int, sm_count: int):
 
 
 def _decode_call(name, q, k, v, tables, pos, *, S, NP, page, lane_len,
-                 window, sm_scale):
+                 window, sm_scale, head_dim):
     """The split kernel's partials in one fp32 workspace, then the combine
     kernel into the output; q, k, v already padded to the kernel head
-    dim."""
+    dim from the caller's ``head_dim``."""
     B, _, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -568,19 +742,24 @@ def _decode_call(name, q, k, v, tables, pos, *, S, NP, page, lane_len,
         window, ctypes.c_float(sm_scale), K.stream_ptr(q))
     K.check(err, "flash_decode_split")
     K.count(name)
+    K.cost(name, lambda: decode_cost(pos, H, KV, head_dim, q.element_size(),
+                                     window, page if NP else 0))
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     _combine_launch(lib, m, l, acc, pos, out, KV, chunk, ns, lane_len,
-                    window)
+                    window, head_dim)
     return out
 
 
-def _combine_launch(lib, m, l, acc, pos, out, KV, chunk, ns, kv_len, window):
+def _combine_launch(lib, m, l, acc, pos, out, KV, chunk, ns, kv_len, window,
+                    head_dim):
     B, _, H, D = out.shape
     err = lib.flash_decode_combine(
         m, l, acc, K.ptr(pos), K.ptr(out), B, H, KV, D, K.dtype_code(out),
         chunk, ns, kv_len, window, K.stream_ptr(out))
     K.check(err, "flash_decode_combine")
     K.count("flash_decode_combine")
+    K.cost("flash_decode_combine", lambda: combine_cost(
+        pos, H, head_dim, out.element_size(), chunk, ns, window))
 
 
 def decode_combine(m, l, acc, pos, *, chunk: int, kv_len: int,
@@ -602,7 +781,8 @@ def decode_combine(m, l, acc, pos, *, chunk: int, kv_len: int,
     m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
     out = torch.empty((B, 1, KV * G, D), dtype=dtype, device=m.device)
     _combine_launch(K.load("flash_attention"), K.ptr(m), K.ptr(l),
-                    K.ptr(acc), pos, out, KV, chunk, ns, kv_len, int(window))
+                    K.ptr(acc), pos, out, KV, chunk, ns, kv_len, int(window),
+                    D)
     return out
 
 
@@ -631,7 +811,7 @@ def flash_decode(q, k, v, pos, *, window: int = 0, sm_scale=None,
     qp, kp, vp = pad_head_dim(Dk, q, k, v)
     out = _decode_call("flash_decode", qp, kp, vp, None, pos, S=S, NP=0,
                        page=block_k, lane_len=S, window=window,
-                       sm_scale=sm_scale)
+                       sm_scale=sm_scale, head_dim=Dk)
     return _unpad(out, Dk)
 
 
@@ -665,5 +845,5 @@ def flash_decode_paged(q, k_pages, v_pages, tables, pos, *, page_size: int,
     qp, kp, vp = pad_head_dim(Dk, q, k_pages, v_pages)
     out = _decode_call("flash_decode_paged", qp, kp, vp, tables, pos, S=0,
                        NP=NP, page=page_size, lane_len=NP * page_size,
-                       window=window, sm_scale=sm_scale)
+                       window=window, sm_scale=sm_scale, head_dim=Dk)
     return _unpad(out, Dk)

@@ -28,6 +28,18 @@ from repro_torch.kernels.fused_sgd import _flat_fp32, lr_operand, lr_tensor
 WIRE = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
 
 
+def fused_rs_update_cost(k: int, s: int, es: int, mask: bool,
+                         int8: bool) -> tuple:
+    """(flops, bytes) of one launch: the (k, s) receive at ``es`` bytes a
+    value (+ its k fp32 scales on the int8 wire), p and m read and p', m'
+    written in fp32, the weight-decay mask when one is read; k + 7 flops
+    a value (2 k + 7 with the int8 scaling)."""
+    flops = (2 * k + 7 if int8 else k + 7) * s
+    nbytes = k * s * es + (4 * k if int8 else 0) + 16 * s + (4 * s if mask
+                                                             else 0)
+    return float(flops), float(nbytes)
+
+
 def fused_rs_update(recv, p, m, lr, *, wd_mask=None, scale: float = 1.0,
                     momentum: float = 0.9, nesterov: bool = False,
                     weight_decay: float = 0.0, scales=None):
@@ -62,4 +74,6 @@ def fused_rs_update(recv, p, m, lr, *, wd_mask=None, scale: float = 1.0,
         K.stream_ptr(p))
     K.check(err, "fused_rs_update")
     K.count("fused_rs_update")
+    K.cost("fused_rs_update", lambda: fused_rs_update_cost(
+        k, s, recv.element_size(), mask is not None, scales is not None))
     return po, mo

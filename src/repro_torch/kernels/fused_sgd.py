@@ -42,6 +42,12 @@ def _flat_fp32(name, t, n):
     return t.contiguous()
 
 
+def fused_sgd_cost(n: int) -> tuple:
+    """(flops, bytes) of one launch over n values: p, g, m read and p', m'
+    written in fp32; 5 flops a value."""
+    return 5.0 * n, 20.0 * n
+
+
 def fused_sgd(p, g, m, lr, momentum: float = 0.9, nesterov: bool = False):
     """p, g, m fp32 of one shape -> (p', m') fp32 of that shape."""
     if K.on_cpu(p, g, m, *lr_operand(lr)):
@@ -57,4 +63,5 @@ def fused_sgd(p, g, m, lr, momentum: float = 0.9, nesterov: bool = False):
                                   int(bool(nesterov)), K.stream_ptr(p))
     K.check(err, "fused_sgd")
     K.count("fused_sgd")
+    K.cost("fused_sgd", lambda: fused_sgd_cost(n))
     return po, mo

@@ -24,6 +24,21 @@ from repro_torch import kernels as K
 from repro_torch.kernels import ref
 
 
+def cast_cost(n: int, src_es: int, dst_es: int) -> tuple:
+    """(flops, bytes) of one cast of n values: read and written once, one
+    flop a value."""
+    return float(n), float(n * (src_es + dst_es))
+
+
+def int8_cost(entry: str, n: int) -> tuple:
+    """(flops, bytes) of ``quant_int8`` (n fp32 read, n int8 and a scale a
+    block written; absmax, scale, round, clip, cast: 5 flops a value) or
+    ``dequant_int8`` (the int8 values and scales read, n fp32 written)."""
+    nb = -(-n // BLOCK_N)
+    b = float(4 * n + n + 4 * nb)
+    return (5.0 * n, b) if entry == "quant_int8" else (float(n), b)
+
+
 def _cast(x, src: torch.dtype, dst: torch.dtype, entry: str, plain):
     if x.dtype != src:
         raise TypeError(f"{entry} takes {src}, got {x.dtype}")
@@ -37,6 +52,8 @@ def _cast(x, src: torch.dtype, dst: torch.dtype, entry: str, plain):
                                              K.stream_ptr(x))
     K.check(err, entry)
     K.count(entry)
+    K.cost(entry, lambda: cast_cost(x.numel(), x.element_size(),
+                                    out.element_size()))
     return out
 
 
@@ -73,6 +90,7 @@ def quant_int8(x):
                                         BLOCK_N, K.stream_ptr(x))
     K.check(err, "quant_int8")
     K.count("quant_int8")
+    K.cost("quant_int8", lambda: int8_cost("quant_int8", n))
     return q, scales
 
 
@@ -97,4 +115,5 @@ def dequant_int8(q, scales):
                                           n, BLOCK_N, K.stream_ptr(q))
     K.check(err, "dequant_int8")
     K.count("dequant_int8")
+    K.cost("dequant_int8", lambda: int8_cost("dequant_int8", n))
     return out

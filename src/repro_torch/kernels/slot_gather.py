@@ -54,6 +54,14 @@ def sampler_plan(S: int, C: int, V: int, sm_count: int):
     return -(-V // slice_), slice_
 
 
+def sampler_cost(S: int, C: int, V: int, es: int) -> tuple:
+    """(flops, bytes) of one launch: each slot's selected row of V logits
+    at ``es`` bytes and its V fp32 noise read, the one-hot and the
+    temperatures read, two int32 indices a slot written; 3 flops an
+    entry (scale, add, compare)."""
+    return 3.0 * S * V, float(S * V * (es + 4) + S * C * 4 + S * 12)
+
+
 def slot_gather_sample(logits, onehot, temperature, noise):
     """logits (S, C, V) float; onehot (S, C) selecting each slot's row;
     temperature (S,); noise (S, V) Gumbel. Returns (greedy (S,), sampled
@@ -82,6 +90,8 @@ def slot_gather_sample(logits, onehot, temperature, noise):
         K.stream_ptr(logits))
     K.check(err, "slot_gather_sample")
     K.count("slot_gather_sample", (S, C, V))
+    K.cost("slot_gather_sample", lambda: sampler_cost(
+        S, C, V, logits.element_size()))
     return greedy, sampled
 
 

@@ -115,7 +115,15 @@ membership follows the fault plan, and averaging rounds need ``--quorum``
 reporters. A worker draws its own ``--batch`` examples of each step from
 the source (batch ``step * ranks + row``, images at ``image_size``).
 ``--metrics-out`` and ``--trace-out`` write the telemetry JSONL and the
-Perfetto trace, one file a rank (``<stem>_slot<r><ext>``) when k > 1.
+Perfetto trace, one file a rank (``<stem>_slot<r><ext>``) when k > 1;
+``python -m repro_torch.telemetry.report M_slot0.jsonl`` reads one, its
+per-program attribution (``profile/*``: flops, bytes, MFU and bandwidth
+shares of the train step and the exchange halves) included.
+``--no-profile`` turns that attribution off (``REPRO_TELEMETRY_PROFILE=0``).
+``--attn-impl`` picks a decoder's attention: ``flash`` (the kernels; on
+the CPU their plain versions), ``ref`` (the einsum oracles) or ``auto``
+(flash on the card, ref on the CPU); the reference's ``blockwise`` is not
+ported.
 """
 from __future__ import annotations
 
@@ -130,7 +138,7 @@ import torch.multiprocessing as mp
 
 from repro_torch import default_device, telemetry
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import AttentionConfig
+from repro_torch.configs.base import AttentionConfig, with_attn_impl
 from repro_torch.configs.registry import ASSIGNED_ARCHS, PAPER_ARCHS
 from repro_torch.core.gspmd import abstract_params
 from repro_torch.data.prefetch import ParallelLoader
@@ -183,17 +191,28 @@ PRESET_RUNS = {
 PRESET_BATCH = {"easgd_async": (8, 64)}     # (sequences a rank, tokens)
 
 
+def attn_impl(choice: str | None, device) -> str | None:
+    """``--attn-impl``: ``auto`` is flash on the card and ref on the CPU;
+    None leaves the config's (flash)."""
+    if choice == "auto":
+        return "flash" if torch.device(device).type == "cuda" else "ref"
+    return choice
+
+
 def launch_config(opts):
     if opts.get("preset"):
-        return PRESETS[opts["preset"]]()
-    cfg = (get_smoke_config if opts["smoke"] else get_config)(opts["arch"])
-    if opts.get("layers"):
+        cfg = PRESETS[opts["preset"]]()
+    else:
+        cfg = (get_smoke_config if opts["smoke"] else get_config)(
+            opts["arch"])
+    if opts.get("layers") and not opts.get("preset"):
         # depth cut at full width (DeepSeek-V2-Lite: 2 = the dense first
         # layer and one MoE layer; an encoder-decoder: both stacks)
         n = opts["layers"]
         cfg = cfg.with_overrides(num_layers=n, **(
             {"num_encoder_layers": n} if cfg.family == "encdec" else {}))
-    return cfg
+    return with_attn_impl(cfg, attn_impl(opts.get("attn_impl"),
+                                         opts.get("device") or "cpu"))
 
 
 def pick_backend(device: torch.device, k: int) -> str:
@@ -407,6 +426,8 @@ def _train_rank(rank, k, opts, backend, data_dir):
     if opts.get("metrics_out"):
         telemetry.configure(metrics_out=slot_path(opts["metrics_out"], rank,
                                                   k))
+    if opts.get("no_profile"):
+        telemetry.configure(profile=False)
     cfg = launch_config(opts)
     model = build_model(cfg, dev)
     try:
@@ -560,10 +581,23 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None, metavar="JSON",
                     help="write host-side spans as Chrome-trace/Perfetto "
                          "JSON (one file a rank when k > 1)")
+    ap.add_argument("--no-profile", action="store_true",
+                    help="disable per-program cost attribution "
+                         "(profile/* and compile/* gauges); same as "
+                         "REPRO_TELEMETRY_PROFILE=0")
+    ap.add_argument("--attn-impl", default=None,
+                    choices=["auto", "flash", "ref", "blockwise"],
+                    help="a decoder's attention: the flash kernels, the "
+                         "einsum ref oracles, or auto (flash on the card, "
+                         "ref on the CPU); default: the config's (flash)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
     args = ap.parse_args(argv)
+    if args.attn_impl == "blockwise":
+        ap.error("--attn-impl blockwise: the JAX package's blockwise "
+                 "attention scan is not ported (ROADMAP queue 1 item 8); "
+                 "use flash, ref or auto")
     try:
         plan_from_opts(vars(args))
     except ValueError as e:

@@ -153,7 +153,8 @@ def decode_train(params, tokens, enc_out, cfg: ArchConfig):
     """Teacher-forced decoder over tokens (B, S) against ``enc_out`` ->
     logits (B, S, V)."""
     dtype = dtype_of(cfg.dtype)
-    h = params["embed"][tokens].to(dtype)
+    # F.embedding, as transformer._embed: bitwise under a counted call
+    h = torch.nn.functional.embedding(tokens, params["embed"]).to(dtype)
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)
     # resolved once, as decoder_forward does
@@ -220,7 +221,7 @@ def encdec_decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
     dtype = dtype_of(cfg.dtype)
     a = cfg.attention
     eps = cfg.norm_eps
-    h = params["embed"][tokens].to(dtype)
+    h = torch.nn.functional.embedding(tokens, params["embed"]).to(dtype)
     window = cfg.long_context_window if seq_len > 100_000 else 0
     impl = attn_mod.resolve_attn_impl(a)
     sk, sv = cache["self"]["k"], cache["self"]["v"]

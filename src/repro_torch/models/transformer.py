@@ -104,7 +104,10 @@ def segments(cfg: ArchConfig) -> list[tuple[str, int]]:
 
 
 def _embed(params, tokens, dtype):
-    return params["embed"][tokens].to(dtype)
+    # F.embedding, not indexing: under a dispatch mode (a counted call,
+    # telemetry.profile) an indexing backward adds in another order on
+    # the CPU, F.embedding's does not, so a counted step stays bit for bit
+    return torch.nn.functional.embedding(tokens, params["embed"]).to(dtype)
 
 
 def _has_images(batch, cfg: ArchConfig) -> bool:

@@ -11,15 +11,18 @@ plan, the decode step) gets one :class:`ProgramProfile` that joins
 - **first-call time**: :func:`instrument` times a program's first call
   (synchronising the card when its arguments live there) as a
   ``compile/*`` gauge, and :func:`compile_time` records one directly;
-- **cost**: flops and bytes of the program, from :func:`capture`.
+- **cost**: flops and bytes of one run of the program, counted by
+  ``roofline.analysis.CostMode`` (aten ops through a dispatch mode, the
+  hand kernels through ``kernels.cost``; :func:`capture`). The reference
+  reads XLA's ``cost_analysis`` without running the program; an eager
+  program has no compiled form, so the port counts a run, and
+  :func:`instrument` makes the first call that run: no program runs twice.
 
-The reference reads its cost from XLA's ``cost_analysis`` and its peaks
-from ``repro.roofline.analysis``; neither has a counterpart in the port
-yet (ROADMAP queue 1, the roofline slice), so :func:`capture` and
-:meth:`ProgramProfile.roofline` raise ``NotImplementedError`` rather than
-report nothing. Everything else is the reference's: the gauges, the
-summary, the gating by the telemetry switch plus
-``REPRO_TELEMETRY_PROFILE=0``.
+The join emits achieved-FLOPs / achieved-bandwidth / MFU gauges against
+``roofline.analysis.peaks`` (the card's peaks, env-overridable). The
+gauges, the summary and the gating by the telemetry switch plus
+``REPRO_TELEMETRY_PROFILE=0`` are the reference's. Capture failures
+increment ``profile/capture_errors`` and never break the caller.
 """
 from __future__ import annotations
 
@@ -43,8 +46,8 @@ def _slug(name: str) -> str:
 class ProgramProfile:
     """Cost + measured-duration attribution for one program."""
     name: str
-    flops: float = 0.0           # per-device, from capture (not yet)
-    hbm_bytes: float = 0.0       # per-device (not yet)
+    flops: float = 0.0           # per-device, from capture
+    hbm_bytes: float = 0.0       # per-device, pre-fusion bytes accessed
     coll_bytes: float = 0.0      # per-rank analytic wire bytes (caller)
     calls: int = 0
     total_time_s: float = 0.0
@@ -73,12 +76,20 @@ class ProgramProfile:
         return self.coll_bytes / m if m > 0 else 0.0
 
     def roofline(self) -> dict:
-        """Ratios against the card's peaks: they come with the roofline
-        slice (ROADMAP queue 1 item 7), as :func:`capture` does."""
-        raise NotImplementedError(
-            f"ProgramProfile({self.name!r}).roofline(): the port has no "
-            f"peak model yet; it comes with the roofline slice, ROADMAP "
-            f"queue 1 item 7")
+        """Ratios vs the (env-overridable) peak model; the roofline bound
+        time and which term dominates."""
+        from repro_torch.roofline.analysis import peaks
+        pk = peaks()
+        terms = {"compute": self.flops / pk["flops"],
+                 "memory": self.hbm_bytes / pk["hbm_bw"],
+                 "collective": self.coll_bytes / pk["ici_bw"]}
+        return {
+            "mfu": self.achieved_flops_s / pk["flops"],
+            "hbm_frac": self.achieved_hbm_bw / pk["hbm_bw"],
+            "coll_frac": self.achieved_coll_bw / pk["ici_bw"],
+            "t_roofline_s": max(terms.values()),
+            "bound": max(terms, key=terms.get),
+        }
 
     def gauges(self) -> dict:
         """The metric names/values this profile exports (flat
@@ -123,16 +134,64 @@ def reset() -> None:
     _profiles.clear()
 
 
+def _capture_error(prof: ProgramProfile, msg: str) -> None:
+    metrics.counter("profile/capture_errors").inc()
+    prof.meta["capture_error"] = msg
+    prof.captured = False
+
+
+def _counted(name: str, fn, args, kwargs, coll_bytes):
+    """``fn(*args, **kwargs)`` run once under a ``CostMode``; its flops and
+    bytes fill the program's profile, and the hand kernels' share and the
+    collectives go under ``meta["kernels"]`` / ``meta["collectives"]``.
+    Returns fn's output; an exception of fn's own propagates, a fault of
+    the counting is a capture error (and fn still runs once)."""
+    from repro_torch.roofline.analysis import CostMode
+    prof = _get(name)
+    t0 = time.perf_counter()
+    try:
+        mode = CostMode()
+        mode.__enter__()
+    except Exception as e:  # noqa: BLE001 — attribution never breaks a run
+        _capture_error(prof, f"{type(e).__name__}: {e}")
+        return fn(*args, **kwargs)
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        mode.__exit__(None, None, None)
+    prof.capture_time_s = time.perf_counter() - t0
+    if mode.errors:
+        _capture_error(prof, f"{mode.errors} ops uncounted, first "
+                       f"{mode.first_error}")
+        return out
+    prof.flops, prof.hbm_bytes = mode.flops, mode.hbm_bytes
+    if callable(coll_bytes):
+        coll_bytes = coll_bytes(*args, **kwargs)
+    prof.coll_bytes = float(coll_bytes or 0.0)
+    prof.meta["kernels"] = mode.kernels
+    prof.meta["collectives"] = {"counts": mode.collectives.counts,
+                                "bytes_by_kind":
+                                    mode.collectives.bytes_by_kind}
+    prof.captured = True
+    return out
+
+
 def capture(name: str, fn, *args, coll_bytes: float = 0.0,
             **kwargs) -> ProgramProfile | None:
-    """Compile-time cost analysis of ``fn`` (flops, bytes). The reference
-    reads XLA's ``cost_analysis``; the port has no cost model of its
-    programs until the roofline slice, so this raises rather than return
-    an empty profile."""
-    raise NotImplementedError(
-        f"profile.capture({name!r}): the port has no program cost model "
-        f"yet (XLA's cost_analysis has no PyTorch counterpart); it comes "
-        f"with the roofline slice, ROADMAP queue 1 item 7")
+    """Cost of ``fn`` called with ``args``: it runs once under a
+    ``CostMode`` (module docstring) and its output is dropped; use
+    :func:`instrument` to keep the output of a call that is counted.
+    ``coll_bytes`` is the caller's analytic wire accounting, as in the
+    reference. Never raises: failures (fn's own included) count in
+    ``profile/capture_errors`` and return None."""
+    if not enabled():
+        return None
+    prof = _get(name)
+    try:
+        _counted(name, fn, args, kwargs, coll_bytes)
+    except Exception as e:  # noqa: BLE001 — attribution never breaks a run
+        _capture_error(prof, f"{type(e).__name__}: {e}")
+    return prof if prof.captured else None
 
 
 def observe(name: str, seconds: float) -> None:
@@ -163,25 +222,28 @@ def _on_card(args, kwargs) -> bool:
 
 
 def instrument(name: str, fn, *, coll_bytes: float = 0.0):
-    """Wrap a callable with first-call attribution: a timing of its first
-    call, synchronised with the card when its arguments live there, as
-    the ``compile/<name>_s`` gauge (the one-time costs: kernel builds,
-    cuDNN's algorithm search, the allocator's first allocations). Later
-    calls pass through untouched; disabled telemetry passes through from
-    call zero. ``coll_bytes`` is kept on the profile."""
+    """Wrap a callable with first-call attribution: its first call is the
+    counted call (:func:`capture`'s cost, ``coll_bytes`` kept on the
+    profile: a number, or a function of the call's arguments that
+    returns one) and its output is returned, so the program runs once as it
+    would unwrapped; that call is timed, synchronised with the card when
+    its arguments live there, as the ``compile/<name>_s`` gauge (the
+    one-time costs: kernel builds, cuDNN's algorithm search, the
+    allocator's first allocations, and the counting's own host time).
+    Later calls pass through untouched; disabled telemetry passes through
+    from call zero."""
     state = {"first": True}
 
     def wrapped(*args, **kwargs):
         if state["first"] and enabled():
             state["first"] = False
-            _get(name).coll_bytes = float(coll_bytes or 0.0)
             sync = _on_card(args, kwargs)
             import torch
             if sync:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with trace.span("profile/first_call", program=name):
-                out = fn(*args, **kwargs)
+            with trace.span("profile/capture", program=name):
+                out = _counted(name, fn, args, kwargs, coll_bytes)
                 if sync:
                     torch.cuda.synchronize()
             compile_time(name, time.perf_counter() - t0)

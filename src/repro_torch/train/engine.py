@@ -26,6 +26,13 @@ otherwise, so a resumed run keeps the unbroken run's tau phase.
 the ``hier``/``hier16`` topology of the reference. ``gspmd`` shards
 over both axes as one, as the reference's FSDP rule does: over every
 rank of the group.
+
+Each program is wrapped in ``telemetry.profile.instrument`` under the
+reference's names: ``train/step`` (bsp, gspmd), ``train/local`` and
+``train/sync`` (easgd, asgd, and the elastic programs), so its first call
+is the counted one (flops, bytes, collective bytes from :func:`plan_wire`)
+and its later calls pass through. ``telemetry.config().grad_norm`` adds
+the gradient norm to a bsp step's metrics.
 """
 from __future__ import annotations
 
@@ -42,6 +49,8 @@ from repro_torch.core.gspmd import (abstract_params, fsdp_shardings,
                                     init_gspmd_state, make_gspmd_step)
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.telemetry import config as telemetry_config
+from repro_torch.telemetry import profile
 
 ALGOS = ("bsp", "easgd", "asgd", "gspmd")
 
@@ -146,6 +155,15 @@ def plan_wire(plan: TrainPlan, params, k: int) -> dict | None:
     return ws
 
 
+def _wire_bytes(plan: TrainPlan, k: int, key: str):
+    """The ``coll_bytes`` of an instrumented program: ``plan_wire``'s
+    ``key`` for the params tree of the first call's state (None: 0)."""
+    def of_call(state, *args, **kwargs):
+        ws = plan_wire(plan, state["params"], k)
+        return ws[key] if ws else 0.0
+    return of_call
+
+
 @dataclass(frozen=True)
 class Engine:
     """A resolved plan: ``init_state(gen)`` and ``step(state, batch,
@@ -202,9 +220,11 @@ def build_elastic_programs(plan: TrainPlan, model: Model,
         model, optimizer, get_exchanger(plan.exchanger), lr_fn, tr,
         algo=plan.algo, alpha=plan.alpha, bucket_bytes=plan.bucket_bytes,
         quorum=True)
-    return ElasticPrograms(plan, tr, tr.world_k, local, sync,
-                           lambda gen: init_async_state(model, optimizer,
-                                                        gen))
+    return ElasticPrograms(
+        plan, tr, tr.world_k, profile.instrument("train/local", local),
+        profile.instrument("train/sync", sync, coll_bytes=_wire_bytes(
+            plan, tr.k, "bytes_per_exchange")),
+        lambda gen: init_async_state(model, optimizer, gen))
 
 
 def build_engine(plan: TrainPlan, model: Model, optimizer: Optimizer,
@@ -226,8 +246,8 @@ def build_engine(plan: TrainPlan, model: Model, optimizer: Optimizer,
                              "pass a process group, not a two-level "
                              "transport")
         specs = fsdp_shardings(abstract_params(model), tr.k)
-        gstep = make_gspmd_step(model, optimizer, lr_fn, specs, tr,
-                                mode=plan.mode)
+        gstep = profile.instrument("train/step", make_gspmd_step(
+            model, optimizer, lr_fn, specs, tr, mode=plan.mode))
 
         def step_g(state, batch, gen=None, timer=None, step_idx: int = 0):
             return gstep(state, batch, gen, timer)
@@ -240,6 +260,9 @@ def build_engine(plan: TrainPlan, model: Model, optimizer: Optimizer,
         local, sync = make_async_step(
             model, optimizer, ex, lr_fn, tr, algo=plan.algo,
             alpha=plan.alpha, bucket_bytes=plan.bucket_bytes)
+        local = profile.instrument("train/local", local)
+        sync = profile.instrument("train/sync", sync, coll_bytes=_wire_bytes(
+            plan, tr.k, "bytes_per_exchange"))
 
         def astep(state, batch, gen=None, timer=None, step_idx: int = 0):
             fn = sync if engine.is_sync(step_idx) else local
@@ -249,11 +272,12 @@ def build_engine(plan: TrainPlan, model: Model, optimizer: Optimizer,
                                                            gen), astep, tr)
         return engine
     sharded = bool(plan.sharded_update or plan.overlap)
-    bstep = make_bsp_step(
+    bstep = profile.instrument("train/step", make_bsp_step(
         model, optimizer, ex, lr_fn, tr, scheme=plan.scheme,
         microbatches=plan.microbatches,
         bucket_bytes=plan.bucket_bytes, sharded_update=plan.sharded_update,
-        overlap=plan.overlap)
+        overlap=plan.overlap, grad_norm=telemetry_config().grad_norm),
+        coll_bytes=_wire_bytes(plan, tr.k, "bytes_per_step"))
 
     def step(state, batch, gen=None, timer=None, step_idx: int = 0):
         return bstep(state, batch, gen, timer)

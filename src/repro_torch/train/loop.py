@@ -17,12 +17,26 @@ the JAX loop's names:
   ``train/fwd_bwd_time_s``, ``train/exchange_time_s`` and
   ``train/update_time_s`` (CUDA events on the card, read at flushes);
 - gauges ``train/loss``, ``train/lr``, ``train/examples_per_s`` at flush
-  boundaries and ``exchange/bytes_per_step``;
+  boundaries and ``exchange/bytes_per_step``; at flush boundaries also
+  ``train/model_flops_s`` (6·N·D of this rank's steady tokens a second,
+  ``roofline.analysis.model_flops_6nd``; k ranks sharing one card give
+  the card the sum), ``train/mfu`` when ``REPRO_PEAK_FLOPS`` names the
+  device peak, ``train/grad_norm`` when telemetry's ``grad_norm`` knob
+  is on (unsharded bsp) and ``train/device_mem_bytes``
+  (``torch.cuda.memory_allocated``; absent on the CPU);
 - infos ``train/plan`` and ``exchange/config``;
 - the ``anomaly/train_step_time/{spikes,regressions}`` counters of a
   ``StreamDetector`` over the steady steps' host times;
 - spans ``train/data``, ``train/step`` and ``train/checkpoint`` in the
-  process's trace.
+  process's trace;
+- per-program attribution (``telemetry.profile``): the engine's programs
+  count their first call (``train/step``, or ``train/local`` /
+  ``train/sync``), each later call of a program it has seen joins its
+  profile through ``profile.observe``, and after the first step, in a
+  ``profile/exchange_halves`` span, the exchange's reduce-scatter and
+  all-gather halves are counted alone (``exchange/rs``, ``exchange/ag``;
+  every rank runs them: they are collectives) and timed twice more when
+  the gradients take at most 256 MiB.
 
 Losses stay on the device between flushes: one host sync every
 ``log_every`` steps. An async plan's local step reports this worker's own
@@ -47,6 +61,7 @@ steps. An async state's ``center`` is saved and restored with the rest.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -57,14 +72,20 @@ from repro_torch.checkpoint.ckpt import (rank_dir, restore_for_resume,
                                         save_checkpoint)
 from repro_torch.core.bsp import PHASES, KindStats, PhaseTimer
 from repro_torch import telemetry
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, count_params
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.telemetry import anomaly, trace
+from repro_torch.roofline.analysis import model_flops_6nd
+from repro_torch.telemetry import anomaly, profile, trace
+from repro_torch.telemetry import metrics as tel_metrics
 from repro_torch.telemetry.registry import Registry
-from repro_torch.train.engine import TrainPlan, build_engine
+from repro_torch.train.engine import Engine, TrainPlan, build_engine
+from repro_torch.tree import leaves
 
 # when logging is off, losses still move to the host in bounded windows
 _FLUSH_CAP = 100
+# the exchange halves are timed beyond their counted call only up to this
+# many bytes of gradients (the reference's cap)
+_HALF_TIMING_CAP_BYTES = 256 << 20
 
 
 @dataclass
@@ -112,6 +133,86 @@ def _batch_counts(batch: dict, k: int) -> tuple[int, int]:
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _count_params(model: Model, plan: TrainPlan, params) -> int:
+    """N of 6·N·D: the model's parameters (a gspmd rank holds shards, so
+    its count comes from the model's shapes)."""
+    if plan.algo == "gspmd":
+        from repro_torch.core.gspmd import abstract_params
+        params = abstract_params(model)
+    return count_params(params)
+
+
+def _all_ranks_ok(tr, ok: bool) -> bool:
+    """Whether ``ok`` holds on every rank of the transport (its pod, and
+    across pods on a two-level one): one all-reduce of a flag. A
+    collective."""
+    if tr.world_k == 1:
+        return ok
+    flag = torch.tensor([1 if ok else 0], dtype=torch.int32)
+    if tr.backend == "nccl":              # NCCL reduces card tensors
+        flag = flag.cuda()
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=tr.group)
+    if tr.lead is not None:
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=tr.lead.group)
+    return bool(flag.item())
+
+
+def _profile_exchange_halves(engine: Engine, plan: TrainPlan,
+                             params) -> None:
+    """Per-half exchange attribution: the halves of
+    ``exchanger.half_programs`` run alone on zeros, each counted once
+    (``exchange/rs``, ``exchange/ag``, with ``wire_summary``'s bytes as
+    their collective bytes) with that call timed as its ``compile/*``
+    gauge, and, when the gradients take at most
+    ``_HALF_TIMING_CAP_BYTES``, twice more into their profiles; their
+    memory goes back to the card after. A collective: every rank calls
+    it at the same step. The ranks first agree that every one of them
+    built the halves and their inputs (a failure there, such as running
+    out of memory, is a capture error and every rank skips the halves
+    together); a fault inside the halves' collectives propagates, since
+    the ranks' collectives would fall out of step."""
+    from repro_torch.core.exchanger import (get_exchanger, half_programs,
+                                            wire_summary)
+    ex = get_exchanger(plan.exchanger)
+    if ex.kind == "none":
+        return
+    tr = engine.transport
+    try:
+        rs_fn, ag_fn, grads, shards, rsplan = half_programs(
+            ex, params, tr, bucket_bytes=plan.bucket_bytes)
+        ws = wire_summary(ex, rsplan,
+                          param_ag=bool(plan.sharded_update or plan.overlap))
+    except Exception as e:  # noqa: BLE001 — never breaks training
+        tel_metrics.counter("profile/capture_errors").inc()
+        trace.instant("profile/exchange_halves_error",
+                      error=f"{type(e).__name__}: {e}")
+        rs_fn = None
+    if not _all_ranks_ok(tr, rs_fn is not None):
+        return
+    dev = leaves(params)[0].device
+    timed = sum(g.numel() * g.element_size()
+                for g in leaves(grads)) <= _HALF_TIMING_CAP_BYTES
+    for name, fn, arg, coll in (("exchange/rs", rs_fn, grads,
+                                 ws["rs_bytes"]),
+                                ("exchange/ag", ag_fn, shards,
+                                 ws["ag_bytes"])):
+        if not leaves(arg):
+            continue
+        counted = profile.instrument(name, fn, coll_bytes=coll)
+        counted(arg)                  # counted, timed as compile/<name>_s
+        for _ in range(2 if timed else 0):
+            t0 = time.perf_counter()
+            fn(arg)
+            _sync(dev)
+            profile.observe(name, time.perf_counter() - t0)
+    # the zero gradients and the halves' buffers are needed once: hand
+    # their blocks back to the card (another rank sharing it cannot use
+    # this process's cached blocks)
+    del grads, shards
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _fleet_losses(tr, losses: list, local: list) -> list:
@@ -180,6 +281,11 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
                                          "sync_every")})
         reg.gauge("exchange/bytes_per_step").set(wire["bytes_per_step"])
     det_step = anomaly.StreamDetector("train/step_time", registry=reg)
+    g_flops = reg.gauge("train/model_flops_s")
+    n_params = _count_params(model, plan, state["params"])
+    peak_flops = float(os.environ.get("REPRO_PEAK_FLOPS", "0") or 0)
+    seen_progs: set = set()
+    device_grad_norm = None
 
     report = TrainReport(steps=start_step, metrics=reg)
     flush_every = min(log_every, _FLUSH_CAP) if log_every else _FLUSH_CAP
@@ -231,6 +337,10 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
                 step_idx=i)
         moved = [a - b for a, b in zip(tr.counters(), before)]
         device_losses.append(metrics["loss"])
+        device_grad_norm = metrics.get("grad_norm")
+        # the program this step ran (an async plan alternates local/sync)
+        prog = (("train/sync" if engine.is_sync(i) else "train/local")
+                if plan.is_async else "train/step")
         local_steps.append(plan.is_async and not engine.is_sync(i))
         b_ex, b_tok = _batch_counts(batch, k)
         n_examples += b_ex
@@ -247,6 +357,10 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
             _sync(dev)
             report.first_step_time = time.perf_counter() - t_step0
             flush()
+            seen_progs.add(prog)
+            if profile.enabled() and wire:
+                with trace.span("profile/exchange_halves"):
+                    _profile_exchange_halves(engine, plan, state["params"])
             t_steady0 = time.perf_counter()
             steady_base_ex, steady_base_tok = n_examples, n_tokens
             tr_base = tr.counters()
@@ -255,6 +369,12 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
             t_now = time.perf_counter()
             h_step.observe(t_now - t_iter0)
             det_step.observe(t_now - t_step0)
+            # a program's own first call (train/sync first runs at step
+            # tau - 1) carried its one-time costs: keep it out of its mean
+            if prog in seen_progs:
+                profile.observe(prog, t_now - t_step0)
+            else:
+                seen_progs.add(prog)
             timers.append((timer, (("sync" if engine.is_sync(i) else "local")
                                    if plan.is_async else None), moved))
         last = i == num_steps - 1
@@ -263,9 +383,20 @@ def train(model: Model, optimizer: Optimizer, lr_fn, batches,
             print_fn(f"step {i:5d}  loss {loss:.4f}")
             g_loss.set(loss)
             g_lr.set(float(lr_fn(i)))
+            if device_grad_norm is not None:
+                reg.gauge("train/grad_norm").set(float(device_grad_norm))
             steady_t = time.perf_counter() - t_steady0
             if steady_t > 0 and n_examples > steady_base_ex:
                 g_exps.set((n_examples - steady_base_ex) / steady_t)
+                flops_s = model_flops_6nd(
+                    n_params, (n_tokens - steady_base_tok) / k,
+                    "train") / steady_t
+                g_flops.set(flops_s)
+                if peak_flops > 0:
+                    reg.gauge("train/mfu").set(flops_s / peak_flops)
+            if dev.type == "cuda":
+                reg.gauge("train/device_mem_bytes").set(
+                    torch.cuda.memory_allocated(dev))
             telemetry.flush(force=False)
         elif len(device_losses) >= flush_every:
             flush()

@@ -48,11 +48,27 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.train.serve, repro_torch.fault, "
             "repro_torch.fault.smoke, repro_torch.telemetry.report, "
             "repro_torch.telemetry.validate, repro_torch.models.ssm, "
-            "repro_torch.models.transformer, repro_torch.serve.cache; "
+            "repro_torch.models.transformer, repro_torch.serve.cache, "
+            "repro_torch.roofline, repro_torch.telemetry.profile; "
             "from repro_torch import kernels; "
             "assert not any(m.split('.')[0] in ('jax', 'repro') "
             "for m in sys.modules), sorted(sys.modules); "
             "assert not kernels._libs")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def test_kernels_do_not_import_the_roofline_layer():
+    """The kernel layer reports its costs through ``kernels.cost`` and
+    carries its own analytic attention cost: the roofline layer imports
+    the kernels, never the other way round."""
+    code = ("import sys, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.slot_gather, repro_torch.kernels.chunk_sum, "
+            "repro_torch.kernels.quantize, repro_torch.kernels.fused_sgd, "
+            "repro_torch.kernels.fused_rs_update; "
+            "assert 'repro_torch.roofline' not in sys.modules, "
+            "sorted(m for m in sys.modules if m.startswith('repro_torch'))")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)

@@ -594,3 +594,43 @@ def gspmd_worker(rank, k, out_dir, cfg):
             torch.equal(x, y) if torch.is_tensor(x) else x == y
             for x, y in zip(a, b)))
     torch.save(res, os.path.join(out_dir, f"gspmd{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# the exchange halves' attribution on k ranks
+# ---------------------------------------------------------------------------
+
+def halves_worker(rank, k, out_dir, fail_rank):
+    """Two steps of smoke llama3.2-1b (asa16, sharded) with profiling on;
+    on ``fail_rank`` building the exchange halves fails. Writes whether
+    each half was counted and the rank's capture errors."""
+    import json
+
+    from repro_torch import telemetry
+    from repro_torch.data.synthetic import LMTokenSource
+    from repro_torch.telemetry import metrics, profile
+    from repro_torch.train import loop
+    from repro_torch.train.engine import TrainPlan
+
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    telemetry.configure(profile=True)
+    if rank == fail_rank:
+        def broken(*a, **kw):
+            raise MemoryError("no room for the zero gradients")
+        tex.half_programs = broken
+    cfg = get_smoke_config("llama3.2-1b").with_overrides(dtype="float32")
+    model = build_model(cfg, "cpu")
+    src = LMTokenSource(cfg.vocab_size, 16)
+    batches = [{n: torch.from_numpy(v) for n, v in
+                src.batch(2, j * k + rank).items()} for j in range(2)]
+    _, rep = loop.train(model, topt.sgd_momentum(), tsched.constant(0.01),
+                        batches, plan=TrainPlan(exchanger="asa16",
+                                                sharded_update=True),
+                        num_steps=2, log_every=0, print_fn=lambda *a: None)
+    out = {"losses": rep.losses,
+           "counted": {n: bool(profile.get(n) and profile.get(n).captured)
+                       for n in ("exchange/rs", "exchange/ag")},
+           "errors": metrics.counter("profile/capture_errors").value}
+    with open(os.path.join(out_dir, f"halves{rank}.json"), "w") as f:
+        json.dump(out, f)

@@ -9,8 +9,8 @@ held to its original on the same inputs.
   reference's pass the port's;
 - anomaly: ``StreamDetector`` and ``FleetDetector`` flag the same
   observations of seeded streams;
-- profile: the same gauges and summary from the same observations;
-  ``capture`` and ``roofline`` refuse by name (no cost model yet);
+- profile: the same gauges and summary from the same observations (the
+  cost capture and roofline: ``tests/test_torch_attribution.py``);
 - the one switch: ``REPRO_TELEMETRY=0`` makes every accessor, the span
   trace and the detectors no-ops;
 - the trace's Chrome export, the report and the validate CLI.
@@ -399,14 +399,6 @@ def test_profile_gauges_same():
     t = _drive_profile(ttel, tprofile)
     assert t == j
     assert t[2]["profile/train_sync/calls"] == 2.0
-
-
-def test_profile_capture_and_roofline_refuse_by_name():
-    with pytest.raises(NotImplementedError, match="roofline slice"):
-        tprofile.capture("train/step", lambda x: x, 1)
-    tprofile.observe("train/step", 0.1)
-    with pytest.raises(NotImplementedError, match="roofline slice"):
-        tprofile.get("train/step").roofline()
 
 
 def test_profile_instrument_times_the_first_call():
