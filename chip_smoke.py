@@ -5,6 +5,7 @@
     python3 chip_smoke.py gspmd      # the build, then phase 13 alone
     python3 chip_smoke.py encdec     # the build, then phase 14 alone
     python3 chip_smoke.py roofline   # the build, then phase 15 alone
+    python3 chip_smoke.py archs      # the build, then phase 16 alone
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. In order:
@@ -62,8 +63,9 @@ and the CUDA toolkit. In order:
    ``page_size=0`` pass reaches the contiguous ``flash_decode``. Three
    prompts' teacher-forced prefill and decode logits through the kernels
    are held to the einsum path, each printed beside its distance from
-   the kernels in fp32. Then the same for full qwen1.5-4b (40
-   layers, d_model 2560, 20 heads of 128 over 20 KV heads, QKV bias,
+   the kernels in fp32. Then the same for qwen1.5-4b at full width cut
+   to 20 of its 40 layers (d_model 2560, 20 heads of 128 over 20 KV
+   heads, QKV bias,
    vocab 151,936): the flash kernels at head dim 128 and G = 1.
    The flash backward's two kernels (dq, and dk/dv) are held to their
    plain version at the LM training shapes (B 4, S 1024, 32 heads over 8,
@@ -84,7 +86,7 @@ and the CUDA toolkit. In order:
    ``ImageSource`` images through the ``ParallelLoader`` (235 px cropped
    to 227), momentum SGD 0.9, weight decay 5e-4, the launcher's
    ``recipe`` (``warmup_cosine``) as for every convnet. Three
-   runs of 8 steps: (a) ``asa16`` with the sharded update (the
+   runs of 4 steps: (a) ``asa16`` with the sharded update (the
    ``fused_rs_update`` kernel), (b) ``asa16`` unsharded with
    ``sgd_momentum(fused_kernel=fused_sgd)`` (``chunk_sum``, the fp16
    casts, ``fused_sgd``), (c) ``asa8`` sharded (the int8 variant). Each
@@ -94,17 +96,17 @@ and the CUDA toolkit. In order:
    must equal one step of a group of one on the whole batch.
    The same phase trains the paper's GoogLeNet (224 px, 1000 classes,
    both aux heads, 11,543,272 parameters; batch 32 a rank): (a) ``asa16``
-   sharded with the fused tail, 6 steps, (b) ``ring16`` unsharded with
-   ``fused_sgd``, 4 steps, and the k=2 = k=1 check to 1e-7; and VGG-16
+   sharded with the fused tail, 3 steps, (b) ``ring16`` unsharded with
+   ``fused_sgd``, 2 steps, and the k=2 = k=1 check to 1e-7; and VGG-16
    (224 px, 138,357,544 parameters; batch 16 a rank): ``asa16`` sharded,
-   3 steps. Each prints its rate, step split, staging and peak memory a
+   2 steps. Each prints its rate, step split, staging and peak memory a
    rank; its launches must equal the prediction.
-6. LM train: BSP training of full llama3.2-1b (16 layers, 1,235,814,400
-   parameters, bf16 compute over fp32 masters, remat) on k=2 gloo ranks
-   sharing the card: batches of 4 x 1024 ``LMTokenSource`` tokens a rank
+6. LM train: BSP training of llama3.2-1b at full width cut to 4 of its
+   16 layers (505,956,352 parameters, bf16 compute over fp32 masters,
+   remat) on k=2 gloo ranks sharing the card: batches of 4 x 1024 ``LMTokenSource`` tokens a rank
    through the ``ParallelLoader``, ``asa16`` with the sharded update (the
    fused RS tail), momentum SGD 0.9, weight decay 1e-4, ``warmup_cosine``,
-   6 steps, per-program attribution on (the launcher's default, so the
+   4 steps, per-program attribution on (the launcher's default, so the
    exchange halves run after the first step) and ``REPRO_PEAK_FLOPS``
    set. The launch counts (flash forward twice a layer and step under
    remat, dq and dk/dv once, the wire and update kernels as the bucket
@@ -126,18 +128,19 @@ and the CUDA toolkit. In order:
    card, full-width models with random weights from a seeded
    generator: ``easgd`` at alpha 0.5 and tau 1, 2, 4 and
    ``asgd`` at tau 2 on full AlexNet (k = 2, 128 images a rank, the
-   centre on ``asa16``, ``fused_sgd`` every step), 8 steps each, each
+   centre on ``asa16``, ``fused_sgd`` every step), 4 steps each, each
    printed with images/s, the mean local and sync step (its exchange and
    staging) and the engine's wire bytes a step; the exchange kernels must
    launch on the sync steps alone, as the bucket plan predicts, and a
    local step must move no staged byte. ``overlap="buckets"`` (2
    microbatches) beside the microbatched sharded step on full AlexNet (2
-   x 64 images, 8 steps) and full llama3.2-1b (2 x (2 x 1024) tokens, 3
-   steps), each with its step split, the exposed exchange (the timer's
-   exchange and the host's wait) against the collectives' whole time,
+   x 64 images, 4 steps) and llama3.2-1b at full width cut to 2 of its 16
+   layers (2 x (2 x 1024) tokens, 2 steps), each with its step split, the
+   exposed exchange (the timer's exchange and the host's wait) against
+   the collectives' whole time,
    staged MB, rate and launches (m x the RS kernels, one
    fused_rs_update a bucket). ``hier16`` sharded and ``hier`` unsharded
-   on full AlexNet, 4 ranks as 2 pods of 2, 32 images a rank, 4 steps,
+   on full AlexNet, 4 ranks as 2 pods of 2, 32 images a rank, 2 steps,
    the cross-pod leg's time apart. At the smoke config (fp32, cuDNN
    off): ``asgd`` at tau 1 equals BSP at k x the lr (rtol 1e-5, atol
    1e-6), an ``easgd`` tau-2 run saved at step 3 and resumed to 6 equals
@@ -216,13 +219,14 @@ and the CUDA toolkit. In order:
    each leaf's gradient within GRAD_TOL, the routed experts' and the
    router's within MOE_GRAD_TOL; (c) BSP training of that cut on k = 2
    gloo ranks sharing the card, bf16 over fp32 masters with remat, 2 x
-   1024 tokens a rank, ``asa16`` sharded, 4 steps: launches equal to the
+   1024 tokens a rank, ``asa16`` sharded, 2 steps: launches equal to the
    prediction (the MLA forward twice a layer and step, dq, dk/dv and
    its reduction once, the wire and update kernels as the bucket plan
    says), losses and the
    MoE aux finite, the aux above 0; tokens/s, the step split and peak
-   memory a rank printed; (d) the full model (27 layers, 16,156,309,504
-   parameters, random bf16 weights from a seeded generator on the card)
+   memory a rank printed; (d) the model at full width cut to 9 of its 27
+   layers (the dense first and 8 MoE layers, 5,317,629,952 parameters;
+   random bf16 weights from a seeded generator on the card)
    through the ``Engine`` with phase 4's traffic, the decode's MoE drop-
    free: decode tok/s, p50/p99, one decode step's host ms and device
    operations, peak memory; ``slot_gather_sample`` must launch, request 0
@@ -238,14 +242,16 @@ and the CUDA toolkit. In order:
    its plain version and timed beside SDPA and its bound (phase 3 holds
    the sampler at Hymba's vocab of 32,001, the scalar loads, and
    Mamba2's 50,280, at the decode's (8, 1, V) and the prefill tails'
-   (1, 32 or 128, V)); (a) full mamba2-1.3b (48 SSD blocks,
-   1,446,714,368 parameters, random bf16 weights from a seeded
+   (1, 32 or 128, V)); (a) mamba2-1.3b at full width cut to 24 of its
+   48 SSD blocks (826,331,648 parameters), random bf16 weights from a
+   seeded
    generator) through the ``Engine`` with phase 4's traffic: 8 slots of
    fp32 SSM state, no attention to page (the slot-granular pool),
    chunks rounded up to the SSD chunk of 128; decode and prefill tok/s,
    p50/p99, one decode step's host ms and device operations; only the
    sampler launches; request 8 through a reused slot equals a fresh
-   engine's; (b) full hymba-1.5b (32 layers, 1,641,179,520 parameters)
+   engine's; (b) hymba-1.5b at full width cut to 16 of its 32 layers
+   (871,894,560 parameters; layers 0 and 15 global)
    the same, its attention paged in pages of 16 beside the SSM lanes,
    no prefix cache, plus two requests of 1100-1500 prompt tokens at
    ``max_seq`` 2048 that carry the sliding layers past their window, and
@@ -262,19 +268,21 @@ and the CUDA toolkit. In order:
 
 13. Sharded (GSPMD/FSDP) training (it runs after phase 9; ``python3
    chip_smoke.py gspmd`` builds the kernels and runs it alone), on 2
-   gloo ranks sharing the card: (a) full llama3.2-1b (bf16 over fp32
+   gloo ranks sharing the card: (a) llama3.2-1b at full width cut to 2
+   of its 16 layers (bf16 over fp32
    masters, remat) on the LM phase's batches (4 x 1024 tokens a rank),
-   momentum SGD 0.9 with ``fused_sgd``, 4 steps each of gspmd ``zero1``,
+   momentum SGD 0.9 with ``fused_sgd``, 2 steps each of gspmd ``zero1``,
    gspmd ``ar`` and BSP ``asa`` with the sharded update (the fp32
    fused RS tail), each printed with tokens/s, its step split, staged MB
    a step and peak memory a rank, launches equal to the prediction;
    zero1 held to ar and to BSP (each rank on its own shards) and to
    gspmd at k=1 on the global batches (rank 0, a group of one) at
-   ``GSPMD_REL`` of the run's largest movement, and one fp32 gspmd step of each mode at the smoke
-   config, k=2 on halves vs k=1 on the batch, at ``K_TOL``; (b) full
-   qwen1.5-4b (40 layers, 3,950,369,280 parameters), gspmd zero1, 1 x
-   1024 tokens a rank, 2 steps, after a printed reckoning of what
-   replicated BSP would need against the card: its first loss held to a
+   ``GSPMD_REL`` of the run's largest movement, and one fp32 gspmd step
+   of each mode at the smoke config, k=2 on halves vs k=1 on the batch,
+   at ``K_TOL``; (b) qwen1.5-4b at full width cut to 2 of its 40 layers
+   (936,537,600 parameters), gspmd zero1, 1 x 1024 tokens a rank, 2 steps, after a
+   printed reckoning of what replicated BSP would need for the whole
+   model against the card: its first loss held to a
    k=1 forward of the same parameters, its peak memory a rank printed;
    (c) ``chunk_sum`` on the largest gather's fp32 receive and
    ``fused_sgd`` on the largest shard of each model (and at every
@@ -286,9 +294,10 @@ and the CUDA toolkit. In order:
 14. The encoder-decoder (it runs after phase 13; ``python3 chip_smoke.py
    encdec`` builds the kernels and runs it alone), seamless-m4t-large-v2
    (24 encoder and 24 decoder layers, d_model 1024, 16 heads of 64,
-   vocab 256,206, 4096 stub frames): (a) the whole model (2,034,783,232
-   parameters by ``param_count``; random fp32 masters from a seeded
-   generator, bf16 compute) decodes 4 requests: ``prefill`` runs the
+   vocab 256,206, 4096 stub frames): (a) the model at full width cut to
+   12 + 12 layers (1,279,748,096 parameters; the whole model's
+   2,034,783,232 by ``param_count`` is checked; random fp32 masters from
+   a seeded generator, bf16 compute) decodes 4 requests: ``prefill`` runs the
    encoder once and writes each layer's cross K/V (its bytes printed
    beside the reckoning), 16 prompt tokens go through ``decode_step``,
    then 32 greedy tokens, launches counted from zero around that run
@@ -304,8 +313,8 @@ and the CUDA toolkit. In order:
    bf16 and in fp32 at GRAD_TOL, in fp32 against it in fp32 at
    GRAD_TOL_FP32, every leaf printed; (c) BSP through the launcher's
    config, batches (the reference launcher's frames), loader and recipe
-   on 2 gloo ranks sharing the card, both stacks cut to 4 layers
-   (776,390,656 parameters), 2 x 1024 tokens and 2 x 4096 frames a rank,
+   on 2 gloo ranks sharing the card, both stacks cut to 2 layers
+   (650,551,296 parameters), 2 x 1024 tokens and 2 x 4096 frames a rank,
    ``asa16`` sharded, 4 steps, after a printed reckoning of the whole
    model's training state: tokens/s and frames/s, the step split, staged
    MB and peak memory a rank, launches equal to the prediction, finite
@@ -324,14 +333,14 @@ and the CUDA toolkit. In order:
    hand kernel launched at its PERF.md §6 shape under a ``CostMode``: the
    counted flops and bytes equal its cost function's, whose bound equals
    the table's to the digits the table shows; (c) phase 6's profiled
-   run of full llama3.2-1b (2 gloo ranks, 4 x 1024 tokens a rank,
-   ``asa16`` sharded, 6 steps, ``REPRO_PEAK_FLOPS`` set; standalone, phase
-   6 runs first): ``profile/train_step/*`` with 5 calls and
+   run of llama3.2-1b at 4 layers (2 gloo ranks, 4 x 1024 tokens a rank,
+   ``asa16`` sharded, 4 steps, ``REPRO_PEAK_FLOPS`` set; standalone, phase
+   6 runs first): ``profile/train_step/*`` with 3 calls and
    ``compile/train_step_s``, the exchange halves (``exchange/rs``,
    ``exchange/ag``) counted and timed, the gauges ``train/model_flops_s``
    and ``train/mfu``, the step's count between 6·N·D and 1.1 (8·N·D +
    the attention kernels' flops); then the same run with profiling off:
-   its six losses bit for bit phase 6's, its launches the prediction
+   its four losses bit for bit phase 6's, its launches the prediction
    without the halves, no profile left; (d)
    full llama3.2-1b served with phase 4's traffic: ``serve/decode_step``
    and ``serve/prefill_chunk`` counted with the decode's, the combine's
@@ -343,6 +352,38 @@ and the CUDA toolkit. In order:
    program's first call is its counted call, and each training run that
    exchanges runs the exchange halves alone after its first step, whose
    launches its prediction counts (``_halves_launches``).
+16. Every assigned decoder on the card (it runs last; ``python3
+   chip_smoke.py archs`` builds the kernels and runs it alone), at full
+   width with random weights from a seeded generator, each run after a
+   printed reckoning of its memory: (a) minitron-8b whole (32 layers,
+   vocab 256,000, 32 heads over 8), mistral-large-123b at 12 of 88 layers
+   (vocab 32,768, 96 heads over 8: G 12) and llama4-scout-17b-a16e at 6
+   of 48 (top-1 MoE over 16 experts and a shared one, vocab 202,048, 40
+   over 8: G 5), bf16, through the ``Engine`` with phase 4's traffic:
+   every kernel of the path launched (counts zeroed around the run), the
+   sampler at (8, 1, V) and (1, 32, V) alone, a short ``page_size=0``
+   pass that reaches ``flash_decode``, decode tok/s, p50/p99, one decode
+   step's host ms and device operations, the peak; the teacher-forced
+   check (``check_flash_vs_ref``; its fp32 runs take the weights cast to
+   fp32 through the host); (d) llama4-scout's gradient check at 1 layer
+   with 1024 image embeddings before 512 tokens (two ranks do not hold
+   it); (c) on 2 gloo ranks sharing the card, one spawn, through the
+   launcher's config, batch files, loader and recipe: mamba2-1.3b and
+   hymba-1.5b BSP ``asa16`` sharded (2 x 1024 tokens a rank, 2 steps),
+   minitron-8b, mistral-large-123b and chameleon-34b gspmd ``zero1`` (1 x
+   1024 tokens a rank, 2 steps), each at the most layers up to half the
+   model's (BSP) or 2 (gspmd) whose reckoning for the two ranks stays at
+   or under 75 GB: finite losses, launches equal to the prediction, the first loss within GSPMD_LOSS_RTOL of a k=1
+   forward's on the global batch (bit for bit or not printed), the peak a
+   rank beside the reckoning, tokens/s and
+   the step split; (b) the kernels at these shapes held to their plain
+   versions and timed: the serve chunk and both decodes (with the
+   combine) at each served model's heads, the sampler bit for bit at
+   each served vocab, the flash forward, dq and dk/dv at the gspmd
+   training shapes (1 x 1024, 32/8 and 96/8) and llama4-scout's gradient
+   check (1 x 1536, 40/8), two backward calls bitwise equal, and the
+   training kernels at (c)'s largest receive, shard and bucket, then at
+   every shard and bucket bit for bit.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -384,6 +425,8 @@ FP32_LOGIT_TOL = 1e-3  # teacher-forced logits, the kernels vs the plain
                        # 2.1e-6 (qwen), 2.5e-6 (hymba), 7.3e-6 (mamba2),
                        # while bf16 alone moves the logits 0.013-0.05 of
                        # the largest (the control, printed beside it)
+QWEN_SERVE_LAYERS = 10  # qwen1.5-4b's engine run: full width, a quarter
+                        # of its 40 layers (the script has 1200 s)
 QWEN_GRAD_LAYERS = 4  # qwen1.5-4b's gradient check: full width, depth cut
                       # from 40 to 4 layers (three models' gradients of the
                       # 151,936 x 2560 embedding and head fit beside the
@@ -422,9 +465,10 @@ GRAD_TOL = 5e-2       # each leaf's gradient there, relative Frobenius error:
 GRAD_TOL_FP32 = 1e-3  # the same in fp32, kernels vs einsum attention: only
                       # the order of the sums differs, so a kernel fault
                       # shows far above it
-LM_STEPS = 6          # steps of the LM training run
+LM_STEPS = 4          # steps of the LM training run
 LM_BATCH, LM_SEQ = 4, 1024   # sequences of tokens per rank and step
-LM_PARAMS = 1_235_814_400    # llama3.2-1b with tied embeddings
+LM_LAYERS = 4                # of llama3.2-1b's 16, full width (the script
+LM_PARAMS = 505_956_352      # has 1200 s); tied embeddings
 
 
 def _fail(msg: str):
@@ -812,12 +856,13 @@ def _shape_key(name: str, shape) -> str:
     return f"{name} {tuple(shape)}"
 
 
-def _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev="cuda"):
+def _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev="cuda",
+                   count_ops=True):
     """slot_gather_sample at (S_, C, V) on the card held bit for bit to
     its plain version (half the slots greedy, half at temperature 0.8),
-    shown to be one operation on the card, and timed beside it and beside
-    an argmax of the selected rows. The plan (CL blocks a slot, slice)
-    comes with it."""
+    with ``count_ops`` shown to be one operation on the card, and timed
+    beside it and beside an argmax of the selected rows. The plan (CL
+    blocks a slot, slice) comes with it."""
     tiny = torch.finfo(torch.float32).tiny
     lg = torch.randn(S_, C, V, generator=g, device=dev).to(torch.bfloat16)
     sel = torch.randint(0, C, (S_,), generator=g, device=dev)
@@ -830,7 +875,8 @@ def _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev="cuda"):
     if not (torch.equal(gk, gr) and torch.equal(sk, sr)):
         _fail(f"slot_gather_sample ({S_}, {C}, {V}) differs from plain")
     call = lambda: sg.slot_gather_sample(lg, oh, T, nz)  # noqa: E731
-    ops = None if dev == "cpu" else _device_ops(torch, call)
+    ops = None if dev == "cpu" or not count_ops else _device_ops(torch,
+                                                                   call)
     if ops not in (None, 1):
         _fail(f"slot_gather_sample ({S_}, {C}, {V}) runs {ops} operations "
               f"on the card, not one kernel")
@@ -1334,8 +1380,30 @@ def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
     return launches, stats
 
 
+def _map_in_place(tree, fn):
+    """Replaces each leaf of a tree of dicts and lists by ``fn(leaf)``, one
+    leaf at a time."""
+    for key, v in list(tree.items() if isinstance(tree, dict)
+                       else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            _map_in_place(v, fn)
+        else:
+            tree[key] = fn(v)
+
+
+def _float_in_place(torch, tree, dev):
+    """Casts a tree's leaves to fp32 on ``dev`` in place: every leaf to the
+    host first, then each back in fp32, so the card never holds the served
+    dtype's blocks beside the fp32 ones (casting leaf by leaf on the card
+    left 12 GB of freed bf16 blocks that no fp32 leaf fit)."""
+    _map_in_place(tree, lambda t: t.cpu())
+    if str(dev) != "cpu":
+        torch.cuda.empty_cache()
+    _map_in_place(tree, lambda t: t.to(dev).float())
+
+
 def check_flash_vs_ref(torch, cfg, models, params, prompts, dev,
-                       logit_tol=None, chunk=32):
+                       logit_tol=None, chunk=32, consume=False):
     """Teacher-forced prefill (chunks of ``chunk``) + 4 decode steps of
     each prompt on a paged pool (pages of 16, SSM lanes one a slot),
     through the kernels and through a plain route, each in the served
@@ -1347,20 +1415,32 @@ def check_flash_vs_ref(torch, cfg, models, params, prompts, dev,
     above rounding), and in the served dtype at ``logit_tol`` or, where it
     is None, at twice the plain route's own distance from its fp32 run
     (the control: two paths each that far from fp32 lie at most twice
-    that far apart)."""
+    that far apart). With ``consume`` the fp32 runs take ``params`` cast
+    to fp32 in place after the served dtype's runs (a model whose weights
+    fit the card in bf16 but not in both dtypes); the caller holds no
+    other reference to its leaves."""
     from repro_torch.configs.base import with_attn_impl
     from repro_torch.tree import flatten, unflatten
-    leaves, treedef = flatten(params)
-    p32 = unflatten(treedef, [t.float() for t in leaves])
-    del leaves
+
+    def fp32_params():
+        if consume:
+            _float_in_place(torch, params, dev)
+            return params
+        leaves, treedef = flatten(params)
+        return unflatten(treedef, [t.float() for t in leaves])
     c32 = cfg.with_overrides(dtype="float32")
     attn = cfg.attention is not None
     runs = {"kernels": (with_attn_impl(cfg, "flash"), params),
             "plain": (with_attn_impl(cfg, "ref"), params),
-            "kernels_fp32": (c32, p32),
-            "plain_fp32": (with_attn_impl(c32, "ref"), p32)}
+            "kernels_fp32": (c32, None),
+            "plain_fp32": (with_attn_impl(c32, "ref"), None)}
     outs = {impl: [] for impl in runs}
+    p32 = None
     for impl, (c, ps) in runs.items():
+        if ps is None:
+            if p32 is None:
+                p32 = fp32_params()
+            ps = p32
         m = models.build_model(c, dev)
         for prompt in prompts:
             n = len(prompt)
@@ -1806,13 +1886,13 @@ def _plus(*counts) -> dict:
 # batch, and to what bound.
 TRAIN_ARCHS = {
     "alexnet": dict(params=60_965_224, batch=128,
-                    runs=(("a", "asa16", True, 8), ("b", "asa16", False, 8),
-                          ("c", "asa8", True, 8)), k_tol=K_TOL),
+                    runs=(("a", "asa16", True, 4), ("b", "asa16", False, 4),
+                          ("c", "asa8", True, 4)), k_tol=K_TOL),
     "googlenet": dict(params=GOOGLENET_PARAMS, batch=32,
-                      runs=(("a", "asa16", True, 6),
-                            ("b", "ring16", False, 4)), k_tol=K_TOL_GOOGLENET),
+                      runs=(("a", "asa16", True, 3),
+                            ("b", "ring16", False, 2)), k_tol=K_TOL_GOOGLENET),
     "vggnet": dict(params=138_357_544, batch=16,
-                   runs=(("a", "asa16", True, 3),), k_tol=None),
+                   runs=(("a", "asa16", True, 2),), k_tol=None),
 }
 
 
@@ -1929,26 +2009,46 @@ def _train_rank(rank, k, out_dir, device, smoke, arch="alexnet"):
         json.dump(out, f)
 
 
-def train_phase(device="cuda:0", smoke=False, arch="alexnet"):
-    """Spawns the k=2 rank processes of ``arch`` and checks what they
-    report; returns rank 0's launches summed over its runs, and its
-    (padded, shard) bucket shapes with the leaf and shard shapes that
-    fused_sgd updates."""
+def _train_ranks(rank, k, out_dir, device, smoke, archs):
+    """Every convnet of ``archs`` on this rank, one after the other in one
+    process (a spawn a model cost ~10 s of start-up each); each writes
+    into its own directory."""
+    import os
+    for arch in archs:
+        sub = os.path.join(out_dir, arch)
+        os.makedirs(sub, exist_ok=True)
+        _train_rank(rank, k, sub, device, smoke, arch)
+
+
+def train_phase(device="cuda:0", smoke=False, archs=tuple(TRAIN_ARCHS)):
+    """Spawns the k=2 rank processes once for every convnet of ``archs``
+    and checks what they report; returns, per arch, rank 0's launches
+    summed over its runs, and its (padded, shard) bucket shapes with the
+    leaf and shard shapes that fused_sgd updates."""
     import tempfile
 
     from repro_torch.launch.train import run_ranks
     k = 2
-    spec = TRAIN_ARCHS[arch]
     with tempfile.TemporaryDirectory() as td:
         t0 = time.perf_counter()
-        run_ranks(_train_rank, k, (td, device, smoke, arch), backend="gloo")
+        run_ranks(_train_ranks, k, (td, device, smoke, tuple(archs)),
+                  backend="gloo")
         wall = time.perf_counter() - t0
-        ranks = [json.loads(Path(td, f"rank{r}.json").read_text())
-                 for r in range(k)]
+        reports = {arch: [json.loads(Path(td, arch, f"rank{r}.json")
+                                     .read_text()) for r in range(k)]
+                   for arch in archs}
+    print(f"convnet train phase ({', '.join(archs)}): {k} gloo ranks on "
+          f"{device}, {wall:.1f}s")
+    return {arch: _check_train(arch, ranks) for arch, ranks in
+            reports.items()}
+
+
+def _check_train(arch, ranks):
+    """One convnet's checks and prints (see :func:`train_phase`)."""
+    spec = TRAIN_ARCHS[arch]
     r0 = ranks[0]
-    print(f"{arch} train phase: {k} gloo ranks on {device}, {wall:.1f}s; "
-          f"{r0['params']:,} parameters in {r0['buckets']} buckets and "
-          f"{r0['small_leaves']} small leaves")
+    print(f"{arch}: {r0['params']:,} parameters in {r0['buckets']} buckets "
+          f"and {r0['small_leaves']} small leaves")
     total = {}
     for run, ex, sharded, steps in spec["runs"]:
         for rk in ranks:
@@ -2062,7 +2162,8 @@ def _lm_rank(rank, k, out_dir, device, smoke):
     # named for train/mfu (phase 15(c) reads the profiles)
     from repro_torch.roofline import analysis as tan
     os.environ["REPRO_PEAK_FLOPS"] = repr(tan.peaks()["flops"])
-    cfg = (get_smoke_config if smoke else get_config)("llama3.2-1b")
+    cfg = (get_smoke_config("llama3.2-1b") if smoke else get_config(
+        "llama3.2-1b").with_overrides(num_layers=LM_LAYERS))
     model = build_model(cfg, dev)
     batch, seq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
     files = write_rank_batches(cfg, rank, k, batch, LM_STEPS,
@@ -2080,7 +2181,8 @@ def _lm_rank(rank, k, out_dir, device, smoke):
     loader.stop()
     n_params = count_params(state["params"])
     if not smoke and n_params != LM_PARAMS:
-        _fail(f"llama3.2-1b has {n_params} parameters, not {LM_PARAMS:,}")
+        _fail(f"llama3.2-1b at {LM_LAYERS} layers has {n_params} "
+              f"parameters, not {LM_PARAMS:,}")
     rsplan = exchanger.make_rs_plan(state["params"], k)
     predicted = _plus(_lm_predicted(cfg, state["params"], k, cuda),
                       _halves_launches(rsplan, "asa16",
@@ -2211,18 +2313,19 @@ def lm_train_phase(device="cuda:0", smoke=False):
 
 
 # Phase 8: async (EASGD/ASGD), overlap and hier training. The runs: the
-# async plans on full AlexNet, 8 steps each, the centre on asa16; AlexNet
+# async plans on full AlexNet, 4 steps each, the centre on asa16; AlexNet
 # and llama3.2-1b with overlap="buckets" and with the microbatched sharded
 # step beside it; AlexNet on 4 ranks as 2 pods of 2.
 ASYNC_RUNS = (("easgd", 1), ("easgd", 2), ("easgd", 4), ("asgd", 2))
-ASYNC_STEPS = 8
+ASYNC_STEPS = 4
 ASYNC_RTOL, ASYNC_ATOL = 1e-5, 1e-6   # asgd at tau 1 vs BSP at k x lr, as
 #                                       the reference's tests/test_engine.py
-OVERLAP_STEPS = 8
+OVERLAP_STEPS = 4
 OVERLAP_MB = 2          # microbatches of every overlap run
-LM_OVERLAP_STEPS = 3
+LM_OVERLAP_STEPS = 2
+LM_OVERLAP_LAYERS = 2   # of llama3.2-1b's 16 (the script has 1200 s)
 HIER_PODS, HIER_K = 2, 4
-HIER_STEPS = 4
+HIER_STEPS = 2
 HIER_BATCH = 32         # images a rank
 
 
@@ -2466,9 +2569,11 @@ def _phase8_rank(rank, k, out_dir, device, smoke):
     if cuda:
         torch.cuda.empty_cache()
 
-    # --- full llama3.2-1b with and without the overlap, 2 x (2 x 1024)
-    # tokens a rank, asa16, the fused RS tail
-    lcfg = (get_smoke_config if smoke else get_config)("llama3.2-1b")
+    # --- llama3.2-1b at full width, cut to LM_OVERLAP_LAYERS, with and
+    # without the overlap, 2 x (2 x 1024) tokens a rank, asa16, the fused
+    # RS tail
+    lcfg = (get_smoke_config("llama3.2-1b") if smoke else get_config(
+        "llama3.2-1b").with_overrides(num_layers=LM_OVERLAP_LAYERS))
     lmodel = build_model(lcfg, dev)
     lbatch, lseq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
     lfiles = write_rank_batches(lcfg, rank, k, lbatch, LM_OVERLAP_STEPS,
@@ -3137,8 +3242,10 @@ DS_PARAMS = 16_156_309_504     # the tree the JAX package's init builds: its
                                # ArchConfig.param_count() (15,706,470,400)
                                # and the paper take 2816
 DS_TRAIN_LAYERS = 2            # the dense first layer and one MoE layer
+DS_SERVE_LAYERS = 5            # (d): the dense first layer and 4 MoE layers
+DS_SERVE_PARAMS = 2_909_034_496  # (of 27 layers: the script has 1200 s)
 DS_TRAIN_PARAMS = 1_102_587_904
-DS_STEPS = 4
+DS_STEPS = 2
 DS_BATCH, DS_SEQ = 2, 1024     # sequences of tokens a rank and step
 MLA_SHAPE = (2, 1024, 16, 1, 576, 512)     # B, S, H, KV, Dk, Dv
 MLA_KERNELS = ("flash_attention_mla", "flash_attention_mla_dq",
@@ -3604,8 +3711,8 @@ def _step_cost(torch, step, dev) -> dict:
 
 
 def ds_engine_phase(torch, K, cfg, models, serve, dev):
-    """(d) The full model (every layer; random weights in the compute
-    dtype from a seeded generator on ``dev``) through the Engine with
+    """(d) ``cfg`` (random weights in the compute dtype from a seeded
+    generator on ``dev``) through the Engine with
     phase 4's traffic; then a short contiguous pass, one decode step's
     cost, and the drop-free check: a greedy request served alone gives
     the tokens it got beside 7 others. Returns the paged run's
@@ -3618,8 +3725,9 @@ def ds_engine_phase(torch, K, cfg, models, serve, dev):
     n = models.count_params(params)
     print(f"{cfg.name}: init {n:,} params ({cfg.dtype}) in "
           f"{time.perf_counter() - t0:.1f}s")
-    if dev.type == "cuda" and n != DS_PARAMS:
-        _fail(f"{cfg.name} has {n} parameters, not {DS_PARAMS:,}")
+    if dev.type == "cuda" and n != DS_SERVE_PARAMS:
+        _fail(f"{cfg.name} at {cfg.num_layers} layers has {n} parameters, "
+              f"not {DS_SERVE_PARAMS:,}")
     rng = __import__("numpy").random.RandomState(0)
     lens = rng.randint(32, 513, size=16)
     prompts = [rng.randint(0, cfg.vocab_size, size=int(n_)).tolist()
@@ -3701,7 +3809,9 @@ def ds_phase(torch, ref, fa, K, models, serve, cfg_mod):
                   models, dev)
     torch.cuda.empty_cache()
     by_path = {"deepseek_train": ds_train_phase()}
-    by_path["serve_deepseek"] = ds_engine_phase(torch, K, cfg, models, serve,
+    by_path["serve_deepseek"] = ds_engine_phase(
+        torch, K, cfg.with_overrides(num_layers=DS_SERVE_LAYERS), models,
+        serve,
                                                 dev)
     left = _release_card(torch) - start_mem
     print(f"phase 11 ({DS_ARCH}): {time.perf_counter() - t0:.1f}s, "
@@ -3720,6 +3830,11 @@ CHAMELEON_ARCH = "chameleon-34b"
 MAMBA_PARAMS = 1_446_714_368   # the reference's tree: 48 SSD blocks, the
                                # embedding and an untied head
 HYMBA_PARAMS = 1_641_179_520   # 32 hybrid layers and 128 meta tokens
+# (a)/(b) serve each at full width cut to these layers (the script has
+# 1200 s): a quarter of mamba2's SSD blocks and of hymba's layers (0 and
+# 7 global, the windowed ones between)
+MAMBA_SERVE_LAYERS, MAMBA_SERVE_PARAMS = 12, 516_140_288
+HYMBA_SERVE_LAYERS, HYMBA_SERVE_PARAMS = 8, 487_252_080
 HYMBA_GRAD_LAYERS = 3          # layers 0 and 2 global, 1 on its 1024-key
                                # window, which 1024 tokens + 128 meta cut
 HYMBA_GRAD_TOKENS = 1024
@@ -3760,7 +3875,7 @@ def _phase12_requests(cfg, n_long=0):
 
 def ssm_engine_phase(torch, K, cfg, models, serve, dev, want_params,
                      max_seq, n_long=0):
-    """(a)/(b) ``cfg`` whole (random weights in the compute dtype from a
+    """(a)/(b) ``cfg`` (random weights in the compute dtype from a
     seeded generator) through the Engine: 8 slots, chunks rounded up to
     the SSD chunk, pages of 16 where the model has attention (the SSM
     lanes one a slot, no prefix cache), fused sampling. Prints the rates,
@@ -4010,7 +4125,8 @@ def phase12_kernel_rows(torch, ref, fa, flush, dev="cuda"):
 
 def ssm_phase(torch, ref, fa, K, models, serve, cfg_mod):
     """Phase 12: (e) the kernels at the new shapes, (a) mamba2-1.3b and
-    (b) hymba-1.5b served whole, each with (c) its teacher-forced and
+    (b) hymba-1.5b served at full width, depth cut, each with (c) its
+    teacher-forced and
     chunked-prefill checks, (d) the gradient checks of hymba-1.5b (3
     layers) and chameleon-34b (2 layers) at full width. Frees the card
     back to the memory it started from. Returns (kernel rows, {path:
@@ -4026,10 +4142,12 @@ def ssm_phase(torch, ref, fa, K, models, serve, cfg_mod):
     rng = np.random.RandomState(12)
     by_path = {}
     for arch, want, max_seq, n_long, lens in (
-            (MAMBA_ARCH, MAMBA_PARAMS, 1024, 0, (256, 256)),
-            (HYMBA_ARCH, HYMBA_PARAMS, HYMBA_MAX_SEQ, HYMBA_LONG,
+            (MAMBA_ARCH, MAMBA_SERVE_PARAMS, 1024, 0, (256, 256)),
+            (HYMBA_ARCH, HYMBA_SERVE_PARAMS, HYMBA_MAX_SEQ, HYMBA_LONG,
              (256, 1152))):
-        cfg = cfg_mod.get_config(arch)
+        cfg = cfg_mod.get_config(arch).with_overrides(num_layers={
+            MAMBA_ARCH: MAMBA_SERVE_LAYERS,
+            HYMBA_ARCH: HYMBA_SERVE_LAYERS}[arch])
         launches, model, params = ssm_engine_phase(
             torch, K, cfg, models, serve, dev, want, max_seq, n_long)
         by_path["serve_" + arch] = launches
@@ -4062,17 +4180,21 @@ def ssm_phase(torch, ref, fa, K, models, serve, cfg_mod):
 # phase 13: sharded (GSPMD/FSDP) training
 # ---------------------------------------------------------------------------
 
-GSPMD_STEPS = 4       # steps of each llama3.2-1b run of phase 13(a)
+GSPMD_STEPS = 2       # steps of each llama3.2-1b run of phase 13(a)
+GSPMD_LM_LAYERS = 2   # (a)'s depth cut, full width (the script has 1200 s)
+GSPMD_LM_PARAMS = 384_313_344
 GSPMD_REL = 0.05      # max |dp| between two bf16 trajectories of (a) that
                       # compute the same mean gradient in another shape or
                       # order (k=2 halves vs k=1 on the batch; zero1's
                       # all-to-all vs ar's all-reduce; gspmd vs BSP's fused
                       # RS tail), over the largest parameter movement of the
-                      # 4 steps: bf16 gradients agree to a few 2^-8 of |g|
+                      # run's steps: bf16 gradients agree to a few 2^-8 of |g|
                       # (the CPU rehearsal at the smoke config read 0.013)
 GSPMD_LOSS_RTOL = 1e-3  # their losses (the global batch's mean, bf16)
 QWEN_ARCH = "qwen1.5-4b"
 QWEN_PARAMS = 3_950_369_280
+QWEN_GSPMD_LAYERS = 2    # (b)'s depth cut, full width (the script has
+QWEN_GSPMD_PARAMS = 936_537_600     # 1200 s)
 QWEN_GSPMD_STEPS = 2
 QWEN_TOKENS = 1024    # 1 x 1024 tokens a rank
 
@@ -4167,15 +4289,19 @@ def _gspmd_rank(rank, k, out_dir, device, smoke):
             torch.cuda.synchronize()
         return state, _run_report(torch, rep, dict(K.LAUNCHES), None, cuda)
 
-    # --- (a) llama3.2-1b at full width and depth: gspmd zero1 and ar, BSP
-    # asa with the sharded update, 4 steps each on the LM phase's batches
+    # --- (a) llama3.2-1b at full width cut to GSPMD_LM_LAYERS: gspmd zero1
+    # and ar, BSP asa with the sharded update, GSPMD_STEPS each on the LM
+    # phase's batches
     cfg = get("llama3.2-1b")
+    if not smoke:
+        cfg = cfg.with_overrides(num_layers=GSPMD_LM_LAYERS)
     model = build_model(cfg, dev)
     specs = fsdp_shardings(abstract_params(model), k)
     spec_ls = leaves(specs)
     n_params = count_params(abstract_params(model))
-    if not smoke and n_params != LM_PARAMS:
-        _fail(f"llama3.2-1b has {n_params} parameters, not {LM_PARAMS:,}")
+    if not smoke and n_params != GSPMD_LM_PARAMS:
+        _fail(f"llama3.2-1b at {GSPMD_LM_LAYERS} layers has {n_params} "
+              f"parameters, not {GSPMD_LM_PARAMS:,}")
     batch, seq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
     files = write_rank_batches(cfg, rank, k, batch, GSPMD_STEPS,
                                os.path.join(out_dir, f"g{rank}"), seq=seq)
@@ -4273,10 +4399,13 @@ def _gspmd_rank(rank, k, out_dir, device, smoke):
     # --- (b) qwen1.5-4b at full width and depth, gspmd zero1, 1 x 1024
     # tokens a rank, 2 steps
     qcfg = get(QWEN_ARCH)
+    if not smoke:
+        qcfg = qcfg.with_overrides(num_layers=QWEN_GSPMD_LAYERS)
     qmodel = build_model(qcfg, dev)
     nq = count_params(abstract_params(qmodel))
-    if not smoke and nq != QWEN_PARAMS:
-        _fail(f"{QWEN_ARCH} has {nq} parameters, not {QWEN_PARAMS:,}")
+    if not smoke and nq != QWEN_GSPMD_PARAMS:
+        _fail(f"{QWEN_ARCH} at {QWEN_GSPMD_LAYERS} layers has {nq} "
+              f"parameters, not {QWEN_GSPMD_PARAMS:,}")
     qseq = 64 if smoke else QWEN_TOKENS
     qfiles = write_rank_batches(qcfg, rank, k, 1, QWEN_GSPMD_STEPS,
                                 os.path.join(out_dir, f"q{rank}"), seq=qseq)
@@ -4327,18 +4456,24 @@ def gspmd_phase(device="cuda:0", smoke=False):
     get = get_smoke_config if smoke else get_config
     specs = {}
     for key, arch in (("llama", "llama3.2-1b"), ("qwen", QWEN_ARCH)):
-        specs[key] = fsdp_shardings(abstract_params(build_model(
-            get(arch), "meta")), k)
-    # (b)'s reckoning, before the run: replicated BSP holds fp32 parameters,
-    # gradients and momentum whole on each rank; FSDP holds 1/k of the
-    # parameters and momentum at rest, and 1/k of the gradients after
-    # the backward
-    nq = sum(math.prod(s.shape) for s in leaves(specs["qwen"]))
+        cfg = get(arch)
+        if not smoke:
+            cfg = cfg.with_overrides(num_layers={
+                "llama": GSPMD_LM_LAYERS, "qwen": QWEN_GSPMD_LAYERS}[key])
+        specs[key] = fsdp_shardings(abstract_params(build_model(cfg, "meta")),
+                                    k)
+    # (b)'s reckoning, before the run, for the whole model: replicated BSP
+    # holds fp32 parameters, gradients and momentum whole on each rank;
+    # FSDP holds 1/k of the parameters and momentum at rest, and 1/k of
+    # the gradients after the backward
+    whole = fsdp_shardings(abstract_params(build_model(get(QWEN_ARCH),
+                                                       "meta")), k)
+    nq = sum(math.prod(s.shape) for s in leaves(whole))
     total = (torch.cuda.get_device_properties(0).total_memory
              if torch.cuda.is_available() else float("nan"))
     bsp_rank = 3 * nq * 4
     fsdp_rank = 3 * sum(math.prod(s.shard_shape)
-                        for s in leaves(specs["qwen"])) * 4
+                        for s in leaves(whole)) * 4
     print(f"phase 13(b) reckoning, {QWEN_ARCH} ({nq:,} parameters, fp32 "
           f"masters) on {k} ranks: replicated BSP needs parameters + "
           f"gradients + momentum = {bsp_rank / 1e9:.1f} GB a rank, "
@@ -4346,7 +4481,9 @@ def gspmd_phase(device="cuda:0", smoke=False):
           f"{total / 1e9:.1f} GB; gspmd zero1 holds {fsdp_rank / 1e9:.1f} GB "
           f"a rank of shards (parameters, momentum, gradients) before "
           f"activations, one layer's gathered parameters and the gathered "
-          f"embeddings ({k * fsdp_rank / 1e9:.1f} GB for {k})")
+          f"embeddings ({k * fsdp_rank / 1e9:.1f} GB for {k}); the run cuts "
+          f"it to {QWEN_GSPMD_LAYERS} layers at full width (phase 16 trains "
+          f"gspmd on larger trees)")
     if torch.cuda.is_available():
         free_b, total_b = torch.cuda.mem_get_info()
         print(f"phase 13: the card's free memory before the ranks start "
@@ -4392,7 +4529,7 @@ def gspmd_phase(device="cuda:0", smoke=False):
         rr = get_run(r0)
         what = {"zero1": "llama3.2-1b gspmd zero1", "ar": "llama3.2-1b "
                 "gspmd ar", "bsp": "llama3.2-1b BSP asa sharded (fp32 "
-                "wire)", "qwen": f"{QWEN_ARCH} gspmd zero1, full depth "
+                "wire)", "qwen": f"{QWEN_ARCH} gspmd zero1, full width "
                 f"({r0['qwen']['layers']} layers)"}[label]
         print(f"phase 13 run, {what}, {steps} steps: " + json.dumps(
             {key: rr[key] for key in show}))
@@ -4402,7 +4539,7 @@ def gspmd_phase(device="cuda:0", smoke=False):
                  f"; shard elements a rank {rr['shard_numel']:,} of "
                  f"{r0['qwen']['params'] if label == 'qwen' else r0['params']:,}"))
     # (a)'s parity, each rank on its own shards, against GSPMD_REL of the
-    # largest movement of that rank's parameters over the 4 steps
+    # largest movement of that rank's parameters over the GSPMD_STEPS steps
     for rk in ranks:
         za, zb = rk["zero1_vs_ar"], rk["zero1_vs_bsp_max_abs_dp"]
         tol = GSPMD_REL * rk["max_abs_step"]
@@ -4555,9 +4692,11 @@ SEAMLESS_PARAMS = 2_034_783_232   # ArchConfig.param_count(); the tree holds
 SEAMLESS_REQUESTS = 4
 SEAMLESS_PROMPT = 16              # prompt tokens forced through decode_step
 SEAMLESS_NEW = 32                 # greedy tokens after them
+SEAMLESS_DECODE_LAYERS = 12       # (a): 12 + 12 of 24 + 24 (the script
+                                  # has 1200 s)
 SEAMLESS_GRAD_LAYERS = 2          # (b): 2 encoder and 2 decoder layers
-SEAMLESS_TRAIN_LAYERS = 4         # (c): 4 + 4
-SEAMLESS_TRAIN_PARAMS = 776_390_656
+SEAMLESS_TRAIN_LAYERS = 2         # (c): 2 + 2 (the script has 1200 s)
+SEAMLESS_TRAIN_PARAMS = 650_551_296
 SEAMLESS_BATCH, SEAMLESS_TOKENS = 2, 1024   # (b), (c): a rank's sequences
 SEAMLESS_STEPS = 4
 SEAMLESS_POSITIONS = (0, 15, 32, 47)   # (d): the decode's 4 slots over
@@ -4585,7 +4724,7 @@ def _encdec_decode(torch, model, params, cache, prompt, new, forced=None):
 
 
 def encdec_decode_phase(torch, K, cfg, models, dev):
-    """(a) The whole model decoded: bf16 over fp32 masters, 4 requests of
+    """(a) ``cfg`` decoded: bf16 over fp32 masters, 4 requests of
     seeded frames, ``prefill`` (the encoder once, each layer's cross K/V),
     16 prompt tokens forced through ``decode_step``, then 32 greedy
     tokens, launches counted from zero around that run. The kernels
@@ -4984,9 +5123,10 @@ def encdec_kernel_rows(torch, ref, fa, buckets, small, flush, dev="cuda"):
 
 
 def encdec_main(torch, ref, fa, K, models, dev="cuda", smoke=False):
-    """Phase 14: (a) the whole model decoded, (b) the gradient check at
-    full width cut to 2 + 2 layers, (c) k=2 BSP at 4 + 4 layers on gloo
-    ranks sharing the card, (d) the kernels at those shapes. Frees the
+    """Phase 14: (a) the model decoded at SEAMLESS_DECODE_LAYERS, (b) the
+    gradient check at full width cut to 2 + 2 layers, (c) k=2 BSP at 2 +
+    2 layers on gloo ranks sharing the card, (d) the kernels at those
+    shapes. Frees the
     card back to the memory it started from. Returns (kernel rows, {path:
     launches})."""
     from repro_torch.configs import get_config, get_smoke_config
@@ -5003,7 +5143,10 @@ def encdec_main(torch, ref, fa, K, models, dev="cuda", smoke=False):
     if not smoke and cfg.param_count() != SEAMLESS_PARAMS:
         _fail(f"{SEAMLESS_ARCH}: param_count {cfg.param_count()} != "
               f"{SEAMLESS_PARAMS:,}")
-    by_path = encdec_decode_phase(torch, K, cfg, models, dev)
+    by_path = encdec_decode_phase(
+        torch, K, cfg if smoke else cfg.with_overrides(
+            num_layers=SEAMLESS_DECODE_LAYERS,
+            num_encoder_layers=SEAMLESS_DECODE_LAYERS), models, dev)
     if cuda:
         torch.cuda.empty_cache()
     cut = SEAMLESS_GRAD_LAYERS
@@ -5305,7 +5448,8 @@ def _roofline_rank(rank, k, out_dir, device, smoke):
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    cfg = (get_smoke_config if smoke else get_config)("llama3.2-1b")
+    cfg = (get_smoke_config("llama3.2-1b") if smoke else get_config(
+        "llama3.2-1b").with_overrides(num_layers=LM_LAYERS))
     model = build_model(cfg, dev)
     batch, seq = (2, 64) if smoke else (LM_BATCH, LM_SEQ)
     files = write_rank_batches(cfg, rank, k, batch, LM_STEPS,
@@ -5516,6 +5660,626 @@ def roofline_main(torch, ref, fa, sg, K, models, serve, cfg_mod, card,
     return rows, by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 16: every assigned decoder on the card
+# ---------------------------------------------------------------------------
+
+# (a) served at full width, arch -> layers (its bf16 parameters): minitron
+# whole; mistral and llama4-scout at the most layers whose bf16 weights
+# stay near DeepSeek-V2-Lite's whole 32.3 GB plus about 10 %
+ARCHS_SERVE = {"minitron-8b": (32, 9_882_046_464),
+               "mistral-large-123b": (12, 17_415_057_408),
+               "llama4-scout-17b-a16e": (6, 15_281_587_200)}
+LLAMA4_ARCH = "llama4-scout-17b-a16e"
+LLAMA4_GRAD_LAYERS = 1       # (d): two ranks do not fit even at 1 layer
+LLAMA4_GRAD_TOKENS = 512     # after its 1024 image embeddings
+# (c) trained on 2 gloo ranks sharing the card: (arch, algo); BSP asa16
+# sharded at 2 x 1024 tokens a rank, gspmd zero1 at 1 x 1024, 2 steps
+# each (the script has 1200 s), each at the most layers whose reckoning
+# for the two ranks stays at or under ARCHS_MEM_LIMIT
+ARCHS_TRAIN = (("mamba2-1.3b", "bsp"), ("hymba-1.5b", "bsp"),
+               ("minitron-8b", "gspmd"), ("mistral-large-123b", "gspmd"),
+               ("chameleon-34b", "gspmd"))
+ARCHS_RUN = {"bsp": (2, 1024, 2), "gspmd": (1, 1024, 2)}  # batch, seq, steps
+ARCHS_MEM_LIMIT = 75e9       # two ranks, of the card's 85.0 GB
+# gspmd runs stop at this depth where the reckoning allows more (4 layers
+# of chameleon-34b and of minitron-8b): their steps wait on gloo's
+# staging, which grows with the layers, and the script has 1200 s
+ARCHS_GSPMD_MAX_LAYERS = 2
+# BSP runs stop at half the model's layers though the reckoning holds
+# them whole (mamba2's 48 and hymba's 32 trained whole on two ranks in
+# the chip runs that PERF.md names): a step's exchange grows with them
+# the reckonings, from phase 13's measured peaks (H100 80GB HBM3): BSP asa16
+# sharded took 32.20 GB a rank for llama3.2-1b (1.236e9 parameters, 4 x 1024
+# tokens, vocab 128,256): BSP_LOGIT_B bytes a token and vocab entry (the
+# bf16 logits, their fp32 copy and its gradient: 5.25 GB there) and
+# BSP_PARAM_B bytes a parameter for the rest. gspmd zero1 took 28.57 GB a
+# rank for qwen1.5-4b: 4 B a parameter (the fp32 shards of parameters and
+# momentum at k = 2), 8 B a parameter of the embedding, the untied head and
+# the largest layer (each gathered in fp32, with its gradient buffer), and
+# GSPMD_ACT_B of activations and logits
+BSP_PARAM_B, BSP_LOGIT_B = 21.8, 10
+GSPMD_ACT_B = 6e9
+
+
+def _archs_reckoning(cfg, algo: str, layers: int, k: int = 2) -> float:
+    """Bytes a rank of ``cfg`` cut to ``layers`` layers by the reckoning
+    above, from the parameter tree's shapes (on the meta device)."""
+    from repro_torch.core.gspmd import abstract_params
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    p = abstract_params(build_model(cfg.with_overrides(num_layers=layers),
+                                    "meta"))
+    n = lambda tree: sum(t.numel() for t in leaves(tree))  # noqa: E731
+    total = n(p)
+    if algo == "bsp":
+        batch, seq, _ = ARCHS_RUN["bsp"]
+        return BSP_PARAM_B * total + BSP_LOGIT_B * batch * seq * \
+            cfg.vocab_size
+    big = n(p.get("embed", {})) + n(p.get("head", {})) + max(
+        n(lp) for lp in p["layers"])
+    return 4 * 2 / k * total + 8 * big + GSPMD_ACT_B
+
+
+def _archs_depth(cfg, algo: str, k: int = 2) -> tuple:
+    """(layers, bytes a rank, the most layers the reckoning allows): the
+    most layers up to ARCHS_GSPMD_MAX_LAYERS (gspmd) or half the config's
+    (BSP) whose reckoning for the k ranks stays at or under
+    ARCHS_MEM_LIMIT."""
+    best = None
+    for L in range(1, cfg.num_layers + 1):
+        r = _archs_reckoning(cfg, algo, L, k)
+        if k * r > ARCHS_MEM_LIMIT:
+            break
+        best = (L, r)
+    if best is None:
+        _fail(f"{cfg.name} does not fit {k} ranks at 1 layer: "
+              f"{k * _archs_reckoning(cfg, algo, 1, k) / 1e9:.1f} GB")
+    most = best[0]
+    cap = (ARCHS_GSPMD_MAX_LAYERS if algo == "gspmd" else
+           cfg.num_layers // 2)
+    if most > cap:
+        best = (cap, _archs_reckoning(cfg, algo, cap, k))
+    return best + (most,)
+
+
+def archs_engine_phase(torch, K, cfg, models, serve, dev, want_params):
+    """(a) ``cfg`` (its depth cut already applied; random weights in the
+    compute dtype from a seeded generator on ``dev``) through the Engine
+    with phase 4's traffic, after a printed reckoning of its memory:
+    every kernel of the path launched, the sampler at (8, 1, V) and (1,
+    32, V) alone; decode tok/s, p50/p99, one decode step's host ms and
+    device operations, the peak; a short contiguous pass that reaches
+    ``flash_decode``; then the teacher-forced check, the kernels held to
+    the einsum attention in fp32 at FP32_LOGIT_TOL and in bf16 at twice
+    the einsum route's distance from fp32, its fp32 runs on the
+    parameters cast in place. Returns the paths' launches."""
+    cfg = cfg.with_overrides(param_dtype=cfg.dtype)
+    cuda = dev.type == "cuda"
+    a = cfg.attention
+    es = 2
+    kv_token = 2 * cfg.num_layers * a.num_kv_heads * a.head_dim * es
+    pages = 8 * 1024 // 16 + 1
+    print(f"phase 16(a) reckoning, {cfg.name} at {cfg.num_layers} layers "
+          f"({want_params:,} parameters): bf16 weights "
+          f"{want_params * es / 1e9:.1f} GB, KV {kv_token // 1024} KiB a "
+          f"token, the paged pool {pages} pages of 16 = "
+          f"{pages * 16 * kv_token / 1e9:.2f} GB; the fp32 runs of the "
+          f"teacher-forced check {want_params * 4 / 1e9:.1f} GB")
+    model = models.build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    _sync(torch, dev)
+    n = models.count_params(params)
+    print(f"{cfg.name}: init {n:,} params ({cfg.dtype}) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    if cuda and n != want_params:
+        _fail(f"{cfg.name} has {n} parameters, not {want_params:,}")
+    prompts, sps = _phase4_requests(cfg, serve)
+    shape = dict(max_slots=8, max_seq=1024, prefill_chunk=32, page_size=16,
+                 fused_sampling=True, device=dev)
+    eng = serve.Engine(model, params, **shape)
+    del params
+    rids = [eng.submit(p, 32, sp) for p, sp in zip(prompts, sps)]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run()
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    for name in ("flash_attention", "flash_decode_paged",
+                 "flash_decode_combine", "slot_gather_sample"):
+        if launches.get(name, 0) <= 0:
+            _fail(f"{name} was not launched serving {cfg.name}")
+    shapes = {s_: c for (n_, s_), c in K.LAUNCH_SHAPES.items()
+              if n_ == "slot_gather_sample"}
+    V = cfg.vocab_size
+    if (set(shapes) - {(8, 1, V), (1, 32, V)}
+            or sum(shapes.values()) != launches["slot_gather_sample"]):
+        _fail(f"{cfg.name}: the sampler ran at {shapes}, "
+              f"{launches['slot_gather_sample']} launches in all")
+    launches.update({_shape_key("slot_gather_sample", s_): c
+                     for s_, c in shapes.items()})
+    for r in rids:
+        out = results[int(r)]
+        if len(out) != 32 or not all(0 <= t < V for t in out):
+            _fail(f"{cfg.name} request {int(r)} returned {len(out)} tokens")
+    st, al = eng.stats, eng.allocator
+    if al.hits <= 0:
+        _fail(f"{cfg.name}: the shared-prefix request took no prefix hit")
+    stats = dict(
+        params=n, layers=cfg.num_layers, requests=len(rids), wall_s=wall,
+        prefill_tokens=st.prefill_tokens, prefill_tok_s=st.prefill_tok_s(),
+        decode_steps=st.steps, decoded_tokens=st.decoded_tokens,
+        decode_tok_s=st.decode_tok_s(), prefix_hit_pages=al.hits,
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9 if cuda
+                     else None),
+        token_latency_ms={str(q): v * 1e3 for q, v in
+                          st.token_latency_percentiles().items()},
+        launches=launches)
+    print(f"engine {cfg.name} " + json.dumps(stats))
+    print(f"decode step ({cfg.name}, 8 slots, pages of 16): "
+          + json.dumps(_decode_step_cost(torch, model, eng.params, dev)))
+    # the contiguous pool: the path that reaches flash_decode
+    eng0 = serve.Engine(model, eng.params, **dict(shape, max_slots=4,
+                                                  max_seq=256, page_size=0))
+    rids0 = [eng0.submit(p[:96], 8) for p in prompts[:4]]
+    K.reset_launches()
+    res0 = eng0.run()
+    _sync(torch, dev)
+    launches["flash_decode"] = K.LAUNCHES.get("flash_decode", 0)
+    launches["flash_decode_combine"] += K.LAUNCHES.get(
+        "flash_decode_combine", 0)
+    if launches["flash_decode"] <= 0:
+        _fail(f"flash_decode was not launched by {cfg.name}'s contiguous "
+              f"engine run")
+    if any(len(res0[int(r)]) != 8 for r in rids0):
+        _fail(f"{cfg.name}: the contiguous engine run did not finish")
+    params = eng.params
+    del eng0, eng, model
+    if cuda:
+        torch.cuda.empty_cache()
+    check_flash_vs_ref(torch, cfg, models, params,
+                       [p[:64] for p in prompts if len(p) >= 64][:2], dev,
+                       consume=True)
+    return launches
+
+
+def _host_peak_gb() -> float:
+    """This process's peak resident host memory in GB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _archs_rank(rank, k, out_dir, device, smoke, cuts):
+    """One of the 2 ranks of phase 16(c) (a spawned process on ``device``:
+    cuda:0, or the CPU with smoke configs to rehearse): each of
+    ARCHS_TRAIN through the launcher's config (``cuts``: arch -> layers),
+    batch files, loader and recipe, after rank 0's k=1 forward of the
+    same parameters on the run's first global batch."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.core import exchanger
+    from repro_torch.core.gspmd import abstract_params, fsdp_shardings
+    from repro_torch.launch.train import (launch_config, rank_loader, recipe,
+                                          write_rank_batches)
+    from repro_torch.models import build_model, count_params
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+    from repro_torch.tree import leaves
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    out = {"rank": rank, "runs": {}}
+
+    def free():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            # the gloo staging's pinned blocks, which the caching host
+            # allocator keeps: one run's may not fit the next one's
+            for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+                if hasattr(torch._C, name):
+                    getattr(torch._C, name)()
+                    break
+
+    for arch, algo in ARCHS_TRAIN:
+        cfg = launch_config(dict(arch=arch, smoke=smoke, layers=cuts[arch]))
+        model = build_model(cfg, dev)
+        batch, seq, steps = ARCHS_RUN[algo]
+        seq = 64 if smoke else seq
+        files = write_rank_batches(cfg, rank, k, batch, steps,
+                                   os.path.join(out_dir, f"{arch}{rank}"),
+                                   seq=seq)
+        run = {}
+        if rank == 0:
+            # the first step's loss at k=1: the loop's initial parameters
+            # (seed 0) forward on the global batch, no gradient
+            with torch.no_grad():
+                p0 = model.init(torch.Generator(device=dev).manual_seed(0))
+                loss1, _ = model.loss_fn(p0, _global_batch(
+                    torch, cfg, k, batch, seq, 0, dev))
+                run["k1_loss"] = float(loss1)
+                del p0, loss1
+            free()
+        dist.barrier()
+        plan = (TrainPlan(exchanger="asa16", sharded_update=True)
+                if algo == "bsp" else TrainPlan(algo="gspmd", mode="zero1"))
+        opt, lr = recipe(cfg, steps)
+        loader = rank_loader(cfg, files, dev, steps, seed=rank)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        state, rep = train(model, opt, lr, loader, plan=plan,
+                           num_steps=steps, log_every=steps, seed=0,
+                           print_fn=lambda *a: None)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        loader.stop()
+        ls = leaves(state["params"])
+        L = cfg.num_layers
+        if algo == "bsp":
+            rsplan = exchanger.make_rs_plan(state["params"], k)
+            predicted = _predicted_launches(rsplan, len(ls), "asa16", True,
+                                            steps, cuda, k)
+            if cfg.attention is not None:
+                predicted.update(flash_attention=(2 if cfg.remat else 1) * L
+                                 * steps, flash_attention_dq=L * steps,
+                                 flash_attention_dkv=L * steps)
+            predicted = _plus(predicted, _halves_launches(
+                rsplan, "asa16", _tree_bytes(state["params"]), k))
+            n = count_params(state["params"])
+            run.update(buckets=sorted({(b.padded, b.shard_len)
+                                       for b in rsplan.buckets}),
+                       small=sorted({tuple(ls[i].shape)
+                                     for i in rsplan.small}))
+        else:
+            predicted = _gspmd_predicted(cfg, len(ls), steps, "zero1")
+            specs = fsdp_shardings(abstract_params(model), k)
+            n = count_params(abstract_params(model))
+            run.update(packs=_gspmd_packs(specs),
+                       shards=sorted({s.shard_shape for s in leaves(specs)}),
+                       shard_numel=sum(p.numel() for p in ls))
+        run.update(_run_report(torch, rep, launches, {
+            n_: c for n_, c in predicted.items() if c}, cuda),
+            algo=algo, params=n, layers=L, tokens=batch * seq, wall_s=wall,
+            host_peak_gb=_host_peak_gb())
+        out["runs"][arch] = run
+        del state, model, ls, rep
+        free()
+        dist.barrier()
+    with open(os.path.join(out_dir, f"archs{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def archs_train_phase(device="cuda:0", smoke=False):
+    """(c) Prints each run's depth and reckoning, spawns the 2 ranks once
+    for all of ARCHS_TRAIN, and checks and prints what they report: finite
+    losses, launches equal to the prediction, the first loss held to rank
+    0's k=1 forward at GSPMD_LOSS_RTOL (phase 13(b)'s hold; whether it is
+    bit for bit is printed: bf16 products at another batch may sum in
+    another order), the peak a rank beside its reckoning.
+    Returns ({path: rank 0's launches}, {arch: its run's shapes})."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_ranks
+    k = 2
+    cuts, reckon = {}, {}
+    for arch, algo in ARCHS_TRAIN:
+        cfg = get_config(arch)
+        L, r, most = _archs_depth(cfg, algo, k)
+        cuts[arch] = None if smoke else L
+        reckon[arch] = r
+        batch, seq, steps = ARCHS_RUN[algo]
+        print(f"phase 16(c) reckoning, {arch} {algo} "
+              f"{'asa16 sharded' if algo == 'bsp' else 'zero1'}, {batch} x "
+              f"{seq} tokens a rank, {steps} steps: {L} of "
+              f"{cfg.num_layers} layers, {r / 1e9:.2f} GB a rank, "
+              f"{k * r / 1e9:.2f} GB for {k} (limit "
+              f"{ARCHS_MEM_LIMIT / 1e9:.0f}); the reckoning allows "
+              + (f"{most}, {most + 1} would take "
+                 f"{k * _archs_reckoning(cfg, algo, most + 1, k) / 1e9:.2f}"
+                 f" GB" if most < cfg.num_layers else "the whole model")
+              if L < cfg.num_layers else
+              f"phase 16(c) reckoning, {arch} {algo} asa16 sharded, {batch} "
+              f"x {seq} tokens a rank, {steps} steps: whole ({L} layers), "
+              f"{r / 1e9:.2f} GB a rank, {k * r / 1e9:.2f} GB for {k} "
+              f"(limit {ARCHS_MEM_LIMIT / 1e9:.0f})")
+    if torch.cuda.is_available():
+        free_b, total_b = torch.cuda.mem_get_info()
+        print(f"phase 16(c): the card's free memory before the ranks start "
+              f"{free_b / 1e9:.2f} of {total_b / 1e9:.2f} GB; this process "
+              f"peaked at {_host_peak_gb():.1f} GB of host memory")
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            t0 = time.perf_counter()
+            run_ranks(_archs_rank, k, (td, device, smoke, cuts),
+                      backend="gloo")
+            wall = time.perf_counter() - t0
+            ranks = [json.loads(Path(td, f"archs{r}.json").read_text())
+                     for r in range(k)]
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    print(f"phase 16(c): {k} gloo ranks on {device}, {wall:.1f}s")
+    by_path, shapes = {}, {}
+    for arch, algo in ARCHS_TRAIN:
+        steps = ARCHS_RUN[algo][2]
+        for rk in ranks:
+            rr = rk["runs"][arch]
+            if len(rr["losses"]) != steps or not all(
+                    math.isfinite(x) for x in rr["losses"]):
+                _fail(f"{arch} {algo} rank {rk['rank']}: losses "
+                      f"{rr['losses']}")
+            if device != "cpu" and rr["launches"] != rr["predicted"]:
+                _fail(f"{arch} {algo} rank {rk['rank']}: launches "
+                      f"{rr['launches']} != predicted {rr['predicted']}")
+        rr = ranks[0]["runs"][arch]
+        first, k1 = rr["losses"][0], rr["k1_loss"]
+        peaks = [rk["runs"][arch]["peak_mem_gb"] for rk in ranks]
+        print(f"phase 16(c) {arch} {algo} at {rr['layers']} layers "
+              f"({rr['params']:,} parameters), {steps} steps: " + json.dumps(
+                  {key: rr[key] for key in (
+                      "tokens_per_s", "first_step_s", "phase_ms",
+                      "staged_mb_per_step", "stage_ms_per_step",
+                      "wire_ms_per_step", "launches", "predicted", "losses",
+                      "wall_s", "host_peak_gb")})
+              + f"; first loss {first!r} vs a k=1 forward {k1!r} (bit for "
+              f"bit: {first == k1}, relative {abs(first - k1) / abs(k1):.3g}, "
+              f"bound {GSPMD_LOSS_RTOL}); peak memory per rank, GB: "
+              + json.dumps(peaks) + f" against the reckoning "
+              f"{reckon[arch] / 1e9:.2f}")
+        if not abs(first - k1) <= GSPMD_LOSS_RTOL * abs(k1):
+            _fail(f"{arch} {algo}: first loss {first!r} vs k=1 {k1!r}")
+        by_path[f"archs_{algo}_{arch}"] = dict(rr["launches"])
+        shapes[arch] = {key: rr[key] for key in ("algo", "buckets", "small",
+                                                 "packs", "shards")
+                        if key in rr}
+    return by_path, shapes
+
+
+def archs_kernel_rows(torch, ref, fa, sg, cfgs, shapes, flush, dev="cuda"):
+    """(b) The kernels at phase 16's shapes, each held to its plain version
+    and timed beside it, its library call and its bound: the serve
+    path's prefill chunk and both decodes (with the combine) at each
+    served model's heads (_serve_flash); the sampler bit for bit at (8,
+    1, V) and (1, 32, V) of each served vocab (its plan printed; the
+    profiler's count of one operation stays in phase 3); the flash
+    forward, dq and dk/dv in bf16 at minitron's and mistral's gspmd
+    training shape (1 x 1024) and at llama4-scout's gradient check (1 x
+    1536 after its image prefix), two backward calls bitwise equal; the
+    training kernels at (c)'s shapes: chunk_sum on each gspmd model's
+    largest fp32 receive and fused_sgd on its largest shard (then every
+    distinct shard bit for bit), the fp16 casts and fused_rs_update at
+    each BSP model's largest bucket (then every bucket through
+    wire_check, every small leaf through sgd_check). ``cfgs``: arch ->
+    the served or trained config. Returns the rows."""
+    from repro_torch.kernels import chunk_sum as cs
+    from repro_torch.kernels import fused_rs_update as fru
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.kernels import quantize as qz
+    g = torch.Generator(device=dev).manual_seed(1616)
+    rows = []
+    cpu = str(dev) == "cpu"
+    for arch in ARCHS_SERVE:
+        cfg = cfgs[arch]
+        a = cfg.attention
+        H, KV, D = a.num_heads, a.num_kv_heads, a.head_dim
+        fl = _serve_flash(torch, ref, fa, g, H, KV, D, torch.bfloat16, flush,
+                          dev)
+        for name, r in fl.items():
+            r.update(shape=f"{arch} serve ({H}/{KV} heads, D {D}) bf16",
+                     paths=("serve_" + arch,))
+            rows.append(r)
+        for S_, C in ((8, 1), (1, 32)):
+            V = cfg.vocab_size
+            r = _sampler_check(torch, ref, sg, g, S_, C, V, flush, dev,
+                               count_ops=False)
+            rows.append(dict(r, shape=f"({S_}, {C}, {V}) bf16",
+                             paths=("serve_" + arch,),
+                             count_key=_shape_key(r["name"], (S_, C, V))))
+            print(f"slot_gather_sample ({S_}, {C}, {V}) ({arch}), equal to "
+                  f"plain bit for bit, library = argmax of these selected "
+                  f"rows: " + json.dumps({k_: r[k_] for k_ in (
+                      "plan", "ms", "plain_ms", "library_ms", "host_ms",
+                      "bound")}))
+    lm_tokens = 128 if cpu else 1024
+    for arch, tokens, path in (
+            ("minitron-8b", lm_tokens, "archs_gspmd_minitron-8b"),
+            ("mistral-large-123b", lm_tokens,
+             "archs_gspmd_mistral-large-123b"),
+            (LLAMA4_ARCH, (64 if cpu else LLAMA4_GRAD_TOKENS)
+             + cfgs[LLAMA4_ARCH].num_image_tokens, "grad_" + LLAMA4_ARCH)):
+        a = cfgs[arch].attention
+        shape = (1, tokens, a.num_heads, a.num_kv_heads, a.head_dim)
+        fl, c = _lm_flash(torch, ref, fa, flush, shape, 61, dev)
+        fwd = fl.pop("fwd")
+        q_, k_, v_, qo = (c[n_] for n_ in ("q", "k", "v", "qo"))
+        want = ref.flash_attention_ref(q_, k_, v_, qo, 0, c["scale"])
+        part = [dict(
+            name="flash_attention",
+            src="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:97",
+            err=(c["out"].float() - want.float()).abs().max().item(),
+            plain_ms=_median_ms(lambda: ref.flash_attention_ref(
+                q_, k_, v_, qo, 0, c["scale"]), flush=flush),
+            host_ms=_host_ms(lambda: fa.flash_attention(q_, k_, v_,
+                                                        q_off=qo)),
+            bound=(fwd.pop("bound_ms"), fwd.pop("bound_by")), **fwd)]
+        part += list(fl.values())
+        for r in part:
+            r.update(shape=f"{arch} train {shape[:2]}, {shape[2]}/{shape[3]} "
+                     f"heads, D {shape[4]}, bf16, causal", paths=(path,))
+        rows += part
+        del fl, c, q_, k_, v_, want
+    lr = torch.tensor([0.01], device=dev)
+    rn = lambda *s_: torch.randn(*s_, generator=g, device=dev)  # noqa: E731
+    bits = lambda t: t.view({2: torch.int16, 4: torch.int32}[  # noqa: E731
+        t.element_size()])
+
+    def row(name, src, line, got, want, fn, plain, library, bound, label,
+            path):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+            _fail(f"{name} at {label} differs from its plain version")
+        rows.append(dict(name=name, src=f"src/repro_torch/csrc/{src}",
+                         replaces=f"src/repro/kernels/{line}", err=0.0,
+                         bound=bound, shape=label, paths=(path,),
+                         ms=_median_ms(fn, flush=flush), host_ms=_host_ms(fn),
+                         plain_ms=_median_ms(plain, flush=flush),
+                         library_ms=library()))
+
+    def sgd_library(p, gr):
+        sp = p.clone().requires_grad_(True)
+        sp.grad = gr.clone()
+        sgd = torch.optim.SGD([sp], lr=0.01, momentum=0.9, fused=True)
+        return _event_ms(sgd.step)
+    for arch, algo in ARCHS_TRAIN:
+        sh, path = shapes[arch], f"archs_{algo}_{arch}"
+        if algo == "gspmd":
+            n = max(sh["packs"])
+            recv = rn(2, n)
+            row("chunk_sum", "exchange.cu", "chunk_sum.py:29",
+                cs.chunk_sum(recv), ref.chunk_sum_ref(recv),
+                lambda: cs.chunk_sum(recv), lambda: ref.chunk_sum_ref(recv),
+                lambda: _median_ms(lambda: torch.sum(recv, 0), flush=flush),
+                _bound(3 * n * 4, n, FP32_FLOP_S),
+                f"{arch} zero1 receive (2, {n}) fp32", path)
+            del recv
+            big = max((tuple(s_) for s_ in sh["shards"]), key=math.prod)
+            p, gr, m = rn(*big) * 0.01, rn(*big) * 0.001, rn(*big) * 0.001
+            nb = math.prod(big)
+            row("fused_sgd", "sgd.cu", "fused_sgd.py:24",
+                fs.fused_sgd(p, gr, m, lr, 0.9),
+                ref.fused_sgd_ref(p, gr, m, lr, 0.9),
+                lambda: fs.fused_sgd(p, gr, m, lr, 0.9),
+                lambda: ref.fused_sgd_ref(p, gr, m, lr, 0.9),
+                lambda: sgd_library(p, gr),
+                _bound(5 * nb * 4, 5 * nb, FP32_FLOP_S),
+                f"{arch} shard {big} fp32", path)
+            del p, gr, m
+            sgd_check(torch, ref, [tuple(s_) for s_ in sh["shards"]],
+                      f"{arch} gspmd shards", dev=dev)
+        else:
+            buckets = [tuple(b) for b in sh["buckets"]]
+            padded, s = max(buckets)
+            x = rn(2, s)
+            h = x.half()
+            row("quant_fp16", "exchange.cu", "quantize.py:39",
+                qz.quant_fp16(x), ref.quant_fp16_ref(x),
+                lambda: qz.quant_fp16(x), lambda: ref.quant_fp16_ref(x),
+                lambda: _median_ms(lambda: x.half(), flush=flush),
+                _bound(padded * 6, padded, FP32_FLOP_S),
+                f"{arch} bucket (2, {s}) fp32", path)
+            row("dequant_fp16", "exchange.cu", "quantize.py:57",
+                qz.dequant_fp16(h), ref.dequant_fp16_ref(h),
+                lambda: qz.dequant_fp16(h), lambda: ref.dequant_fp16_ref(h),
+                lambda: _median_ms(lambda: h.float(), flush=flush),
+                _bound(padded * 6, padded, FP32_FLOP_S),
+                f"{arch} bucket (2, {s}) fp16", path)
+            del x
+            ps, ms_ = rn(s) * 0.01, rn(s) * 0.001
+            mask = torch.ones(s, device=dev)
+            kw = dict(wd_mask=mask, scale=0.5, momentum=0.9,
+                      weight_decay=1e-4)
+            row("fused_rs_update", "sgd.cu", "fused_rs_update.py:53",
+                fru.fused_rs_update(h, ps, ms_, lr, **kw),
+                ref.fused_rs_update_ref(h, ps, ms_, mask, lr, 0.9, False, 0.5,
+                                        1e-4, None),
+                lambda: fru.fused_rs_update(h, ps, ms_, lr, **kw),
+                lambda: ref.fused_rs_update_ref(h, ps, ms_, mask, lr, 0.9,
+                                                False, 0.5, 1e-4, None),
+                lambda: None, _bound(padded * 2 + 5 * s * 4, 9 * s,
+                                     FP32_FLOP_S),
+                f"{arch} receive (2, {s}) fp16", path)
+            del h, ps, ms_, mask
+            wire_check(torch, ref, buckets, f"{arch} BSP", 1e-4, dev=dev)
+            sgd_check(torch, ref, [tuple(s_) for s_ in sh["small"]],
+                      f"{arch} small leaves", dev=dev)
+        if not cpu:
+            torch.cuda.empty_cache()
+    print("phase 16(b) kernels at the new shapes, equal to plain: "
+          + json.dumps([{k_: r.get(k_) for k_ in (
+              "name", "shape", "err", "rel_err", "ms", "plain_ms",
+              "library_ms", "bound")} for r in rows]))
+    return rows
+
+
+def archs_main(torch, ref, fa, sg, K, models, serve, dev="cuda",
+               smoke=False):
+    """Phase 16: (a) minitron-8b, mistral-large-123b and llama4-scout served
+    at ARCHS_SERVE's depths, (d) llama4-scout's gradient check at 1 layer,
+    (c) ARCHS_TRAIN on 2 gloo ranks, (b) the kernels at those shapes.
+    Frees the card back to the memory it started from. Returns (kernel
+    rows, {path: launches})."""
+    from repro_torch.configs import get_config, get_smoke_config
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    start_mem = 0
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False   # the fp32 holds
+        torch.backends.cudnn.allow_tf32 = False
+        start_mem = torch.cuda.memory_allocated()
+    get = get_smoke_config if smoke else get_config
+    cfgs, by_path = {}, {}
+    for arch, (layers, n) in ARCHS_SERVE.items():
+        cfg = get(arch)
+        if not smoke:
+            cfg = cfg.with_overrides(num_layers=layers)
+        cfgs[arch] = cfg
+        by_path["serve_" + arch] = archs_engine_phase(
+            torch, K, cfg, models, serve, dev, n)
+        if cuda:
+            _release_card(torch)
+    l4 = cfgs[LLAMA4_ARCH].with_overrides(num_layers=LLAMA4_GRAD_LAYERS)
+    reck = (l4.param_count() if not smoke else 0) * 4
+    print(f"phase 16(d) reckoning, {LLAMA4_ARCH} at {LLAMA4_GRAD_LAYERS} "
+          f"layer: fp32 masters {reck / 1e9:.1f} GB and three runs' "
+          f"gradients {3 * reck / 1e9:.1f} GB in one process; on two gloo "
+          f"ranks its gspmd zero1 reckoning is "
+          f"{_archs_reckoning(get_config(LLAMA4_ARCH), 'gspmd', 1) / 1e9:.1f}"
+          f" GB a rank, past the card's 85.0 GB for two")
+    by_path["grad_" + LLAMA4_ARCH] = lm_grad_check(
+        torch, l4, models, dev,
+        shape=(1, 64 if smoke else LLAMA4_GRAD_TOKENS),
+        image_tokens=l4.num_image_tokens)
+    if cuda:
+        _release_card(torch)
+    train_paths, shapes = archs_train_phase("cuda:0" if cuda else "cpu",
+                                            smoke)
+    by_path.update(train_paths)
+    l2 = torch.empty(128 * 2 ** 20 if cuda else 1, dtype=torch.uint8,
+                     device=dev)
+    rows = archs_kernel_rows(torch, ref, fa, sg, cfgs, shapes, l2.zero_,
+                             str(dev))
+    del l2
+    left = _release_card(torch) - start_mem if cuda else 0
+    print(f"phase 16 (archs): {time.perf_counter() - t0:.1f}s, {left} bytes "
+          f"left allocated")
+    if left > PHASE11_LEFT:
+        _fail(f"phase 16 left {left} bytes allocated")
+    return rows, by_path
+
+
 def kernels_line(rows, by_path):
     """The kernels line's entries: one a row, with the launches of the
     paths it stands for. A row at one path's shape counts that path's
@@ -5585,6 +6349,17 @@ def main() -> int:
     if sys.argv[1:] == ["roofline"]:     # phase 15 alone
         return finish(torch, card, *roofline_main(
             torch, ref, fa, sg, K, models, serve, cfg_mod, card))
+    if sys.argv[1:] == ["archs"]:        # phase 16 alone
+        return finish(torch, card, *archs_main(torch, ref, fa, sg, K, models,
+                                               serve))
+    t_run, laps = time.perf_counter(), [time.perf_counter()]
+
+    def lap(label):
+        """Prints the wall time of the phases since the last lap."""
+        now = time.perf_counter()
+        print(f"wall time: {label} {now - laps[0]:.1f}s (script "
+              f"{now - t_run:.1f}s after the build)")
+        laps[0] = now
     hopper_build_report(K)
     decode_build_report(K)
     sampler_build_report(K)
@@ -5602,24 +6377,28 @@ def main() -> int:
     rows += lm_kernel_phase(torch, ref, fa, flush=l2.zero_)
     del l2
     torch.cuda.empty_cache()
+    lap("phases 2-3 and the kernel checks of 4 and 7")
     conv_precision(torch)
     llama = cfg_mod.get_config("llama3.2-1b")
     launches, stats = engine_phase(torch, K, llama, models, serve,
                                    torch.device("cuda"))
     torch.cuda.empty_cache()
     qwen = cfg_mod.get_config("qwen1.5-4b")
-    qwen_launches, _ = engine_phase(torch, K, qwen, models, serve,
-                                    torch.device("cuda"), QWEN_LOGIT_TOL)
+    qwen_launches, _ = engine_phase(
+        torch, K, qwen.with_overrides(num_layers=QWEN_SERVE_LAYERS), models,
+        serve, torch.device("cuda"), QWEN_LOGIT_TOL)
     torch.cuda.empty_cache()
     chaos_launches = chaos_phase(torch, K, llama, models, serve,
                                  torch.device("cuda"))
     torch.cuda.empty_cache()
+    lap("phases 4 and 10 (the engines, chaos)")
     ds_rows, ds_launches = ds_phase(torch, ref, fa, K, models, serve,
                                     cfg_mod)
     rows += ds_rows
     ssm_rows, ssm_launches = ssm_phase(torch, ref, fa, K, models, serve,
                                        cfg_mod)
     rows += ssm_rows
+    lap("phases 11 and 12")
     lm_grad_check(torch, llama, models, torch.device("cuda"))
     torch.cuda.empty_cache()
     lm_grad_check(torch, qwen.with_overrides(num_layers=QWEN_GRAD_LAYERS),
@@ -5633,19 +6412,25 @@ def main() -> int:
     by_path = {"serve": launches, "serve_qwen1.5-4b": qwen_launches,
                "serve_chaos": chaos_launches, **ds_launches, **ssm_launches}
     conv_shapes = {}
-    for arch in TRAIN_ARCHS:
-        by_path[f"{arch}_train"], conv_shapes[arch] = train_phase(arch=arch)
+    lap("phase 4's gradient checks")
+    for arch, (launches_, shapes_) in train_phase().items():
+        by_path[f"{arch}_train"], conv_shapes[arch] = launches_, shapes_
     by_path["int8_roundtrip"] = int8_launches
+    lap("phase 5")
     by_path["lm_train"], lm_buckets, lm_ranks = lm_train_phase()
+    lap("phase 6")
     by_path.update(async_phase())
+    lap("phase 8")
     elastic_launches, elastic_buckets = elastic_phase()
     by_path.update(elastic_launches)
+    lap("phase 9")
     gspmd_rows, gspmd_launches = gspmd_main(torch, ref, fa)
     rows += gspmd_rows
     by_path.update(gspmd_launches)
     encdec_rows, encdec_launches = encdec_main(torch, ref, fa, K, models)
     rows += encdec_rows
     by_path.update(encdec_launches)
+    lap("phases 13 and 14")
     # the kernels of every training path, held to their plain versions at
     # the shapes that path gave them (the overlap's fp32 accumulated
     # receives into fused_rs_update at the LM's and AlexNet's buckets)
@@ -5659,9 +6444,16 @@ def main() -> int:
     for kk, buckets in elastic_buckets.items():
         wire_check(torch, ref, buckets, "alexnet elastic", 5e-4, k=kk)
         torch.cuda.empty_cache()
+    lap("phase 7")
     _, roofline_launches = roofline_main(torch, ref, fa, sg, K, models,
                                          serve, cfg_mod, card, lm_ranks)
     by_path.update(roofline_launches)
+    lap("phase 15")
+    archs_rows, archs_launches = archs_main(torch, ref, fa, sg, K, models,
+                                            serve)
+    rows += archs_rows
+    by_path.update(archs_launches)
+    lap("phase 16")
 
     return finish(torch, card, rows, by_path)
 

@@ -74,6 +74,12 @@ _SMALL_LEAF = 1024
 _POLL_S = 5e-5
 
 
+def _pinned_bytes(n: int) -> torch.Tensor:
+    """``n`` bytes of pinned host memory (a seam for the CPU tests, which
+    have no card to pin for)."""
+    return torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+
 # ---------------------------------------------------------------------------
 # the transport: one process group's collectives
 # ---------------------------------------------------------------------------
@@ -92,8 +98,10 @@ class Transport:
     intra-pod ones, ``world_k``/``world_rank`` count every rank, and
     :meth:`all_reduce` sums over both levels.
 
-    On a gloo group a CUDA tensor goes through pinned host buffers, kept
-    per shape so a step reuses them; ``stage_s`` and ``wire_s`` add up
+    On a gloo group a CUDA tensor goes through pinned host buffers, views
+    of one arena a role that grows to the largest collective so far, so a
+    step reuses them and the host holds one buffer a role, not one a
+    shape; ``stage_s`` and ``wire_s`` add up
     the host time of those copies and of the collectives, and
     ``staged_bytes`` what the copies moved, so a run can say how much of
     its exchange is staging. ``exposed_s`` is the host time spent waiting
@@ -132,13 +140,18 @@ class Transport:
     def _staged(self, x) -> bool:
         return self.backend == "gloo" and x.is_cuda
 
-    def _buf(self, role: str, shape, dtype) -> torch.Tensor:
-        key = (role, tuple(shape), dtype)
-        buf = self._pinned.get(key)
-        if buf is None:
-            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
-            self._pinned[key] = buf
-        return buf
+    def _buf(self, role, shape, dtype) -> torch.Tensor:
+        """A pinned host buffer of ``shape`` and ``dtype`` for ``role``: the
+        front of the role's arena, which is replaced by a larger one when a
+        request does not fit (the caching host allocator rounds each pinned
+        block up to a power of two and keeps it)."""
+        n = prod(shape) * torch.empty((), dtype=dtype).element_size()
+        arena = self._pinned.get(role)
+        if arena is None or arena.numel() < n:
+            self._pinned.pop(role, None)
+            arena = _pinned_bytes(n)
+            self._pinned[role] = arena
+        return arena[:n].view(dtype).view(shape)
 
     def _run(self, op, x, out_shape):
         """``op(out, inp)`` on ``x``'s device, or staged through the host."""

@@ -269,6 +269,36 @@ def test_one_rank_without_a_group_is_the_identity():
                 a.numpy(), b.numpy()), out, tree)
 
 
+def test_staging_holds_one_pinned_arena_a_role(monkeypatch):
+    """The gloo staging buffers of a CUDA tensor's collective: each role's
+    shapes are views of one arena that grows to the largest request, so
+    the host holds the largest collective a role. Before, one pinned
+    buffer a (role, shape, dtype), each rounded up to a power of two and
+    kept: minitron-8b's gspmd step (two fp32 gather packs of 524 M values
+    and their (2, n) reduce-scatters) held tens of GB a rank, and two
+    ranks passed the host's 96 GiB."""
+    made = []
+
+    def host_bytes(n):
+        made.append(n)
+        return torch.zeros(n, dtype=torch.uint8)
+    monkeypatch.setattr(tex, "_pinned_bytes", host_bytes)
+    tr = tex.Transport()
+    a = tr._buf("in", (4, 5), torch.float32)
+    b = tr._buf("in", (10,), torch.float16)      # fits: the same arena
+    assert a.shape == (4, 5) and b.shape == (10,)
+    assert b.dtype == torch.float16 and b.is_contiguous()
+    assert b.data_ptr() == a.data_ptr()
+    c = tr._buf("in", (3, 100), torch.float32)   # does not fit: grows
+    c.fill_(1.5)
+    assert tr._buf("in", (2, 100), torch.float32).sum() == 300
+    tr._buf("out", (7,), torch.int32)
+    tr._buf(("a2a_in", 0), (2, 3), torch.float16)
+    tr._buf(("a2a_in", 1), (2, 3), torch.float16)
+    assert made == [80, 1200, 28, 12, 12]
+    assert sum(t.numel() for t in tr._pinned.values()) == 1200 + 28 + 24
+
+
 # ---------------------------------------------------------------------------
 # k = 4 gloo ranks
 # ---------------------------------------------------------------------------

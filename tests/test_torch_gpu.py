@@ -70,6 +70,13 @@ def _rn(g, dev, dtype, *shape):
     (1, 1000, 1000, 8, 1, 128, 200),       # G = 8, window 200
     (2, 65, 200, 4, 2, 32, 33),            # Sq < Sk, a chunk at (135, 0)
     (2, 100, 300, 20, 20, 128, 64),        # window on a tile edge
+    # the serve chunks of minitron-8b (G 4), llama4-scout (G 5: 12 queries
+    # in 60 of a tile's 64 rows) and mistral-large-123b (G 12: 5 in 60)
+    (1, 32, 1024, 32, 8, 128, 0),
+    (1, 32, 1024, 40, 8, 128, 0),
+    (1, 32, 1024, 96, 8, 128, 0),
+    (2, 130, 130, 40, 8, 128, 0),          # G = 5, ragged
+    (1, 130, 130, 96, 8, 128, 50),         # G = 12, ragged, window 50
 ])
 def test_flash_attention_kernel(dev, dtype, shape):
     B, Sq, Sk, H, KV, D, win = shape
@@ -125,6 +132,11 @@ def _mla_launches(dtype):
     (1, 129, 129, 8, 1, 128, 0, None),       # G = 8
     (2, 100, 300, 12, 1, 128, 50, "vector"), # G = 12, window 50
     (1, 1000, 1000, 20, 20, 128, 0, None),   # G = 1, S = 1000
+    # the training shapes' groups (minitron-8b 4, llama4-scout 5,
+    # mistral-large-123b 12) at D 128, ragged
+    (1, 200, 200, 32, 8, 128, 64, None),     # G = 4, window 64
+    (2, 70, 130, 40, 8, 128, 0, "vector"),   # G = 5, a chunk at (60, 0)
+    (1, 130, 130, 96, 8, 128, 0, None),      # G = 12
 ])
 def test_flash_backward_kernels(dev, dtype, shape):
     B, Sq, Sk, H, KV, D, win, off = shape
@@ -299,8 +311,9 @@ LANES = {"short": (4, 8, [0, 15, 77, 127]),
                                    torch.float16])
 @pytest.mark.parametrize("block_k,window", [(8, 0), (16, 7), (512, 0)])
 @pytest.mark.parametrize("H,KV,D", [(8, 2, 64), (20, 20, 128), (16, 2, 128),
-                                    (12, 1, 128), (16, 1, 64)])
-# G = 4, 1, 8, 12, 16
+                                    (12, 1, 128), (16, 1, 64), (96, 8, 128),
+                                    (40, 8, 128)])
+# G = 4, 1, 8, 12, 16; mistral-large-123b's 12 and llama4-scout's 5
 @pytest.mark.parametrize("lane", sorted(LANES))
 def test_flash_decode_kernels(dev, dtype, block_k, window, H, KV, D, lane):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -419,7 +432,13 @@ def _sampler_inputs(g, dev, dtype, S, C, V, case):
                                    (2, 3, 1537),       # V % 8 != 0: scalar loads
                                    (8, 1, 32001),      # hymba-1.5b's vocab:
                                    (1, 128, 32001),    # scalar loads too
-                                   (8, 1, 50280)])     # mamba2-1.3b's
+                                   (8, 1, 50280),      # mamba2-1.3b's
+                                   (8, 1, 256000),     # minitron-8b's,
+                                   (1, 32, 256000),    # llama4-scout's,
+                                   (8, 1, 202048),     # mistral-large-
+                                   (1, 32, 202048),    # 123b's
+                                   (8, 1, 32768),
+                                   (1, 32, 32768)])
 def test_slot_gather_kernel_exact(dev, dtype, S, C, V, case):
     """The one-launch sampler equals the plain version bit for bit, on
     every load path (16-byte and scalar), and two calls agree."""

@@ -2,8 +2,11 @@
 CPU.
 
 - The FSDP rule: for every leaf of the smoke llama3.2-1b, qwen1.5-4b,
-  deepseek-v2-lite-16b, mamba2-1.3b and AlexNet trees (the port's leaves,
-  one dict a layer), ``dist.sharding.fsdp_dim`` picks the dim where
+  deepseek-v2-lite-16b, mamba2-1.3b, AlexNet, minitron-8b,
+  mistral-large-123b, llama4-scout-17b-a16e (3-D expert leaves, a shared
+  expert), chameleon-34b (qk norms) and hymba-1.5b (meta tokens, SSM
+  leaves) trees (the port's leaves, one dict a layer),
+  ``dist.sharding.fsdp_dim`` picks the dim where
   ``repro.core.gspmd.fsdp_param_spec`` puts ``data`` on a stand-in mesh
   of k = 2, 4, 8 ranks (``sanitize_spec`` reads only its axis names and
   sizes).
@@ -68,7 +71,8 @@ VOCAB, SEQ, K = 256, 32, 2
 # SGD holds to JAX's) at the reference's bounds.
 ADAMW_ATOL = 0.1 * GSPMD_LR["adamw"] * GSPMD_STEPS
 RULE_ARCHS = ("llama3.2-1b", "qwen1.5-4b", "deepseek-v2-lite-16b",
-              "mamba2-1.3b", "alexnet")
+              "mamba2-1.3b", "alexnet", "minitron-8b", "mistral-large-123b",
+              "llama4-scout-17b-a16e", "chameleon-34b", "hymba-1.5b")
 
 
 @pytest.fixture(autouse=True)

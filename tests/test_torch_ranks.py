@@ -634,3 +634,52 @@ def halves_worker(rank, k, out_dir, fail_rank):
            "errors": metrics.counter("profile/capture_errors").value}
     with open(os.path.join(out_dir, f"halves{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+# ---------------------------------------------------------------------------
+# the assigned decoders on k ranks (test_torch_archs.py)
+# ---------------------------------------------------------------------------
+
+ARCHS_LR = 0.05
+ARCHS_STEPS = 2
+
+
+def archs_worker(rank, k, out_dir, cases):
+    """Each case ``(name, cfg, plan)`` for ARCHS_STEPS steps from the
+    parameters saved as ``<name>.init.pt``, this rank on its 1/k of each
+    global batch saved as ``<name>.batches.pt``: ``plan`` "bsp" is BSP
+    ``asa`` (fp32 wire) with the sharded update, "zero1" gspmd zero1;
+    momentum SGD. Saves the parameters (the shards and their specs for
+    zero1) and the losses, by case."""
+    from repro_torch.train.engine import TrainPlan, build_engine
+    res = {}
+    opt = topt.sgd_momentum(momentum=0.9, weight_decay=1e-4)
+    lr = tsched.constant(ARCHS_LR)
+    for name, cfg, plan in cases:
+        params = torch.load(os.path.join(out_dir, f"{name}.init.pt"))
+        batches = torch.load(os.path.join(out_dir, f"{name}.batches.pt"))
+        model = dataclasses.replace(
+            build_model(cfg, "cpu"),
+            init=lambda gen, p=params: tree_map(torch.clone, p))
+        part = batches[0]["tokens"].shape[0] // k
+        mine = [{n: v[rank * part:(rank + 1) * part] for n, v in b.items()}
+                for b in batches[:ARCHS_STEPS]]
+        losses, out = [], {}
+        if plan == "zero1":
+            eng = build_engine(TrainPlan(algo="gspmd", mode="zero1"), model,
+                               opt, lr)
+            state = eng.init_state(None)
+            for i, b in enumerate(mine):
+                state, metrics = eng.step(state, b, step_idx=i)
+                losses.append(float(metrics["loss"]))
+            out["specs"] = eng.specs
+        else:
+            state = tbsp.init_sharded_train_state(model, opt, None)
+            step = tbsp.make_bsp_step(model, opt, tex.get_exchanger("asa"),
+                                      lr, sharded_update=True)
+            for b in mine:
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+        res[f"{name}-{plan}"] = dict(out, params=state["params"],
+                                     losses=losses)
+    torch.save(res, os.path.join(out_dir, f"archs{rank}.pt"))
