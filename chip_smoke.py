@@ -6,6 +6,7 @@
     python3 chip_smoke.py encdec     # the build, then phase 14 alone
     python3 chip_smoke.py roofline   # the build, then phase 15 alone
     python3 chip_smoke.py archs      # the build, then phase 16 alone
+    python3 chip_smoke.py dryrun     # the build, phases 6 and 16(c), then 17
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card
 and the CUDA toolkit. In order:
@@ -59,7 +60,10 @@ and the CUDA toolkit. In order:
    llama3.2-1b (16 layers, random weights from a seeded generator, bf16):
    paged KV cache, fused sampling, chunked prefill, a shared-prompt
    prefix hit. The launch counts are zeroed just before and read just
-   after, and every kernel of the path must have launched. A short
+   after, and every kernel of the path must have launched; one decode
+   step's host ms and device operations are printed (``python3
+   chip_smoke.py serve`` builds the kernels and runs this llama3.2-1b
+   engine alone, to compare two trees' host time). A short
    ``page_size=0`` pass reaches the contiguous ``flash_decode``. Three
    prompts' teacher-forced prefill and decode logits through the kernels
    are held to the einsum path, each printed beside its distance from
@@ -315,10 +319,13 @@ and the CUDA toolkit. In order:
    config, batches (the reference launcher's frames), loader and recipe
    on 2 gloo ranks sharing the card, both stacks cut to 2 layers
    (650,551,296 parameters), 2 x 1024 tokens and 2 x 4096 frames a rank,
-   ``asa16`` sharded, 4 steps, after a printed reckoning of the whole
+   ``asa16`` sharded, 3 steps, after a printed reckoning of the whole
    model's training state: tokens/s and frames/s, the step split, staged
    MB and peak memory a rank, launches equal to the prediction, finite
    losses, and one fp32 step of k=2 on halves equal to k=1 at K_TOL;
+   then the same config, batches and recipe under gspmd ``zero1`` for 2
+   steps: finite losses, the first BSP's bit for bit and the second
+   within GSPMD_LOSS_RTOL of it, the shards and peak a rank printed;
    (d) the flash forward, dq and dk/dv at (2, 1024, 16/16, D 64) bf16,
    ``flash_decode`` and its combine at (a)'s 48-key lanes, the wire and
    update kernels at (c)'s largest bucket and small leaf, each held to
@@ -371,8 +378,8 @@ and the CUDA toolkit. In order:
    launcher's config, batch files, loader and recipe: mamba2-1.3b and
    hymba-1.5b BSP ``asa16`` sharded (2 x 1024 tokens a rank, 2 steps),
    minitron-8b, mistral-large-123b and chameleon-34b gspmd ``zero1`` (1 x
-   1024 tokens a rank, 2 steps), each at the most layers up to half the
-   model's (BSP) or 2 (gspmd) whose reckoning for the two ranks stays at
+   1024 tokens a rank, 2 steps), each at the most layers up to a third of
+   the model's (BSP) or 2 (gspmd) whose reckoning for the two ranks stays at
    or under 75 GB: finite losses, launches equal to the prediction, the first loss within GSPMD_LOSS_RTOL of a k=1
    forward's on the global batch (bit for bit or not printed), the peak a
    rank beside the reckoning, tokens/s and
@@ -384,6 +391,20 @@ and the CUDA toolkit. In order:
    check (1 x 1536, 40/8), two backward calls bitwise equal, and the
    training kernels at (c)'s largest receive, shard and bucket, then at
    every shard and bucket bit for bit.
+17. The dry run (``launch/dryrun.py``; it runs last, on this process's
+   CPU: meta tensors in a fake world, no card; ``python3 chip_smoke.py
+   dryrun`` builds the kernels and runs phases 6 and 16(c) first, whose
+   measurements it holds to): (a) phase 6's LM run dry-run at mesh
+   data=2: its flops, kernel costs and collectives by kind equal to what
+   phase 6 counted for its first step on the card, its HBM bytes equal
+   to the card's less the card's host copies (the gloo staging, listed
+   kind by kind beside the transport's own count), the predicted peak a
+   rank within DRYRUN_PEAK_TOL of the measured; (b) phase 16(c)'s five
+   runs dry-run at their depths and batches, each predicted peak within
+   DRYRUN_PEAK_TOL of the measured, printed beside the reckoning; (c)
+   mistral-large-123b ``train_4k`` on the 16 x 16 mesh (fsdp with the
+   model axis) ok, its memory, collectives and roofline printed. Its
+   figures are predictions ("dry run, meta device, H100 SXM peaks").
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -1355,6 +1376,8 @@ def engine_phase(torch, K, cfg, models, serve, dev, logit_tol=LOGIT_TOL):
         token_latency_ms={str(q): v * 1e3 for q, v in
                           st.token_latency_percentiles().items()})
     print(f"engine {cfg.name} " + json.dumps(stats))
+    print(f"decode step ({cfg.name}, 8 slots, pages of 16): "
+          + json.dumps(_decode_step_cost(torch, model, eng.params, dev)))
 
     # contiguous pool: the path that reaches flash_decode
     eng0 = serve.Engine(model, eng.params, max_slots=4, max_seq=256,
@@ -2120,6 +2143,8 @@ def _lm_attribution(torch, cfg, rep, n_params: int, batch: int,
         first_step_s=rep.first_step_time,
         programs={n: _profile_dict(profile.get(n)) for n in (
             "train/step", "exchange/rs", "exchange/ag")},
+        step_bytes_by_op=(profile.get("train/step").meta.get("bytes_by_op")
+                          if profile.get("train/step") else None),
         gauges={n: rep.metrics[n].value for n in (
             "train/model_flops_s", "train/mfu", "train/device_mem_bytes")
             if n in rep.metrics})
@@ -4698,7 +4723,8 @@ SEAMLESS_GRAD_LAYERS = 2          # (b): 2 encoder and 2 decoder layers
 SEAMLESS_TRAIN_LAYERS = 2         # (c): 2 + 2 (the script has 1200 s)
 SEAMLESS_TRAIN_PARAMS = 650_551_296
 SEAMLESS_BATCH, SEAMLESS_TOKENS = 2, 1024   # (b), (c): a rank's sequences
-SEAMLESS_STEPS = 4
+SEAMLESS_STEPS = 3
+SEAMLESS_GSPMD_STEPS = 2          # (c): the same config under gspmd zero1
 SEAMLESS_POSITIONS = (0, 15, 32, 47)   # (d): the decode's 4 slots over
                                        # (a)'s 48-key lanes
 
@@ -4913,7 +4939,27 @@ def _seamless_rank(rank, k, out_dir, device, smoke):
         frames=cfg.encoder_seq_len,
         buckets=sorted({(b.padded, b.shard_len) for b in rsplan.buckets}),
         small=sorted({tuple(ls[i].shape) for i in rsplan.small}))
-    del state, model, loader
+    del state, loader
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the same config, batch files and recipe under gspmd zero1 (FSDP
+    # shards; the encoder-decoder's tree gathered whole each step)
+    loader = rank_loader(cfg, files, dev, SEAMLESS_GSPMD_STEPS, seed=rank)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    state, grep = train(model, opt, recipe(cfg, SEAMLESS_STEPS)[1], loader,
+                        plan=TrainPlan(algo="gspmd", mode="zero1"),
+                        num_steps=SEAMLESS_GSPMD_STEPS,
+                        log_every=SEAMLESS_GSPMD_STEPS, seed=0,
+                        print_fn=lambda *a: None)
+    _sync(torch, dev)
+    loader.stop()
+    out["gspmd"] = _run_report(torch, grep, dict(K.LAUNCHES), None, cuda)
+    out["gspmd"]["shard_numel"] = sum(p.numel()
+                                      for p in leaves(state["params"]))
+    del state, model
     if cuda:
         torch.cuda.empty_cache()
 
@@ -4995,6 +5041,32 @@ def encdec_train_phase(device="cuda:0", smoke=False):
           f"(ln V = {math.log(full.vocab_size):.4f}); peak memory per "
           f"rank, GB: " + json.dumps([rk["run"]["peak_mem_gb"]
                                       for rk in ranks]))
+    # gspmd zero1 of the same run: its first step's loss is BSP's bit for
+    # bit (the same parameters and batch; the gather only moves them), its
+    # second within GSPMD_LOSS_RTOL (the first update's gradients on
+    # zero1's fp32 wire against BSP's fp16 one)
+    for rk in ranks:
+        g = rk["gspmd"]
+        if len(g["losses"]) != SEAMLESS_GSPMD_STEPS or not all(
+                math.isfinite(x) for x in g["losses"]):
+            _fail(f"seamless gspmd rank {rk['rank']}: losses {g['losses']}")
+    g = r0["gspmd"]
+    rel = abs(g["losses"][1] - rr["losses"][1]) / abs(rr["losses"][1])
+    print(f"phase 14(c) {SEAMLESS_ARCH} at {r0['layers'][0]} + "
+          f"{r0['layers'][1]} layers, gspmd zero1 on {k} gloo ranks, "
+          f"{SEAMLESS_GSPMD_STEPS} steps: " + json.dumps(
+              {key: g[key] for key in (
+                  "tokens_per_s", "first_step_s", "phase_ms",
+                  "staged_mb_per_step", "launches", "losses")})
+          + f"; shard elements a rank {g['shard_numel']:,} of "
+          f"{r0['params']:,}; first loss {g['losses'][0]!r} vs BSP "
+          f"{rr['losses'][0]!r} (bit for bit: "
+          f"{g['losses'][0] == rr['losses'][0]}), second within {rel:.3g} "
+          f"(bound {GSPMD_LOSS_RTOL}); peak memory per rank, GB: "
+          + json.dumps([rk["gspmd"]["peak_mem_gb"] for rk in ranks]))
+    if g["losses"][0] != rr["losses"][0] or not rel <= GSPMD_LOSS_RTOL:
+        _fail(f"seamless gspmd zero1 losses {g['losses']} vs BSP asa16 "
+              f"sharded {rr['losses']}")
     dp = r0["k2_vs_k1_max_abs_dp"]
     print(f"phase 14(c) asa step (smoke config, fp32), k=2 on halves vs k=1 "
           f"on the batch: max |dp| {dp} (bound {K_TOL}; the step moved "
@@ -5209,6 +5281,8 @@ def _profile_dict(prof) -> dict | None:
                compile_time_s=prof.compile_time_s, captured=prof.captured,
                kernels=prof.meta.get("kernels", {}),
                collectives=prof.meta.get("collectives", {}),
+               host_copy_bytes=prof.meta.get("host_copy_bytes", 0.0),
+               host_copies=prof.meta.get("host_copies", {}),
                error=prof.meta.get("capture_error"))
     if prof.captured and prof.calls:
         out.update(prof.roofline())
@@ -5686,9 +5760,10 @@ ARCHS_MEM_LIMIT = 75e9       # two ranks, of the card's 85.0 GB
 # of chameleon-34b and of minitron-8b): their steps wait on gloo's
 # staging, which grows with the layers, and the script has 1200 s
 ARCHS_GSPMD_MAX_LAYERS = 2
-# BSP runs stop at half the model's layers though the reckoning holds
-# them whole (mamba2's 48 and hymba's 32 trained whole on two ranks in
-# the chip runs that PERF.md names): a step's exchange grows with them
+# BSP runs stop at a third of the model's layers though the reckoning
+# holds them whole (mamba2's 48 and hymba's 32
+# trained whole on two ranks in the chip runs that PERF.md names): a
+# step's exchange grows with them
 # the reckonings, from phase 13's measured peaks (H100 80GB HBM3): BSP asa16
 # sharded took 32.20 GB a rank for llama3.2-1b (1.236e9 parameters, 4 x 1024
 # tokens, vocab 128,256): BSP_LOGIT_B bytes a token and vocab entry (the
@@ -5700,6 +5775,9 @@ ARCHS_GSPMD_MAX_LAYERS = 2
 # GSPMD_ACT_B of activations and logits
 BSP_PARAM_B, BSP_LOGIT_B = 21.8, 10
 GSPMD_ACT_B = 6e9
+# what (c) measured, arch -> {algo, layers, peaks a rank (GB), reckoning
+# (bytes)}: phase 17(b) holds the dry run's prediction to it
+ARCHS_MEASURED: dict = {}
 
 
 def _archs_reckoning(cfg, algo: str, layers: int, k: int = 2) -> float:
@@ -5723,8 +5801,8 @@ def _archs_reckoning(cfg, algo: str, layers: int, k: int = 2) -> float:
 
 def _archs_depth(cfg, algo: str, k: int = 2) -> tuple:
     """(layers, bytes a rank, the most layers the reckoning allows): the
-    most layers up to ARCHS_GSPMD_MAX_LAYERS (gspmd) or half the config's
-    (BSP) whose reckoning for the k ranks stays at or under
+    most layers up to ARCHS_GSPMD_MAX_LAYERS (gspmd) or a third of the
+    config's (BSP) whose reckoning for the k ranks stays at or under
     ARCHS_MEM_LIMIT."""
     best = None
     for L in range(1, cfg.num_layers + 1):
@@ -5737,7 +5815,7 @@ def _archs_depth(cfg, algo: str, k: int = 2) -> tuple:
               f"{k * _archs_reckoning(cfg, algo, 1, k) / 1e9:.1f} GB")
     most = best[0]
     cap = (ARCHS_GSPMD_MAX_LAYERS if algo == "gspmd" else
-           cfg.num_layers // 2)
+           cfg.num_layers // 3)
     if most > cap:
         best = (cap, _archs_reckoning(cfg, algo, cap, k))
     return best + (most,)
@@ -6052,6 +6130,8 @@ def archs_train_phase(device="cuda:0", smoke=False):
         shapes[arch] = {key: rr[key] for key in ("algo", "buckets", "small",
                                                  "packs", "shards")
                         if key in rr}
+        ARCHS_MEASURED[arch] = dict(algo=algo, layers=rr["layers"],
+                                    peaks=peaks, reckoning=reckon[arch])
     return by_path, shapes
 
 
@@ -6280,6 +6360,210 @@ def archs_main(torch, ref, fa, sg, K, models, serve, dev="cuda",
     return rows, by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run (launch/dryrun.py) against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_PEAK_TOL = 0.10    # the dry run's predicted peak a rank (argument +
+#                           temp) against max_memory_allocated of the run
+DRYRUN_ROW = ("mistral-large-123b", "train_4k")   # (c): fsdp on 16 x 16
+DRYRUN_LABEL = "dry run, meta device, H100 SXM peaks"
+# 17(a): the LM step's copies across host and card that are not the gloo
+# transport's staging (its ``copy_`` into and out of pinned buffers): the
+# flash kernels' cost functions reading their (B,) positions on the host
+# (``flash_attention.host_offsets``, under the CostMode alone), once for
+# each layer's forward, its recomputation, dq and dk/dv
+LM_STEP_SCALAR_COPIES = {
+    f"aten._to_copy int32[{LM_BATCH}] to host": 4 * LM_LAYERS}
+
+
+def _dry_train(cfg, batch: int, seq: int, algo: str, steps: int,
+               optimizer, lr_fn, k: int = 2):
+    """The dry run of one rank's first step of a k-rank run of ``cfg``
+    (``batch`` x ``seq`` tokens a rank) at mesh ``data=k``: BSP asa16
+    sharded or gspmd zero1, with the run's optimizer and schedule, the
+    exchange bucketed a leaf a bucket as the training loop does. Returns
+    ``analyze_program``'s dict."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist.sharding import Mesh
+    from repro_torch.launch import dryrun as D
+    mesh = Mesh(("data",), (k,))
+    shape = InputShape(f"{cfg.name}_rank_run", seq, k * batch, "train")
+    with D.mesh_world(mesh):
+        prog = D.build_train(cfg, shape, mesh, "asa16",
+                             "bsp" if algo == "bsp" else "zero1",
+                             optimizer=optimizer, lr_fn=lr_fn,
+                             sharded_update=algo == "bsp")
+        return D.analyze_program(prog, 0.0)
+
+
+def _staging_items(colls: dict, k: int = 2) -> dict:
+    """The gloo transport's staging copies of a step, kind by kind, from
+    its collectives (``Transport._run``): every collective's input copied
+    to the host and its output back, each counted on the card's side; an
+    all-gather's input is 1/k of its output, an all-reduce's input and
+    output are the bytes it counts (twice the result)."""
+    n, b = colls["counts"], colls["bytes_by_kind"]
+    factor = {"all-to-all": 2.0, "all-gather": 1.0 + 1.0 / k,
+              "all-reduce": 1.0, "reduce-scatter": 1.0 + k}
+    return {kind: dict(count=n[kind], device_bytes=factor[kind] * b[kind])
+            for kind in n}
+
+
+def dryrun_lm(lm_ranks):
+    """(a) Phase 6's LM run (llama3.2-1b at LM_LAYERS, LM_BATCH x LM_SEQ
+    tokens a rank, asa16 sharded, k = 2) dry-run at mesh data=2, against
+    the first step that phase 6 counted on the card (rank 0's
+    ``train/step`` profile): flops, the kernels' costs and the collectives
+    by kind equal; the card's copies across host and card are the gloo
+    staging that the collectives predict (listed kind by kind), to the
+    byte, and LM_STEP_SCALAR_COPIES, by name and count; HBM bytes equal
+    once all those copies are taken out; the
+    predicted peak within DRYRUN_PEAK_TOL of each rank's
+    max_memory_allocated."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_sgd as fs
+    from repro_torch.optim import sgd_momentum, warmup_cosine
+    cfg = get_config("llama3.2-1b").with_overrides(num_layers=LM_LAYERS)
+    t0 = time.perf_counter()
+    dry = _dry_train(cfg, LM_BATCH, LM_SEQ, "bsp", LM_STEPS, sgd_momentum(
+        momentum=0.9, weight_decay=1e-4, fused_kernel=fs.fused_sgd),
+        warmup_cosine(0.01, 2, LM_STEPS))
+    wall = time.perf_counter() - t0
+    r0 = lm_ranks[0]
+    real = r0["attribution"]["programs"]["train/step"]
+    if not (real and real["captured"]):
+        _fail(f"17(a): phase 6's train/step was not counted: {real}")
+    colls = {kind: {n: float(v) for n, v in d.items()}
+             for kind, d in dry["collectives"].items()}
+    real_colls = {kind: {n: float(v) for n, v in d.items()}
+                  for kind, d in real["collectives"].items()}
+    staging = _staging_items(dry["collectives"])
+    staged = sum(v["device_bytes"] for v in staging.values())
+    real_hbm = real["hbm_bytes"] - real["host_copy_bytes"]
+    copies = real["host_copies"]
+    scalar = {n: c for n, c in copies.items()
+              if not n.startswith("aten.copy_ ")}
+    card_staged = sum(c["bytes"] for n, c in copies.items()
+                      if n not in scalar)
+    peaks = [rk["main"]["peak_mem_gb"] * 1e9 for rk in lm_ranks]
+    pred = dry["memory"]["peak_bytes"]
+    print(f"phase 17(a) llama3.2-1b at {LM_LAYERS} layers, {LM_BATCH} x "
+          f"{LM_SEQ} tokens a rank, asa16 sharded, mesh data=2 ({wall:.1f}s;"
+          f" {DRYRUN_LABEL}) against phase 6's counted first step on the "
+          f"card: " + json.dumps(dict(
+              flops=[dry["roofline"]["flops"], real["flops"]],
+              collectives=[colls, real_colls],
+              hbm_bytes=dict(dry=dry["roofline"]["hbm_bytes"],
+                             card=real["hbm_bytes"],
+                             card_host_copies=real["host_copy_bytes"],
+                             card_less_host_copies=real_hbm),
+              staging_items=staging, staging_device_bytes=staged,
+              card_staging_device_bytes=card_staged,
+              card_scalar_copies=scalar,
+              transport_staged_bytes_a_step=r0["main"][
+                  "staged_mb_per_step"] * 1e6,
+              memory=dry["memory"], measured_peak_bytes=peaks,
+              predicted_over_measured=[pred / p for p in peaks])))
+    if dry["roofline"]["flops"] != real["flops"]:
+        _fail(f"17(a): the dry run counts {dry['roofline']['flops']} flops, "
+              f"the card's step {real['flops']}")
+    if colls != real_colls:
+        _fail(f"17(a): collectives {colls} != the card's {real_colls}")
+    if dry["kernels"] != real["kernels"]:
+        _fail(f"17(a): kernels {dry['kernels']} != the card's "
+              f"{real['kernels']}")
+    if card_staged != staged:
+        _fail(f"17(a): the card's step stages {card_staged} bytes across "
+              f"host and card, its collectives' staging {staged}: {copies}")
+    if {n: c["count"] for n, c in scalar.items()} != LM_STEP_SCALAR_COPIES:
+        _fail(f"17(a): the card's step makes the copies {scalar} beside its "
+              f"staging, not {LM_STEP_SCALAR_COPIES}")
+    if dry["roofline"]["hbm_bytes"] != real_hbm:
+        card_ops = r0["attribution"].get("step_bytes_by_op") or {}
+        diff = {op: (card_ops.get(op, 0.0), dry["bytes_by_op"].get(op, 0.0))
+                for op in set(card_ops) | set(dry["bytes_by_op"])
+                if card_ops.get(op, 0.0) != dry["bytes_by_op"].get(op, 0.0)}
+        _fail(f"17(a): HBM bytes {dry['roofline']['hbm_bytes']} != the "
+              f"card's {real_hbm} without its host copies; (card, dry) by "
+              f"op where they differ: {diff}")
+    bad = [p for p in peaks if not abs(pred / p - 1) <= DRYRUN_PEAK_TOL]
+    if bad:
+        _fail(f"17(a): predicted peak {pred} vs measured {peaks}")
+
+
+def dryrun_archs():
+    """(b) Phase 16(c)'s runs (ARCHS_MEASURED: each at its depth, batch and
+    recipe) dry-run at mesh data=2: the predicted peak a rank printed
+    beside the measured ones and the reckoning, and held to the measured
+    within DRYRUN_PEAK_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import recipe
+    if set(ARCHS_MEASURED) != {a for a, _ in ARCHS_TRAIN}:
+        _fail(f"17(b) needs phase 16(c)'s runs, got {sorted(ARCHS_MEASURED)}")
+    out = {}
+    for arch, algo in ARCHS_TRAIN:
+        m = ARCHS_MEASURED[arch]
+        cfg = get_config(arch).with_overrides(num_layers=m["layers"])
+        batch, seq, steps = ARCHS_RUN[algo]
+        opt, lr = recipe(cfg, steps)
+        t0 = time.perf_counter()
+        dry = _dry_train(cfg, batch, seq, algo, steps, opt, lr)
+        pred = dry["memory"]["peak_bytes"]
+        peaks = [p * 1e9 for p in m["peaks"]]
+        out[arch] = dict(algo=algo, layers=m["layers"],
+                         predicted_peak_bytes=pred, memory=dry["memory"],
+                         measured_peak_bytes=peaks,
+                         reckoning_bytes=m["reckoning"],
+                         predicted_over_measured=[pred / p for p in peaks],
+                         reckoning_over_measured=[m["reckoning"] / p
+                                                  for p in peaks],
+                         dry_run_s=time.perf_counter() - t0)
+    print(f"phase 17(b) phase 16(c)'s runs at mesh data=2 ({DRYRUN_LABEL}) "
+          f"against their measured peaks a rank and the reckoning: "
+          + json.dumps(out))
+    bad = {a: r["predicted_over_measured"] for a, r in out.items()
+           if not all(abs(x - 1) <= DRYRUN_PEAK_TOL
+                      for x in r["predicted_over_measured"])}
+    if bad:
+        _fail(f"17(b): predicted peaks off by more than {DRYRUN_PEAK_TOL}: "
+              f"{bad}")
+
+
+def dryrun_row():
+    """(c) One production row: DRYRUN_ROW on the 16 x 16 mesh (the fsdp
+    mode with the model axis), which must be ok; its memory, collectives
+    and roofline printed."""
+    from repro_torch.launch import dryrun as D
+    arch, shape = DRYRUN_ROW
+    row = D.run_one(arch, shape, multi_pod=False)
+    if not row["ok"]:
+        _fail(f"17(c) {arch} {shape}: {row['error']}\n{row['traceback']}")
+    row.pop("kernels", None)
+    print(f"phase 17(c) {arch} {shape} on {row['mesh']} ({DRYRUN_LABEL}): "
+          + json.dumps({key: row[key] for key in (
+              "mode", "memory", "collectives", "collective_bytes_by_site",
+              "roofline", "compile_s")}))
+    if row["mode"] != "fsdp":
+        _fail(f"17(c) {arch} {shape}: mode {row['mode']}, not fsdp")
+
+
+def dryrun_main(lm_ranks):
+    """Phase 17 from the main process, after phases 6 and 16(c) (their
+    ranks' reports: ``lm_ranks``, ARCHS_MEASURED). No card is used: the
+    dry run builds each program on meta tensors in a fake world of this
+    process. Returns (kernel rows, {path: launches}): none."""
+    import torch
+    t0 = time.perf_counter()
+    dryrun_lm(lm_ranks)
+    dryrun_archs()
+    dryrun_row()
+    if torch.distributed.is_initialized():
+        _fail("phase 17 left a process group initialised")
+    print(f"phase 17 (dry run): {time.perf_counter() - t0:.1f}s")
+    return [], {}
+
+
 def kernels_line(rows, by_path):
     """The kernels line's entries: one a row, with the launches of the
     paths it stands for. A row at one path's shape counts that path's
@@ -6342,6 +6626,10 @@ def main() -> int:
     K.build_all()
     print(f"built {len(K.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f}s")
+    if sys.argv[1:] == ["serve"]:        # phase 4's llama3.2-1b engine
+        launches, _ = engine_phase(torch, K, cfg_mod.get_config(
+            "llama3.2-1b"), models, serve, torch.device("cuda"))
+        return finish(torch, card, [], {"serve": launches})
     if sys.argv[1:] == ["gspmd"]:        # phase 13 alone
         return finish(torch, card, *gspmd_main(torch, ref, fa))
     if sys.argv[1:] == ["encdec"]:       # phase 14 alone
@@ -6352,6 +6640,10 @@ def main() -> int:
     if sys.argv[1:] == ["archs"]:        # phase 16 alone
         return finish(torch, card, *archs_main(torch, ref, fa, sg, K, models,
                                                serve))
+    if sys.argv[1:] == ["dryrun"]:       # phase 17 alone, after the runs
+        _, _, lm_ranks = lm_train_phase()    # it holds to: 6 and 16(c)
+        archs_train_phase()
+        return finish(torch, card, *dryrun_main(lm_ranks))
     t_run, laps = time.perf_counter(), [time.perf_counter()]
 
     def lap(label):
@@ -6454,6 +6746,8 @@ def main() -> int:
     rows += archs_rows
     by_path.update(archs_launches)
     lap("phase 16")
+    dryrun_main(lm_ranks)
+    lap("phase 17")
 
     return finish(torch, card, rows, by_path)
 

@@ -323,7 +323,8 @@ def make_bsp_step(model: Model, optimizer: Optimizer, exchanger: Exchanger,
         params = state["params"]
         plan = make_rs_plan(params, tr.k, bucket_bytes)
         dev = _device_of(params)
-        use_raw = (raw_ok and dev.type == "cuda" if fuse_rs_update is None
+        use_raw = (raw_ok and dev.type in ("cuda", "meta")
+                   if fuse_rs_update is None
                    else bool(fuse_rs_update))
         lr = lr_fn(state["step"])
         scales = [None] * plan.num_buckets

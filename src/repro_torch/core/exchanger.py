@@ -105,7 +105,9 @@ class Transport:
     the host time of those copies and of the collectives, and
     ``staged_bytes`` what the copies moved, so a run can say how much of
     its exchange is staging. ``exposed_s`` is the host time spent waiting
-    for an all-to-all started by :meth:`all_to_all_start`."""
+    for an all-to-all started by :meth:`all_to_all_start`. Meta tensors
+    (the dry run, ``launch/dryrun.py``, on a fake group) take the direct
+    path: the collectives are issued on the group as they are."""
 
     def __init__(self, group=None, lead: Transport | None = None):
         self.group = group

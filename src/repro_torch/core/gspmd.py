@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.core.bsp import PhaseTimer, mean_metrics
 from repro_torch.core.exchanger import Transport, _rs_asa, as_transport
-from repro_torch.dist.sharding import fsdp_dim
+from repro_torch.dist.sharding import fsdp_dim, named_leaves
 from repro_torch.models.registry import Model, build_model
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import flatten, leaves, unflatten
@@ -74,16 +74,8 @@ class LeafSpec:
             self.dim + 1:]
 
 
-def _named_leaves(tree, names=()):
-    """(path names, leaf) in ``tree.flatten``'s order."""
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from _named_leaves(tree[key], names + (str(key),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _named_leaves(v, names + (str(i),))
-    else:
-        yield names, tree
+# (path names, leaf) in ``tree.flatten``'s order
+_named_leaves = named_leaves
 
 
 def fsdp_shardings(params, k: int):

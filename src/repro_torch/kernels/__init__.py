@@ -10,7 +10,11 @@ tests import every module on a host with no CUDA toolkit.
 
 Each Python wrapper takes its plain PyTorch version (``kernels/ref.py``)
 only for tensors on the CPU; for a CUDA tensor it launches the kernel or
-raises. A wrapper counts its launches in :data:`LAUNCHES` so a run can
+raises. The wrappers that the dry run's programs reach
+(``launch/dryrun.py``) also take tensors on the ``meta`` device: they
+return the kernel's outputs as meta tensors of its shapes and dtypes and
+report its cost, and launch nothing (:func:`on_meta`); the others raise
+on meta tensors. A wrapper counts its launches in :data:`LAUNCHES` so a run can
 show that a path went through the kernel, and reports each launch's
 flops and bytes through :func:`cost` so a program's cost count
 (``roofline.analysis.CostMode``) includes the kernels.
@@ -22,6 +26,7 @@ registers, shared memory and spills from the build.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -230,6 +235,55 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 def sm_count(index: int) -> int:
     """The SMs of CUDA device ``index`` (the plans size their grids by it)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the H100 SXM's SMs: the plans that size grids by the SM count take this
+# for meta tensors, which have no card to ask
+META_SM_COUNT = 132
+# the position the cost functions read for a meta position tensor, which
+# holds no values (:func:`meta_positions`)
+_meta_pos = [0]
+
+
+@contextlib.contextmanager
+def meta_positions(pos: int):
+    """Within the block, every position tensor on the meta device (a
+    decode's slot positions, a flash call's q_off) stands for ``pos`` in
+    every row; 0 outside any block."""
+    prev = _meta_pos[0]
+    _meta_pos[0] = int(pos)
+    try:
+        yield
+    finally:
+        _meta_pos[0] = prev
+
+
+def meta_position() -> int:
+    return _meta_pos[0]
+
+
+def plain_path(*ts: torch.Tensor) -> bool:
+    """Dispatch of a wrapper with a meta path: all-meta tensors take the
+    launch path, which launches nothing on them (:func:`launches`);
+    otherwise :func:`on_cpu`."""
+    present = [t for t in ts if t is not None]
+    if present and all(t.is_meta for t in present):
+        return False
+    return on_cpu(*ts)
+
+
+def launches(t: torch.Tensor) -> bool:
+    """Whether a wrapper on its launch path launches for ``t``: on the
+    card, yes; on the meta device (the dry run) it allocates its outputs
+    and reports its cost as on the card, and launches and counts
+    nothing."""
+    return not t.is_meta
+
+
+def sms_of(t: torch.Tensor) -> int:
+    """The SMs a plan sizes its grid by: the card's (:func:`sm_count`),
+    :data:`META_SM_COUNT` for a meta tensor."""
+    return META_SM_COUNT if t.is_meta else sm_count(t.device.index or 0)
 
 
 def on_cpu(*ts: torch.Tensor) -> bool:

@@ -27,7 +27,7 @@ def chunk_sum(chunks):
     leading axis."""
     if chunks.dim() < 2:
         raise ValueError(f"chunks must be (k, ...), got {tuple(chunks.shape)}")
-    if K.on_cpu(chunks):
+    if K.plain_path(chunks):
         return ref.chunk_sum_ref(chunks.reshape(chunks.shape[0], -1)).reshape(
             chunks.shape[1:])
     code = K.dtype_code(chunks)
@@ -38,9 +38,10 @@ def chunk_sum(chunks):
                       device=chunks.device)
     if n == 0:
         return out
-    err = K.load("exchange").chunk_sum(K.ptr(flat), K.ptr(out), k, n, code,
-                                       K.stream_ptr(flat))
-    K.check(err, "chunk_sum")
-    K.count("chunk_sum")
+    if K.launches(flat):
+        err = K.load("exchange").chunk_sum(K.ptr(flat), K.ptr(out), k, n,
+                                           code, K.stream_ptr(flat))
+        K.check(err, "chunk_sum")
+        K.count("chunk_sum")
     K.cost("chunk_sum", lambda: chunk_sum_cost(k, n, flat.element_size()))
     return out

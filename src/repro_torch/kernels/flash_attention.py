@@ -258,7 +258,10 @@ def _unpad(t, D: int):
 
 def host_offsets(q_off) -> Counter:
     """{position: slots} of a (B,) position tensor (read on the host: the
-    cost functions run only under a CostMode)."""
+    cost functions run only under a CostMode). A meta tensor holds no
+    values: each of its slots stands at ``kernels.meta_position()``."""
+    if q_off.is_meta:
+        return Counter({K.meta_position(): q_off.numel()})
     return Counter(int(v) for v in q_off.reshape(-1).tolist())
 
 
@@ -430,7 +433,7 @@ def _tma_ready(t):
 def _forward(q, k, v, q_off, window: int, sm_scale: float,
              return_lse: bool):
     """The forward: the plain version on CPU tensors, else the kernel."""
-    if K.on_cpu(q, k, v):
+    if K.plain_path(q, k, v):
         return ref.flash_attention_ref(q, k, v, q_off, window, sm_scale,
                                        return_lse)
     _check_cuda("flash_attention", q, k, v)
@@ -445,12 +448,13 @@ def _forward(q, k, v, q_off, window: int, sm_scale: float,
     out = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    err = K.load("flash_attention").flash_fwd(
-        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out), K.ptr(lse), K.ptr(q_off),
-        B, Sq, Sk, H, KV, Dk, K.dtype_code(q), window,
-        ctypes.c_float(sm_scale), K.stream_ptr(q))
-    K.check(err, "flash_fwd")
-    K.count("flash_attention")
+    if K.launches(q):
+        err = K.load("flash_attention").flash_fwd(
+            K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out), K.ptr(lse),
+            K.ptr(q_off), B, Sq, Sk, H, KV, Dk, K.dtype_code(q), window,
+            ctypes.c_float(sm_scale), K.stream_ptr(q))
+        K.check(err, "flash_fwd")
+        K.count("flash_attention")
     K.cost("flash_attention", lambda: attention_cost(
         "fwd", B, Sq, Sk, H, KV, D, D, q_off, window, es, return_lse))
     out = _unpad(out, D)
@@ -473,12 +477,13 @@ def _mla_forward(q, k, v, q_off, window: int, sm_scale: float,
     out = torch.empty((B, Sq, H, pv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    err = K.load("flash_attention").flash_mla_fwd(
-        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out), K.ptr(lse), K.ptr(q_off),
-        B, Sq, Sk, H, KV, pk, pv, K.dtype_code(q), window,
-        ctypes.c_float(sm_scale), K.stream_ptr(q))
-    K.check(err, "flash_mla_fwd")
-    K.count("flash_attention_mla")
+    if K.launches(q):
+        err = K.load("flash_attention").flash_mla_fwd(
+            K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out), K.ptr(lse),
+            K.ptr(q_off), B, Sq, Sk, H, KV, pk, pv, K.dtype_code(q), window,
+            ctypes.c_float(sm_scale), K.stream_ptr(q))
+        K.check(err, "flash_mla_fwd")
+        K.count("flash_attention_mla")
     K.cost("flash_attention_mla", lambda: attention_cost(
         "fwd", B, Sq, Sk, H, KV, Dk, Dv, q_off, window, q.element_size(),
         return_lse))
@@ -507,31 +512,34 @@ def _mla_bwd(which: str, q, k, v, lse, do, di, q_off, window: int,
     lse, di = lse.float().contiguous(), di.float().contiguous()
     B, Sq, H, _ = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    lib = K.load("flash_attention")
+    lib = K.load("flash_attention") if K.launches(q) else None
     args = (B, Sq, Sk, H, KV, pk, pv, K.dtype_code(q), int(window))
     ins = (K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di))
     if which == "dq":
         dq = torch.empty_like(q)
-        err = lib.flash_mla_bwd_dq(*ins, K.ptr(dq), K.ptr(q_off), *args,
-                                   ctypes.c_float(sm_scale), K.stream_ptr(q))
-        K.check(err, "flash_mla_bwd_dq")
-        K.count("flash_attention_mla_dq")
+        if lib is not None:
+            err = lib.flash_mla_bwd_dq(*ins, K.ptr(dq), K.ptr(q_off), *args,
+                                       ctypes.c_float(sm_scale),
+                                       K.stream_ptr(q))
+            K.check(err, "flash_mla_bwd_dq")
+            K.count("flash_attention_mla_dq")
         K.cost("flash_attention_mla_dq", lambda: attention_cost(
             "dq", B, Sq, Sk, H, KV, Dk, Dv, q_off, window,
             q.element_size()))
         return _unpad(dq, Dk)
     part, chunk = None, 0
     if tc:
-        chunk, n_chunks = mla_dkv_plan(B, Sq, Sk, H, KV,
-                                       K.sm_count(q.device.index or 0))
+        chunk, n_chunks = mla_dkv_plan(B, Sq, Sk, H, KV, K.sms_of(q))
         part = torch.empty(n_chunks * B * Sk * KV * (pk + pv),
                            dtype=torch.float32, device=q.device)
     dk, dv = (None, None) if tc else (torch.empty_like(k), torch.empty_like(v))
-    err = lib.flash_mla_bwd_dkv(*ins, K.ptr(dk), K.ptr(dv), K.ptr(q_off),
-                                *args, ctypes.c_float(sm_scale), K.ptr(part),
-                                chunk, K.stream_ptr(q))
-    K.check(err, "flash_mla_bwd_dkv")
-    K.count("flash_attention_mla_dkv")
+    if lib is not None:
+        err = lib.flash_mla_bwd_dkv(*ins, K.ptr(dk), K.ptr(dv),
+                                    K.ptr(q_off), *args,
+                                    ctypes.c_float(sm_scale), K.ptr(part),
+                                    chunk, K.stream_ptr(q))
+        K.check(err, "flash_mla_bwd_dkv")
+        K.count("flash_attention_mla_dkv")
     K.cost("flash_attention_mla_dkv", lambda: attention_cost(
         "dkv", B, Sq, Sk, H, KV, Dk, Dv, q_off, window, q.element_size(),
         partials=mla_live_partials(B, Sq, Sk, H, KV, pk, pv, q_off, window,
@@ -555,7 +563,7 @@ def mla_dkv_reduce(part, q_off, *, B: int, Sq: int, Sk: int, H: int,
     ``q_off`` is read on the host only on the CPU."""
     rows = B * Sk * KV
     n_chunks = part.numel() // (rows * (Dk + Dv))
-    if K.on_cpu(part, q_off):
+    if K.plain_path(part, q_off):
         bq = MLA_DKV_ROWS // (H // KV)
         nq = -(-Sq // bq)
         n_live = torch.tensor(
@@ -570,11 +578,13 @@ def mla_dkv_reduce(part, q_off, *, B: int, Sq: int, Sk: int, H: int,
         raise TypeError("mla_dkv_reduce takes contiguous fp32 partials")
     dk = torch.empty((B, Sk, KV, Dk), dtype=dtype, device=part.device)
     dv = torch.empty((B, Sk, KV, Dv), dtype=dtype, device=part.device)
-    err = K.load("flash_attention").flash_mla_dkv_reduce(
-        K.ptr(part), K.ptr(dk), K.ptr(dv), K.ptr(q_off), B, Sq, Sk, H, KV,
-        Dk, Dv, K.dtype_code(dk), int(window), chunk, K.stream_ptr(part))
-    K.check(err, "flash_mla_dkv_reduce")
-    K.count("flash_attention_mla_dkv_reduce")
+    if K.launches(part):
+        err = K.load("flash_attention").flash_mla_dkv_reduce(
+            K.ptr(part), K.ptr(dk), K.ptr(dv), K.ptr(q_off), B, Sq, Sk, H,
+            KV, Dk, Dv, K.dtype_code(dk), int(window), chunk,
+            K.stream_ptr(part))
+        K.check(err, "flash_mla_dkv_reduce")
+        K.count("flash_attention_mla_dkv_reduce")
     K.cost("flash_attention_mla_dkv_reduce", lambda: mla_reduce_cost(
         B, Sq, Sk, H, KV, Dk, Dv, q_off, window, chunk, dk.element_size()))
     return dk, dv
@@ -597,7 +607,7 @@ def flash_attention_dq(q, k, v, lse, do, di, *, q_off, window: int = 0,
     """dq (B, Sq, H, Dk) of the flash forward from its saved lse (B, Sq,
     H) and ``di = rowsum(out do)`` (B, Sq, H), both fp32; ``do`` (B, Sq,
     H, Dv) in q's dtype; ``q_off`` a (B,) int32 tensor."""
-    if K.on_cpu(q, k, v, lse, do, di):
+    if K.plain_path(q, k, v, lse, do, di):
         return ref.flash_attention_dq_ref(q, k, v, lse, do, di, q_off,
                                           window, sm_scale)
     if mla_route(q.shape[-1], v.shape[-1]):
@@ -608,12 +618,13 @@ def flash_attention_dq(q, k, v, lse, do, di, *, q_off, window: int = 0,
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    err = K.load("flash_attention").flash_bwd_dq(
-        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di),
-        K.ptr(dq), K.ptr(q_off), B, Sq, Sk, H, KV, D, K.dtype_code(q),
-        int(window), ctypes.c_float(sm_scale), K.stream_ptr(q))
-    K.check(err, "flash_bwd_dq")
-    K.count("flash_attention_dq")
+    if K.launches(q):
+        err = K.load("flash_attention").flash_bwd_dq(
+            K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di),
+            K.ptr(dq), K.ptr(q_off), B, Sq, Sk, H, KV, D, K.dtype_code(q),
+            int(window), ctypes.c_float(sm_scale), K.stream_ptr(q))
+        K.check(err, "flash_bwd_dq")
+        K.count("flash_attention_dq")
     K.cost("flash_attention_dq", lambda: attention_cost(
         "dq", B, Sq, Sk, H, KV, D_true, D_true, q_off, window,
         q.element_size()))
@@ -625,7 +636,7 @@ def flash_attention_dkv(q, k, v, lse, do, di, *, q_off, window: int = 0,
     """(dk (B, Sk, KV, Dk), dv (B, Sk, KV, Dv)) of the flash forward,
     each summed over the G query heads of its group; inputs as
     :func:`flash_attention_dq`."""
-    if K.on_cpu(q, k, v, lse, do, di):
+    if K.plain_path(q, k, v, lse, do, di):
         return ref.flash_attention_dkv_ref(q, k, v, lse, do, di, q_off,
                                            window, sm_scale)
     if mla_route(q.shape[-1], v.shape[-1]):
@@ -636,13 +647,14 @@ def flash_attention_dkv(q, k, v, lse, do, di, *, q_off, window: int = 0,
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = K.load("flash_attention").flash_bwd_dkv(
-        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di),
-        K.ptr(dk), K.ptr(dv), K.ptr(q_off), B, Sq, Sk, H, KV, D,
-        K.dtype_code(q), int(window), ctypes.c_float(sm_scale),
-        K.stream_ptr(q))
-    K.check(err, "flash_bwd_dkv")
-    K.count("flash_attention_dkv")
+    if K.launches(q):
+        err = K.load("flash_attention").flash_bwd_dkv(
+            K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(do), K.ptr(lse), K.ptr(di),
+            K.ptr(dk), K.ptr(dv), K.ptr(q_off), B, Sq, Sk, H, KV, D,
+            K.dtype_code(q), int(window), ctypes.c_float(sm_scale),
+            K.stream_ptr(q))
+        K.check(err, "flash_bwd_dkv")
+        K.count("flash_attention_dkv")
     K.cost("flash_attention_dkv", lambda: attention_cost(
         "dkv", B, Sq, Sk, H, KV, D_true, D_true, q_off, window,
         q.element_size()))
@@ -729,19 +741,20 @@ def _decode_call(name, q, k, v, tables, pos, *, S, NP, page, lane_len,
     B, _, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
-    chunk, ns = decode_plan(lane_len, page, K.sm_count(q.device.index or 0))
+    chunk, ns = decode_plan(lane_len, page, K.sms_of(q))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     n_ml = B * KV * ns * G
     ws = torch.empty(n_ml * (2 + D), dtype=torch.float32, device=q.device)
     m, l, acc = (ctypes.c_void_p(ws.data_ptr() + 4 * n_ml * i)
                  for i in range(3))
-    lib = K.load("flash_attention")
-    err = lib.flash_decode_split(
-        K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(tables), K.ptr(pos), m, l, acc,
-        B, H, KV, D, K.dtype_code(q), S, NP, page, chunk, ns, lane_len,
-        window, ctypes.c_float(sm_scale), K.stream_ptr(q))
-    K.check(err, "flash_decode_split")
-    K.count(name)
+    lib = K.load("flash_attention") if K.launches(q) else None
+    if lib is not None:
+        err = lib.flash_decode_split(
+            K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(tables), K.ptr(pos), m, l,
+            acc, B, H, KV, D, K.dtype_code(q), S, NP, page, chunk, ns,
+            lane_len, window, ctypes.c_float(sm_scale), K.stream_ptr(q))
+        K.check(err, "flash_decode_split")
+        K.count(name)
     K.cost(name, lambda: decode_cost(pos, H, KV, head_dim, q.element_size(),
                                      window, page if NP else 0))
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
@@ -753,11 +766,12 @@ def _decode_call(name, q, k, v, tables, pos, *, S, NP, page, lane_len,
 def _combine_launch(lib, m, l, acc, pos, out, KV, chunk, ns, kv_len, window,
                     head_dim):
     B, _, H, D = out.shape
-    err = lib.flash_decode_combine(
-        m, l, acc, K.ptr(pos), K.ptr(out), B, H, KV, D, K.dtype_code(out),
-        chunk, ns, kv_len, window, K.stream_ptr(out))
-    K.check(err, "flash_decode_combine")
-    K.count("flash_decode_combine")
+    if lib is not None:
+        err = lib.flash_decode_combine(
+            m, l, acc, K.ptr(pos), K.ptr(out), B, H, KV, D,
+            K.dtype_code(out), chunk, ns, kv_len, window, K.stream_ptr(out))
+        K.check(err, "flash_decode_combine")
+        K.count("flash_decode_combine")
     K.cost("flash_decode_combine", lambda: combine_cost(
         pos, H, head_dim, out.element_size(), chunk, ns, window))
 
@@ -773,14 +787,15 @@ def decode_combine(m, l, acc, pos, *, chunk: int, kv_len: int,
     B, KV, ns, G = m.shape
     D = acc.shape[-1]
     pos = _positions(pos, B, m.device)
-    if K.on_cpu(m, l, acc, pos):
+    if K.plain_path(m, l, acc, pos):
         return ref.combine_live_splits(m, l, acc, pos, window, chunk,
                                        kv_len).to(dtype)
     if not (m.dtype == l.dtype == acc.dtype == torch.float32):
         raise TypeError("decode_combine takes fp32 partials")
     m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
     out = torch.empty((B, 1, KV * G, D), dtype=dtype, device=m.device)
-    _combine_launch(K.load("flash_attention"), K.ptr(m), K.ptr(l),
+    _combine_launch(K.load("flash_attention") if K.launches(m) else None,
+                    K.ptr(m), K.ptr(l),
                     K.ptr(acc), pos, out, KV, chunk, ns, kv_len, int(window),
                     D)
     return out
@@ -805,7 +820,7 @@ def flash_decode(q, k, v, pos, *, window: int = 0, sm_scale=None,
     window = int(window)
     block_k = min(block_k, _round_up(S, 16))
     pos = _positions(pos, B, q.device)
-    if K.on_cpu(q, k, v):
+    if K.plain_path(q, k, v):
         return ref.flash_decode_ref(q, k, v, pos, window, sm_scale, block_k)
     _check_cuda("flash_decode", q, k, v, decode=True)
     qp, kp, vp = pad_head_dim(Dk, q, k, v)

@@ -51,7 +51,7 @@ def fused_rs_update(recv, p, m, lr, *, wd_mask=None, scale: float = 1.0,
     if (recv.dtype == torch.int8) != (scales is not None):
         raise ValueError("an int8 receive needs its (k,) scales, and only "
                          "an int8 receive takes them")
-    if K.on_cpu(recv, p, m, wd_mask, scales, *lr_operand(lr)):
+    if K.plain_path(recv, p, m, wd_mask, scales, *lr_operand(lr)):
         return ref.fused_rs_update_ref(
             recv, p, m, wd_mask, lr, momentum, nesterov, scale, weight_decay,
             None if scales is None else scales.reshape(-1))
@@ -67,13 +67,14 @@ def fused_rs_update(recv, p, m, lr, *, wd_mask=None, scale: float = 1.0,
     po, mo = torch.empty_like(p), torch.empty_like(m)
     if s == 0:
         return po, mo
-    err = K.load("sgd").fused_rs_update(
-        K.ptr(recv), K.ptr(scales), K.ptr(p), K.ptr(m), K.ptr(mask),
-        K.ptr(lr_t), K.ptr(po), K.ptr(mo), k, s, code, float(scale),
-        float(weight_decay), float(momentum), int(bool(nesterov)),
-        K.stream_ptr(p))
-    K.check(err, "fused_rs_update")
-    K.count("fused_rs_update")
+    if K.launches(p):
+        err = K.load("sgd").fused_rs_update(
+            K.ptr(recv), K.ptr(scales), K.ptr(p), K.ptr(m), K.ptr(mask),
+            K.ptr(lr_t), K.ptr(po), K.ptr(mo), k, s, code, float(scale),
+            float(weight_decay), float(momentum), int(bool(nesterov)),
+            K.stream_ptr(p))
+        K.check(err, "fused_rs_update")
+        K.count("fused_rs_update")
     K.cost("fused_rs_update", lambda: fused_rs_update_cost(
         k, s, recv.element_size(), mask is not None, scales is not None))
     return po, mo

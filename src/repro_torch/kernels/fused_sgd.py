@@ -50,7 +50,7 @@ def fused_sgd_cost(n: int) -> tuple:
 
 def fused_sgd(p, g, m, lr, momentum: float = 0.9, nesterov: bool = False):
     """p, g, m fp32 of one shape -> (p', m') fp32 of that shape."""
-    if K.on_cpu(p, g, m, *lr_operand(lr)):
+    if K.plain_path(p, g, m, *lr_operand(lr)):
         return ref.fused_sgd_ref(p, g, m, lr, momentum, nesterov)
     n = p.numel()
     p, g, m = (_flat_fp32(a, t, n) for a, t in (("p", p), ("g", g), ("m", m)))
@@ -58,10 +58,12 @@ def fused_sgd(p, g, m, lr, momentum: float = 0.9, nesterov: bool = False):
     po, mo = torch.empty_like(p), torch.empty_like(m)
     if n == 0:
         return po, mo
-    err = K.load("sgd").fused_sgd(K.ptr(p), K.ptr(g), K.ptr(m), K.ptr(lr_t),
-                                  K.ptr(po), K.ptr(mo), n, float(momentum),
-                                  int(bool(nesterov)), K.stream_ptr(p))
-    K.check(err, "fused_sgd")
-    K.count("fused_sgd")
+    if K.launches(p):
+        err = K.load("sgd").fused_sgd(K.ptr(p), K.ptr(g), K.ptr(m),
+                                      K.ptr(lr_t), K.ptr(po), K.ptr(mo), n,
+                                      float(momentum), int(bool(nesterov)),
+                                      K.stream_ptr(p))
+        K.check(err, "fused_sgd")
+        K.count("fused_sgd")
     K.cost("fused_sgd", lambda: fused_sgd_cost(n))
     return po, mo

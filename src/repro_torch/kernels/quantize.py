@@ -42,16 +42,17 @@ def int8_cost(entry: str, n: int) -> tuple:
 def _cast(x, src: torch.dtype, dst: torch.dtype, entry: str, plain):
     if x.dtype != src:
         raise TypeError(f"{entry} takes {src}, got {x.dtype}")
-    if K.on_cpu(x):
+    if K.plain_path(x):
         return plain(x)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=dst, device=x.device)
     if x.numel() == 0:
         return out
-    err = getattr(K.load("exchange"), entry)(K.ptr(x), K.ptr(out), x.numel(),
-                                             K.stream_ptr(x))
-    K.check(err, entry)
-    K.count(entry)
+    if K.launches(x):
+        err = getattr(K.load("exchange"), entry)(K.ptr(x), K.ptr(out),
+                                                 x.numel(), K.stream_ptr(x))
+        K.check(err, entry)
+        K.count(entry)
     K.cost(entry, lambda: cast_cost(x.numel(), x.element_size(),
                                     out.element_size()))
     return out

@@ -41,7 +41,7 @@ encoder-decoder, on k ranks.
         --seq 1024 --steps 4 --exchanger asa16 --sharded-update
 
     # SeamlessM4T-v2's encoder-decoder at full width, both stacks cut to 4
-    # layers, 4096 stub frames before each sequence (BSP only):
+    # layers, 4096 stub frames before each sequence (any --algo):
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch seamless-m4t-large-v2 --layers 4 --ranks 2 --batch 2 \\
         --seq 1024 --steps 4 --exchanger asa16 --sharded-update
@@ -89,8 +89,8 @@ and ``--resume`` continues from one.
 reference launcher's ``adamw()``) and ``--lr`` sets the schedule's peak;
 without them the recipe above runs.
 
-The encoder-decoder trains with BSP alone: ``--algo`` other than
-``bsp`` refuses it (not ported).
+The encoder-decoder trains under every ``--algo``, as the decoders do
+(its frames ride in each rank's batch).
 
 ``--algo easgd|asgd`` trains each rank as an EASGD worker with a center
 exchanged every ``--tau`` steps (``--alpha``: the elastic coefficient).
@@ -596,16 +596,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.attn_impl == "blockwise":
         ap.error("--attn-impl blockwise: the JAX package's blockwise "
-                 "attention scan is not ported (ROADMAP queue 1 item 8); "
+                 "attention scan is not ported (ROADMAP queue 1 item 5); "
                  "use flash, ref or auto")
     try:
         plan_from_opts(vars(args))
     except ValueError as e:
         ap.error(str(e))
-    if (not args.preset and get_config(args.arch).family == "encdec"
-            and args.algo != "bsp"):
-        ap.error(f"--algo {args.algo} does not train the encdec family "
-                 f"({args.arch}): not ported, BSP alone")
     if is_elastic(vars(args)):
         if args.algo not in ("easgd", "asgd"):
             ap.error("--quorum/--fault-plan need an async plan (--algo "

@@ -40,6 +40,7 @@ from repro_torch.kernels.flash_attention import (flash_attention, flash_decode,
 # buffer through (B, NP) tables: the einsum path's read of a paged cache
 from repro_torch.kernels.ref import gather_pages as _gather_lane
 from repro_torch.models.common import apply_rope, dense_init, head_rms_norm
+from repro_torch.models.tp import heads_local
 
 NEG_INF = -1e30
 
@@ -221,6 +222,13 @@ def gqa_attend(q, k, v, keep, a: AttentionConfig):
     return out.reshape(B, Sq, H, hd)
 
 
+# the attention calls as the model axis runs them per head
+# (``models/tp.py``); on plain tensors each calls the function itself
+_flash_heads = heads_local(flash_attention)
+_decode_heads = heads_local(flash_decode)
+_attend_heads = heads_local(gqa_attend)
+
+
 def _out_proj(p, out, B: int, S: int):
     return torch.einsum("bsf,fd->bsd", out.reshape(B, S, -1), p["wo"])
 
@@ -235,10 +243,10 @@ def gqa_forward(p, x, positions, a: AttentionConfig, window: int,
     if impl == "flash":
         # common-offset positions: the kernel's row-index masking (q_off=0)
         # is exact because causality only depends on q_pos - k_pos
-        out = flash_attention(q, k, v, window=window)
+        out = _flash_heads(q, k, v, window=window)
     else:
         keep = causal_window_mask(positions[0], positions[0], window)
-        out = gqa_attend(q, k, v, keep, a)
+        out = _attend_heads(q, k, v, keep, a)
     return _out_proj(p, out, B, S)
 
 
@@ -277,11 +285,12 @@ def gqa_decode(p, cache, x, pos, a: AttentionConfig, window: int,
     _update_cache_rows(cv, v, pos, pos_vec)
     S = ck.shape[1]
     if impl == "flash":
-        out = flash_decode(q, ck, cv, posv[:, 0], window=window)
+        out = _decode_heads(q, ck, cv, posv[:, 0],
+                                        window=window)
     else:
         kpos = torch.arange(S, device=x.device)
         keep = decode_keep_batched(kpos, posv[:, 0], window)[:, None, :]
-        out = gqa_attend(q, ck, cv, keep, a)
+        out = _attend_heads(q, ck, cv, keep, a)
     return _out_proj(p, out, B, 1), cache
 
 
@@ -308,12 +317,13 @@ def gqa_prefill(p, cache, x, positions, pos0: int, a: AttentionConfig,
         cv[:, start:start + C] = v.to(cv.dtype)
         lane_k, lane_v = ck, cv
     if impl == "flash":
-        out = flash_attention(q, lane_k, lane_v, q_off=positions[:, 0],
-                              window=window)
+        out = _flash_heads(q, lane_k, lane_v,
+                                           q_off=positions[:, 0],
+                                           window=window)
     else:
         kpos = torch.arange(lane_k.shape[1], device=x.device)
         keep = causal_window_mask(positions[0], kpos, window)
-        out = gqa_attend(q, lane_k, lane_v, keep, a)
+        out = _attend_heads(q, lane_k, lane_v, keep, a)
     return _out_proj(p, out, B, C), cache
 
 
@@ -361,8 +371,9 @@ def mla_forward(p, x, positions, a: AttentionConfig, window: int,
         q_cat = torch.cat([q_lat, q_rope], dim=-1)           # (B,S,H,R+rope)
         k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None]
         v_lat = c_kv[:, :, None]                             # (B,S,1,R)
-        o_lat = flash_attention(q_cat, k_cat, v_lat, window=window,
-                                sm_scale=lat_scale)
+        o_lat = _flash_heads(q_cat, k_cat, v_lat,
+                                             window=window,
+                                             sm_scale=lat_scale)
         out = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), p["wuv"])
         return _out_proj(p, out, B, S)
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wuk"])   # (B,S,H,nope)

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from repro_torch.models.tp import replicated, vocab_parallel_nll
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -43,10 +45,15 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch.float32,
 # norms
 # ---------------------------------------------------------------------------
 
-def rms_norm(x, scale, eps: float = 1e-5):
+def rms_norm(x, scale, eps: float = 1e-5, reduce=None):
+    """``reduce`` maps the mean square over the last dim, where that dim
+    is one shard of the whole, to the whole's (``models/tp.py``)."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps)
+    ms = x.pow(2).mean(-1, keepdim=True)
+    if reduce is not None:
+        ms = reduce(ms)
+    x = x * torch.rsqrt(ms + eps)
     return (x * (1.0 + scale.float())).to(dt)
 
 
@@ -85,11 +92,15 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 
 def softmax_xent(logits, labels, mask=None):
     """Mean cross-entropy over valid positions; logits (..., V), labels
-    int (...). Computed in fp32."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    int (...). Computed in fp32. Logits sharded on the vocab (the dry
+    run's model axis) take the vocab-parallel form; otherwise a DTensor's
+    logits are gathered first."""
+    nll = vocab_parallel_nll(logits, labels)
+    if nll is None:
+        logits = replicated(logits, "logits gathered for the loss").float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -35,10 +35,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import act
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        embed_init, rms_norm, softmax_xent)
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models import tp
 
 
 def _zeros(cfg: ArchConfig, device):
@@ -95,7 +97,7 @@ def _bidir_attend(p, x, positions, cfg: ArchConfig):
     q = apply_rope(q, positions, a.rope_theta)
     k = apply_rope(k, positions, a.rope_theta)
     B, S = x.shape[:2]
-    out = attn_mod.gqa_attend(q, k, v, _all_keep(S, S, x.device), a)
+    out = attn_mod._attend_heads(q, k, v, _all_keep(S, S, x.device), a)
     return attn_mod._out_proj(p, out, B, S)
 
 
@@ -106,7 +108,7 @@ def _cross_attend(p, x, enc_out, cfg: ArchConfig):
     v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
     B, S = x.shape[:2]
     keep = _all_keep(S, enc_out.shape[1], x.device)
-    out = attn_mod.gqa_attend(q, k, v, keep, cfg.attention)
+    out = attn_mod._attend_heads(q, k, v, keep, cfg.attention)
     return attn_mod._out_proj(p, out, B, S)
 
 
@@ -145,7 +147,7 @@ def encode(params, frames, cfg: ArchConfig):
     positions = _positions(B, S, h.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["enc"]:
-        h = _call(_enc_layer, remat, lp, h, positions, cfg)
+        h = act.constrain(_call(_enc_layer, remat, lp, h, positions, cfg))
     return rms_norm(h, params["ln_enc"], cfg.norm_eps)
 
 
@@ -154,14 +156,15 @@ def decode_train(params, tokens, enc_out, cfg: ArchConfig):
     logits (B, S, V)."""
     dtype = dtype_of(cfg.dtype)
     # F.embedding, as transformer._embed: bitwise under a counted call
-    h = torch.nn.functional.embedding(tokens, params["embed"]).to(dtype)
+    h = tp.embedding(tokens, params["embed"]).to(dtype)
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)
     # resolved once, as decoder_forward does
     impl = attn_mod.resolve_attn_impl(cfg.attention)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["dec"]:
-        h = _call(_dec_layer, remat, lp, h, enc_out, positions, cfg, impl)
+        h = act.constrain(_call(_dec_layer, remat, lp, h, enc_out,
+                                positions, cfg, impl))
     h = rms_norm(h, params["ln_dec"], cfg.norm_eps)
     return torch.einsum("bsd,dv->bsv", h, params["head"].to(dtype))
 
@@ -221,7 +224,7 @@ def encdec_decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
     dtype = dtype_of(cfg.dtype)
     a = cfg.attention
     eps = cfg.norm_eps
-    h = torch.nn.functional.embedding(tokens, params["embed"]).to(dtype)
+    h = tp.embedding(tokens, params["embed"]).to(dtype)
     window = cfg.long_context_window if seq_len > 100_000 else 0
     impl = attn_mod.resolve_attn_impl(a)
     sk, sv = cache["self"]["k"], cache["self"]["v"]
@@ -235,8 +238,8 @@ def encdec_decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
         p = lp["cross_attn"]
         q = torch.einsum("bsd,dhk->bshk", rms_norm(h, lp["ln_x"], eps),
                          p["wq"])
-        out = attn_mod.gqa_attend(q, ck[j], cv[j],
-                                  _all_keep(1, ck.shape[2], h.device), a)
+        out = attn_mod._attend_heads(q, ck[j], cv[j],
+                                     _all_keep(1, ck.shape[2], h.device), a)
         h = h + attn_mod._out_proj(p, out, B, 1)
         h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], eps))
     h = rms_norm(h, params["ln_dec"], eps)

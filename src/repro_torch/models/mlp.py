@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import tp
 from repro_torch.models.common import dense_init
 
 
@@ -15,6 +16,7 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, device=None):
 
 
 def mlp_forward(p, x):
+    x = tp.column_input(x, p["wi"])
     g = torch.einsum("bsd,df->bsf", x, p["wi"])
     u = torch.einsum("bsd,df->bsf", x, p["wu"])
     return torch.einsum("bsf,fd->bsd", torch.nn.functional.silu(g) * u,

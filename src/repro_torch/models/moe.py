@@ -47,7 +47,7 @@ def capacity(tokens: int, m: MoEConfig) -> int:
 
 
 def moe_forward(p, x, m: MoEConfig, *, full_capacity: bool = False,
-                valid=None):
+                valid=None, expert_lo: int = 0):
     """x (B, S, d) -> (y (B, S, d), aux loss (fp32 scalar)).
 
     ``full_capacity=True`` sizes the buffer at C = T, so no token is ever
@@ -56,7 +56,14 @@ def moe_forward(p, x, m: MoEConfig, *, full_capacity: bool = False,
     the batch, which the serving engine's decode and prefill rely on.
     Training keeps the capped capacity. ``valid`` (flat (T,) bool)
     excludes tokens (prompt padding in chunked prefill) from routing: they
-    claim no buffer slot and get only the shared expert's output."""
+    claim no buffer slot and get only the shared expert's output.
+
+    Expert parallelism (the dry run's model axis, ``models/tp.py``): when
+    ``p``'s expert weights hold experts ``[expert_lo, expert_lo + E')``
+    of the ``num_experts`` alone, the routing is the whole layer's and
+    only the tokens those experts take are computed: ``y`` is this
+    shard's partial sum over experts (no shared expert), the aux loss the
+    whole layer's."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
@@ -86,6 +93,11 @@ def moe_forward(p, x, m: MoEConfig, *, full_capacity: bool = False,
     gate_vals = gate_vals * keep.to(gate_vals.dtype)
 
     # --- scatter tokens into the (E, C, d) buffer, row E*C the drop row ---
+    E_all, E = E, p["wi"].shape[0]
+    if E != E_all:              # an expert shard: the others' slots drop
+        keep = keep & (gate_idx >= expert_lo) & (gate_idx < expert_lo + E)
+        gate_vals = gate_vals * keep.to(gate_vals.dtype)
+        gate_idx = (gate_idx - expert_lo).clamp(0, E - 1)
     slot = gate_idx * C + torch.where(keep, pos, torch.full_like(pos, C * E))
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     # each token may occupy up to K slots; a kept slot is written once
@@ -110,5 +122,5 @@ def moe_forward(p, x, m: MoEConfig, *, full_capacity: bool = False,
     # --- load-balance auxiliary loss (switch transformer eq. 4) -------------
     me = probs.mean(0)                                          # (E,)
     ce = onehot.sum(1).float().mean(0)
-    aux = E * (me * ce).sum() * m.router_aux_weight
+    aux = E_all * (me * ce).sum() * m.router_aux_weight
     return y, aux

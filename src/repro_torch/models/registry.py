@@ -34,8 +34,9 @@ has ``init``, ``forward(params, batch)`` and ``loss_fn`` on batch
 ``prefill(params, frames, cache) -> cache`` (the encoder once, then each
 layer's cross K/V) and ``decode_step(params, cache, batch, pos,
 seq_len)``; no chunked prefill and no paged cache, as in the reference.
-Its ``loss_fn`` takes ``gather=None`` alone: sharded training of it is
-not ported.
+Its ``loss_fn`` takes ``gather=None`` alone: sharded (gspmd) training
+gathers its tree whole before the loss (``core/gspmd.py``), as for every
+family but the decoders.
 
 Every call casts fp32 matrices to the compute dtype (``cast_params``);
 a caller that keeps params already cast (the serving engine) pays
@@ -128,8 +129,8 @@ def _build_encdec(cfg: ArchConfig, dev: torch.device) -> Model:
         del gen                 # the encoder-decoder draws no randomness
         if gather is not None:
             raise NotImplementedError(
-                f"{cfg.name}: sharded (gspmd) training of the encdec family "
-                f"is not ported")
+                f"{cfg.name}: the encdec loss takes no layer-wise gather; "
+                f"gspmd gathers its tree whole")
         return encdec.encdec_loss(cast_params(params, cdt), batch, cfg)
 
     @torch.no_grad()

@@ -187,25 +187,29 @@ def _split_xBC(xBC, shape, d_model: int, s: SSMConfig):
             xBC[..., di + G * N:].reshape(*shape, G, N))
 
 
-def _gated_out(p, y, xs, z, eps: float):
+def _gated_out(p, y, xs, z, eps: float, norm_reduce=None):
     """y + D x, the gated RMSNorm norm(y * silu(z)), the out projection.
     y, xs (B, S, nh, P); z (B, S, di)."""
     B_, S_ = y.shape[:2]
     y = y + xs.float().to(y.dtype) * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B_, S_, -1)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], eps)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], eps,
+                 norm_reduce)
     return torch.matmul(y, p["out_proj"])
 
 
-def ssm_forward(p, x, d_model: int, s: SSMConfig, eps: float = 1e-5):
-    """Training / prefill SSD block. x (B, S, d) -> (B, S, d)."""
+def ssm_forward(p, x, d_model: int, s: SSMConfig, eps: float = 1e-5,
+                norm_reduce=None):
+    """Training / prefill SSD block. x (B, S, d) -> (B, S, d).
+    ``norm_reduce``: the gated norm's reduction over heads held by other
+    devices (``models/tp.py``'s ``ssm_local``)."""
     B_, S_, _ = x.shape
     z, xBC, dt = _project(p, x)
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xs, Bm, Cm = _split_xBC(xBC, (B_, S_), d_model, s)
     dt, A = _dt_and_A(p, dt)
     y, _ = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk)
-    return _gated_out(p, y, xs, z, eps)
+    return _gated_out(p, y, xs, z, eps, norm_reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -227,9 +231,11 @@ def ssm_init_cache(batch: int, d_model: int, s: SSMConfig, dtype,
     }
 
 
-def ssm_decode(p, cache, x, d_model: int, s: SSMConfig, eps: float = 1e-5):
+def ssm_decode(p, cache, x, d_model: int, s: SSMConfig, eps: float = 1e-5,
+               norm_reduce=None):
     """Single-token recurrent step. x (B, 1, d). Writes the cache in
-    place; returns (y (B, 1, d), cache)."""
+    place; returns (y (B, 1, d), cache). ``norm_reduce`` as in
+    :func:`ssm_forward`."""
     nh = num_heads_of(d_model, s)
     Bsz = x.shape[0]
     z, xBC, dt = _project(p, x[:, 0])                          # (B, .)
@@ -250,7 +256,7 @@ def ssm_decode(p, cache, x, d_model: int, s: SSMConfig, eps: float = 1e-5):
     y = (y + xs.float() * p["D"][None, :, None]).reshape(Bsz, 1, -1)
     y = y.to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype)[:, None, :], p["norm"],
-                 eps)
+                 eps, norm_reduce)
     out = torch.matmul(y, p["out_proj"])
     cache["conv"].copy_(win[:, 1:])
     cache["state"].copy_(h)

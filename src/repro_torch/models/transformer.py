@@ -47,12 +47,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import act
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (dtype_of, embed_init, dense_init,
                                        rms_norm, softmax_xent)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward
+from repro_torch.models import tp
+
+# the MoE and SSM calls as the model axis runs them (``models/tp.py``); on
+# plain tensors each calls the function itself
+_moe_tp = tp.experts_local(moe_forward, mlp_forward)
+_ssm_tp = tp.ssm_local(ssm_mod.ssm_forward)
+_ssm_decode_tp = tp.ssm_local(ssm_mod.ssm_decode, with_cache=True)
 
 # ---------------------------------------------------------------------------
 # layer layout (plain Python, as in the JAX package)
@@ -107,7 +115,7 @@ def _embed(params, tokens, dtype):
     # F.embedding, not indexing: under a dispatch mode (a counted call,
     # telemetry.profile) an indexing backward adds in another order on
     # the CPU, F.embedding's does not, so a counted step stays bit for bit
-    return torch.nn.functional.embedding(tokens, params["embed"]).to(dtype)
+    return tp.embedding(tokens, params["embed"]).to(dtype)
 
 
 def _has_images(batch, cfg: ArchConfig) -> bool:
@@ -158,7 +166,7 @@ def _ffn(p, x, cfg: ArchConfig, **moe_kw):
         return x, None
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        y, aux = moe_forward(p["moe"], h, cfg.moe, **moe_kw)
+        y, aux = _moe_tp(p["moe"], h, cfg.moe, **moe_kw)
         return x + y, aux
     return x + mlp_forward(p["mlp"], h), None
 
@@ -187,8 +195,7 @@ def _apply_layer(p, x, positions, cfg: ArchConfig, kind: str, window,
     x = x + _mix(p, kind, eps,
                  lambda: attn_mod.attn_forward(p["attn"], h, positions, cfg,
                                                window, impl=attn_impl),
-                 lambda: ssm_mod.ssm_forward(p["ssm"], h, cfg.d_model,
-                                             cfg.ssm, eps))
+                 lambda: _ssm_tp(p["ssm"], h, cfg.d_model, cfg.ssm, eps))
     return _ffn(p, x, cfg)
 
 
@@ -200,8 +207,8 @@ def _decode_layer(p, cache, x, pos, cfg: ArchConfig, kind: str, window,
                  lambda: attn_mod.attn_decode(
                      p["attn"], cache["attn"], h, pos, cfg, window,
                      impl=attn_impl, tables=tables, page_size=page_size)[0],
-                 lambda: ssm_mod.ssm_decode(p["ssm"], cache["ssm"], h,
-                                            cfg.d_model, cfg.ssm, eps)[0])
+                 lambda: _ssm_decode_tp(p["ssm"], cache["ssm"], h,
+                                        cfg.d_model, cfg.ssm, eps)[0])
     # full capacity: decode routing is drop-free, so each slot's output is
     # independent of what the other slots are decoding
     return _ffn(p, x, cfg, full_capacity=True)[0]
@@ -297,6 +304,7 @@ def decoder_forward(params, batch, cfg: ArchConfig, gather=None):
         else:
             h, aux = _apply_layer(lp, h, positions, cfg, kind, win,
                                   attn_impl, gather)
+        h = act.constrain(h)
         if aux is not None:
             aux_total = aux_total + aux
     # the final norm is per position, so stripping before it is the same
@@ -399,6 +407,7 @@ def decoder_prefill(params, caches, tokens, pos0: int, valid: int,
     attn_impl = attn_mod.resolve_attn_impl(cfg.attention)
     for lp, lc, kind, win in zip(params["layers"], _layer_caches(caches, cfg),
                                  layer_kinds(cfg), wins):
-        h = _prefill_layer(lp, lc, h, positions, pos0, int(valid), valid_flat,
-                           cfg, kind, win, attn_impl, block_tables, page_size)
+        h = act.constrain(_prefill_layer(
+            lp, lc, h, positions, pos0, int(valid), valid_flat, cfg, kind,
+            win, attn_impl, block_tables, page_size))
     return _head(params, h, cfg, dtype), caches

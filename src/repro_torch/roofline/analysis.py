@@ -18,11 +18,20 @@ backward and ``torch.utils.checkpoint``'s recomputation included) and
 - **bytes**: each op's input plus output tensors on the device, XLA's
   pre-fusion "bytes accessed" rule, which for eager execution is the
   traffic itself. Ops that move no data count none (``empty*``, views,
-  ``detach``, aliases); an op across host and card (a copy) counts each
-  of its device tensors once;
-- **collectives**: ``c10d`` ops, by kind, under the reference's
+  ``detach``, aliases, a host number or scalar tensor put on the
+  device); an op across host and card (a copy) counts each of its device
+  tensors once, and a host scalar tensor an op reads (a fill's value)
+  counts as it would on the device;
+- **collectives**: ``c10d`` ops and the functional collectives that
+  DTensor issues (``_c10d_functional``), by kind, under the reference's
   ``parse_collectives`` rule (the bytes of the result; twice that for an
   all-reduce; the (k-1)/k factor dropped). They never count as HBM bytes.
+
+Tensors on the ``meta`` device count as device tensors, so a dry run
+(``launch/dryrun.py``) counts what the same program does on the card. A
+DTensor op is counted through the ops on its local shards that DTensor
+dispatches (one device's share, with the collectives its redistributions
+issue); the fake tensors of its sharding propagation count nothing.
 
 The hand-written kernels launch through ``ctypes``, which no dispatch mode
 sees: each launch reports its own work through ``kernels.cost``, and an
@@ -32,8 +41,10 @@ the mode).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
+import threading
 from dataclasses import dataclass, field
 
 import torch
@@ -91,10 +102,27 @@ def peaks() -> dict:
     return {k: env[k] or card[k] for k in PEAK_ENV}
 
 
+_SITE = threading.local()
+
+
+@contextlib.contextmanager
+def collective_site(name: str):
+    """Within the block, the collectives a :class:`CostMode` counts are
+    also added to its ``collectives.bytes_by_site[name]`` (the innermost
+    block's name; a backward run after the block is not inside it)."""
+    prev = getattr(_SITE, "name", None)
+    _SITE.name = name
+    try:
+        yield
+    finally:
+        _SITE.name = prev
+
+
 @dataclass
 class CollectiveStats:
     counts: dict = field(default_factory=dict)
     bytes_by_kind: dict = field(default_factory=dict)
+    bytes_by_site: dict = field(default_factory=dict)
 
     @property
     def total_bytes(self) -> int:
@@ -103,8 +131,21 @@ class CollectiveStats:
     def add(self, kind: str, nbytes: int) -> None:
         self.counts[kind] = self.counts.get(kind, 0) + 1
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes
+        site = getattr(_SITE, "name", None)
+        if site is not None:
+            self.bytes_by_site[site] = self.bytes_by_site.get(site,
+                                                              0) + nbytes
 
 
+# functional collective (DTensor's) -> kind; its result is the op's output
+_FUNCTIONAL_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "broadcast": "broadcast",
+}
 # c10d op -> the reference's collective kind
 _COLL_KINDS = {
     "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
@@ -121,11 +162,31 @@ _COLL_KINDS = {
     "scatter_": "scatter",
 }
 _aten = torch.ops.aten
-# ops that move no data (views are found by their schema)
+# ops that move no data (views are found by their schema; a scalar made
+# from a host number is no traffic either)
 _NO_TRAFFIC = {_aten.empty, _aten.empty_like, _aten.empty_strided,
                _aten.new_empty, _aten.new_empty_strided, _aten.detach,
                _aten.alias, _aten.lift_fresh, _aten._unsafe_view,
-               _aten._reshape_alias, _aten.set_, _aten.resize_}
+               _aten._reshape_alias, _aten.set_, _aten.resize_,
+               _aten.scalar_tensor}
+
+
+@functools.lru_cache(maxsize=None)
+def _dtensor_type():
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:     # a build without torch.distributed
+        return type("NoDTensor", (), {})
+    return DTensor
+
+
+@functools.lru_cache(maxsize=None)
+def _fake_type():
+    from torch._subclasses.fake_tensor import FakeTensor
+    return FakeTensor
+
+
+_COPIES = {_aten.copy_, _aten._to_copy}
 
 
 def _flop_fns() -> dict:
@@ -147,13 +208,21 @@ class CostMode(TorchDispatchMode):
     """Counts one run of a program (module docstring): ``flops``,
     ``hbm_bytes``, ``collectives`` (a :class:`CollectiveStats`), the hand
     kernels' share in ``kernels`` ({name: {"launches", "flops",
-    "bytes"}}, also in the totals), and ``errors`` / ``first_error``: ops
-    whose counting failed (each still ran once)."""
+    "bytes"}}, also in the totals), ``host_copy_bytes`` (the share of
+    ``hbm_bytes`` of the copies across host and device: the gloo
+    transport's staging on a shared card) and ``host_copies`` (the same
+    by op, dtype, device-side shape and direction: {name: {"count",
+    "bytes"}}), ``bytes_by_op`` (``hbm_bytes``
+    by aten op, the kernels under their names), and ``errors`` /
+    ``first_error``: ops whose counting failed (each still ran once)."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0.0
         self.hbm_bytes = 0.0
+        self.host_copy_bytes = 0.0
+        self.host_copies: dict = {}
+        self.bytes_by_op: dict = {}
         self.collectives = CollectiveStats()
         self.kernels: dict = {}
         self.errors = 0
@@ -182,7 +251,22 @@ class CostMode(TorchDispatchMode):
         row["flops"] += flops
         row["bytes"] += nbytes
         self.flops += flops
+        self._add_bytes(name, nbytes)
+
+    def _add_bytes(self, key: str, nbytes: float) -> None:
         self.hbm_bytes += nbytes
+        self.bytes_by_op[key] = self.bytes_by_op.get(key, 0.0) + nbytes
+
+    def _add_host_copy(self, packet, ts, out) -> None:
+        nbytes = sum(_tensor_bytes(t) for t in ts)
+        self.host_copy_bytes += nbytes
+        to_host = isinstance(out, torch.Tensor) and out.device.type == "cpu"
+        name = " ".join((str(packet), *(f"{str(t.dtype)[6:]}{list(t.shape)}"
+                                        for t in ts),
+                         "to host" if to_host else "to device"))
+        row = self.host_copies.setdefault(name, {"count": 0, "bytes": 0.0})
+        row["count"] += 1
+        row["bytes"] += nbytes
 
     def error(self, what: str, e: BaseException) -> None:
         self.errors += 1
@@ -191,7 +275,12 @@ class CostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, _dtensor_type()) for t in types):
+            return NotImplemented      # counted as its local shards' ops
         out = func(*args, **kwargs)
+        if any(issubclass(t, _fake_type()) for t in types) or isinstance(
+                out, _fake_type()):
+            return out                 # DTensor's sharding propagation
         try:
             self._count(func, args, kwargs, out)
         except Exception as e:  # noqa: BLE001 — counting never stops a run
@@ -199,6 +288,14 @@ class CostMode(TorchDispatchMode):
         return out
 
     def _count(self, func, args, kwargs, out) -> None:
+        if func.namespace == "_c10d_functional":
+            kind = _FUNCTIONAL_KINDS.get(func._schema.name.split("::")[-1])
+            if kind is not None:
+                nbytes = sum(_tensor_bytes(t) for t in tree_leaves(out)
+                             if isinstance(t, torch.Tensor))
+                self.collectives.add(kind, 2 * nbytes if kind == "all-reduce"
+                                     else nbytes)
+            return
         if func.namespace == "c10d":
             kind = _COLL_KINDS.get(func._schema.name.split("::")[-1])
             if kind is not None:
@@ -214,14 +311,20 @@ class CostMode(TorchDispatchMode):
         if func.is_view or packet in _NO_TRAFFIC:
             return
         ts = [t for t in tree_leaves((args, kwargs, out))
-              if isinstance(t, torch.Tensor) and t.device.type != "meta"]
+              if isinstance(t, torch.Tensor)]
         if len({t.device.type for t in ts}) > 1:
-            seen: dict = {}
-            for t in ts:
-                if t.device.type != "cpu":
-                    seen[id(t)] = t
-            ts = list(seen.values())
-        self.hbm_bytes += sum(_tensor_bytes(t) for t in ts)
+            if packet in _COPIES and all(t.numel() <= 1 for t in ts):
+                return          # a host scalar put on the device
+            if any(t.device.type == "cpu" and t.dim() > 0 for t in ts):
+                # a copy across host and device: its device side, once
+                seen: dict = {}
+                for t in ts:
+                    if t.device.type != "cpu":
+                        seen[id(t)] = t
+                ts = list(seen.values())
+                self._add_host_copy(packet, ts, out)
+            # else a host scalar argument: read once, as on one device
+        self._add_bytes(str(packet), sum(_tensor_bytes(t) for t in ts))
 
 
 # A dispatch mode's __torch_dispatch__ comes wrapped by

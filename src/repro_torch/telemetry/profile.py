@@ -169,6 +169,9 @@ def _counted(name: str, fn, args, kwargs, coll_bytes):
         coll_bytes = coll_bytes(*args, **kwargs)
     prof.coll_bytes = float(coll_bytes or 0.0)
     prof.meta["kernels"] = mode.kernels
+    prof.meta["host_copy_bytes"] = mode.host_copy_bytes
+    prof.meta["host_copies"] = mode.host_copies
+    prof.meta["bytes_by_op"] = mode.bytes_by_op
     prof.meta["collectives"] = {"counts": mode.collectives.counts,
                                 "bytes_by_kind":
                                     mode.collectives.bytes_by_kind}

@@ -418,7 +418,7 @@ def test_launcher_attn_impl_picks_the_route(capsys):
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
                       "--attn-impl", "blockwise"])
-    assert "ROADMAP queue 1 item 8" in capsys.readouterr().err
+    assert "ROADMAP queue 1 item 5" in capsys.readouterr().err
 
 
 def test_bsp_grad_norm_not_on_sharded_path():

@@ -12,8 +12,9 @@ parameters bridged by ``encdec_params_from_jax``:
   ``generate``'s tokens (the stepwise path, which never runs the encoder:
   a fault of the reference that the port copies);
 - the train launcher's ``frames`` bit for bit, its depth cut, its
-  refusal of the async and sharded plans, one k=2 BSP step on gloo equal
-  to k=1, and a smoke run; the serve engine's and launcher's refusals.
+  one step under each of the async and sharded plans, one k=2 BSP step
+  on gloo equal to k=1, and a smoke run; the serve engine's and
+  launcher's refusals.
 
 The JAX side is computed once for the module (one jit each).
 Tolerances: 1e-5 of the largest |value| for outputs (fp32, sums in
@@ -348,11 +349,18 @@ def test_launcher_frames_are_the_reference_launchers():
 
 
 @pytest.mark.parametrize("algo", ["easgd", "asgd", "gspmd"])
-def test_launcher_refuses_other_plans_for_encdec(algo, capsys):
-    with pytest.raises(SystemExit):
-        tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                      "--algo", algo])
-    assert "encdec" in capsys.readouterr().err
+def test_launcher_trains_encdec_under_every_plan(algo, capfd):
+    """The launcher trains the encoder-decoder under every plan (it used
+    to refuse all but BSP): one step on 2 gloo ranks, a finite loss."""
+    tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--algo",
+                  algo, "--ranks", "2", "--batch", "2", "--seq", "16",
+                  "--steps", "1"])
+    out = capfd.readouterr().out
+    done = [ln for ln in out.splitlines() if ln.startswith("done:")]
+    assert len(done) == 1 and ARCH in done[0], out
+    assert (f"gspmd zero1" if algo == "gspmd" else f"{algo} tau=1") in done[0]
+    loss = float(done[0].rsplit("loss ", 1)[1].split(" ")[0])
+    assert np.isfinite(loss)
 
 
 def test_sharded_loss_is_refused_by_name():

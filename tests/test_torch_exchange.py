@@ -108,10 +108,15 @@ def test_casts_check_dtype_and_devices():
     with pytest.raises(TypeError, match="float16"):
         tq.dequant_fp16(torch.zeros(4))
     assert tq.quant_fp16(torch.zeros(0)).shape == (0,)
-    for fn, x in ((tcs.chunk_sum, torch.zeros(2, 4)), (tq.quant_fp16,
-                                                      torch.zeros(4))):
-        with pytest.raises(ValueError, match="meta"):
-            fn(x.to("meta"))
+    # the dry run's meta paths: meta outputs of the kernel's shapes and
+    # dtypes, no launch; a wrapper with no meta path raises on meta
+    assert tcs.chunk_sum(torch.zeros(2, 4).to("meta")).shape == (4,)
+    assert tq.quant_fp16(torch.zeros(4).to("meta")).dtype == torch.float16
+    with pytest.raises(ValueError, match="meta"):
+        tq.quant_int8(torch.zeros(4).to("meta"))
+    with pytest.raises(ValueError, match="meta"):
+        tq.dequant_int8(torch.zeros(4, dtype=torch.int8).to("meta"),
+                        torch.zeros(1).to("meta"))
 
 
 @pytest.mark.parametrize("n", [1, 2048, 5000, 65536 + 7])

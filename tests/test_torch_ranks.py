@@ -683,3 +683,236 @@ def archs_worker(rank, k, out_dir, cases):
         res[f"{name}-{plan}"] = dict(out, params=state["params"],
                                      losses=losses)
     torch.save(res, os.path.join(out_dir, f"archs{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# the dry run against a counted step (test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+DRY_BATCH, DRY_SEQ = 2, 64       # a rank's sequences and tokens
+DRY_CASES = ("bsp", "zero1")     # BSP asa16 sharded (fused), gspmd zero1
+
+
+class _Recorder:
+    """A kernel library whose every entry point returns success (0) and
+    does nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+def card_path():
+    """The wrappers' launch path on CPU tensors, as on the card: the
+    library a recorder, so each launch reports its cost and computes
+    nothing."""
+    from repro_torch import kernels as K
+    K.on_cpu = lambda *ts: False
+    K.load = lambda name: _Recorder()
+    K.stream_ptr = lambda t: None
+    K.sm_count = lambda index: K.META_SM_COUNT
+
+
+def dry_recipe():
+    from repro_torch.kernels import fused_sgd as fs
+    return (topt.sgd_momentum(momentum=0.9, weight_decay=1e-4,
+                              fused_kernel=fs.fused_sgd),
+            tsched.warmup_cosine(0.01, 2, 4))
+
+
+def dryrun_worker(rank, k, out_dir):
+    """One step of each of DRY_CASES on the smoke llama3.2-1b, on the
+    kernels' launch path (``card_path``), counted by a ``CostMode``:
+    flops, HBM bytes and collectives of rank 0's step."""
+    import json
+
+    from repro_torch.core.gspmd import (abstract_params, fsdp_shardings,
+                                        init_gspmd_state, make_gspmd_step)
+    from repro_torch.data.synthetic import LMTokenSource
+    from repro_torch.roofline.analysis import CostMode
+    card_path()
+    cfg = get_smoke_config("llama3.2-1b")
+    model = build_model(cfg, "cpu")
+    opt, lr = dry_recipe()
+    batch = {n: torch.from_numpy(v) for n, v in LMTokenSource(
+        cfg.vocab_size, DRY_SEQ).batch(DRY_BATCH, rank).items()}
+    out = {}
+    for case in DRY_CASES:
+        gen = torch.Generator().manual_seed(0)
+        if case == "bsp":
+            state = tbsp.init_sharded_train_state(model, opt, gen)
+            # the card's fused RS tail (on by default where the parameters
+            # are on the card or the meta device)
+            step = tbsp.make_bsp_step(model, opt, tex.get_exchanger("asa16"),
+                                      lr, sharded_update=True,
+                                      fuse_rs_update=True)
+        else:
+            specs = fsdp_shardings(abstract_params(model), k)
+            state = init_gspmd_state(model, opt, gen, specs)
+            step = make_gspmd_step(model, opt, lr, specs, mode="zero1")
+        mode = CostMode()
+        with mode:
+            step(state, batch)
+        out[case] = dict(flops=mode.flops, hbm_bytes=mode.hbm_bytes,
+                         counts=mode.collectives.counts,
+                         bytes_by_kind=mode.collectives.bytes_by_kind,
+                         kernels=mode.kernels)
+    if rank == 0:
+        with open(os.path.join(out_dir, "dryrun_step.json"), "w") as f:
+            json.dump(out, f)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder under every plan (test_torch_encdec_plans.py)
+# ---------------------------------------------------------------------------
+
+PLAN_STEPS = 3
+PLAN_LR = 0.05
+PLAN_BATCH = 2                   # a rank's sequences a step
+PLAN_CASES = (("gspmd", dict(algo="gspmd", mode="zero1")),
+              ("bsp-sharded", dict(exchanger="asa", sharded_update=True)),
+              ("easgd", dict(algo="easgd", exchanger="asa", tau=1,
+                             alpha=0.5)),
+              ("asgd", dict(algo="asgd", exchanger="asa", tau=1)),
+              ("bsp-klr", dict(exchanger="asa")))
+
+
+def plan_batches(cfg, k):
+    """PLAN_STEPS global batches of the launcher's ``synthetic_batch``
+    (frames included) of k * PLAN_BATCH sequences of 16 tokens."""
+    from repro_torch.launch.train import synthetic_batch
+    return [synthetic_batch(cfg, k * PLAN_BATCH, i, 16)
+            for i in range(PLAN_STEPS)]
+
+
+def encdec_plans_worker(rank, k, out_dir, cfg, params):
+    """Each of PLAN_CASES on the smoke encoder-decoder (fp32) from
+    ``params``, PLAN_STEPS steps through the training loop with momentum
+    SGD 0.9 (weight decay 1e-4) at PLAN_LR (``bsp-klr``: k x PLAN_LR), each
+    rank on its half of every global batch. Saves the losses and the
+    full parameters (gspmd's gathered back from every rank's shards)."""
+    import dataclasses as dc
+
+    from repro_torch.core.gspmd import (abstract_params, fsdp_shardings,
+                                        unshard_trees)
+    from repro_torch.train.engine import TrainPlan
+    from repro_torch.train.loop import train
+    import torch.distributed as dist
+    model = build_model(cfg, "cpu")
+    model = dc.replace(model, init=lambda gen: tree_map(torch.clone, params))
+    batches = [{n: torch.from_numpy(v[rank * PLAN_BATCH:
+                                      (rank + 1) * PLAN_BATCH])
+                for n, v in b.items()} for b in plan_batches(cfg, k)]
+    out = {}
+    for name, kw in PLAN_CASES:
+        opt = topt.sgd_momentum(momentum=0.9, weight_decay=1e-4)
+        lr = tsched.constant(PLAN_LR * (k if name == "bsp-klr" else 1))
+        state, rep = train(model, opt, lr, iter(batches),
+                           plan=TrainPlan(**kw), num_steps=PLAN_STEPS,
+                           log_every=0, seed=0, print_fn=lambda *a: None)
+        ps = state["params"]
+        if name == "gspmd":
+            shards = [None] * k
+            dist.all_gather_object(shards, tree_map(torch.clone, ps))
+            ps = unshard_trees(shards, fsdp_shardings(
+                abstract_params(model), k))
+        out[name] = dict(losses=rep.losses, params=leaves(ps))
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, "encdec_plans.pt"))
+
+
+# ---------------------------------------------------------------------------
+# the model axis on real values (test_torch_model_axis.py)
+# ---------------------------------------------------------------------------
+
+AXIS_POSITIONS = (0, 1, 2)       # decode steps from an empty cache
+
+
+def _shard_of(tree, specs, rank, k):
+    """Rank ``rank``'s shard of every leaf of ``tree`` under ``specs``
+    (each ``model`` entry splits its dim in k)."""
+    from repro_torch.dist.sharding import spec_leaves
+    from repro_torch.tree import flatten, unflatten
+    ls, td = flatten(tree)
+    out = []
+    for x, sp in zip(ls, spec_leaves(specs)):
+        for i, e in enumerate(sp):
+            if e == "model":
+                m = x.shape[i] // k
+                x = x.narrow(i, rank * m, m)
+        out.append(x.detach().clone())
+    return unflatten(td, out)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b| (max |a| where b is all zeros)."""
+    a, b = a.detach().float(), b.detach().float()
+    top = b.abs().max()
+    return float((a - b).abs().max() / top) if top > 0 else float(
+        a.abs().max())
+
+
+def model_axis_worker(rank, k, out_dir, cases):
+    """Each (name, config) of ``cases`` (fp32) on a model axis of the k
+    ranks (DTensor, ``models/tp.py``) against the same model on plain
+    tensors: the loss and every gradient under the reference's placement
+    (``param_shardings``), then AXIS_POSITIONS decode steps from an empty
+    cache (``cache_shardings``): the logits and the rank's cache shards.
+    Saves the largest differences (``_rel``)."""
+    import json
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.dist.sharding import (Mesh, cache_shardings,
+                                           param_shardings)
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import tp
+    from repro_torch.tree import flatten, unflatten
+    mm = init_device_mesh("cpu", (k,), mesh_dim_names=("model",))
+    mesh = Mesh(("model",), (k,))
+    out = {}
+    for name, cfg in cases:
+        model = build_model(cfg, "cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        batch = {n: torch.from_numpy(v)
+                 for n, v in synthetic_batch(cfg, 2, 0, 16).items()}
+        ls = [x.requires_grad_(True) for x in leaves(params)]
+        loss, _ = model.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, ls, allow_unused=True)
+        grads = unflatten(flatten(params)[1], [
+            torch.zeros_like(x) if g is None else g
+            for g, x in zip(grads, ls)])
+        specs = param_shardings(mesh, params)
+        local = _shard_of(params, specs, rank, k)
+        lls = [x.requires_grad_(True) for x in leaves(local)]
+        with implicit_replication():
+            tloss, _ = tp.tp_model(model, mm, specs).loss_fn(local, batch)
+            tgrads = torch.autograd.grad(tloss, lls, allow_unused=True)
+        res = dict(loss=_rel(tloss, loss), grads=max(
+            _rel(torch.zeros_like(w) if g is None else g, w)
+            for g, w in zip(tgrads, leaves(_shard_of(grads, specs, rank,
+                                                     k)))))
+        if cfg.family != "encdec":
+            p0 = tree_map(torch.Tensor.detach, params)
+            lp = _shard_of(p0, specs, rank, k)
+            cache = model.init_cache(2, 8)
+            cspecs = cache_shardings(mesh, cache, 2)
+            tcache = _shard_of(cache, cspecs, rank, k)
+            hd = tp._heads_divide(model, mm)
+            res.update(logits=0.0, cache=0.0)
+            for pos in AXIS_POSITIONS:
+                tok = batch["tokens"][:, pos:pos + 1]
+                logits, cache = model.decode_step(p0, cache, {"tokens": tok},
+                                                  pos, seq_len=8)
+                with implicit_replication():
+                    tl, _ = model.decode_step(
+                        tp._wrap_tree(lp, mm, specs, True, hd),
+                        tp._wrap_tree(tcache, mm, cspecs),
+                        {"tokens": tp.wrap(tok, mm)}, pos, seq_len=8)
+                    tl = tp.replicated(tl).to_local()
+                res["logits"] = max(res["logits"], _rel(tl, logits))
+                res["cache"] = max(res["cache"], max(
+                    _rel(a, b) for a, b in zip(leaves(tcache), leaves(
+                        _shard_of(cache, cspecs, rank, k)))))
+        out[name] = res
+    with open(os.path.join(out_dir, f"axis{rank}.json"), "w") as f:
+        json.dump(out, f)

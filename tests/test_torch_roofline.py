@@ -11,7 +11,9 @@ package's, on the CPU.
 - ``CostMode``: a 64x64 product at exactly 2 * 64^3 flops; views and
   ``empty`` move no bytes; ``c10d`` collectives by kind under the
   reference's rule (a gloo group of one made in place, not the default
-  group); a counting fault leaves the op run once; a tiny step counts at
+  group); a copy across devices counted once on its device side and
+  itemised by op, dtype, shape and direction; a counting fault leaves
+  the op run once; a tiny step counts at
   least 3x its forward; ``kernels.cost`` adds a launch only under a mode.
 - A tiny decoder's BSP step (the smoke llama3.2-1b in fp32, 4 x 32
   tokens, ``ref`` attention on both sides, JAX's step unrolled so XLA
@@ -177,6 +179,22 @@ def test_views_and_empty_move_no_bytes():
     _, m = tan.count_cost(lambda a: a.expand(4, 8, 16) + 1.0, x)
     # the broadcast operand's rows are read once; the sum is written
     assert m.hbm_bytes == x.numel() * 4 + 4 * x.numel() * 4
+
+
+def test_copies_across_devices_are_itemised_on_their_device_side():
+    host = torch.randn(4, 3)
+
+    def run():
+        dev = host.to("meta")                   # to device, once
+        dev.copy_(host)                         # again, in place
+        scalar = torch.tensor(2.0).to("meta")   # a host scalar: not a copy
+        return dev * scalar
+
+    _, m = tan.count_cost(run)
+    assert m.host_copy_bytes == 2 * 48
+    assert m.host_copies == {
+        "aten._to_copy float32[4, 3] to device": {"count": 1, "bytes": 48},
+        "aten.copy_ float32[4, 3] to device": {"count": 1, "bytes": 48}}
 
 
 def test_collectives_by_kind_under_the_reference_rule():
